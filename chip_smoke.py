@@ -1,0 +1,298 @@
+"""Smoke run of the PyTorch + CUDA port (dsm_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line):
+  1. environment: the card, torch/CUDA versions, nvcc, triton;
+  2. build: nvcc builds dsm_tpu_torch/csrc into build/kernels;
+  3. data: scale-100 toydata (tests/make_toydata.py, GOLDEN_SEED) and its
+     FM-indexes, built on the host with numpy;
+  4. kernels: each CUDA kernel against its plain PyTorch version on the
+     card at main-path shapes (equal integers; the f64 entropy within
+     ENT_TOL), with both times;
+  5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2;
+     the counts and the gnu-order sha256 must equal the frozen reference
+     (BENCH_BASELINE.json), and every kernel must have been launched by
+     the run.
+Then one JSON line of kernels, the card's name and power limit, and the
+final line {"ok": true, "device": {...}}.
+
+The script imports torch and the port, never JAX.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+ENT_TOL = 1e-9   # f64 entropy: the same sums, atomics order in the plain
+#                  version's index_add_ may differ by a few ulps
+FMIN, EMAX = 2, 1.2
+SCALE = 100             # the scale of the frozen reference
+# main-path shapes of the kernel checks at scale 100
+RANK_Q = 1 << 22        # rank queries (two per pair per level)
+COMPACT_N = 1 << 23     # candidate rows of a plateau level's children
+SEG_NODES = 1_400_000   # nodes of 1..5 pairs (S = 5 samples): ~4.2M pairs
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def load_make_toydata():
+    """tests/make_toydata.py by path: `tests` is no package, and another
+    installed `tests` package may shadow a namespace import."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_toydata", os.path.join(HERE, "tests", "make_toydata.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_env(torch) -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False: "
+                         "no GPU, nothing to smoke-test")
+    smi = smi_line()
+    log(f"nvidia-smi: {smi}")
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
+    from dsm_tpu_torch.ops import _build
+
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    log(f"nvcc: {nvcc[-1] if nvcc else 'no output'}")
+    try:
+        import triton
+        log(f"triton: {triton.__version__}")
+    except ImportError:
+        log("triton: not importable")
+    return smi
+
+
+def phase_build() -> None:
+    from dsm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.lib()
+    log(f"build: {path} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc ran: {_build.build_seconds is not None})")
+
+
+def cuda_ms(torch, fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_kernels(torch, dev, device) -> list[dict]:
+    from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
+    from dsm_tpu_torch.ops.rank import occ_cum8, occ_cum8_plain
+    from dsm_tpu_torch.ops.segstats import Gates, segstats, segstats_plain
+
+    rng = np.random.default_rng(2024)
+    results = []
+
+    # rank: ~4M queries on the forward table, positions over [0, n_s]
+    q = RANK_Q
+    s = rng.integers(0, dev.S, size=q)
+    pos = (rng.random(q) * (dev.ns[s] + 1)).astype(np.int64)
+    s[:dev.S] = np.arange(dev.S)            # the end of every text
+    pos[:dev.S] = dev.ns
+    pos_t = torch.as_tensor(pos.astype(np.int32), device=device)
+    soff_t = dev.soff[torch.as_tensor(s, device=device)]
+    got = occ_cum8(dev.frows, pos_t, soff_t)
+    want = occ_cum8_plain(dev.frows, pos_t, soff_t)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        raise SystemExit(f"rank kernel disagrees with its plain version "
+                         f"(max abs err {err})")
+    results.append(dict(
+        name="occ_cum8", route="cuda", source="dsm_tpu_torch/csrc/rank.cu",
+        replaces="dsm_tpu/ops/rank.py:241", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: occ_cum8(dev.frows, pos_t, soff_t)),
+        plain_ms=cuda_ms(torch,
+                         lambda: occ_cum8_plain(dev.frows, pos_t, soff_t))))
+    log(f"kernel rank: Q={q} equal; {results[-1]['ms']:.3f} ms vs plain "
+        f"{results[-1]['plain_ms']:.3f} ms")
+
+    # compact: N = 2^23 rows, C in (2, 5, 6, 8), masks 0%, ~30%, 100%
+    n = COMPACT_N
+    times = {}
+    for c in (2, 5, 6, 8):
+        vals = torch.as_tensor(
+            rng.integers(-2**31, 2**31, size=(n, c), dtype=np.int64)
+            .astype(np.int32), device=device)
+        for frac in (0.0, 0.3, 1.0):
+            mask = torch.as_tensor(rng.random(n) < frac, device=device)
+            k = int(mask.sum())
+            got, gcnt = compact_rows(mask, vals, k)
+            want, wcnt = compact_rows_plain(mask, vals, k)
+            torch.cuda.synchronize()
+            if int(gcnt) != int(wcnt) or not torch.equal(got, want):
+                raise SystemExit(f"compact kernel disagrees with its plain "
+                                 f"version at C={c} frac={frac}")
+            if frac == 0.3:
+                times[c] = (
+                    cuda_ms(torch, lambda: compact_rows(mask, vals, k)),
+                    cuda_ms(torch, lambda: compact_rows_plain(mask, vals, k)))
+    for c, (km, pm) in times.items():
+        log(f"kernel compact: N={n} C={c} 30% set: {km:.3f} ms vs plain "
+            f"{pm:.3f} ms")
+    results.append(dict(
+        name="compact_rows", route="cuda",
+        source="dsm_tpu_torch/csrc/compact.cu",
+        replaces="dsm_tpu/ops/pallas_compact.py:162", max_abs_err=0,
+        ms=times[6][0], plain_ms=times[6][1]))
+
+    # segstats: ~4M pairs in nodes of 1..5 pairs (S = 5 samples)
+    sizes = rng.integers(1, 6, size=SEG_NODES)
+    nb = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    p = int(nb[-1])
+    freq = rng.integers(0, 3000, size=p)
+    freq[rng.random(p) < 0.1] = 0
+    cact = (rng.integers(0, 16, size=p) * (freq > 0)).astype(np.uint8)
+    nb_t = torch.as_tensor(nb, device=device)
+    f_t = torch.as_tensor(freq.astype(np.int32), device=device)
+    c_t = torch.as_tensor(cact, device=device)
+    g = Gates(depth=7, s_total=5, mindepth=0, pmin=2, pmax=0,
+              use_egate=True, sym_mask=0b1111, emin_lo=-0.01, emax_hi=1.21)
+    fk, ek, pk = segstats(nb_t, f_t, c_t, g)
+    fp, ep, pp = segstats_plain(nb_t, f_t, c_t, g)
+    torch.cuda.synchronize()
+    eerr = float((ek - ep).abs().max())
+    if not (torch.equal(fk, fp) and torch.equal(pk, pp)) or eerr > ENT_TOL:
+        raise SystemExit(f"segstats kernel disagrees with its plain version "
+                         f"(entropy max abs err {eerr})")
+    results.append(dict(
+        name="segstats", route="cuda", source="dsm_tpu_torch/csrc/segstats.cu",
+        replaces="dsm_tpu/mining/engine_device.py:726", max_abs_err=eerr,
+        ms=cuda_ms(torch, lambda: segstats(nb_t, f_t, c_t, g)),
+        plain_ms=cuda_ms(torch, lambda: segstats_plain(nb_t, f_t, c_t, g))))
+    log(f"kernel segstats: U={len(sizes)} P={p} equal (entropy err "
+        f"{eerr:.3g}); {results[-1]['ms']:.3f} ms vs plain "
+        f"{results[-1]['plain_ms']:.3f} ms")
+    return results
+
+
+def phase_main(torch, idxs, dev, device) -> dict:
+    from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
+    from dsm_tpu_torch.ops import _build
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+
+    def run(label: str, order: str):
+        prof = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mine_torch(idxs, cfg, dev=dev, device=device,
+                         reader_order=order, profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"mine {label}: {out.total_paths} paths, {out.total_output} "
+            f"lines in {wall:.4f} s = {out.total_paths / wall:,.0f} paths/s;"
+            " host phases " + json.dumps(
+                {k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in prof.items()}))
+        return out
+
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.reset_launches()
+    # the first run pays one-time costs (the host indexes' lazy dense
+    # tables, first use of each torch op on the card); the second is warm
+    cold = run("ascending (first in process)", "ascending")
+    out = run("ascending (warm)", "ascending")
+    gnu = run("gnu", "gnu")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    sha = hashlib.sha256(gnu.format_lines()).hexdigest()
+    log(f"gnu-order sha256 {sha}")
+    log(f"peak device memory (max_memory_allocated): {peak:,} bytes")
+    log(f"launches in the main path: {json.dumps(launches)}")
+
+    if cold.format_lines() != out.format_lines():
+        raise SystemExit("two ascending runs on the card disagree")
+    if gnu.total_output != out.total_output \
+            or gnu.total_paths != out.total_paths:
+        raise SystemExit("gnu and ascending runs report different counts")
+    with open(os.path.join(HERE, "BENCH_BASELINE.json")) as f:
+        ref = json.load(f)["reference"]
+    want = (ref["total_paths"], 485, ref["lines_sha256"])
+    if (out.total_paths, out.total_output, sha) != want:
+        raise SystemExit(
+            f"scale-100 parity FAILED: got paths={out.total_paths} "
+            f"lines={out.total_output} sha={sha}, want {want}")
+    log("scale-100 parity: paths, lines and gnu sha256 equal the "
+        "frozen reference")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"kernels never launched by the main path: "
+                         f"{missing}")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    smi = phase_env(torch)
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+    from dsm_tpu_torch.index import indexes_from_fasta
+    toy = load_make_toydata()
+
+    phase_build()
+    device = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="dsm_smoke_") as td:
+        t0 = time.perf_counter()
+        fastas = toy.make_toydata(td, scale=SCALE, seed=toy.GOLDEN_SEED)
+        idxs = indexes_from_fasta(fastas)
+    log(f"data: scale {SCALE}, {sum(i.n for i in idxs):,} indexed "
+        f"symbols in {len(idxs)} samples, built in "
+        f"{time.perf_counter() - t0:.1f} s (host numpy)")
+    dev = DeviceIndexes.build(idxs, device)
+    kernels = phase_kernels(torch, dev, device)
+    launches = phase_main(torch, idxs, dev, device)
+    key = {"occ_cum8": "rank", "compact_rows": "compact",
+           "segstats": "segstats"}
+    for k in kernels:
+        k["launches"] = launches[key[k["name"]]]
+    if "jax" in sys.modules:
+        raise SystemExit("chip_smoke: jax was imported")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

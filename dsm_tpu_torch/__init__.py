@@ -1,0 +1,16 @@
+"""dsm_tpu_torch — the PyTorch + CUDA port of dsm_tpu's mining episode.
+
+The JAX package `dsm_tpu` stays the reference; this package imports
+`torch` and never `jax`.  It reuses dsm_tpu's JAX-free host modules (FASTA
+input, FM-index build, fused occ tables, the NumPy engine, gnu-order
+reconstruction) and replaces the device path:
+
+ops      : the hand-written CUDA kernels (csrc/) and their plain PyTorch
+           versions: fused rank, masked row compaction, segment stats
+mining   : device tables, the device-resident level loop, host drain
+convert  : JAX episode state and tables <-> the port's
+cli      : `python -m dsm_tpu_torch mine [--device cuda|cpu] ...`
+utils    : device selection
+"""
+
+__version__ = "0.1.0"

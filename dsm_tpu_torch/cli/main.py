@@ -1,0 +1,80 @@
+"""`python -m dsm_tpu_torch mine [--device cuda|cpu] ...` — the port's CLI.
+
+Counterpart of dsm_tpu/cli/main.py `cmd_mine` for the default engine:
+the same parser (dsm_tpu.cli.main.build_parser, JAX-free at import) with
+one more flag, `--device` (default cuda; only an explicit `--device cpu`
+runs on the CPU).  Stdout is `out.format_lines()`; with -v, stderr
+carries the index loads and the same four counter lines.  The other
+subcommands, engines, --checkpoint and the multi-host flags are not
+ported yet and exit with status 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from dsm_tpu.cli.main import _die, _load_index, build_parser
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = build_parser()
+    ap.prog = "python -m dsm_tpu_torch"
+    sub = next(a for a in ap._actions
+               if isinstance(a, argparse._SubParsersAction))
+    sub.choices["mine"].add_argument(
+        "--device", default="cuda",
+        help="torch device to mine on (default cuda; no fallback to the "
+             "CPU: pass --device cpu to run there)")
+    return ap
+
+
+def cmd_mine(args) -> int:
+    from dsm_tpu.mining.config import UNLIMITED, MiningConfig
+
+    from ..mining.engine import mine_torch
+    from ..utils.device import resolve_device
+
+    if args.emax is None:
+        _die("dsm mine: error: expecting parameter --emax")
+    if args.engine != "tpu" or args.checkpoint or args.num_hosts:
+        _die("dsm_tpu_torch mine: only the default engine is ported "
+             "(no --engine, --checkpoint or --num-hosts yet)")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        _die(f"dsm_tpu_torch mine: {e}")
+    cfg = MiningConfig(
+        fmin=args.fmin, maxdepth=args.maxdepth or UNLIMITED,
+        pmin=args.pmin, pmax=args.pmax, emin=args.emin, emax=args.emax,
+        mindepth=args.mindepth)
+    indexes = []
+    for path in args.indexes:
+        idx, _name = _load_index(path)
+        indexes.append(idx)
+        if args.verbose:
+            print(f"loaded {path} (n = {idx.n})", file=sys.stderr)
+    prefix = args.prefix.encode() if args.prefix else b""
+    out = mine_torch(indexes, cfg, prefix=prefix,
+                     reader_order=args.reader_order, device=device)
+    sys.stdout.buffer.write(out.format_lines())
+    if args.verbose:
+        print(f"Number of paths: {out.total_paths}\n"
+              f"Number of reported paths: {out.total_output}\n"
+              f"Number of reported occs: {out.total_occs}\n"
+              f"Smallest and largest entropies encountered: "
+              f"{out.smallest_entropy:g} and {out.largest_entropy:g}",
+              file=sys.stderr)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    if args.cmd != "mine":
+        _die(f"dsm_tpu_torch: '{args.cmd}' is not ported yet (only 'mine'; "
+             "the JAX package's `dsm` runs the others)")
+    return cmd_mine(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels and its mining slice on the card.
+
+Every test here needs a GPU (marker `cuda`) and skips without one.  The
+file imports no JAX, so it runs where JAX is not installed:
+
+    DSM_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
+
+(DSM_TEST_TPU=1 keeps tests/conftest.py from importing jax.)  Each kernel
+is held against its plain PyTorch version on the same CUDA tensors, at
+edge shapes; the mining run on the card against the port's CPU path.
+Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
+version sums with index_add_, whose order on the card may differ).
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dsm_tpu_torch.ops import _build
+
+pytestmark = pytest.mark.cuda
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TOYDATA = os.path.join(HERE, "data", "toydata")
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU host)")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def toy_indexes():
+    from dsm_tpu_torch.index import indexes_from_fasta
+
+    return indexes_from_fasta(sorted(glob.glob(os.path.join(
+        TOYDATA, "toy*.fasta.gz"))))
+
+
+def test_rank_kernel(cuda, toy_indexes):
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+    from dsm_tpu_torch.ops.rank import occ_cum8, occ_cum8_plain
+
+    dev = DeviceIndexes.build(toy_indexes, cuda)
+    rng = np.random.default_rng(1)
+    sid = rng.integers(0, dev.S, size=100_003)
+    pos = (rng.random(sid.size) * (dev.ns[sid] + 1)).astype(np.int32)
+    pos[:dev.S], sid[:dev.S] = dev.ns, np.arange(dev.S)
+    pr = torch.zeros((sid.size, 6), dtype=torch.int32, device=cuda)
+    pr[:, 0] = torch.as_tensor(pos, device=cuda)
+    pr[:, 4] = dev.soff[torch.as_tensor(sid, device=cuda)]
+    before = _build.LAUNCHES["rank"]
+    got = occ_cum8(dev.frows, pr[:, 0], pr[:, 4])       # strided columns
+    assert _build.LAUNCHES["rank"] == before + 1
+    want = occ_cum8_plain(dev.frows, pr[:, 0], pr[:, 4])
+    assert torch.equal(got, want)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert occ_cum8(dev.frows, empty, empty).shape == (8, 0)
+
+
+@pytest.mark.parametrize("n,c", [(1, 1), (1023, 5), (1025, 6), (300_001, 8)])
+def test_compact_kernel(cuda, n, c):
+    from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
+
+    rng = np.random.default_rng(n)
+    vals = torch.as_tensor(rng.integers(-2**31, 2**31, size=(n, c),
+                                        dtype=np.int64).astype(np.int32),
+                           device=cuda)
+    for frac in (0.0, 0.3, 1.0):
+        mask = torch.as_tensor(rng.random(n) < frac, device=cuda)
+        k = int(mask.sum())
+        for width in (k, k // 2, n):
+            got, gc = compact_rows(mask, vals, width)
+            want, wc = compact_rows_plain(mask, vals, width)
+            assert int(gc) == int(wc) == k
+            assert torch.equal(got, want), (frac, width)
+
+
+def test_segstats_kernel(cuda):
+    from dsm_tpu_torch.ops.segstats import Gates, segstats, segstats_plain
+
+    rng = np.random.default_rng(3)
+    sizes = rng.integers(1, 6, size=50_000)
+    nb = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)])
+                         .astype(np.int32), device=cuda)
+    p = int(sizes.sum())
+    freq = rng.integers(0, 500, size=p).astype(np.int32)
+    freq[rng.random(p) < 0.2] = 0
+    cact = (rng.integers(0, 16, size=p) * (freq > 0)).astype(np.uint8)
+    f_t = torch.as_tensor(freq, device=cuda)
+    c_t = torch.as_tensor(cact, device=cuda)
+    for depth, sym in ((0, 15), (5, 15), (9, 4)):
+        g = Gates(depth=depth, s_total=5, mindepth=2, pmin=2, pmax=4,
+                  use_egate=True, sym_mask=sym, emin_lo=0.1, emax_hi=1.5)
+        fk, ek, pk = segstats(nb, f_t, c_t, g)
+        fp, ep, pp = segstats_plain(nb, f_t, c_t, g)
+        assert torch.equal(fk, fp) and torch.equal(pk, pp)
+        assert float((ek - ep).abs().max()) < 1e-9
+
+
+@pytest.mark.parametrize("exits", ["default", "drain+histfull"])
+def test_mine_on_card_equals_cpu(cuda, toy_indexes, exits, monkeypatch):
+    from dsm_tpu.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    kw = {}
+    if exits == "drain+histfull":
+        kw["out_reserve"] = 0
+        monkeypatch.setenv("DSM_HIST_CAP", "20000")
+    _build.reset_launches()
+    got = mine_torch(toy_indexes, cfg, device=cuda, **kw)
+    assert min(_build.LAUNCHES.values()) > 0
+    want = mine_torch(toy_indexes, cfg, device="cpu", **kw)
+    assert got.format_lines() == want.format_lines()
+    assert (got.total_paths, got.total_output, got.total_occs) == \
+        (want.total_paths, want.total_output, want.total_occs)
+    assert abs(got.smallest_entropy - want.smallest_entropy) < 1e-9
