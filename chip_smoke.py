@@ -5,15 +5,22 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. environment: the card, torch/CUDA versions, nvcc, triton;
   2. build: nvcc builds dsm_tpu_torch/csrc into build/kernels;
-  3. data: scale-100 toydata (tests/make_toydata.py, GOLDEN_SEED) and its
-     FM-indexes, built on the host with numpy;
+  3. data (the build path): scale-100 toydata (tests/make_toydata.py,
+     GOLDEN_SEED) and its FM-indexes by `indexes_from_fasta` on the card,
+     so all 10 suffix arrays (5 samples, 2 directions) go through the SA
+     kernels; every build-path kernel must have been launched;
   4. kernels: each CUDA kernel against its plain PyTorch version on the
      card at main-path shapes (equal integers; the f64 entropy within
-     ENT_TOL), with both times;
-  5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2;
-     the counts and the gnu-order sha256 must equal the frozen reference
-     (BENCH_BASELINE.json), and every kernel must have been launched by
-     the run.
+     ENT_TOL), with both times.  The suffix array of toy0, forward and
+     reverse, must also equal dsm_tpu's host `suffix_array_np`; it is
+     timed there and at n = 2^24;
+  5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
+     on the card-built indexes; the counts and the gnu-order sha256 must
+     equal the frozen reference (BENCH_BASELINE.json), so they also
+     prove the build, and every mining kernel must have been launched;
+  6. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
+     each launching its kernel.
+Launches are counted per path: set to 0 just before it, read just after.
 Then one JSON line of kernels, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 
@@ -43,6 +50,13 @@ SCALE = 100             # the scale of the frozen reference
 RANK_Q = 1 << 22        # rank queries (two per pair per level)
 COMPACT_N = 1 << 23     # candidate rows of a plateau level's children
 SEG_NODES = 1_400_000   # nodes of 1..5 pairs (S = 5 samples): ~4.2M pairs
+SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
+SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
+# the kernels of each path, by the name in the kernels line
+LAUNCH_KEY = {"occ_cum8": "rank", "compact_rows": "compact",
+              "segstats": "segstats", "sa_sort": "sa_sort",
+              "sa_rank": "sa_rank", "smem_carry": "repro_carry",
+              "async_copy": "repro_async", "dynamic_store": "repro_dynstore"}
 
 
 def log(msg: str) -> None:
@@ -97,6 +111,47 @@ def phase_build() -> None:
     _build.lib()
     log(f"build: {path} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc ran: {_build.build_seconds is not None})")
+
+
+def path_launches(path: str) -> dict:
+    """The launch counts of `path`'s kernels since the last reset; fails
+    if one of them was never launched."""
+    from dsm_tpu_torch.ops import _build
+
+    launches = {k: _build.LAUNCHES[k] for k in _build.PATHS[path]}
+    log(f"launches in the {path} path: {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"kernels never launched by the {path} path: "
+                         f"{missing}")
+    return launches
+
+
+def phase_data(torch, toy, td: str, device):
+    """Scale-100 toydata and its indexes, built on the card per sample;
+    -> (indexes, toy0's forward and reverse codes, build launches)."""
+    from dsm_tpu.index.alphabet import transform
+    from dsm_tpu.index.fasta import read_fasta
+    from dsm_tpu_torch.index import indexes_from_fasta
+    from dsm_tpu_torch.index.fmindex import collection_codes
+    from dsm_tpu_torch.ops import _build
+
+    fastas = toy.make_toydata(td, scale=SCALE, seed=toy.GOLDEN_SEED)
+    idxs, secs = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for path in fastas:
+        t0 = time.perf_counter()
+        idxs += indexes_from_fasta([path], device)
+        secs.append(time.perf_counter() - t0)
+    launches = path_launches("build")
+    log(f"data: scale {SCALE}, {sum(i.n for i in idxs):,} indexed "
+        f"symbols in {len(idxs)} samples, built on the card in "
+        f"{sum(secs):.4f} s (per sample: "
+        f"{', '.join(f'{t:.4f}' for t in secs)} s)")
+    codes, rcodes, _lengths, _max = collection_codes(
+        [transform(rec.seq) for rec in read_fasta(fastas[0])])
+    return idxs, (codes, rcodes), launches
 
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
@@ -203,6 +258,123 @@ def phase_kernels(torch, dev, device) -> list[dict]:
     return results
 
 
+def phase_sa_kernels(torch, toy0, device) -> list[dict]:
+    """The suffix-array kernels on toy0's collections (both directions)
+    and at SA_BIG; one round of each kernel timed alone."""
+    from dsm_tpu.ops.sa import suffix_array_np
+    from dsm_tpu_torch.ops.sa import (rank_round, rank_round_plain,
+                                      sort_round, sort_round_plain,
+                                      suffix_array, suffix_array_plain)
+
+    for label, codes in zip(("forward", "reverse"), toy0):
+        c = torch.as_tensor(codes, device=device)
+        got = suffix_array(c)
+        want = suffix_array_plain(c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"SA kernel disagrees with its plain version "
+                             f"on toy0 {label}")
+        t0 = time.perf_counter()
+        host = suffix_array_np(codes)
+        host_s = time.perf_counter() - t0
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise SystemExit(f"SA kernel disagrees with suffix_array_np on "
+                             f"toy0 {label}")
+        log(f"kernel suffix_array: toy0 {label} n={len(codes):,} equals "
+            f"plain and suffix_array_np; "
+            f"{cuda_ms(torch, lambda: suffix_array(c), 5):.3f} ms vs plain "
+            f"{cuda_ms(torch, lambda: suffix_array_plain(c), 5):.3f} ms "
+            f"(suffix_array_np on the host {host_s:.3f} s)")
+
+    # one round at toy0's forward shape: the ranks after k = 1 .. 8
+    c = torch.as_tensor(toy0[0], device=device)
+    rank = c.to(torch.int32)
+    top, k = int(c.max()), 1
+    while k < SA_ROUND_K:
+        keys, order = sort_round_plain(rank, k, top)
+        top = rank_round_plain(keys, order, rank)
+        k *= 2
+    keys, order = sort_round(rank, k, top)
+    pkeys, porder = sort_round_plain(rank, k, top)
+    r1, r2 = rank.clone(), rank.clone()
+    new1, new2 = rank_round(keys, order, r1), rank_round_plain(keys, order,
+                                                               r2)
+    torch.cuda.synchronize()
+    if not (torch.equal(keys, pkeys) and torch.equal(order, porder)):
+        raise SystemExit("sa_sort disagrees with its plain version")
+    if new1 != new2 or not torch.equal(r1, r2):
+        raise SystemExit("sa_rank disagrees with its plain version")
+    results = [
+        dict(name="sa_sort", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
+             replaces="dsm_tpu/ops/sa.py:109", max_abs_err=0,
+             ms=cuda_ms(torch, lambda: sort_round(rank, k, top)),
+             plain_ms=cuda_ms(torch, lambda: sort_round_plain(rank, k, top))),
+        dict(name="sa_rank", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
+             replaces="dsm_tpu/ops/sa.py:110", max_abs_err=0,
+             ms=cuda_ms(torch, lambda: rank_round(keys, order, r1)),
+             plain_ms=cuda_ms(torch,
+                              lambda: rank_round_plain(keys, order, r2)))]
+    for r in results:
+        log(f"kernel {r['name']}: toy0 forward n={len(toy0[0]):,} round "
+            f"k={k} (ranks < {top + 1:,}) equal; {r['ms']:.3f} ms vs plain "
+            f"{r['plain_ms']:.3f} ms")
+
+    rng = np.random.default_rng(2025)
+    big = torch.as_tensor(rng.integers(1, 5, size=SA_BIG).astype(np.int8),
+                          device=device)
+    if not torch.equal(suffix_array(big), suffix_array_plain(big)):
+        raise SystemExit(f"SA kernel disagrees with its plain version at "
+                         f"n={SA_BIG}")
+    log(f"kernel suffix_array: random n={SA_BIG:,} equal; "
+        f"{cuda_ms(torch, lambda: suffix_array(big), 3):.3f} ms vs plain "
+        f"{cuda_ms(torch, lambda: suffix_array_plain(big), 3):.3f} ms")
+    return results
+
+
+def phase_repro_kernels(torch, device) -> list[dict]:
+    """P2-P4 against their plain versions and the repro tool's expected
+    arrays."""
+    from dsm_tpu_torch.ops import repro
+    from dsm_tpu_torch.tools.pallas_repro import N, expected
+
+    want = expected(device)
+    x = torch.arange(N, dtype=torch.int32, device=device)
+    results = []
+    for name, line, fn, plain in (
+            ("smem_carry", 81, repro.smem_carry, repro.smem_carry_plain),
+            ("async_copy", 101, repro.async_copy, repro.async_copy_plain),
+            ("dynamic_store", 123, repro.dynamic_store,
+             repro.dynamic_store_plain)):
+        got = fn(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain(x)) and torch.equal(got, want[name])):
+            raise SystemExit(f"{name} kernel disagrees with its plain version "
+                             f"or the expected array")
+        results.append(dict(
+            name=name, route="cuda", source="dsm_tpu_torch/csrc/repro.cu",
+            replaces=f"tools/pallas_repro.py:{line}", max_abs_err=0,
+            ms=cuda_ms(torch, lambda: fn(x)),
+            plain_ms=cuda_ms(torch, lambda: plain(x))))
+        log(f"kernel {name}: N={N} equal; {results[-1]['ms']:.4f} ms vs "
+            f"plain {results[-1]['plain_ms']:.4f} ms")
+    return results
+
+
+def phase_repro(torch, device) -> dict:
+    """The repro tool's cases, through its entry point's function."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.tools.pallas_repro import run_cases
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    report = run_cases(device)
+    launches = path_launches("repro")
+    log(f"repro tool: {json.dumps(report)}")
+    if set(report.values()) != {"PASS"}:
+        raise SystemExit("repro tool: a case did not pass")
+    return launches
+
+
 def phase_main(torch, idxs, dev, device) -> dict:
     from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
     from dsm_tpu_torch.ops import _build
@@ -232,12 +404,11 @@ def phase_main(torch, idxs, dev, device) -> dict:
     out = run("ascending (warm)", "ascending")
     gnu = run("gnu", "gnu")
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = path_launches("mine")
     peak = torch.cuda.max_memory_allocated(device)
     sha = hashlib.sha256(gnu.format_lines()).hexdigest()
     log(f"gnu-order sha256 {sha}")
     log(f"peak device memory (max_memory_allocated): {peak:,} bytes")
-    log(f"launches in the main path: {json.dumps(launches)}")
 
     if cold.format_lines() != out.format_lines():
         raise SystemExit("two ascending runs on the card disagree")
@@ -253,10 +424,6 @@ def phase_main(torch, idxs, dev, device) -> dict:
             f"lines={out.total_output} sha={sha}, want {want}")
     log("scale-100 parity: paths, lines and gnu sha256 equal the "
         "frozen reference")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise SystemExit(f"kernels never launched by the main path: "
-                         f"{missing}")
     return launches
 
 
@@ -265,25 +432,22 @@ def main() -> int:
 
     smi = phase_env(torch)
     from dsm_tpu_torch.mining.engine import DeviceIndexes
-    from dsm_tpu_torch.index import indexes_from_fasta
     toy = load_make_toydata()
 
     phase_build()
     device = torch.device("cuda", 0)
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="dsm_smoke_") as td:
-        t0 = time.perf_counter()
-        fastas = toy.make_toydata(td, scale=SCALE, seed=toy.GOLDEN_SEED)
-        idxs = indexes_from_fasta(fastas)
-    log(f"data: scale {SCALE}, {sum(i.n for i in idxs):,} indexed "
-        f"symbols in {len(idxs)} samples, built in "
-        f"{time.perf_counter() - t0:.1f} s (host numpy)")
+        idxs, toy0, launches["build"] = phase_data(torch, toy, td, device)
     dev = DeviceIndexes.build(idxs, device)
-    kernels = phase_kernels(torch, dev, device)
-    launches = phase_main(torch, idxs, dev, device)
-    key = {"occ_cum8": "rank", "compact_rows": "compact",
-           "segstats": "segstats"}
+    kernels = (phase_kernels(torch, dev, device)
+               + phase_sa_kernels(torch, toy0, device)
+               + phase_repro_kernels(torch, device))
+    launches["mine"] = phase_main(torch, idxs, dev, device)
+    launches["repro"] = phase_repro(torch, device)
+    counts = {k: v for path in launches.values() for k, v in path.items()}
     for k in kernels:
-        k["launches"] = launches[key[k["name"]]]
+        k["launches"] = counts[LAUNCH_KEY[k["name"]]]
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,18 @@
-"""`python -m dsm_tpu_torch mine [--device cuda|cpu] ...` — the port's CLI.
+"""`python -m dsm_tpu_torch mine|build [--device cuda|cpu] ...` — the
+port's CLI.
 
-Counterpart of dsm_tpu/cli/main.py `cmd_mine` for the default engine:
-the same parser (dsm_tpu.cli.main.build_parser, JAX-free at import) with
-one more flag, `--device` (default cuda; only an explicit `--device cpu`
-runs on the CPU).  Stdout is `out.format_lines()`; with -v, stderr
-carries the index loads and the same four counter lines.  The other
-subcommands, engines, --checkpoint and the multi-host flags are not
-ported yet and exit with status 1.
+Counterpart of dsm_tpu/cli/main.py `cmd_mine` (default engine) and
+`cmd_build`: the same parser (dsm_tpu.cli.main.build_parser, JAX-free at
+import) with one more flag on each, `--device` (default cuda; only an
+explicit `--device cpu` runs on the CPU).
+
+mine:  stdout is `out.format_lines()`; with -v, stderr carries the index
+       loads and the same four counter lines.
+build: `--sa-backend auto` (the default) suffix-sorts on --device;
+       `--sa-backend numpy` is dsm's own host build; `--sa-backend jax`
+       is refused.  With -v, stderr has `dsm build -v`'s lines.
+The other subcommands, engines, --checkpoint and the multi-host flags
+are not ported yet and exit with status 1.
 """
 
 from __future__ import annotations
@@ -22,11 +28,41 @@ def parser() -> argparse.ArgumentParser:
     ap.prog = "python -m dsm_tpu_torch"
     sub = next(a for a in ap._actions
                if isinstance(a, argparse._SubParsersAction))
-    sub.choices["mine"].add_argument(
-        "--device", default="cuda",
-        help="torch device to mine on (default cuda; no fallback to the "
-             "CPU: pass --device cpu to run there)")
+    for cmd, what in (("mine", "mine"), ("build", "suffix-sort")):
+        sub.choices[cmd].add_argument(
+            "--device", default="cuda",
+            help=f"torch device to {what} on (default cuda; no fallback to "
+                 "the CPU: pass --device cpu to run there)")
     return ap
+
+
+def cmd_build(args) -> int:
+    from dsm_tpu.cli.main import cmd_build as dsm_cmd_build
+
+    from ..index.build import build_index
+    from ..utils.device import resolve_device
+
+    if args.sa_backend == "jax":
+        _die("dsm_tpu_torch build: --sa-backend jax is the JAX package's "
+             "(`dsm build`); the port sorts on --device (auto) or on the "
+             "host (numpy)")
+    if args.sa_backend == "numpy":
+        return dsm_cmd_build(args)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        _die(f"dsm_tpu_torch build: {e}")
+    if args.sample_rate and args.sample_rate <= 3:
+        print("Warning: small samplerates (-s, --sample-rate) may yield "
+              "infeasible index sizes", file=sys.stderr)
+    for inp in args.input:
+        out = build_index(inp, output=args.output,
+                          samplerate=args.sample_rate or 0, device=device,
+                          fmt=args.format, buffer_symbols=args.buffer_symbols,
+                          verbose=args.verbose)
+        if args.verbose:
+            print(f"Save complete. ({out})", file=sys.stderr)
+    return 0
 
 
 def cmd_mine(args) -> int:
@@ -70,9 +106,11 @@ def cmd_mine(args) -> int:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    if args.cmd == "build":
+        return cmd_build(args)
     if args.cmd != "mine":
-        _die(f"dsm_tpu_torch: '{args.cmd}' is not ported yet (only 'mine'; "
-             "the JAX package's `dsm` runs the others)")
+        _die(f"dsm_tpu_torch: '{args.cmd}' is not ported yet (only 'mine' "
+             "and 'build'; the JAX package's `dsm` runs the others)")
     return cmd_mine(args)
 
 

@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu) at first use.
 
-`nvcc` compiles every source in `dsm_tpu_torch/csrc` into one shared
+`nvcc` compiles every source in `dsm_tpu_torch/csrc` to an object, one
+process per source, all started together, and links them into one shared
 library with a plain C interface, `build/kernels/libdsm_torch.so` under
 the checkout, which `ctypes` loads.  The library is rebuilt when the
 sha256 of the sources and flags changes.  Nothing here runs at import
@@ -12,7 +13,9 @@ Each C entry point launches on the stream it is given (the wrapper passes
 `cudaGetLastError()`; `check()` raises on a non-zero code.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it; a
-wrapper adds one right where it launches and nowhere else.
+wrapper adds one right where it launches and nowhere else.  `PATHS` names
+the kernels each entry point runs: `dsm_tpu_torch build` (the suffix
+array), `mine`, and the repro tool (`dsm_tpu_torch.tools.pallas_repro`).
 """
 
 from __future__ import annotations
@@ -30,9 +33,14 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "kernels"
 LIB_NAME = "libdsm_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"rank": 0, "compact": 0, "segstats": 0}
+PATHS = {
+    "build": ("sa_sort", "sa_rank"),
+    "mine": ("rank", "compact", "segstats"),
+    "repro": ("repro_carry", "repro_async", "repro_dynstore"),
+}
+LAUNCHES = {k: 0 for keys in PATHS.values() for k in keys}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -47,6 +55,15 @@ _SIGNATURES = {
     # use_egate, sym_mask, emin_lo, emax_hi, flags, ent, pair_out, stream
     "dsm_segstats": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D,
                      _P, _P, _P, _P],
+    # rank, n, k, lo_bits, hi_bits, keys, vals, keys_alt, vals_alt,
+    # counts, offsets, stream
+    "dsm_sa_sort": [_P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # keys, order, n, rank, block_count, block_off, last, stream
+    "dsm_sa_rank": [_P, _P, _I64, _P, _P, _P, _P, _P],
+    # x, out, n, stream (dynstore: x, out, n, factor, stream)
+    "dsm_repro_carry": [_P, _P, _I64, _P],
+    "dsm_repro_async": [_P, _P, _I64, _P],
+    "dsm_repro_dynstore": [_P, _P, _I64, _I, _P],
 }
 
 _lib = None
@@ -87,14 +104,33 @@ def build() -> Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(obj) for _s, obj, _p in jobs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+    finally:
+        for _src, obj, _proc in jobs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
     stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0

@@ -7,7 +7,8 @@ file imports no JAX, so it runs where JAX is not installed:
 
 (DSM_TEST_TPU=1 keeps tests/conftest.py from importing jax.)  Each kernel
 is held against its plain PyTorch version on the same CUDA tensors, at
-edge shapes; the mining run on the card against the port's CPU path.
+edge shapes; the suffix array also against dsm_tpu's numpy one; the
+mining run and the index build on the card against the port's CPU path.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
 version sums with index_add_, whose order on the card may differ).
 """
@@ -35,11 +36,11 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def toy_indexes():
+def toy_indexes(cuda):
     from dsm_tpu_torch.index import indexes_from_fasta
 
     return indexes_from_fasta(sorted(glob.glob(os.path.join(
-        TOYDATA, "toy*.fasta.gz"))))
+        TOYDATA, "toy*.fasta.gz"))), cuda)
 
 
 def test_rank_kernel(cuda, toy_indexes):
@@ -115,9 +116,116 @@ def test_mine_on_card_equals_cpu(cuda, toy_indexes, exits, monkeypatch):
         monkeypatch.setenv("DSM_HIST_CAP", "20000")
     _build.reset_launches()
     got = mine_torch(toy_indexes, cfg, device=cuda, **kw)
-    assert min(_build.LAUNCHES.values()) > 0
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["mine"])
     want = mine_torch(toy_indexes, cfg, device="cpu", **kw)
     assert got.format_lines() == want.format_lines()
     assert (got.total_paths, got.total_output, got.total_occs) == \
         (want.total_paths, want.total_output, want.total_occs)
     assert abs(got.smallest_entropy - want.smallest_entropy) < 1e-9
+
+
+def _sa_codes(case):
+    from dsm_tpu.index.alphabet import transform
+    from dsm_tpu.index.fasta import read_fasta
+    from dsm_tpu_torch.index.fmindex import collection_codes
+    from dsm_tpu_torch.ops.sa import RANK_BLOCK, SORT_TILE
+
+    rng = np.random.default_rng(11)
+    sizes = {"n=2": 2,
+             "tile-1": 3 * SORT_TILE - 1, "tile+1": 3 * SORT_TILE + 1,
+             "rank_block-1": 5 * RANK_BLOCK - 1,
+             "rank_block+1": 5 * RANK_BLOCK + 1}
+    if case in sizes:
+        return rng.integers(0, 6, size=sizes[case]).astype(np.int8)
+    if case == "all_equal":
+        return np.full(20_000, 2, dtype=np.int8)
+    if case == "wide_key":     # 17 + 17 bits from the second round on
+        return rng.integers(1, 5, size=100_000).astype(np.int8)
+    if case == "wide_codes":   # 30 + 31 bits in the first round
+        return rng.integers(0, 1 << 30, size=50_000).astype(np.int64)
+    name, direction = case.split(":")
+    texts = [transform(r.seq) for r in read_fasta(
+        os.path.join(TOYDATA, name + ".fasta.gz"))]
+    codes, rcodes, _lengths, _max = collection_codes(texts)
+    return codes if direction == "fwd" else rcodes
+
+
+@pytest.mark.parametrize("case", [
+    "n=2", "tile-1", "tile+1", "rank_block-1", "rank_block+1", "all_equal",
+    "wide_key", "wide_codes"] + [f"toy{i}:{d}" for i in range(5)
+                                 for d in ("fwd", "rev")])
+def test_sa_kernel(cuda, case):
+    from dsm_tpu.ops.sa import suffix_array_np
+    from dsm_tpu_torch.ops.sa import suffix_array, suffix_array_plain
+
+    codes = _sa_codes(case)
+    codes_t = torch.as_tensor(codes, device=cuda)
+    before = _build.LAUNCHES["sa_sort"]
+    got = suffix_array(codes_t)
+    assert _build.LAUNCHES["sa_sort"] > before
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.device == codes_t.device
+    assert torch.equal(got, suffix_array_plain(codes_t))
+    np.testing.assert_array_equal(got.cpu().numpy(), suffix_array_np(codes))
+
+
+def test_sa_round_kernels(cuda):
+    """One round's sort and rank update against their plain versions: the
+    same keys, the same stable order, the same new ranks."""
+    from dsm_tpu_torch.ops.sa import (rank_round, rank_round_plain,
+                                      sort_round, sort_round_plain)
+
+    rng = np.random.default_rng(5)
+    n = 300_001
+    rank = torch.as_tensor(rng.integers(0, 40_000, size=n).astype(np.int32),
+                           device=cuda)
+    for k in (1, 4, n + 1):
+        keys, order = sort_round(rank, k, 39_999)
+        pkeys, porder = sort_round_plain(rank, k, 39_999)
+        assert torch.equal(keys, pkeys) and torch.equal(order, porder)
+        r1, r2 = rank.clone(), rank.clone()
+        assert rank_round(keys, order, r1) == \
+            rank_round_plain(pkeys, porder, r2)
+        assert torch.equal(r1, r2)
+
+
+@pytest.mark.parametrize("extra", [[], ["--buffer-symbols", "20000"]])
+def test_build_on_card_equals_cpu(cuda, tmp_path, extra):
+    from dsm_tpu_torch.cli.main import main
+
+    fa = os.path.join(TOYDATA, "toy1.fasta.gz")
+    _build.reset_launches()
+    assert main(["build", *extra, "-o", str(tmp_path / "gpu"), fa]) == 0
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["build"])
+    assert main(["build", *extra, "--device", "cpu", "-o",
+                 str(tmp_path / "cpu"), fa]) == 0
+    with np.load(tmp_path / "gpu.dsmi") as g, \
+            np.load(tmp_path / "cpu.dsmi") as c:
+        assert sorted(g.files) == sorted(c.files)
+        for k in c.files:
+            np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_repro_kernels(cuda, n):
+    from dsm_tpu_torch.ops import repro
+
+    x = torch.as_tensor(np.random.default_rng(n).integers(
+        -2**20, 2**20, size=n).astype(np.int32), device=cuda)
+    x[0] = 3     # dynamic_store's offset is x[0] * 0
+    for fn, plain, key in (
+            (repro.smem_carry, repro.smem_carry_plain, "repro_carry"),
+            (repro.async_copy, repro.async_copy_plain, "repro_async"),
+            (repro.dynamic_store, repro.dynamic_store_plain,
+             "repro_dynstore")):
+        before = _build.LAUNCHES[key]
+        got = fn(x)
+        assert _build.LAUNCHES[key] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(x)), key
+
+
+def test_repro_tool_on_card(cuda):
+    from dsm_tpu_torch.tools.pallas_repro import run_cases
+
+    assert set(run_cases(cuda).values()) == {"PASS"}
