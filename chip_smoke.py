@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      card at main-path shapes (equal integers; the f64 entropy within
      ENT_TOL), with both times.  The suffix array of toy0, forward and
      reverse, must also equal dsm_tpu's host `suffix_array_np`; it is
-     timed there and at n = 2^24;
+     timed there and at n = 2^24.  The sort's k = 16 round of toy0 is
+     checked from the previous round's order and from scratch, its first
+     round from scratch; the round's bytes a key and TB/s are printed
+     (toy0 and 2^24).  P2-P4 are timed by events and by the profiler's
+     device time, P3 also at N = 2^24;
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
@@ -52,6 +56,8 @@ COMPACT_N = 1 << 23     # candidate rows of a plateau level's children
 SEG_NODES = 1_400_000   # nodes of 1..5 pairs (S = 5 samples): ~4.2M pairs
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
+P3_BIG = 1 << 24        # async_copy where bytes count (128 MB moved)
+HBM_TBS = 3.35          # H100 SXM HBM3 peak, TB/s
 # the kernels of each path, by the name in the kernels line
 LAUNCH_KEY = {"occ_cum8": "rank", "compact_rows": "compact",
               "segstats": "segstats", "sa_sort": "sa_sort",
@@ -152,6 +158,46 @@ def phase_data(torch, toy, td: str, device):
     codes, rcodes, _lengths, _max = collection_codes(
         [transform(rec.seq) for rec in read_fasta(fastas[0])])
     return idxs, (codes, rcodes), launches
+
+
+def device_ms(torch, fn, reps: int = 20):
+    """Device time per call of fn: the durations of the device activities
+    (kernels, memsets) that torch.profiler records over reps calls, in ms;
+    None when the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1000 if us else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def sort_bytes_per_key(n: int, k: int, max_rank: int, derive: bool):
+    """-> (bytes a key, passes) of csrc/sa.cu's sort in one round (see its
+    header): the digit counts' read, each pass's reads and writes, the
+    last pass's gather of rank[i+k] and its packed-key write."""
+    from dsm_tpu_torch.ops.sa import RADIX_BITS
+
+    lo = 0 if derive or k >= n else (max_rank + 1).bit_length()
+    bits = max_rank.bit_length() + lo
+    passes = max(1, -(-bits // RADIX_BITS))
+    kv = (4 if bits <= 32 else 8) + 4          # a carried key and value
+    counts = 8 if lo else 4                    # rank (and rank[i+k])
+    first_in = 8 if derive or lo else 4        # prev + rank, or rank(s)
+    middle = 2 * kv * (passes - 1)             # reads and writes between
+    last_out = 12 + (4 if lo == 0 and k < n else 0)
+    return counts + first_in + middle + last_out, passes
 
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
@@ -260,7 +306,8 @@ def phase_kernels(torch, dev, device) -> list[dict]:
 
 def phase_sa_kernels(torch, toy0, device) -> list[dict]:
     """The suffix-array kernels on toy0's collections (both directions)
-    and at SA_BIG; one round of each kernel timed alone."""
+    and at SA_BIG; toy0's first round checked, and its round k = 16 of
+    each kernel timed alone (the sort's also at SA_BIG)."""
     from dsm_tpu.ops.sa import suffix_array_np
     from dsm_tpu_torch.ops.sa import (rank_round, rank_round_plain,
                                       sort_round, sort_round_plain,
@@ -286,38 +333,35 @@ def phase_sa_kernels(torch, toy0, device) -> list[dict]:
             f"{cuda_ms(torch, lambda: suffix_array_plain(c), 5):.3f} ms "
             f"(suffix_array_np on the host {host_s:.3f} s)")
 
-    # one round at toy0's forward shape: the ranks after k = 1 .. 8
+    # toy0's first round, and its round k = 16 with the rank update
     c = torch.as_tensor(toy0[0], device=device)
-    rank = c.to(torch.int32)
-    top, k = int(c.max()), 1
-    while k < SA_ROUND_K:
-        keys, order = sort_round_plain(rank, k, top)
-        top = rank_round_plain(keys, order, rank)
-        k *= 2
-    keys, order = sort_round(rank, k, top)
-    pkeys, porder = sort_round_plain(rank, k, top)
+    first, top0 = c.to(torch.int32), int(c.max())
+    if not all(torch.equal(g, w) for g, w in zip(
+            sort_round(first, 1, top0), sort_round_plain(first, 1, top0))):
+        raise SystemExit("sa_sort disagrees with its plain version in "
+                         "toy0's first round")
+    log(f"kernel sa_sort: toy0 forward first round (k=1, from scratch, "
+        f"codes < {top0 + 1}) equal")
+    rank, k, top, (keys, order), ms, plain_ms = sa_round(torch, c,
+                                                         "toy0 forward")
     r1, r2 = rank.clone(), rank.clone()
     new1, new2 = rank_round(keys, order, r1), rank_round_plain(keys, order,
                                                                r2)
     torch.cuda.synchronize()
-    if not (torch.equal(keys, pkeys) and torch.equal(order, porder)):
-        raise SystemExit("sa_sort disagrees with its plain version")
     if new1 != new2 or not torch.equal(r1, r2):
         raise SystemExit("sa_rank disagrees with its plain version")
     results = [
         dict(name="sa_sort", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
-             replaces="dsm_tpu/ops/sa.py:109", max_abs_err=0,
-             ms=cuda_ms(torch, lambda: sort_round(rank, k, top)),
-             plain_ms=cuda_ms(torch, lambda: sort_round_plain(rank, k, top))),
+             replaces="dsm_tpu/ops/sa.py:109", max_abs_err=0, ms=ms,
+             plain_ms=plain_ms),
         dict(name="sa_rank", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
              replaces="dsm_tpu/ops/sa.py:110", max_abs_err=0,
              ms=cuda_ms(torch, lambda: rank_round(keys, order, r1)),
              plain_ms=cuda_ms(torch,
                               lambda: rank_round_plain(keys, order, r2)))]
-    for r in results:
-        log(f"kernel {r['name']}: toy0 forward n={len(toy0[0]):,} round "
-            f"k={k} (ranks < {top + 1:,}) equal; {r['ms']:.3f} ms vs plain "
-            f"{r['plain_ms']:.3f} ms")
+    log(f"kernel sa_rank: toy0 forward n={len(toy0[0]):,} round k={k} "
+        f"equal; {results[1]['ms']:.3f} ms vs plain "
+        f"{results[1]['plain_ms']:.3f} ms")
 
     rng = np.random.default_rng(2025)
     big = torch.as_tensor(rng.integers(1, 5, size=SA_BIG).astype(np.int8),
@@ -328,12 +372,50 @@ def phase_sa_kernels(torch, toy0, device) -> list[dict]:
     log(f"kernel suffix_array: random n={SA_BIG:,} equal; "
         f"{cuda_ms(torch, lambda: suffix_array(big), 3):.3f} ms vs plain "
         f"{cuda_ms(torch, lambda: suffix_array_plain(big), 3):.3f} ms")
+    sa_round(torch, big, "random")
     return results
+
+
+def sa_round(torch, codes, label: str):
+    """Round k = SA_ROUND_K of the prefix doubling of `codes` (the rounds
+    before it by the plain versions): the kernel's sort from the previous
+    round's order and from scratch, each against the plain sort, timed;
+    -> (rank, k, max rank, the plain (keys, order), ms, plain ms)."""
+    from dsm_tpu_torch.ops.sa import (rank_round_plain, sort_round,
+                                      sort_round_plain)
+
+    rank = codes.to(torch.int32)
+    top, k, prev = int(codes.max()), 1, None
+    while k < SA_ROUND_K:
+        keys, prev = sort_round_plain(rank, k, top)
+        top = rank_round_plain(keys, prev, rank)
+        k *= 2
+    want = sort_round_plain(rank, k, top)
+    for how, given in (("from the previous order", prev),
+                       ("from scratch", None)):
+        got = sort_round(rank, k, top, given)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"sa_sort disagrees with its plain version: "
+                             f"{label} round k={k} {how}")
+    ms = cuda_ms(torch, lambda: sort_round(rank, k, top, prev))
+    scratch_ms = cuda_ms(torch, lambda: sort_round(rank, k, top))
+    plain_ms = cuda_ms(torch, lambda: sort_round_plain(rank, k, top))
+    n, bits = rank.shape[0], top.bit_length()
+    per_key, passes = sort_bytes_per_key(n, k, top, True)
+    tbs = per_key * n / (ms * 1e-3) / 1e12
+    log(f"kernel sa_sort: {label} n={n:,} round k={k} (ranks < {top + 1:,}"
+        f": {bits} bits, {passes} passes) equal from the "
+        f"previous order and from scratch; {ms:.4f} ms (from scratch "
+        f"{scratch_ms:.4f} ms) vs plain {plain_ms:.4f} ms; {per_key} B a "
+        f"key, {tbs:.3f} TB/s = {100 * tbs / HBM_TBS:.1f}% of {HBM_TBS} TB/s")
+    return rank, k, top, want, ms, plain_ms
 
 
 def phase_repro_kernels(torch, device) -> list[dict]:
     """P2-P4 against their plain versions and the repro tool's expected
-    arrays."""
+    arrays, timed by events and by the profiler's device time; P3 also
+    at N = P3_BIG."""
     from dsm_tpu_torch.ops import repro
     from dsm_tpu_torch.tools.pallas_repro import N, expected
 
@@ -355,8 +437,26 @@ def phase_repro_kernels(torch, device) -> list[dict]:
             replaces=f"tools/pallas_repro.py:{line}", max_abs_err=0,
             ms=cuda_ms(torch, lambda: fn(x)),
             plain_ms=cuda_ms(torch, lambda: plain(x))))
-        log(f"kernel {name}: N={N} equal; {results[-1]['ms']:.4f} ms vs "
-            f"plain {results[-1]['plain_ms']:.4f} ms")
+        log(f"kernel {name}: N={N} equal; events {results[-1]['ms']:.4f} ms "
+            f"vs plain {results[-1]['plain_ms']:.4f} ms; device "
+            f"{fmt_ms(device_ms(torch, lambda: fn(x)))} vs plain "
+            f"{fmt_ms(device_ms(torch, lambda: plain(x)))}")
+
+    rng = np.random.default_rng(2026)
+    xb = torch.as_tensor(rng.integers(-2**30, 2**30, size=P3_BIG,
+                                      dtype=np.int64).astype(np.int32),
+                         device=device)
+    if not torch.equal(repro.async_copy(xb), repro.async_copy_plain(xb)):
+        raise SystemExit(f"async_copy disagrees with its plain version at "
+                         f"N={P3_BIG}")
+    ms = cuda_ms(torch, lambda: repro.async_copy(xb))
+    dev = device_ms(torch, lambda: repro.async_copy(xb))
+    moved = 2 * 4 * P3_BIG
+    log(f"kernel async_copy: N={P3_BIG:,} equal; events {ms:.4f} ms "
+        f"({moved / (ms * 1e-3) / 1e12:.3f} TB/s) vs plain "
+        f"{cuda_ms(torch, lambda: repro.async_copy_plain(xb)):.4f} ms; "
+        f"device {fmt_ms(dev)} vs plain "
+        f"{fmt_ms(device_ms(torch, lambda: repro.async_copy_plain(xb)))}")
     return results
 
 

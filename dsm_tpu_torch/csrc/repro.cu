@@ -1,15 +1,19 @@
 // The three kernels of tools/pallas_repro.py, on Hopper.  On the TPU they
 // isolated Mosaic toolchain faults (an SMEM carry over the grid, one DMA
 // from a VMEM scratch, a store at a data-dependent offset); here each is
-// the same computation written for CUDA, over int32 blocks of kBlk.  They
+// the same computation written for CUDA.  At the repro's N = 1024 they
 // move a few KB: launch latency bounds all three.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
+
 namespace {
 
-constexpr int kBlk = 256;  // elements (and threads) per block
+constexpr int kBlk = 256;          // elements (and threads) per block, P2, P4
+constexpr int kAsyncTile = 8192;   // int32 per P3 block: 32 KB of shared
+constexpr int kAsyncThreads = 256;
 
 // P2 (main.run1, kernel k1): out = x + grid step.  The TPU walked the grid
 // in order and carried the step in an SMEM counter; CUDA blocks run in no
@@ -21,26 +25,41 @@ __global__ void carry_kernel(const int32_t* __restrict__ x,
 }
 
 // P3 (main.run2, kernel k2): out = 2x, staged in shared memory and stored
-// by one asynchronous bulk copy per block — Hopper's counterpart of
-// make_async_copy from a VMEM scratch to HBM.  The generic-proxy writes to
-// the stage are made visible to the async proxy before the copy reads it.
-__global__ void async_kernel(const int32_t* __restrict__ x,
-                             int32_t* __restrict__ out) {
-  __shared__ __align__(128) int32_t stage[kBlk];
-  int i = blockIdx.x * kBlk + threadIdx.x;
-  stage[threadIdx.x] = 2 * x[i];
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
+// by one asynchronous bulk copy — Hopper's counterpart of make_async_copy
+// from a VMEM scratch to HBM.  A block takes a tile of up to 32 KB: one
+// bulk load into shared memory completing on an mbarrier, the doubling in
+// place (16 bytes a thread), a fence that makes those writes visible to
+// the async proxy, and one bulk store.  N = 1024 is one block and two
+// bulk copies; at large N the bytes bound it, and several 32 KB tiles per
+// SM keep loads and stores in flight.  n is a multiple of 256, so the
+// ragged last tile is a whole number of KB and takes the bulk copies too.
+__global__ void __launch_bounds__(kAsyncThreads)
+    async_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                 long long n) {
+  __shared__ __align__(128) int32_t stage[kAsyncTile];
+  __shared__ uint64_t bar;
+  const long long base = (long long)blockIdx.x * kAsyncTile;
+  const int cnt = n - base < kAsyncTile ? (int)(n - base) : kAsyncTile;
+  const unsigned bytes = (unsigned)cnt * sizeof(int32_t);
   if (threadIdx.x == 0) {
-    unsigned src = (unsigned)__cvta_generic_to_shared(stage);
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-        :: "l"(out + (long long)blockIdx.x * kBlk), "r"(src),
-           "r"(kBlk * (int)sizeof(int32_t))
-        : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    dsm::bar_init(&bar);
+    dsm::bar_expect(&bar, bytes);
+    dsm::bulk_load(stage, x + base, bytes, &bar);
   }
+  __syncthreads();
+  dsm::bar_wait(&bar, 0);
+  int4* v = reinterpret_cast<int4*>(stage);
+  for (int i = threadIdx.x; i < cnt / 4; i += kAsyncThreads) {
+    int4 a = v[i];
+    a.x *= 2;
+    a.y *= 2;
+    a.z *= 2;
+    a.w *= 2;
+    v[i] = a;
+  }
+  dsm::fence_async_shared();
+  __syncthreads();
+  if (threadIdx.x == 0) dsm::bulk_store(out + base, stage, bytes);
 }
 
 // P4 (main.run3, kernel k3): an identity copy stored at an offset computed
@@ -58,7 +77,7 @@ __global__ void dynstore_kernel(const int32_t* __restrict__ v,
 
 }  // namespace
 
-// x, out: n int32, n a multiple of 256; out 16-byte aligned for P3.
+// x, out: n int32, n a multiple of 256; x and out 16-byte aligned for P3.
 extern "C" int dsm_repro_carry(const void* x, void* out, long long n,
                                void* stream) {
   carry_kernel<<<(unsigned)(n / kBlk), kBlk, 0, (cudaStream_t)stream>>>(
@@ -68,8 +87,9 @@ extern "C" int dsm_repro_carry(const void* x, void* out, long long n,
 
 extern "C" int dsm_repro_async(const void* x, void* out, long long n,
                                void* stream) {
-  async_kernel<<<(unsigned)(n / kBlk), kBlk, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (int32_t*)out);
+  async_kernel<<<(unsigned)((n + kAsyncTile - 1) / kAsyncTile), kAsyncThreads,
+                 0, (cudaStream_t)stream>>>((const int32_t*)x, (int32_t*)out,
+                                            n);
   return (int)cudaGetLastError();
 }
 

@@ -7,97 +7,445 @@
 // Here the host loop (ops/sa.py) runs the rounds at the input's own length,
 // and each round is two entry points:
 //
-//   dsm_sa_sort  builds key[i] = rank[i] << 32 | (i+k < n ? rank[i+k]+1 : 0)
-//                with payload i, then LSD radix-sorts the pairs, 4 bits a
-//                pass, over only the bits the round's largest rank needs
-//                (low half: bits of max_rank+1; high half: bits of
-//                max_rank).  A pass is count -> scan -> stable scatter:
-//                  count:   per 4096-key block, the 16 digit counts;
-//                  scan:    one block scans the (digit, block) counts in
-//                           digit-major order into global offsets;
-//                  scatter: each thread owns 16 consecutive keys, so the
-//                           block's keys of one digit keep their order
-//                           (thread-major, then key-major): stable.
+//   dsm_sa_sort  the suffixes in stable order of key[i] = rank[i] << 32 |
+//                second(i), second(i) = i + k < n ? rank[i+k] + 1 : 0, with
+//                the packed keys.  Two ways in:
+//                - with the previous round's order (every round after the
+//                  first, while k < n).  That order is sorted by rank with
+//                  ties in ascending index, so the stable order by second is
+//                  the k suffixes i >= n-k, then p - k for each p >= k of
+//                  the previous order.  The first pass reads its keys in
+//                  that order straight from the previous order (the derive
+//                  is its load: nothing is written), and the passes sort by
+//                  the rank bits alone.
+//                - without it (the first round, or k >= n): the passes sort
+//                  rank << lo | second over the lo + hi bits they need.
+//                One kernel first counts the digits of every pass in one
+//                read.  Then each pass is one 8-bit onesweep LSD launch: a
+//                block takes the next tile (4096 keys) from a counter,
+//                brings a whole tile of the previous order, or of the last
+//                pass's keys and values, into shared memory by bulk async
+//                copy (the first round builds its keys from rank as it
+//                loads, and a ragged tile is read by the threads), ranks it
+//                by digit with warp match-any and per-warp histograms
+//                (stable: a warp holds consecutive keys),
+//                learns each digit's start from its predecessors by
+//                decoupled look-back (one status word per tile and digit,
+//                tagged with the pass so one zeroing serves every pass),
+//                reorders the tile in shared memory and writes each digit's
+//                run coalesced.  The last pass writes the packed uint64 key
+//                and the order.
 //   dsm_sa_rank  new[i] = #{j <= i : key[j] != key[j-1]} by count -> scan
 //                -> scatter (the structure of compact.cu), writes
 //                rank[order[i]] = new[i], and stores new[n-1] (the round's
 //                largest rank; n-1 when every suffix is distinct) for the
 //                host's 4-byte readback.
 //
-// What bounds it on an H100: bytes.  A pass reads each 8-byte key three
-// times (the count, and the scatter's two walks over its keys) and each
-// 4-byte payload once, and writes both, scattered over 16 digit runs per
-// block: 40 bytes a key, ~0.9 GB for a round of 11 passes at n = 2^21.
-// The 4-bit digit keeps per-thread counters in two registers (8 bits per
-// digit, packed) and the scan table small; wider digits, a one-sweep scan
-// and reading the tile through shared memory are the next steps for speed.
+// Bytes a key, a round after the first: 4 of rank read by the counts; the
+// first pass 4 (previous order) + 4 (gathered rank) read and 8 written;
+// each middle pass 8 read, 8 written; the last pass 8 read, 4 gathered
+// (rank[i+k]) and 12 written.  With 21 rank bits (3 passes) that is ~60
+// bytes a key in 5 launches (memset, counts, 3 passes), where the 4-bit
+// count/scan/scatter design it replaced moved ~480 bytes in 33 launches.
+// What bounds it on an H100: at n = 2^24 a middle pass moves its 16 bytes
+// a key at ~1.2 TB/s, and the two random 4-byte gathers of rank (a 32-byte
+// sector each once rank outgrows the L2) double the first and last
+// passes; at 1.6M keys (all in L2) the per-tile latency of ~1.5 waves of
+// blocks, two per SM.  Smaller tiles, more blocks per SM and look-back
+// reading ahead did not move it (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
+
 namespace {
 
-constexpr int kBits = 4;                  // radix digit width
-constexpr int kRadix = 1 << kBits;        // digit values
-constexpr int kThreads = 256;             // threads of a sort block
-constexpr int kItems = 16;                // consecutive keys per thread
-constexpr int kTile = kThreads * kItems;  // keys per sort block
-constexpr int kCells = kRadix * kThreads; // per-(digit, thread) counters
+constexpr int kDigitBits = 8;
+constexpr int kRadix = 1 << kDigitBits;
+constexpr int kThreads = 256;             // a sort block; thread d owns digit d
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 16;                // keys per thread
+constexpr int kWarpTile = 32 * kItems;    // consecutive keys per warp
+constexpr int kTile = kThreads * kItems;  // keys per tile
+constexpr int kMaxPasses = 8;             // 64 key bits
+constexpr int kNoDigit = kRadix;          // a tile slot that holds no key
+constexpr int kHistBlocks = 1024;         // at most; they stride the keys
+constexpr int kHistCopies = 4;            // shared histograms per block
+constexpr int kHistBatch = 4;             // keys a thread loads at once
 constexpr int kRankBlock = 1024;          // keys (and threads) per rank block
 constexpr int kScanThreads = 1024;
 
-__device__ __forceinline__ unsigned digit_of(uint64_t key, int shift) {
-  return (unsigned)(key >> shift) & (kRadix - 1);
+// A look-back status word: the pass + 1 from bit 34 up, the flag in bits
+// 32-33, the tile's count of the digit (aggregate) or the count up to and
+// including the tile (prefix) in bits 0-31.
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
+
+struct Round {
+  const int32_t* rank;
+  const int32_t* prev;   // the previous round's order, or null
+  long long n, k;
+  int lo_bits;           // bits of second in the key; 0: the rank alone
+  long long tail;        // with prev: the k suffixes whose second is 0
+  int tail_tiles;        // with prev: the tiles they fill
+  bool prev_bulk;        // prev is 16-byte aligned
+  const int32_t* hist;   // [pass][digit] counts of all keys
+  int32_t* next_tile;    // [pass] tile counters
+  unsigned long long* status;  // [tile][digit], zeroed once per sort
+};
+
+__device__ __forceinline__ uint32_t second(const Round& r, long long i) {
+  return i + r.k < r.n ? (uint32_t)r.rank[i + r.k] + 1u : 0u;
 }
 
-// A thread's digit counts over at most 255 keys, 8 bits per digit: digits
-// 0-7 in lo, 8-15 in hi.
-__device__ __forceinline__ void bump(uint64_t& lo, uint64_t& hi, unsigned d) {
-  uint64_t one = 1ull << ((d & 7u) * 8u);
-  if (d < 8u) lo += one; else hi += one;
+template <typename K>
+__device__ __forceinline__ K make_key(const Round& r, long long i) {
+  K key = (K)(uint32_t)r.rank[i] << r.lo_bits;
+  if (r.lo_bits) key |= (K)second(r, i);
+  return key;
 }
 
-__device__ __forceinline__ int unpack(uint64_t lo, uint64_t hi, int d) {
-  return (int)(((d < 8 ? lo : hi) >> ((d & 7) * 8)) & 0xFFu);
+__device__ __forceinline__ unsigned long long get(
+    const unsigned long long* p) {
+  return *(const volatile unsigned long long*)p;
 }
 
-// Shared-memory index with one pad word per 32: both the digit-major
-// writes (consecutive threads) and the scan's per-thread runs of kRadix
-// cells hit distinct banks.
-__device__ __forceinline__ int skew(int e) { return e + (e >> 5); }
-
-__global__ void keys_kernel(const int32_t* __restrict__ rank, long long n,
-                            long long k, uint64_t* __restrict__ keys,
-                            int32_t* __restrict__ vals) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t second = i + k < n ? (uint32_t)rank[i + k] + 1u : 0u;
-  keys[i] = (uint64_t)(uint32_t)rank[i] << 32 | second;
-  vals[i] = (int32_t)i;
+__device__ __forceinline__ void put(unsigned long long* p,
+                                    unsigned long long v) {
+  *(volatile unsigned long long*)p = v;
 }
 
-// counts[d * nblocks + b] = keys of block b whose digit is d.
-__global__ void digit_count_kernel(const uint64_t* __restrict__ keys,
-                                   long long n, int shift, int nblocks,
-                                   int32_t* __restrict__ counts) {
-  __shared__ int cnt[kRadix][kThreads];
-  int t = threadIdx.x;
-  long long base = (long long)blockIdx.x * kTile;
-  uint64_t lo = 0, hi = 0;
-  for (int j = 0; j < kItems; ++j) {  // coalesced: order does not matter here
-    long long i = base + (long long)j * kThreads + t;
-    if (i < n) bump(lo, hi, digit_of(keys[i], shift));
-  }
-  for (int d = 0; d < kRadix; ++d) cnt[d][t] = unpack(lo, hi, d);
-  __syncthreads();
-  int lane = t & 31, warp = t >> 5;
-  for (int d = warp; d < kRadix; d += kThreads / 32) {
-    int v = 0;
-    for (int u = lane; u < kThreads; u += 32) v += cnt[d][u];
+// Exclusive scan of v over the block; *total, if not null, receives the
+// sum.  sums: kWarps ints of shared memory that no other scan uses at the
+// same time.
+__device__ __forceinline__ int block_scan(int v, int* sums, int* total) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
-    if (lane == 0) counts[(long long)d * nblocks + blockIdx.x] = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    int u = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += u;
   }
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  int run = incl - v, all = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) run += sums[w];
+    all += sums[w];
+  }
+  if (total) *total = all;
+  return run;
+}
+
+// hist[p][d] = keys whose digit p is d, for the passes' digits.  Warps
+// w and w + 4 share one of kHistCopies shared histograms (plain shared
+// atomics); each thread loads kHistBatch keys before it counts them.
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+    hist_kernel(Round r, int passes, int32_t* __restrict__ hist) {
+  __shared__ int cnt[kHistCopies][kMaxPasses * kRadix];
+  for (int e = threadIdx.x; e < kHistCopies * kMaxPasses * kRadix;
+       e += kThreads)
+    (&cnt[0][0])[e] = 0;
+  __syncthreads();
+  int* mine = cnt[(threadIdx.x >> 5) % kHistCopies];
+  const long long stride = (long long)gridDim.x * kThreads * kHistBatch;
+  for (long long base = (long long)blockIdx.x * kThreads * kHistBatch +
+                        threadIdx.x;
+       base < r.n; base += stride) {
+    K key[kHistBatch];
+#pragma unroll
+    for (int u = 0; u < kHistBatch; ++u) {
+      long long i = base + (long long)u * kThreads;
+      key[u] = i < r.n ? make_key<K>(r, i) : (K)0;
+    }
+#pragma unroll
+    for (int u = 0; u < kHistBatch; ++u) {
+      if (base + (long long)u * kThreads >= r.n) continue;
+      for (int p = 0; p < passes; ++p)
+        atomicAdd(&mine[p * kRadix +
+                         ((int)(key[u] >> (p * kDigitBits)) & (kRadix - 1))],
+                  1);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < passes * kRadix; e += kThreads) {
+    int v = 0;
+    for (int c = 0; c < kHistCopies; ++c) v += cnt[c][e];
+    if (v) atomicAdd(&hist[e], v);
+  }
+}
+
+enum Load { kArrays, kIdentity, kDerive };
+
+// One onesweep pass over the digit at bit pass * 8.  Reads keys_in/vals_in
+// (kArrays), the identity order (kIdentity) or the derived order from
+// r.prev (kDerive); writes keys_out/vals_out, or, in the last pass, the
+// packed keys to final_keys and the order to vals_out.
+template <typename K, int kLoad, bool kFinal>
+__global__ void __launch_bounds__(kThreads)
+    pass_kernel(Round r, int pass, const K* __restrict__ keys_in,
+                const int32_t* __restrict__ vals_in, K* __restrict__ keys_out,
+                uint64_t* __restrict__ final_keys,
+                int32_t* __restrict__ vals_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  K* skey = reinterpret_cast<K*>(smem);                       // [kTile]
+  int32_t* sval = reinterpret_cast<int32_t*>(skey + kTile);  // [kTile]
+  int* whist = reinterpret_cast<int*>(sval + kTile);         // [warp][digit]
+  __shared__ int local_start[kRadix], out_base[kRadix];
+  __shared__ int sums_a[kWarps], sums_b[kWarps];
+  __shared__ int tile_sh;
+  __shared__ uint64_t bar;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int shift = pass * kDigitBits;
+  if (t == 0) {
+    tile_sh = atomicAdd(r.next_tile + pass, 1);
+    dsm::bar_init(&bar);
+  }
+  for (int e = t; e < kWarps * kRadix; e += kThreads) whist[e] = 0;
+  __syncthreads();
+  const int tile = tile_sh;
+
+  // Item j of this thread is slot warp * kWarpTile + j * 32 + lane of the
+  // tile: each warp holds consecutive keys, 32 at a time, so the ranking
+  // below, item by item and lane by lane, walks them in order.
+  K key[kItems];
+  int32_t val[kItems];
+  bool ok[kItems];
+  if (kLoad == kArrays) {
+    const long long base = (long long)tile * kTile;
+    const long long cnt = r.n - base < kTile ? r.n - base : kTile;
+    const bool bulk = cnt == kTile;
+    if (bulk) {
+      if (t == 0) {
+        dsm::bar_expect(&bar, kTile * (unsigned)(sizeof(K) + 4));
+        dsm::bulk_load(skey, keys_in + base, kTile * sizeof(K), &bar);
+        dsm::bulk_load(sval, vals_in + base, kTile * 4, &bar);
+      }
+      dsm::bar_wait(&bar, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      int s = warp * kWarpTile + j * 32 + lane;
+      ok[j] = s < cnt;
+      key[j] = 0;
+      val[j] = 0;
+      if (bulk) {
+        key[j] = skey[s];
+        val[j] = sval[s];
+      } else if (ok[j]) {
+        key[j] = keys_in[base + s];
+        val[j] = vals_in[base + s];
+      }
+    }
+  } else if (kLoad == kIdentity) {
+    const long long base = (long long)tile * kTile;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      long long i = base + warp * kWarpTile + j * 32 + lane;
+      ok[j] = i < r.n;
+      key[j] = ok[j] ? make_key<K>(r, i) : (K)0;
+      val[j] = (int32_t)i;
+    }
+  } else {  // kDerive: the tail, then the previous order shifted by k
+    const bool in_tail = tile < r.tail_tiles;
+    const long long base = (long long)(in_tail ? tile : tile - r.tail_tiles) *
+                           kTile;
+    const long long cnt = in_tail ? 0 : (r.n - base < kTile ? r.n - base
+                                                            : kTile);
+    const bool bulk = !in_tail && cnt == kTile && r.prev_bulk;
+    if (bulk) {
+      if (t == 0) {
+        dsm::bar_expect(&bar, kTile * 4);
+        dsm::bulk_load(sval, r.prev + base, kTile * 4, &bar);
+      }
+      dsm::bar_wait(&bar, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      int s = warp * kWarpTile + j * 32 + lane;
+      long long idx;
+      if (in_tail) {
+        ok[j] = base + s < r.tail;
+        idx = r.n - r.tail + base + s;
+      } else {
+        long long p = bulk ? sval[s] : (s < cnt ? r.prev[base + s] : -1);
+        ok[j] = p >= r.k;
+        idx = p - r.k;
+      }
+      key[j] = ok[j] ? (K)(uint32_t)r.rank[idx] : (K)0;
+      val[j] = (int32_t)idx;
+    }
+  }
+
+  // Rank each key among the warp's keys of its digit: rnk = the warp's
+  // earlier keys of that digit.  packed[j] = digit << 16 | rnk.
+  const unsigned below = (1u << lane) - 1u;
+  int* wh = whist + warp * kRadix;
+  int packed[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    int d = ok[j] ? (int)(key[j] >> shift) & (kRadix - 1) : kNoDigit;
+    unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+    int before = __popc(peers & below);
+    int c = ok[j] ? wh[d] : 0;
+    __syncwarp();
+    if (ok[j] && before == 0) wh[d] = c + __popc(peers);
+    __syncwarp();
+    packed[j] = d << 16 | (c + before);
+  }
+  __syncthreads();
+
+  // Thread t, digit t: the warps' exclusive prefix, the tile's count and
+  // its tile-local start; then the tile is reordered in shared memory.
+  int count = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    int c = whist[w * kRadix + t];
+    whist[w * kRadix + t] = count;
+    count += c;
+  }
+  unsigned long long* st = r.status + (long long)tile * kRadix + t;
+  const unsigned long long tag = (unsigned long long)(pass + 1) << 34;
+  put(st, tag | (tile == 0 ? kPrefix : kAggregate) | (unsigned)count);
+  int kept;
+  const int ls = block_scan(count, sums_a, &kept);
+  local_start[t] = ls;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    int d = packed[j] >> 16;
+    if (d == kNoDigit) continue;
+    int pos = local_start[d] + wh[d] + (packed[j] & 0xFFFF);
+    skey[pos] = key[j];
+    sval[pos] = val[j];
+  }
+
+  // The digit's global start, and its keys in earlier tiles by look-back:
+  // walk back over the predecessors' words, each waited for until this
+  // pass has published it, summing aggregates up to the first prefix.
+  const int gs = block_scan(r.hist[pass * kRadix + t], sums_b, nullptr);
+  long long excl = 0;
+  if (tile > 0) {
+    for (int p = tile - 1;; --p) {
+      unsigned long long w;
+      do {
+        w = get(r.status + (long long)p * kRadix + t);
+      } while ((w >> 34) != (unsigned long long)(pass + 1));
+      excl += (uint32_t)w;
+      if (w & kPrefix) break;
+    }
+    put(st, tag | kPrefix | (unsigned)(excl + count));
+  }
+  out_base[t] = (int)(gs + excl - ls);
+  __syncthreads();
+
+  // Consecutive slots of one digit go to consecutive places: runs.
+  for (int p = t; p < kept; p += kThreads) {
+    K k2 = skey[p];
+    int32_t v = sval[p];
+    long long dst = (long long)out_base[(int)(k2 >> shift) & (kRadix - 1)] + p;
+    if (kFinal) {
+      uint64_t lo = r.lo_bits ? (uint64_t)(k2 & (((K)1 << r.lo_bits) - 1))
+                              : (uint64_t)second(r, v);
+      final_keys[dst] = (uint64_t)(k2 >> r.lo_bits) << 32 | lo;
+    } else {
+      keys_out[dst] = k2;
+    }
+    vals_out[dst] = v;
+  }
+}
+
+// The sort's scratch, carved from one buffer: the zeroed head (counts,
+// tile counters, status words), then up to two ping-pong key/value pairs.
+struct Layout {
+  int passes, key_bytes;
+  size_t hist, next_tile, status, head, keys[2], vals[2], total;
+};
+
+Layout layout(long long n, long long tail, int bits) {
+  Layout L{};
+  L.passes = bits > 0 ? (bits + kDigitBits - 1) / kDigitBits : 1;
+  L.key_bytes = bits <= 32 ? 4 : 8;
+  long long tiles = (n + kTile - 1) / kTile + (tail + kTile - 1) / kTile;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    size_t at = off;
+    off += (bytes + 255) & ~(size_t)255;
+    return at;
+  };
+  L.hist = take(kMaxPasses * kRadix * sizeof(int32_t));
+  L.next_tile = take(kMaxPasses * sizeof(int32_t));
+  L.status = take((size_t)tiles * kRadix * sizeof(unsigned long long));
+  L.head = off;
+  for (int b = 0; b < L.passes - 1 && b < 2; ++b) {
+    L.keys[b] = take((size_t)n * L.key_bytes);
+    L.vals[b] = take((size_t)n * sizeof(int32_t));
+  }
+  L.total = off;
+  return L;
+}
+
+template <typename K, int kLoad, bool kFinal>
+int launch_pass(const Round& r, int pass, long long tiles, const void* kin,
+                const void* vin, void* kout, void* fkeys, void* vout,
+                cudaStream_t s) {
+  const int smem = kTile * (int)(sizeof(K) + 4) + kWarps * kRadix * 4;
+  int err = (int)cudaFuncSetAttribute(pass_kernel<K, kLoad, kFinal>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem);
+  if (err) return err;
+  pass_kernel<K, kLoad, kFinal><<<(unsigned)tiles, kThreads, smem, s>>>(
+      r, pass, (const K*)kin, (const int32_t*)vin, (K*)kout, (uint64_t*)fkeys,
+      (int32_t*)vout);
+  return (int)cudaGetLastError();
+}
+
+template <typename K, int kLoad>
+int run_pass(bool last, const Round& r, int pass, long long tiles,
+             const void* kin, const void* vin, void* kout, void* fkeys,
+             void* vout, cudaStream_t s) {
+  return last ? launch_pass<K, kLoad, true>(r, pass, tiles, kin, vin, kout,
+                                             fkeys, vout, s)
+              : launch_pass<K, kLoad, false>(r, pass, tiles, kin, vin, kout,
+                                              fkeys, vout, s);
+}
+
+template <typename K>
+int sort(const Round& r, const Layout& L, unsigned char* w, void* keys,
+         void* order, cudaStream_t s) {
+  int err = (int)cudaMemsetAsync(w, 0, L.head, s);
+  if (err) return err;
+  const long long tiles = (r.n + kTile - 1) / kTile;
+  const long long hblocks = (r.n + kThreads * kHistBatch - 1) /
+                            (kThreads * kHistBatch);
+  hist_kernel<K><<<(unsigned)(hblocks < kHistBlocks ? hblocks : kHistBlocks),
+                   kThreads, 0, s>>>(r, L.passes, (int32_t*)(w + L.hist));
+  if ((err = (int)cudaGetLastError())) return err;
+  for (int p = 0; p < L.passes; ++p) {
+    const bool last = p == L.passes - 1;
+    const void* kin = p ? w + L.keys[(p - 1) & 1] : nullptr;
+    const void* vin = p ? w + L.vals[(p - 1) & 1] : nullptr;
+    void* kout = last ? nullptr : w + L.keys[p & 1];
+    void* vout = last ? order : w + L.vals[p & 1];
+    if (p > 0)
+      err = run_pass<K, kArrays>(last, r, p, tiles, kin, vin, kout, keys,
+                                    vout, s);
+    else if (r.prev)
+      err = run_pass<K, kDerive>(last, r, p, tiles + r.tail_tiles, kin,
+                                    vin, kout, keys, vout, s);
+    else
+      err = run_pass<K, kIdentity>(last, r, p, tiles, kin, vin, kout, keys,
+                                      vout, s);
+    if (err) return err;
+  }
+  return 0;
+}
+
+__device__ __forceinline__ bool differs(const uint64_t* __restrict__ keys,
+                                        long long n, long long i) {
+  return i > 0 && i < n && keys[i] != keys[i - 1];
 }
 
 // Exclusive scan of m int32 counts by one block: thread t owns a
@@ -128,73 +476,6 @@ __global__ void scan_kernel(const int32_t* __restrict__ in, long long m,
     run += c;
   }
   if (total != nullptr && t == kScanThreads - 1) *total = part[t];
-}
-
-__global__ void digit_scatter_kernel(const uint64_t* __restrict__ keys,
-                                     const int32_t* __restrict__ vals,
-                                     long long n, int shift, int nblocks,
-                                     const int32_t* __restrict__ offsets,
-                                     uint64_t* __restrict__ keys_out,
-                                     int32_t* __restrict__ vals_out) {
-  __shared__ int cell[kCells + kCells / 32];  // [skew(d * kThreads + t)]
-  __shared__ int warp_sum[kThreads / 32];
-  __shared__ int digit_start[kRadix];
-  int t = threadIdx.x;
-  long long first = (long long)blockIdx.x * kTile + (long long)t * kItems;
-  uint64_t lo = 0, hi = 0;
-  for (int j = 0; j < kItems; ++j) {
-    long long i = first + j;
-    if (i < n) bump(lo, hi, digit_of(keys[i], shift));
-  }
-  for (int d = 0; d < kRadix; ++d)
-    cell[skew(d * kThreads + t)] = unpack(lo, hi, d);
-  __syncthreads();
-
-  // Exclusive scan of the cells in digit-major order; thread t scans the
-  // run of cells [t * kRadix, (t + 1) * kRadix).
-  int s = 0;
-  for (int j = 0; j < kRadix; ++j) s += cell[skew(t * kRadix + j)];
-  int lane = t & 31, warp = t >> 5;
-  int incl = s;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int u = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (lane >= o) incl += u;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  int run = incl - s;
-  for (int w = 0; w < warp; ++w) run += warp_sum[w];
-  for (int j = 0; j < kRadix; ++j) {
-    int e = skew(t * kRadix + j);
-    int c = cell[e];
-    cell[e] = run;
-    run += c;
-  }
-  __syncthreads();
-  if (t < kRadix) digit_start[t] = cell[skew(t * kThreads)];
-  __syncthreads();
-
-  // Each thread's cells become the output position of its next key of
-  // each digit: the block's global offset for the digit plus the keys of
-  // that digit held by lower threads.
-  for (int d = 0; d < kRadix; ++d)
-    cell[skew(d * kThreads + t)] +=
-        offsets[(long long)d * nblocks + blockIdx.x] - digit_start[d];
-  for (int j = 0; j < kItems; ++j) {
-    long long i = first + j;
-    if (i >= n) break;
-    uint64_t key = keys[i];
-    int e = skew((int)digit_of(key, shift) * kThreads + t);
-    int dst = cell[e]++;
-    keys_out[dst] = key;
-    vals_out[dst] = vals[i];
-  }
-}
-
-__device__ __forceinline__ bool differs(const uint64_t* __restrict__ keys,
-                                        long long n, long long i) {
-  return i > 0 && i < n && keys[i] != keys[i - 1];
 }
 
 __global__ void flag_count_kernel(const uint64_t* __restrict__ keys,
@@ -243,46 +524,37 @@ __global__ void rank_scatter_kernel(const uint64_t* __restrict__ keys,
 
 }  // namespace
 
-// One round's sort.  keys/vals receive the built pairs; each pass moves
-// them to the other buffer pair, so the sorted pairs end in keys_alt/
-// vals_alt when the number of passes, ceil(lo_bits/4) + ceil(hi_bits/4),
-// is odd.  counts and offsets: 16 * ceil(n / 4096) int32 each.
-extern "C" int dsm_sa_sort(const void* rank, long long n, long long k,
-                           int lo_bits, int hi_bits, void* keys, void* vals,
-                           void* keys_alt, void* vals_alt, void* counts,
-                           void* offsets, void* stream) {
+// Bytes of scratch dsm_sa_sort needs: tail = min(k, n) with a previous
+// order, else 0; bits = the key bits the passes sort.
+extern "C" long long dsm_sa_sort_workspace(long long n, long long tail,
+                                           int bits) {
+  return (long long)layout(n, tail, bits).total;
+}
+
+// One round's sort.  rank: n int32 in [0, 2^hi); prev: the previous
+// round's order (n int32) or null, and then lo_bits = 0; bits = hi +
+// lo_bits.  keys (n uint64) and order (n int32) receive the
+// sorted packed keys and the suffix order; work: the workspace's bytes.
+extern "C" int dsm_sa_sort(const void* rank, const void* prev, long long n,
+                           long long k, int lo_bits, int bits, void* keys,
+                           void* order, void* work, void* stream) {
+  Round r{};
+  r.rank = (const int32_t*)rank;
+  r.prev = (const int32_t*)prev;
+  r.n = n;
+  r.k = k;
+  r.lo_bits = lo_bits;
+  r.tail = prev ? (k < n ? k : n) : 0;
+  r.tail_tiles = (int)((r.tail + kTile - 1) / kTile);
+  r.prev_bulk = ((uintptr_t)prev & 15) == 0;
+  const Layout L = layout(n, r.tail, bits);
+  unsigned char* w = (unsigned char*)work;
+  r.hist = (const int32_t*)(w + L.hist);
+  r.next_tile = (int32_t*)(w + L.next_tile);
+  r.status = (unsigned long long*)(w + L.status);
   cudaStream_t s = (cudaStream_t)stream;
-  keys_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      (const int32_t*)rank, n, k, (uint64_t*)keys, (int32_t*)vals);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  int nblocks = (int)((n + kTile - 1) / kTile);
-  uint64_t* kin = (uint64_t*)keys;
-  int32_t* vin = (int32_t*)vals;
-  uint64_t* kout = (uint64_t*)keys_alt;
-  int32_t* vout = (int32_t*)vals_alt;
-  auto pass = [&](int shift) -> int {
-    digit_count_kernel<<<nblocks, kThreads, 0, s>>>(kin, n, shift, nblocks,
-                                                    (int32_t*)counts);
-    int e = (int)cudaGetLastError();
-    if (e) return e;
-    scan_kernel<<<1, kScanThreads, 0, s>>>((const int32_t*)counts,
-                                          (long long)kRadix * nblocks,
-                                          (int32_t*)offsets, nullptr);
-    e = (int)cudaGetLastError();
-    if (e) return e;
-    digit_scatter_kernel<<<nblocks, kThreads, 0, s>>>(
-        kin, vin, n, shift, nblocks, (const int32_t*)offsets, kout, vout);
-    e = (int)cudaGetLastError();
-    uint64_t* kt = kin; kin = kout; kout = kt;
-    int32_t* vt = vin; vin = vout; vout = vt;
-    return e;
-  };
-  for (int b = 0; b < lo_bits; b += kBits)
-    if ((err = pass(b))) return err;
-  for (int b = 0; b < hi_bits; b += kBits)
-    if ((err = pass(32 + b))) return err;
-  return 0;
+  return L.key_bytes == 4 ? sort<uint32_t>(r, L, w, keys, order, s)
+                          : sort<uint64_t>(r, L, w, keys, order, s);
 }
 
 // One round's rank update from the sorted keys and their suffix order.

@@ -8,12 +8,11 @@ sha256 of the sources and flags changes.  Nothing here runs at import
 time: a CPU-only host imports every module of the port without a
 compiler.
 
-Each C entry point launches on the stream it is given (the wrapper passes
-`torch.cuda.current_stream().cuda_stream`) and returns
-`cudaGetLastError()`; `check()` raises on a non-zero code.
-
-`LAUNCHES` counts, per kernel, the wrapper calls that launched it; a
-wrapper adds one right where it launches and nowhere else.  `PATHS` names
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`.  A wrapper calls it through `launch()`, which
+passes the device's current stream, raises on a non-zero code and adds
+one to the kernel's count in `LAUNCHES`: the counts are of wrapper calls
+that launched the kernel, and nothing else adds to them.  `PATHS` names
 the kernels each entry point runs: `dsm_tpu_torch build` (the suffix
 array), `mine`, and the repro tool (`dsm_tpu_torch.tools.pallas_repro`).
 """
@@ -55,9 +54,10 @@ _SIGNATURES = {
     # use_egate, sym_mask, emin_lo, emax_hi, flags, ent, pair_out, stream
     "dsm_segstats": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D,
                      _P, _P, _P, _P],
-    # rank, n, k, lo_bits, hi_bits, keys, vals, keys_alt, vals_alt,
-    # counts, offsets, stream
-    "dsm_sa_sort": [_P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # rank, prev, n, k, lo_bits, bits, keys, order, work, stream
+    "dsm_sa_sort": [_P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
+    # n, tail, bits -> bytes
+    "dsm_sa_sort_workspace": [_I64, _I64, _I],
     # keys, order, n, rank, block_count, block_off, last, stream
     "dsm_sa_rank": [_P, _P, _I64, _P, _P, _P, _P, _P],
     # x, out, n, stream (dynstore: x, out, n, factor, stream)
@@ -145,20 +145,30 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = (ctypes.c_longlong if name.endswith("_workspace")
+                          else ctypes.c_int)
         _lib = handle
     return _lib
 
 
-def check(code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
-
-
-def stream_ptr(device) -> int:
+def launch(entry: str, key: str, device, *args) -> None:
+    """Call the C entry point `entry` with `args` and the current stream of
+    `device` (a CUDA torch.device), raise if it reports an error, and count
+    one launch of kernel `key`.  The current device is switched only when
+    `device` is another one."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    fn = getattr(lib(), entry)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if code != 0:
+        raise RuntimeError(f"{key}: CUDA launch failed with error {code}")
+    LAUNCHES[key] += 1
 
 
 def reset_launches() -> None:

@@ -53,11 +53,8 @@ def compact_rows(mask: torch.Tensor, values: torch.Tensor, width: int):
     block_count = torch.empty(nblocks, dtype=torch.int32,
                               device=values.device)
     block_off = torch.empty(nblocks, dtype=torch.int64, device=values.device)
-    lib = _build.lib()
-    with torch.cuda.device(values.device):
-        _build.check(lib.dsm_compact_rows(
-            mask.data_ptr(), values.data_ptr(), n, c, out.data_ptr(), width,
-            block_count.data_ptr(), block_off.data_ptr(), count.data_ptr(),
-            _build.stream_ptr(values.device)), "compact_rows")
-    _build.LAUNCHES["compact"] += 1
+    _build.launch("dsm_compact_rows", "compact", values.device,
+                  mask.data_ptr(), values.data_ptr(), n, c, out.data_ptr(),
+                  width, block_count.data_ptr(), block_off.data_ptr(),
+                  count.data_ptr())
     return out, count

@@ -81,11 +81,7 @@ def occ_cum8(rows: torch.Tensor, pos: torch.Tensor,
     out = torch.empty((8, q), dtype=torch.int32, device=rows.device)
     if q == 0:
         return out
-    lib = _build.lib()
-    with torch.cuda.device(rows.device):
-        _build.check(lib.dsm_occ_cum8(
-            rows.data_ptr(), pos.data_ptr(), pos.stride(0), soff.data_ptr(),
-            soff.stride(0), out.data_ptr(), q, _build.stream_ptr(rows.device)),
-            "occ_cum8")
-    _build.LAUNCHES["rank"] += 1
+    _build.launch("dsm_occ_cum8", "rank", rows.device, rows.data_ptr(),
+                  pos.data_ptr(), pos.stride(0), soff.data_ptr(),
+                  soff.stride(0), out.data_ptr(), q)
     return out

@@ -2,8 +2,8 @@
 
 Each takes an int32 (n,) tensor and returns a new one:
   smem_carry    : x + the index of x's 256-element block (P2, run1);
-  async_copy    : 2x, stored from shared memory by one bulk async copy per
-                  block (P3, run2);
+  async_copy    : 2x, through shared memory: one bulk async load and one
+                  bulk async store per tile of up to 32 KB (P3, run2);
   dynamic_store : x, stored at an offset computed from the data at run
                   time (x[0] * 0) (P4, run3).
 CPU tensors take the plain versions; CUDA tensors launch the kernels.
@@ -42,11 +42,8 @@ def _launch(name: str, key: str, x: torch.Tensor, *extra) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    with torch.cuda.device(x.device):
-        _build.check(getattr(_build.lib(), name)(
-            x.data_ptr(), out.data_ptr(), x.shape[0], *extra,
-            _build.stream_ptr(x.device)), key)
-    _build.LAUNCHES[key] += 1
+    _build.launch(name, key, x.device, x.data_ptr(), out.data_ptr(),
+                  x.shape[0], *extra)
     return out
 
 
@@ -66,6 +63,8 @@ def async_copy(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return async_copy_plain(x)
     _whole_blocks(x, "repro_async")
+    if x.data_ptr() % 16:
+        raise ValueError("repro_async: x must be 16-byte aligned (bulk copy)")
     return _launch("dsm_repro_async", "repro_async", x)
 
 

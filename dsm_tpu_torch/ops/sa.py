@@ -9,8 +9,12 @@ suffix array, which is unique); otherwise k doubles.
 
 A round is two steps, each with a plain PyTorch version:
   sort_round : the packed uint64 key rank << 32 | (second + 1) and its
-               stable sort carrying the suffix index (kernel: an LSD
-               radix sort over only the bits the round's ranks need);
+               stable sort carrying the suffix index (kernel: 8-bit
+               onesweep LSD radix passes over only the bits the round's
+               ranks need).  From the second round on, the previous
+               round's order gives the stable order by second
+               (`second_order_plain`), so the kernel sorts that order by
+               the rank bits alone;
   rank_round : adjacent-difference flags, their inclusive scan and the
                scatter rank[order[i]] = new[i]; returns the largest new
                rank, the round's one 4-byte readback.
@@ -25,16 +29,18 @@ import torch
 
 from . import _build
 
-RADIX_BITS = 4      # csrc/sa.cu kBits
-SORT_TILE = 4096    # csrc/sa.cu kTile: keys per sort block
+RADIX_BITS = 8      # csrc/sa.cu kDigitBits: bits a pass
+SORT_TILE = 4096    # csrc/sa.cu kTile: keys per onesweep tile
 RANK_BLOCK = 1024   # csrc/sa.cu kRankBlock
 _INT_TYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
 
 
-def sort_round_plain(rank: torch.Tensor, k: int, max_rank: int):
+def sort_round_plain(rank: torch.Tensor, k: int, max_rank: int,
+                     prev_order: torch.Tensor | None = None):
     """-> (keys int64 (n,), order int32 (n,)): the round's packed keys in
     stable sorted order and the suffix index of each.  max_rank (the
-    largest rank) is unused here; the kernel sorts only its bits."""
+    largest rank) and prev_order are unused here; the kernel sorts only
+    the bits of max_rank, starting from prev_order where it is given."""
     n = rank.shape[0]
     second = torch.zeros(n, dtype=torch.int64, device=rank.device)
     if k < n:
@@ -44,35 +50,50 @@ def sort_round_plain(rank: torch.Tensor, k: int, max_rank: int):
     return keys, order.to(torch.int32)
 
 
-def sort_round(rank: torch.Tensor, k: int, max_rank: int):
+def second_order_plain(prev_order: torch.Tensor, k: int) -> torch.Tensor:
+    """The stable order of round k's suffixes by second = rank[i + k] (-1
+    past the end), from the previous round's order (sorted by rank, ties
+    in ascending index): the suffixes i >= n - k in ascending i, then
+    p - k for each p >= k of prev_order.  int32 (n,)."""
+    n = prev_order.shape[0]
+    tail = torch.arange(max(n - k, 0), n, dtype=torch.int32,
+                        device=prev_order.device)
+    return torch.cat([tail, prev_order[prev_order >= k] - k])
+
+
+def sort_round(rank: torch.Tensor, k: int, max_rank: int,
+               prev_order: torch.Tensor | None = None):
     """The round's sort (see sort_round_plain).  rank: contiguous (n,)
-    int32 with values in [0, max_rank].  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    int32 with values in [0, max_rank]; prev_order: None, or the previous
+    round's order (contiguous (n,) int32), which must be sorted by rank
+    with ties in ascending index.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
     if rank.device.type == "cpu":
-        return sort_round_plain(rank, k, max_rank)
+        return sort_round_plain(rank, k, max_rank, prev_order)
     _check_rank(rank, "sort_round")
     n = rank.shape[0]
-    lo_bits = (max_rank + 1).bit_length()   # second + 1 <= max_rank + 1
-    hi_bits = max_rank.bit_length()
+    derive = prev_order is not None and k < n
+    if derive and (prev_order.dtype != torch.int32
+                   or prev_order.shape != (n,)
+                   or not prev_order.is_contiguous()
+                   or prev_order.device != rank.device):
+        raise ValueError("sort_round: prev_order must be contiguous (n,) "
+                         "int32 on the rank's device")
+    # second + 1 <= max_rank + 1; with prev_order (or k >= n, where every
+    # second is 0) the passes sort the rank bits alone
+    lo_bits = 0 if derive or k >= n else (max_rank + 1).bit_length()
+    bits = max_rank.bit_length() + lo_bits
     dev = rank.device
     keys = torch.empty(n, dtype=torch.int64, device=dev)
     order = torch.empty(n, dtype=torch.int32, device=dev)
-    keys_alt = torch.empty_like(keys)
-    order_alt = torch.empty_like(order)
-    nblocks = -(-n // SORT_TILE)
-    counts = torch.empty((1 << RADIX_BITS) * nblocks, dtype=torch.int32,
-                         device=dev)
-    offsets = torch.empty_like(counts)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        _build.check(lib.dsm_sa_sort(
-            rank.data_ptr(), n, k, lo_bits, hi_bits, keys.data_ptr(),
-            order.data_ptr(), keys_alt.data_ptr(), order_alt.data_ptr(),
-            counts.data_ptr(), offsets.data_ptr(), _build.stream_ptr(dev)),
-            "sa_sort")
-    _build.LAUNCHES["sa_sort"] += 1
-    passes = -(-lo_bits // RADIX_BITS) + -(-hi_bits // RADIX_BITS)
-    return (keys_alt, order_alt) if passes % 2 else (keys, order)
+    if n == 0:
+        return keys, order
+    work = torch.empty(_build.lib().dsm_sa_sort_workspace(
+        n, k if derive else 0, bits), dtype=torch.uint8, device=dev)
+    _build.launch("dsm_sa_sort", "sa_sort", dev, rank.data_ptr(),
+                  prev_order.data_ptr() if derive else None, n, k, lo_bits,
+                  bits, keys.data_ptr(), order.data_ptr(), work.data_ptr())
+    return keys, order
 
 
 def rank_round_plain(keys: torch.Tensor, order: torch.Tensor,
@@ -105,13 +126,9 @@ def rank_round(keys: torch.Tensor, order: torch.Tensor,
     block_count = torch.empty(nblocks, dtype=torch.int32, device=dev)
     block_off = torch.empty_like(block_count)
     last = torch.empty(1, dtype=torch.int32, device=dev)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        _build.check(lib.dsm_sa_rank(
-            keys.data_ptr(), order.data_ptr(), n, rank.data_ptr(),
-            block_count.data_ptr(), block_off.data_ptr(), last.data_ptr(),
-            _build.stream_ptr(dev)), "sa_rank")
-    _build.LAUNCHES["sa_rank"] += 1
+    _build.launch("dsm_sa_rank", "sa_rank", dev, keys.data_ptr(),
+                  order.data_ptr(), n, rank.data_ptr(), block_count.data_ptr(),
+                  block_off.data_ptr(), last.data_ptr())
     return int(last)
 
 
@@ -135,9 +152,9 @@ def _prefix_doubling(codes: torch.Tensor, sort, rank_update) -> torch.Tensor:
     if lo < 0 or hi >= 1 << 31:
         raise ValueError("suffix_array: codes must lie in [0, 2**31)")
     rank = codes.to(torch.int32, copy=True)
-    max_rank, k = hi, 1
+    max_rank, k, order = hi, 1, None
     while True:
-        keys, order = sort(rank, k, max_rank)
+        keys, order = sort(rank, k, max_rank, order)
         max_rank = rank_update(keys, order, rank)
         if max_rank == n - 1:
             return order

@@ -111,12 +111,9 @@ def segstats(nb: torch.Tensor, freq: torch.Tensor, cact: torch.Tensor,
                            device=freq.device)
     if U <= 0:
         return flags, ent, pair_out
-    lib = _build.lib()
-    with torch.cuda.device(freq.device):
-        _build.check(lib.dsm_segstats(
-            nb.data_ptr(), freq.data_ptr(), cact.data_ptr(), U, g.depth,
-            g.s_total, g.mindepth, g.pmin, g.pmax, int(g.use_egate),
-            g.sym_mask, g.emin_lo, g.emax_hi, flags.data_ptr(), ent.data_ptr(),
-            pair_out.data_ptr(), _build.stream_ptr(freq.device)), "segstats")
-    _build.LAUNCHES["segstats"] += 1
+    _build.launch("dsm_segstats", "segstats", freq.device, nb.data_ptr(),
+                  freq.data_ptr(), cact.data_ptr(), U, g.depth, g.s_total,
+                  g.mindepth, g.pmin, g.pmax, int(g.use_egate), g.sym_mask,
+                  g.emin_lo, g.emax_hi, flags.data_ptr(), ent.data_ptr(),
+                  pair_out.data_ptr())
     return flags, ent, pair_out

@@ -131,12 +131,18 @@ def _sa_codes(case):
     from dsm_tpu_torch.ops.sa import RANK_BLOCK, SORT_TILE
 
     rng = np.random.default_rng(11)
-    sizes = {"n=2": 2,
+    sizes = {"n=2": 2, "tile": SORT_TILE,
              "tile-1": 3 * SORT_TILE - 1, "tile+1": 3 * SORT_TILE + 1,
+             "many_tiles": 1 << 22,    # more tiles than SMs: look-back
              "rank_block-1": 5 * RANK_BLOCK - 1,
              "rank_block+1": 5 * RANK_BLOCK + 1}
     if case in sizes:
         return rng.integers(0, 6, size=sizes[case]).astype(np.int8)
+    if case.startswith("rank_bits="):  # the first round's ranks: exactly b bits
+        b = int(case.split("=")[1])
+        codes = rng.integers(0, 1 << b, size=30_000).astype(np.int32)
+        codes[17] = (1 << b) - 1
+        return codes
     if case == "all_equal":
         return np.full(20_000, 2, dtype=np.int8)
     if case == "wide_key":     # 17 + 17 bits from the second round on
@@ -151,9 +157,10 @@ def _sa_codes(case):
 
 
 @pytest.mark.parametrize("case", [
-    "n=2", "tile-1", "tile+1", "rank_block-1", "rank_block+1", "all_equal",
-    "wide_key", "wide_codes"] + [f"toy{i}:{d}" for i in range(5)
-                                 for d in ("fwd", "rev")])
+    "n=2", "tile", "tile-1", "tile+1", "many_tiles", "rank_block-1",
+    "rank_block+1", "all_equal", "wide_key", "wide_codes", "rank_bits=8",
+    "rank_bits=16", "rank_bits=24"] + [f"toy{i}:{d}" for i in range(5)
+                                       for d in ("fwd", "rev")])
 def test_sa_kernel(cuda, case):
     from dsm_tpu.ops.sa import suffix_array_np
     from dsm_tpu_torch.ops.sa import suffix_array, suffix_array_plain
@@ -169,20 +176,27 @@ def test_sa_kernel(cuda, case):
     np.testing.assert_array_equal(got.cpu().numpy(), suffix_array_np(codes))
 
 
-def test_sa_round_kernels(cuda):
+@pytest.mark.parametrize("top", [39_999, (1 << 8) - 1, (1 << 16) - 1,
+                                 (1 << 24) - 1])
+def test_sa_round_kernels(cuda, top):
     """One round's sort and rank update against their plain versions: the
-    same keys, the same stable order, the same new ranks."""
-    from dsm_tpu_torch.ops.sa import (rank_round, rank_round_plain,
+    same keys, the same stable order, the same new ranks; each k sorted
+    from scratch and from a previous order (the stable order by rank)."""
+    from dsm_tpu_torch.ops.sa import (SORT_TILE, rank_round, rank_round_plain,
                                       sort_round, sort_round_plain)
 
     rng = np.random.default_rng(5)
     n = 300_001
-    rank = torch.as_tensor(rng.integers(0, 40_000, size=n).astype(np.int32),
+    rank = torch.as_tensor(rng.integers(0, top + 1, size=n).astype(np.int32),
                            device=cuda)
-    for k in (1, 4, n + 1):
-        keys, order = sort_round(rank, k, 39_999)
-        pkeys, porder = sort_round_plain(rank, k, 39_999)
-        assert torch.equal(keys, pkeys) and torch.equal(order, porder)
+    rank[7] = top
+    prev = torch.sort(rank, stable=True).indices.to(torch.int32)
+    for k in (1, 4, SORT_TILE + 3, n - 1, n, n + 1):
+        pkeys, porder = sort_round_plain(rank, k, top)
+        for given in (None, prev):
+            keys, order = sort_round(rank, k, top, given)
+            assert torch.equal(keys, pkeys) and torch.equal(order, porder), \
+                (k, given is None)
         r1, r2 = rank.clone(), rank.clone()
         assert rank_round(keys, order, r1) == \
             rank_round_plain(pkeys, porder, r2)
@@ -206,7 +220,7 @@ def test_build_on_card_equals_cpu(cuda, tmp_path, extra):
             np.testing.assert_array_equal(g[k], c[k], err_msg=k)
 
 
-@pytest.mark.parametrize("n", [256, 1024, 4096])
+@pytest.mark.parametrize("n", [256, 1024, 4096, (1 << 20) + 256])
 def test_repro_kernels(cuda, n):
     from dsm_tpu_torch.ops import repro
 

@@ -6,8 +6,11 @@ exactly, against dsm_tpu's `suffix_array_jax` (JAX CPU backend, as
 tests/test_index_core.py runs it) and `suffix_array_np`, on inputs made
 with numpy from a seed: random codes, n = 0, 1 and 2, all-equal codes,
 many short texts each ending in TERM, one long repeat, and codes that
-need more than 32 bits of key in the first round.  The CUDA kernels are
-held against these plain versions in tests/test_torch_cuda.py.
+need more than 32 bits of key in the first round.  At every round of
+those inputs, the order by second derived from the previous round's
+order, sorted by rank alone, equals the round's sort: the shortcut the
+kernel takes.  The CUDA kernels are held against these plain versions in
+tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -18,8 +21,10 @@ from dsm_tpu.index.alphabet import TERM
 from dsm_tpu.ops.sa import bwt_from_sa as bwt_from_sa_np
 from dsm_tpu.ops.sa import suffix_array_jax, suffix_array_np
 from dsm_tpu_torch.ops import repro
-from dsm_tpu_torch.ops.sa import (bwt_from_sa, rank_round, sort_round,
-                                  suffix_array, suffix_array_plain)
+from dsm_tpu_torch.ops.sa import (bwt_from_sa, rank_round, rank_round_plain,
+                                  second_order_plain, sort_round,
+                                  sort_round_plain, suffix_array,
+                                  suffix_array_plain)
 from dsm_tpu_torch.tools.pallas_repro import expected, run_cases
 
 
@@ -92,6 +97,60 @@ def test_rounds_match_numpy_prefix_doubling():
     want_rank[want_order] = new
     np.testing.assert_array_equal(rank.numpy(), want_rank)
     assert top == new[-1]
+
+
+def _packed_keys(rank: torch.Tensor, k: int) -> torch.Tensor:
+    n = rank.shape[0]
+    second = torch.zeros(n, dtype=torch.int64)
+    if k < n:
+        second[:n - k] = rank[k:].to(torch.int64) + 1
+    return (rank.to(torch.int64) << 32) | second
+
+
+def _check_round_from_prev(rank, k, top, prev):
+    """second_order_plain(prev, k), then a stable sort by rank alone, is
+    sort_round_plain's (keys, order) exactly; and sort_round_plain
+    ignores prev_order.  -> that (keys, order)."""
+    keys, order = sort_round_plain(rank, k, top)
+    derived = second_order_plain(prev, k)
+    assert derived.dtype == torch.int32
+    by_rank = derived[torch.sort(rank[derived.long()], stable=True).indices]
+    assert torch.equal(by_rank, order), k
+    assert torch.equal(_packed_keys(rank, k)[by_rank.long()], keys), k
+    again = sort_round_plain(rank, k, top, prev)
+    assert torch.equal(again[0], keys) and torch.equal(again[1], order)
+    return keys, order
+
+
+@pytest.mark.parametrize("case", CASES + ["k>=n"])
+def test_rank_sort_of_second_order_is_the_round_sort(case):
+    """The invariant the kernel's sort relies on, at every round of the
+    prefix doubling: the previous round's order is sorted by the ranks
+    the round uses, ties in ascending index, so it gives the stable order
+    by second, and a stable sort of that by rank alone is the round's
+    sort.  Before the first round the stable order by the codes plays the
+    previous order; "k>=n" checks rounds with k >= n, where the derived
+    order is the identity."""
+    rank = torch.as_tensor(
+        _codes("random" if case == "k>=n" else case)).to(torch.int32)
+    n = rank.shape[0]
+    prev = torch.sort(rank, stable=True).indices.to(torch.int32)
+    top = int(rank.max()) if n else 0
+    if case == "k>=n":
+        for k in (n, n + 5):
+            _check_round_from_prev(rank, k, top, prev)
+            assert torch.equal(second_order_plain(prev, k),
+                               torch.arange(n, dtype=torch.int32))
+        return
+    k = 1
+    while True:
+        keys, prev = _check_round_from_prev(rank, k, top, prev)
+        if n <= 1:
+            break
+        top = rank_round_plain(keys, prev, rank)
+        if top == n - 1:
+            break
+        k *= 2
 
 
 def test_suffix_array_rejects_bad_codes():
