@@ -17,14 +17,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      checked from the previous round's order and from scratch, its first
      round from scratch; the round's bytes a key and TB/s are printed
      (toy0 and 2^24).  P2-P4 are timed by events and by the profiler's
-     device time, P3 also at N = 2^24;
+     device time, P3 also at N = 2^24.  The path decode (K6) walks a
+     synthetic history of DEC_LEVELS levels of SEG_NODES nodes, and the
+     children step (K3) runs on SEG_NODES nodes of 1..5 pairs with ~30%
+     of the lanes kept (all symbols, and one symbol alone);
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
      prove the build, and every mining kernel must have been launched;
-  6. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
+  6. resume: the gnu-order mine with `checkpoint=` (out_reserve
+     RESUME_RESERVE: saves where the frontier is wide) is killed by a
+     raise from `save_checkpoint` after its second save and resumed from
+     the file; the same frozen reference, and the file must be gone;
+  7. halt: the ascending mine with `halt` returning [b"A"] (out_reserve
+     HALT_RESERVE: the first poll before the tail); its lines are a
+     subset of the warm ascending run's, none under A is deeper than the
+     first poll, and the lines outside A are equal;
+  8. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
      each launching its kernel.
-Launches are counted per path: set to 0 just before it, read just after.
+Launches are counted per path: set to 0 just before it, read just after
+(the mining kernels also for the resume and halt phases).
 Then one JSON line of kernels, the card's name and power limit, and the
 final line {"ok": true, "device": {...}}.
 
@@ -54,13 +66,17 @@ SCALE = 100             # the scale of the frozen reference
 RANK_Q = 1 << 22        # rank queries (two per pair per level)
 COMPACT_N = 1 << 23     # candidate rows of a plateau level's children
 SEG_NODES = 1_400_000   # nodes of 1..5 pairs (S = 5 samples): ~4.2M pairs
+DEC_LEVELS = 48         # levels each decoded row walks (K6)
+RESUME_RESERVE = 100    # gnu order: saves at depths 10-12, 33, 59
+HALT_RESERVE = 500      # ascending: the first halt poll at depth 10
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
 P3_BIG = 1 << 24        # async_copy where bytes count (128 MB moved)
 HBM_TBS = 3.35          # H100 SXM HBM3 peak, TB/s
 # the kernels of each path, by the name in the kernels line
 LAUNCH_KEY = {"occ_cum8": "rank", "compact_rows": "compact",
-              "segstats": "segstats", "sa_sort": "sa_sort",
+              "segstats": "segstats", "decode": "decode",
+              "children": "children", "sa_sort": "sa_sort",
               "sa_rank": "sa_rank", "smem_carry": "repro_carry",
               "async_copy": "repro_async", "dynamic_store": "repro_dynstore"}
 
@@ -119,17 +135,17 @@ def phase_build() -> None:
         f"(nvcc ran: {_build.build_seconds is not None})")
 
 
-def path_launches(path: str) -> dict:
+def path_launches(path: str, label: str | None = None) -> dict:
     """The launch counts of `path`'s kernels since the last reset; fails
     if one of them was never launched."""
     from dsm_tpu_torch.ops import _build
 
+    label = label or f"the {path} path"
     launches = {k: _build.LAUNCHES[k] for k in _build.PATHS[path]}
-    log(f"launches in the {path} path: {json.dumps(launches)}")
+    log(f"launches in {label}: {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise SystemExit(f"kernels never launched by the {path} path: "
-                         f"{missing}")
+        raise SystemExit(f"kernels never launched by {label}: {missing}")
     return launches
 
 
@@ -301,6 +317,84 @@ def phase_kernels(torch, dev, device) -> list[dict]:
     log(f"kernel segstats: U={len(sizes)} P={p} equal (entropy err "
         f"{eerr:.3g}); {results[-1]['ms']:.3f} ms vs plain "
         f"{results[-1]['plain_ms']:.3f} ms")
+    return results + phase_level_kernels(torch, device)
+
+
+def phase_level_kernels(torch, device) -> list[dict]:
+    """K6 (decode) and K3 (children) against their plain versions on
+    SEG_NODES-wide synthetic levels, made on the card from a seed."""
+    from dsm_tpu_torch.ops.children import children, children_plain
+    from dsm_tpu_torch.ops.decode import decode, decode_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2027)
+    i32 = dict(dtype=torch.int32, device=device, generator=gen)
+    w = SEG_NODES
+
+    # decode: DEC_LEVELS levels of w nodes, each with a parent in the
+    # level before; w rows at the top walk all of them
+    hist = (torch.randint(0, w, (DEC_LEVELS * w,), **i32) * 4
+            + torch.randint(0, 4, (DEC_LEVELS * w,), **i32))
+    lvl_off = torch.arange(0, DEC_LEVELS * w, w, dtype=torch.int32,
+                           device=device)
+    rows = torch.randint(0, w, (w,), **i32)
+    jrel = torch.full((w,), DEC_LEVELS, dtype=torch.int32, device=device)
+    args = (hist, lvl_off, rows, jrel, DEC_LEVELS)
+    (kb, ks), (pb, ps) = decode(*args), decode_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(kb, pb) and torch.equal(ks, ps)):
+        raise SystemExit("decode kernel disagrees with its plain version")
+    results = [dict(
+        name="decode", route="cuda", source="dsm_tpu_torch/csrc/decode.cu",
+        replaces="dsm_tpu/mining/engine_device.py:990", max_abs_err=0,
+        ms=cuda_ms(torch, lambda: decode(*args)),
+        plain_ms=cuda_ms(torch, lambda: decode_plain(*args)))]
+    log(f"kernel decode: m={w:,} rows x {DEC_LEVELS} levels equal; events "
+        f"{results[-1]['ms']:.4f} ms vs plain {results[-1]['plain_ms']:.4f}"
+        f" ms; device {fmt_ms(device_ms(torch, lambda: decode(*args)))} vs "
+        f"plain {fmt_ms(device_ms(torch, lambda: decode_plain(*args)))}")
+    del hist, args, kb, ks, pb, ps
+
+    # children: w nodes of 1..5 pairs, rank outputs with ohi >= olo, ~30%
+    # of the lanes kept under the full symbol mask and under G alone
+    sizes = torch.randint(1, 6, (w,), **i32)
+    nb = torch.zeros(w + 1, dtype=torch.int32, device=device)
+    nb[1:] = torch.cumsum(sizes, 0)
+    p = int(nb[-1])
+    pairs = torch.randint(-2**31, 2**31 - 1, (p, 6), **i32)
+    pairs[:, 5] = torch.repeat_interleave(
+        torch.arange(w, dtype=torch.int32, device=device),
+        sizes.to(torch.int64))
+    olo = torch.randint(-2**31, 2**31 - 5000, (8, p), **i32)
+    ohi = olo + torch.randint(0, 5000, (8, p), **i32)
+    kept = torch.rand((4, p), generator=gen, device=device) < 0.3
+    lane = pairs[:, 5].to(torch.int64) * 4 + torch.arange(
+        4, device=device)[:, None]
+    for label, mask in (("all symbols", kept),
+                        ("G alone", kept & (torch.arange(
+                            4, device=device)[:, None] == 2))):
+        pair_count = int(mask.sum())
+        child_total = int(torch.unique(lane[mask]).numel())
+        hk = torch.full((child_total,), -1, dtype=torch.int32, device=device)
+        hp = hk.clone()
+        cargs = (nb, pairs, olo, ohi, mask, pair_count, child_total)
+        (kr, kn), (pr_, pn) = children(*cargs, hk), children_plain(*cargs, hp)
+        torch.cuda.synchronize()
+        if not (torch.equal(kr, pr_) and torch.equal(kn, pn)
+                and torch.equal(hk, hp)):
+            raise SystemExit(f"children kernel disagrees with its plain "
+                             f"version ({label})")
+        ms = cuda_ms(torch, lambda: children(*cargs, hk))
+        plain_ms = cuda_ms(torch, lambda: children_plain(*cargs, hp))
+        log(f"kernel children: U={w:,} P={p:,} {label}: {pair_count:,} "
+            f"lanes kept, {child_total:,} children, equal; {ms:.4f} ms vs "
+            f"plain {plain_ms:.4f} ms")
+        if label == "all symbols":
+            results.append(dict(
+                name="children", route="cuda",
+                source="dsm_tpu_torch/csrc/children.cu",
+                replaces="dsm_tpu/mining/engine_device.py:789",
+                max_abs_err=0, ms=ms, plain_ms=plain_ms))
     return results
 
 
@@ -506,8 +600,6 @@ def phase_main(torch, idxs, dev, device) -> dict:
     torch.cuda.synchronize()
     launches = path_launches("mine")
     peak = torch.cuda.max_memory_allocated(device)
-    sha = hashlib.sha256(gnu.format_lines()).hexdigest()
-    log(f"gnu-order sha256 {sha}")
     log(f"peak device memory (max_memory_allocated): {peak:,} bytes")
 
     if cold.format_lines() != out.format_lines():
@@ -515,16 +607,121 @@ def phase_main(torch, idxs, dev, device) -> dict:
     if gnu.total_output != out.total_output \
             or gnu.total_paths != out.total_paths:
         raise SystemExit("gnu and ascending runs report different counts")
+    check_reference(gnu, "scale-100 parity")
+    return launches, out
+
+
+def check_reference(gnu, label: str) -> None:
+    """A gnu-order scale-100 output against the frozen reference."""
     with open(os.path.join(HERE, "BENCH_BASELINE.json")) as f:
         ref = json.load(f)["reference"]
+    sha = hashlib.sha256(gnu.format_lines()).hexdigest()
+    log(f"{label}: gnu-order sha256 {sha}")
     want = (ref["total_paths"], 485, ref["lines_sha256"])
-    if (out.total_paths, out.total_output, sha) != want:
+    if (gnu.total_paths, gnu.total_output, sha) != want:
         raise SystemExit(
-            f"scale-100 parity FAILED: got paths={out.total_paths} "
-            f"lines={out.total_output} sha={sha}, want {want}")
-    log("scale-100 parity: paths, lines and gnu sha256 equal the "
-        "frozen reference")
-    return launches
+            f"{label} FAILED: got paths={gnu.total_paths} "
+            f"lines={gnu.total_output} sha={sha}, want {want}")
+    log(f"{label}: paths, lines and gnu sha256 equal the frozen reference")
+
+
+class Killed(Exception):
+    """Raised from save_checkpoint to abort a mining run."""
+
+
+def phase_resume(torch, idxs, dev, device, td: str) -> None:
+    """The gnu-order mine with a snapshot file, killed after its second
+    save and resumed from it in this process."""
+    from dsm_tpu_torch.mining import checkpoint as ckpt
+    from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
+    from dsm_tpu_torch.ops import _build
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    path = os.path.join(td, "mine.ckpt")
+    save = ckpt.save_checkpoint
+    saves = []     # (depth, frontier nodes, write seconds, file bytes)
+
+    def killing(p, state, *a, **k):
+        t0 = time.perf_counter()
+        save(p, state, *a, **k)
+        saves.append((int(state["depth"]), int(state["nvalid"]),
+                      round(time.perf_counter() - t0, 4),
+                      os.path.getsize(p)))
+        if killed is None and len(saves) == 2:
+            raise Killed()
+
+    ckpt.save_checkpoint = killing
+    killed = None
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        try:
+            mine_torch(idxs, cfg, dev=dev, device=device, reader_order="gnu",
+                       out_reserve=RESUME_RESERVE, checkpoint=path)
+        except Killed:
+            killed = time.perf_counter() - t0
+        if killed is None or not os.path.exists(path):
+            raise SystemExit("resume: the run was not killed at its second "
+                             "save, or left no snapshot")
+        prof = {}
+        t0 = time.perf_counter()
+        gnu = mine_torch(idxs, cfg, dev=dev, device=device,
+                         reader_order="gnu", out_reserve=RESUME_RESERVE,
+                         checkpoint=path, profile=prof)
+        torch.cuda.synchronize()
+        resumed = time.perf_counter() - t0
+    finally:
+        ckpt.save_checkpoint = save
+    path_launches("mine", "the resume phase")
+    log(f"resume: killed after save 2 at {killed:.4f} s, resumed run "
+        f"{resumed:.4f} s; {len(saves)} saves (depth, frontier nodes, "
+        f"write s, bytes): {json.dumps([list(s) for s in saves])}; the "
+        f"resumed run's {prof['saves']} saves took {prof['save_s']:.4f} s "
+        f"in all (frontier decode and write)")
+    if len(saves) < 3 or min(s[1] for s in saves) < 100_000:
+        raise SystemExit("resume: fewer than three saves at wide frontiers")
+    if os.path.exists(path):
+        raise SystemExit("resume: the snapshot file outlived the run")
+    check_reference(gnu, "resume parity")
+
+
+def phase_halt(torch, idxs, dev, device, warm) -> None:
+    """The ascending mine halted under A at its first poll, against the
+    warm ascending run `warm`."""
+    from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
+    from dsm_tpu_torch.ops import _build
+
+    polls = []
+
+    def halt(depth, out):
+        polls.append(depth)
+        return [b"A"]
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = mine_torch(idxs, MiningConfig(fmin=FMIN, emax=EMAX), dev=dev,
+                     device=device, out_reserve=HALT_RESERVE, halt=halt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path_launches("mine", "the halt phase")
+    lines = got.format_lines().splitlines()
+    want = warm.format_lines().splitlines()
+    first = polls[0] if polls else None
+    log(f"halt: polls at depths {polls}; {len(lines)} of {len(want)} lines "
+        f"in {wall:.4f} s")
+    outside = [ln for ln in want if not ln.startswith(b"A")]
+    if (first is None or not set(lines) <= set(want)
+            or any(ln.startswith(b"A") and len(ln.split(b" ", 1)[0]) > first
+                   for ln in lines)
+            or [ln for ln in lines if not ln.startswith(b"A")] != outside):
+        raise SystemExit("halt: the halted output is not the warm run's "
+                         "pruned below A at the first poll")
+    if len(lines) == len(want):
+        raise SystemExit("halt: nothing was pruned")
+    log("halt: a subset of the warm run, nothing under A deeper than the "
+        "first poll, the lines outside A equal")
 
 
 def main() -> int:
@@ -539,11 +736,13 @@ def main() -> int:
     launches = {}
     with tempfile.TemporaryDirectory(prefix="dsm_smoke_") as td:
         idxs, toy0, launches["build"] = phase_data(torch, toy, td, device)
-    dev = DeviceIndexes.build(idxs, device)
-    kernels = (phase_kernels(torch, dev, device)
-               + phase_sa_kernels(torch, toy0, device)
-               + phase_repro_kernels(torch, device))
-    launches["mine"] = phase_main(torch, idxs, dev, device)
+        dev = DeviceIndexes.build(idxs, device)
+        kernels = (phase_kernels(torch, dev, device)
+                   + phase_sa_kernels(torch, toy0, device)
+                   + phase_repro_kernels(torch, device))
+        launches["mine"], warm = phase_main(torch, idxs, dev, device)
+        phase_resume(torch, idxs, dev, device, td)
+        phase_halt(torch, idxs, dev, device, warm)
     launches["repro"] = phase_repro(torch, device)
     counts = {k: v for path in launches.values() for k, v in path.items()}
     for k in kernels:

@@ -11,8 +11,11 @@ mine:  stdout is `out.format_lines()`; with -v, stderr carries the index
 build: `--sa-backend auto` (the default) suffix-sorts on --device;
        `--sa-backend numpy` is dsm's own host build; `--sa-backend jax`
        is refused.  With -v, stderr has `dsm build -v`'s lines.
-The other subcommands, engines, --checkpoint and the multi-host flags
-are not ported yet and exit with status 1.
+mine --checkpoint FILE snapshots the run at its drain exits and resumes
+from FILE when it exists (dsm_tpu's snapshot format, so a snapshot of
+`dsm mine --checkpoint` resumes here and the other way round).
+The other subcommands, --engine and the multi-host flags are not ported
+yet and exit with status 1.
 """
 
 from __future__ import annotations
@@ -73,9 +76,9 @@ def cmd_mine(args) -> int:
 
     if args.emax is None:
         _die("dsm mine: error: expecting parameter --emax")
-    if args.engine != "tpu" or args.checkpoint or args.num_hosts:
+    if args.engine != "tpu" or args.num_hosts:
         _die("dsm_tpu_torch mine: only the default engine is ported "
-             "(no --engine, --checkpoint or --num-hosts yet)")
+             "(no --engine or --num-hosts yet)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -92,7 +95,8 @@ def cmd_mine(args) -> int:
             print(f"loaded {path} (n = {idx.n})", file=sys.stderr)
     prefix = args.prefix.encode() if args.prefix else b""
     out = mine_torch(indexes, cfg, prefix=prefix,
-                     reader_order=args.reader_order, device=device)
+                     reader_order=args.reader_order, device=device,
+                     checkpoint=args.checkpoint)
     sys.stdout.buffer.write(out.format_lines())
     if args.verbose:
         print(f"Number of paths: {out.total_paths}\n"

@@ -19,15 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsm_tpu.mining import engine_device as jed
-
 from .mining import engine_device as ted
 from .mining.engine import DeviceIndexes
-
-# JAX pair column -> port pair column
-_PAIR_MAP = ((jed.PC_LO, ted.PC_LO), (jed.PC_HI, ted.PC_HI),
-             (jed.PC_RLO, ted.PC_RLO), (jed.PC_SID, ted.PC_SID),
-             (jed.PC_SOFF, ted.PC_SOFF), (jed.PC_NID, ted.PC_NID))
 
 
 def tables_from_device_indexes(jdev, device) -> DeviceIndexes:
@@ -61,10 +54,7 @@ def episode_state_from_numpy(state: dict, device) -> "ted.EpisodeState":
         raise ValueError("a state in the middle of a chunked emission "
                          "(eskip > 0) has no counterpart in the port")
     live = live_numpy(state)
-    pr = live["pr"]
-    pairs = np.zeros((pr.shape[0], ted.PAIR_COLS), dtype=np.int32)
-    for j, t in _PAIR_MAP:
-        pairs[:, t] = pr[:, j]
+    pairs = np.ascontiguousarray(live["pr"][:, ted.JAX_PAIR_COLS])
     hist = np.zeros(np.asarray(state["hist"]).shape[0], dtype=np.int32)
     hist[:live["hist_len"]] = live["hist"]
 
@@ -84,10 +74,8 @@ def episode_state_from_numpy(state: dict, device) -> "ted.EpisodeState":
 
 def episode_state_to_numpy(st: "ted.EpisodeState") -> dict:
     """The port's state -> JAX key names and column layouts, live sizes."""
-    pairs = st.pairs.cpu().numpy()
-    pr = np.zeros((pairs.shape[0], 6), dtype=np.int32)
-    for j, t in _PAIR_MAP:
-        pr[:, j] = pairs[:, t]
+    pr = np.zeros((st.npairs, 6), dtype=np.int32)
+    pr[:, ted.JAX_PAIR_COLS] = st.pairs.cpu().numpy()
     out = (torch.cat(st.out).cpu().numpy() if st.out
            else np.zeros((0, ted.OUT_COLS), dtype=np.int32))
     return dict(

@@ -133,10 +133,12 @@ def mine_torch(indexes: list[FMIndex], cfg: MiningConfig,
                prefix: bytes = b"", reader_order: str = "ascending",
                device="cuda", dev: DeviceIndexes | None = None,
                tail_width: int = TAIL_WIDTH, out_reserve: int = OUT_RESERVE,
-               profile: dict | None = None) -> MinedOutput:
+               profile: dict | None = None, checkpoint: str | None = None,
+               halt=None) -> MinedOutput:
     """Mine the cross-sample union trie on `device` with the
     device-resident episode (mining/engine_device.mine_device, which
-    documents the arguments).  Same semantics and output as dsm_tpu's
+    documents the arguments, among them the snapshot file `checkpoint` and
+    the steering callback `halt`).  Same semantics and output as dsm_tpu's
     mine_tpu and engine_np.mine_np: reader_order 'ascending', or 'gnu' for
     the reference's byte-exact reader order."""
     from .engine_device import mine_device
@@ -144,4 +146,4 @@ def mine_torch(indexes: list[FMIndex], cfg: MiningConfig,
     return mine_device(indexes, cfg, prefix=prefix, dev=dev,
                        tail_width=tail_width, out_reserve=out_reserve,
                        reader_order=reader_order, device=device,
-                       profile=profile)
+                       profile=profile, checkpoint=checkpoint, halt=halt)

@@ -6,7 +6,10 @@ same semantics (differentially tested against it and against
 engine_np.mine_np) and the same exits: DONE, TAIL (hand the narrow deep
 frontier to the host wavefront), DRAIN (output rows past `out_reserve`)
 and HISTFULL (the parent-pointer history buffer is full: drain, pull the
-finished levels to the host, reset, redo the level).
+finished levels to the host, reset, redo the level).  At DRAIN and
+HISTFULL exits the run saves a snapshot (`checkpoint=`, dsm_tpu's file
+format, mining/checkpoint.py); at those and at TAIL it polls the steering
+callback (`halt=`).
 
 PyTorch runs eagerly, so the TPU's compiled while-loop machinery is gone:
 no bucket ladder or `lax.switch`, no refit/burst redo, no emit chunking,
@@ -21,19 +24,17 @@ its outputs to the exact sizes.  Per level:
               contiguous pairs: entropy, gates, existing children;
   * emit:     the compaction kernel (ops/compact) keeps the gated pairs'
               (freq, rlo, sid, nid, depth) rows in the output staging list;
-  * children: each node's candidate lanes are permuted from (pair, c) to
-              (c, pair) order, so lane (p, c) of a node whose pairs start
-              at s and number m lands at 4s + c*m + (p - s), and the
-              compaction kernel keeps the active ones: this is the
-              (node, symbol, pair) order of the JAX hv-keyed sort.  A
-              second compaction of the (node, symbol) boundaries gives the
-              next level's node starts `nb` and history entries
-              (parent*4 + symbol); child ids are the boundary cumsum.
+  * children: the children kernel (ops/children) writes the kept (pair,
+              symbol) lanes in (node, symbol, pair) order, the order of
+              the JAX hv-keyed sort, with the child ids, the next level's
+              node starts `nb` and history entries (parent*4 + symbol).
 
-Pair rows are (P, 6) int32 with columns PC_* below.  The column order
-differs from the JAX (PROW, 8) rows (convert.py maps them): the
-compacted children carry (node*4 + symbol) in the last column, which the
-child id then overwrites in place.
+Paths are decoded by the decode kernel (ops/decode), an ancestor walk
+down the current history segment on the device; PathHistory holds the
+pulled segments and a resumed snapshot's frontier.
+
+Pair rows are (P, 6) int32 with columns PC_* (ops/children.py).  The JAX
+(PROW, 8) rows swap PC_SOFF and PC_NID: JAX_PAIR_COLS maps them.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import torch
 
 from dsm_tpu.index.alphabet import EXT_CHARS
 from dsm_tpu.index.fmindex import FMIndex
+from dsm_tpu.mining import engine_device as jed
 from dsm_tpu.mining.config import MiningConfig
 from dsm_tpu.mining.engine_device import (ENT_MARGIN, FLAG_DONE, FLAG_DRAIN,
                                           FLAG_HISTFULL, FLAG_RUN, FLAG_TAIL,
@@ -57,19 +59,27 @@ from dsm_tpu.mining.engine_device import (ENT_MARGIN, FLAG_DONE, FLAG_DRAIN,
                                           PathHistory, _hist_cap)
 from dsm_tpu.mining.engine_np import MinedOutput, node_entropy
 
+from ..ops.children import (PAIR_COLS, PC_HI, PC_LO, PC_NID, PC_RLO,
+                            PC_SID, PC_SOFF, children)
 from ..ops.compact import compact_rows
+from ..ops.decode import decode
 from ..ops.rank import occ_cum8
 from ..ops.segstats import (EXISTS_SHIFT, F_PRESENT, F_STAT, Gates,
                             segstats)
 from ..utils.device import resolve_device
+from . import checkpoint as ckpt
 from .engine import MAX_SAMPLES, DeviceIndexes, leftchar_codes_pairs
 
-# pair-row columns ((P, 6) int32)
-PC_LO, PC_HI, PC_RLO, PC_SID, PC_SOFF, PC_NID = range(6)
-PAIR_COLS = 6
+# the dsm_tpu pair-row column of each of the port's PC_* columns
+JAX_PAIR_COLS = [jed.PC_LO, jed.PC_HI, jed.PC_RLO, jed.PC_SID, jed.PC_SOFF,
+                 jed.PC_NID]
 # output-row columns ((k, 5) int32): OC_FREQ, OC_RLO, OC_SID, OC_ROW,
 # OC_DEPTH, as in dsm_tpu
 OUT_COLS = 5
+# EXT_CHARS byte -> symbol code; 255 for a byte outside EXT_CHARS
+_CODE = np.full(256, 255, dtype=np.uint8)
+_CODE[np.frombuffer(EXT_CHARS, dtype=np.uint8)] = np.arange(len(EXT_CHARS))
+_EXT = np.frombuffer(EXT_CHARS, dtype=np.uint8)
 
 
 @dataclass(frozen=True)
@@ -161,10 +171,15 @@ def _seed_episode(dev: DeviceIndexes, hist_cap: int) -> EpisodeState:
         ent_max=torch.tensor(-np.inf, **f64))
 
 
-def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState) -> int:
+def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
+           eskip: int = 0) -> int:
     """Run one trie level on `st` in place; returns the exit flag.
     FLAG_HISTFULL leaves `st` untouched (the level is redone after the
-    history segment is pulled)."""
+    history segment is pulled).  `eskip` > 0 redoes the level of a
+    dsm_tpu snapshot taken in the middle of a chunked emission: the gated
+    pairs of its nodes whose cumulative gated count ends at or below
+    `eskip` were drained before the snapshot and are not staged again
+    (dsm_tpu engine_device.py:850-855)."""
     pr = st.pairs
     P, depth, device = st.npairs, st.depth, pr.device
     lo, hi, rlo = pr[:, PC_LO], pr[:, PC_HI], pr[:, PC_RLO]
@@ -185,6 +200,10 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState) -> int:
 
     # ---- stats + gates: one thread per node ----------------------------
     flags, ent, pair_out = segstats(st.nb, freq, cbits, g)
+    if eskip:
+        cg = torch.cumsum(pair_out, 0)
+        cg_end = cg[st.nb.to(torch.int64)[nid.to(torch.int64) + 1] - 1]
+        pair_out = pair_out & (cg_end > eskip)
     exists = (flags >> EXISTS_SHIFT) & 0b1111
     nchild = ((exists & 1) + ((exists >> 1) & 1) + ((exists >> 2) & 1)
               + ((exists >> 3) & 1))
@@ -217,41 +236,9 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState) -> int:
         st.out.append(staged)
         st.ocount += n_gated
 
-    # ---- children: (node, symbol, pair)-ordered compaction -------------
-    if child_total:
-        nid64 = nid.to(torch.int64)
-        nb64 = st.nb.to(torch.int64)
-        first = nb64[nid64]
-        width = nb64[nid64 + 1] - first
-        sym64 = torch.arange(4, device=device)[:, None]
-        dst = (4 * first + sym64 * width
-               + (torch.arange(P, device=device) - first)).reshape(-1)
-        sym32 = sym64.to(torch.int32)
-        cand = torch.stack(
-            [olo[:4], ohi[:4], rlo + (ohi[4:] - olo[4:]),
-             sid.expand(4, P), soff.expand(4, P), nid * 4 + sym32],
-            dim=2).reshape(4 * P, PAIR_COLS)
-        vals = torch.empty_like(cand)
-        vals[dst] = cand
-        mask = torch.empty(4 * P, dtype=torch.bool, device=device)
-        mask[dst] = keepc.reshape(-1)
-        newp, _ = compact_rows(mask, vals, pair_count)
-        hv = newp[:, PC_NID]
-        bdry = torch.ones(pair_count, dtype=torch.bool, device=device)
-        bdry[1:] = hv[1:] != hv[:-1]
-        bsrc = torch.stack(
-            [torch.arange(pair_count, dtype=torch.int32, device=device), hv],
-            dim=1)
-        heads, _ = compact_rows(bdry, bsrc, child_total)
-        newp[:, PC_NID] = (torch.cumsum(bdry, 0) - 1).to(torch.int32)
-        nb_next = torch.empty(child_total + 1, dtype=torch.int32,
-                              device=device)
-        nb_next[:child_total] = heads[:, 0]
-        nb_next[child_total] = pair_count
-        st.hist[st.hist_len:st.hist_len + child_total] = heads[:, 1]
-    else:
-        newp = pr.new_zeros((0, PAIR_COLS))
-        nb_next = pr.new_zeros(1)
+    # ---- children: (node, symbol, pair)-ordered rows, ids, history ------
+    newp, nb_next = children(st.nb, pr, olo, ohi, keepc, pair_count,
+                             child_total, st.hist[st.hist_len:])
 
     st.lvl_off.append(st.hist_len)
     st.hist_len += child_total
@@ -265,33 +252,136 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState) -> int:
     return FLAG_RUN
 
 
-def _decode_rows(st: EpisodeState, ph: PathHistory, seg_depth0: int,
-                 rows: np.ndarray, depths: np.ndarray) -> list[bytes]:
-    """Paths of node `rows` at absolute `depths`: an ancestor walk on the
-    device down to the current segment's base, then PathHistory for the
-    pulled segments."""
+def _history_codes(ph: PathHistory, depth: int,
+                   rows: np.ndarray) -> np.ndarray:
+    """PathHistory.decode(depth, rows) as an (m, depth) uint8 matrix of
+    symbol codes: the pulled segments walked down to the base, then the
+    base paths (a resumed snapshot's frontier)."""
+    r = np.asarray(rows, dtype=np.int64)
+    codes = np.empty((r.shape[0], depth), dtype=np.uint8)
+    for d in range(depth, ph.base_depth, -1):
+        e = ph.levels[d][r]
+        codes[:, d - 1] = e & 3
+        r = e >> 2
+    if ph.base_depth:
+        base = b"".join([ph.base[i] for i in r.tolist()])
+        codes[:, :ph.base_depth] = _CODE[
+            np.frombuffer(base, dtype=np.uint8)].reshape(-1, ph.base_depth)
+    return codes
+
+
+def _path_codes(st: EpisodeState, ph: PathHistory, seg_depth0: int,
+                rows: np.ndarray, depths: np.ndarray) -> np.ndarray:
+    """(m, max depth) uint8 symbol codes of the paths of node `rows` at
+    absolute `depths` (each >= seg_depth0), zero past each row's depth:
+    the decode kernel walks the current segment on the device down to its
+    base, _history_codes the rest."""
     rows = np.asarray(rows, dtype=np.int64)
-    depths = np.asarray(depths, dtype=np.int64)
-    m = rows.shape[0]
-    if m == 0:
-        return []
-    jrel = depths - seg_depth0
+    jrel = np.asarray(depths, dtype=np.int64) - seg_depth0
     maxj = int(jrel.max(initial=0))
     if maxj == 0:
-        return ph.decode(seg_depth0, rows)
+        return _history_codes(ph, seg_depth0, rows)
     device = st.hist.device
-    r = torch.as_tensor(rows, device=device)
-    jt = torch.as_tensor(jrel, device=device)
-    syms = torch.zeros((m, maxj), dtype=torch.int32, device=device)
-    for lev in range(maxj, 0, -1):
-        take = jt >= lev
-        e = st.hist[torch.where(take, r + st.lvl_off[lev - 1], 0)]
-        syms[:, lev - 1] = torch.where(take, e & 3, 0)
-        r = torch.where(take, (e >> 2).to(torch.int64), r)
-    bases = ph.decode(seg_depth0, r.cpu().numpy())
-    syms_h = syms.to(torch.uint8).cpu().numpy()
-    ext = np.frombuffer(EXT_CHARS, dtype=np.uint8)
-    return [bases[i] + ext[syms_h[i, :jrel[i]]].tobytes() for i in range(m)]
+    base, syms = decode(
+        st.hist, torch.tensor(st.lvl_off[:maxj], dtype=torch.int32,
+                              device=device),
+        torch.as_tensor(rows.astype(np.int32), device=device),
+        torch.as_tensor(jrel.astype(np.int32), device=device), maxj)
+    return np.concatenate([_history_codes(ph, seg_depth0, base.cpu().numpy()),
+                           syms.cpu().numpy()], axis=1)
+
+
+def _decode_rows(st: EpisodeState, ph: PathHistory, seg_depth0: int,
+                 rows: np.ndarray, depths: np.ndarray) -> list[bytes]:
+    """Paths of node `rows` at absolute `depths`, as bytes."""
+    depths = np.asarray(depths, dtype=np.int64)
+    codes = _path_codes(st, ph, seg_depth0, rows, depths)
+    return [_EXT[codes[i, :d]].tobytes() for i, d in enumerate(depths)]
+
+
+def _frontier_codes(st: EpisodeState, ph: PathHistory,
+                    seg_depth0: int) -> np.ndarray:
+    """(nnodes, depth) symbol codes of the live frontier's paths."""
+    n = st.nnodes
+    return _path_codes(st, ph, seg_depth0, np.arange(n),
+                       np.full(n, st.depth))
+
+
+def _match_prefixes(codes: np.ndarray, prefixes) -> np.ndarray:
+    """Rows of an (n, depth) path-code matrix whose path starts with one
+    of the byte strings `prefixes`, as bytes.startswith decides it: a
+    prefix longer than the paths, or with a byte outside EXT_CHARS,
+    matches nothing; an empty one matches every row."""
+    n, depth = codes.shape
+    hit = np.zeros(n, dtype=bool)
+    for pre in prefixes:
+        pc = _CODE[np.frombuffer(pre, dtype=np.uint8)]
+        if pc.size > depth or (pc == 255).any():
+            continue
+        hit |= (codes[:, :pc.size] == pc).all(axis=1)
+    return hit
+
+
+def _apply_halt(st: EpisodeState, ph: PathHistory, seg_depth0: int,
+                prefixes) -> int:
+    """Prune the live frontier under `prefixes` (dsm_tpu
+    engine_device._apply_halt, the reference's halt side channel as a
+    pruning mask): the nodes whose path starts with one of them get their
+    pairs' intervals emptied in place (hi := lo), so segstats counts them
+    as no reader and they have no children.  The halted nodes' own lines
+    were emitted when their level committed.  -> halted node count."""
+    if not prefixes or st.nnodes == 0 or st.npairs == 0:
+        return 0
+    kill = _match_prefixes(_frontier_codes(st, ph, seg_depth0), prefixes)
+    if not kill.any():
+        return 0
+    pr = st.pairs
+    hit = torch.as_tensor(kill, device=pr.device)[pr[:, PC_NID].to(
+        torch.int64)]
+    pr[:, PC_HI] = torch.where(hit, pr[:, PC_LO], pr[:, PC_HI])
+    return int(kill.sum())
+
+
+def _snapshot_state(st: EpisodeState) -> dict:
+    """The drained episode in dsm_tpu's snapshot layout (checkpoint
+    _STATE_KEYS): its int32 and float32 scalars, and the live pair rows as
+    (m, 8) int32 in its column order with the two pad columns zero.
+    Snapshots of the port never stop inside a level: eskip is 0."""
+    pairs = np.zeros((st.npairs, 8), dtype=np.int32)
+    pairs[:, JAX_PAIR_COLS] = st.pairs.cpu().numpy()
+    return dict(pairs=pairs, nvalid=np.int32(st.nnodes),
+                depth=np.int32(st.depth),
+                total_paths=np.int32(st.total_paths),
+                ent_min=np.float32(float(st.ent_min)),
+                ent_max=np.float32(float(st.ent_max)), eskip=np.int32(0))
+
+
+def _resume(path: str, cfg: MiningConfig, prefix: bytes, dev: DeviceIndexes,
+            hist_cap: int):
+    """A snapshot of either package -> (EpisodeState, MinedOutput,
+    PathHistory seeded with the frontier's paths, eskip), as dsm_tpu's
+    mine_device resumes (engine_device.py:1365-1397).  Raises ValueError
+    when the snapshot was written for another config, prefix or input."""
+    host, out, base_paths = ckpt.load_checkpoint(path, cfg, prefix, dev.ns)
+    pairs = np.ascontiguousarray(
+        np.asarray(host["pairs"], dtype=np.int32)[:, JAX_PAIR_COLS])
+    # the snapshot may come from another sample layout: this run's offsets
+    pairs[:, PC_SOFF] = dev.soff.cpu().numpy()[pairs[:, PC_SID]]
+    n = int(host["nvalid"])
+    nb = np.concatenate([[0], np.cumsum(np.bincount(pairs[:, PC_NID],
+                                                    minlength=n))])
+    depth = int(host["depth"])
+    device = dev.device
+    f64 = dict(dtype=torch.float64, device=device)
+    st = EpisodeState(
+        pairs=torch.as_tensor(pairs, device=device),
+        nb=torch.as_tensor(nb.astype(np.int32), device=device), depth=depth,
+        hist=torch.zeros(hist_cap, dtype=torch.int32, device=device),
+        total_paths=int(host["total_paths"]),
+        ent_min=torch.tensor(float(host["ent_min"]), **f64),
+        ent_max=torch.tensor(float(host["ent_max"]), **f64))
+    ph = PathHistory(base_depth=depth, base_paths=base_paths)
+    return st, out, ph, int(host.get("eskip", 0))
 
 
 def _pull_segment(ph: PathHistory, seg_depth0: int, st: EpisodeState) -> None:
@@ -413,6 +503,8 @@ def mine_device(
     reader_order: str = "ascending",
     device="cuda",
     profile: dict | None = None,
+    checkpoint: str | None = None,
+    halt=None,
 ) -> MinedOutput:
     """Mine with the device-resident level loop, handing narrow deep
     frontiers to the host wavefront.  Output lines and counters equal
@@ -424,8 +516,21 @@ def mine_device(
     (dsm_tpu/mining/gnulazy.py).  `dev` (tables already on a device)
     fixes the device.  The history buffer takes dsm_tpu's sizing rule
     (engine_device._hist_cap; env DSM_HIST_CAP overrides).  A dict passed as
-    `profile` receives host wall seconds per phase (levels, drain, tail),
-    the level count and the tail's start depth."""
+    `profile` receives host wall seconds per phase (levels, drain, tail,
+    halt polls, saves), the level and save counts and the tail's start
+    depth.
+
+    `checkpoint`: a snapshot file in dsm_tpu's format (mining/checkpoint.py),
+    written at every DRAIN and HISTFULL exit, resumed from when it exists
+    (it may come from dsm_tpu; another config, prefix or input is refused)
+    and removed when the run ends.  `halt`: a steering callback
+    `halt(depth, out) -> list of path prefixes`, polled at every DRAIN,
+    HISTFULL and TAIL exit after the drain and before the save: the
+    frontier's subtrees under the returned prefixes are not explored from
+    the next level on (_apply_halt).  As in dsm_tpu, `out_reserve` (the
+    staged rows that make a DRAIN exit; lower means finer snapshots) is
+    clamped to OUT_RESERVE, so both engines drain, poll and save at the
+    same levels."""
     cfg.validate()
     device = resolve_device(device)
     if dev is None:
@@ -436,7 +541,6 @@ def mine_device(
         raise ValueError(f"mine_device supports at most {MAX_SAMPLES} "
                          f"samples (got {dev.S})")
     d = dev.S
-    out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
     tracker = None
     if reader_order == "gnu":
         from dsm_tpu.mining.gnulazy import LazyGnuOrder
@@ -445,28 +549,66 @@ def mine_device(
                                server_prefix_len=max(1, len(prefix)))
     elif reader_order != "ascending":
         raise ValueError(f"unknown reader_order {reader_order!r}")
-    sc = _Scalars.build(cfg, tail_width=tail_width, out_reserve=out_reserve,
+    sc = _Scalars.build(cfg, tail_width=tail_width,
+                        out_reserve=min(out_reserve, OUT_RESERVE),
                         prefix_codes=tuple(EXT_CHARS.index(b)
                                            for b in prefix))
     debug = os.environ.get("DSM_DEBUG") == "1"
     prof = profile if profile is not None else {}
-    for k in ("level_s", "drain_s", "tail_s"):
+    for k in ("level_s", "drain_s", "tail_s", "halt_s", "save_s"):
         prof[k] = 0.0
     prof["levels"] = 0
+    prof["saves"] = 0
     prof["tail_depth"] = None
 
-    st = _seed_episode(dev, _hist_cap(dev))
-    ph = PathHistory()
-    seg_depth0 = 0
+    hist_cap = _hist_cap(dev)
+    eskip = 0
+    if checkpoint is not None and os.path.exists(checkpoint):
+        st, out, ph, eskip = _resume(checkpoint, cfg, prefix, dev, hist_cap)
+        if debug:
+            print(f"mine_device: resumed depth={st.depth} "
+                  f"nnodes={st.nnodes} eskip={eskip}", file=sys.stderr)
+    else:
+        st = _seed_episode(dev, hist_cap)
+        out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
+        ph = PathHistory()
+    seg_depth0 = st.depth
 
     def drain() -> None:
         t = time.perf_counter()
         _drain(out, cfg, d, st, ph, seg_depth0, dev, tracker)
         prof["drain_s"] += time.perf_counter() - t
 
+    def poll_halt() -> None:
+        if halt is None:
+            return
+        t = time.perf_counter()
+        n = _apply_halt(st, ph, seg_depth0, halt(st.depth, out))
+        prof["halt_s"] += time.perf_counter() - t
+        if debug and n:
+            print(f"mine_device: halt prunes {n} nodes at depth {st.depth}",
+                  file=sys.stderr)
+
+    def save() -> None:
+        if checkpoint is None:
+            return
+        t = time.perf_counter()
+        ckpt.save_checkpoint(checkpoint, _snapshot_state(st), out, cfg,
+                             prefix, dev.ns,
+                             _frontier_codes(st, ph, seg_depth0))
+        prof["save_s"] += time.perf_counter() - t
+        prof["saves"] += 1
+
+    def finish() -> MinedOutput:
+        if checkpoint is not None and os.path.exists(checkpoint):
+            os.unlink(checkpoint)
+        out.sort_postorder()
+        return out
+
     while True:
         t0 = time.perf_counter()
-        flag = _level(dev, sc, st)
+        flag = _level(dev, sc, st, eskip)
+        eskip = 0   # a resumed level commits: its history segment is empty
         prof["level_s"] += time.perf_counter() - t0
         prof["levels"] += 1
         if debug and flag != FLAG_RUN:
@@ -475,11 +617,11 @@ def mine_device(
                   f"ocount={st.ocount}", file=sys.stderr, flush=True)
         if flag == FLAG_RUN:
             continue
+        drain()
         if flag == FLAG_DONE:
-            drain()
             break
+        poll_halt()
         if flag == FLAG_TAIL:
-            drain()
             # fold the device-side stats in before the host tail adds its own
             out.total_paths += st.total_paths
             em, eM = float(st.ent_min), float(st.ent_max)
@@ -492,20 +634,16 @@ def mine_device(
             _handoff_tail(indexes, cfg, prefix, out, st, ph, seg_depth0,
                           tracker=tracker)
             prof["tail_s"] += time.perf_counter() - t
-            out.sort_postorder()
-            return out
-        if flag == FLAG_DRAIN:
-            drain()
-        elif flag == FLAG_HISTFULL:
-            # outputs reference the current segment: decode them first,
-            # then pull the finished levels and reset the device segment
-            drain()
+            return finish()
+        if flag == FLAG_HISTFULL:
+            # outputs reference the current segment: they were decoded by
+            # the drain; now pull the finished levels and reset the segment
             _pull_segment(ph, seg_depth0, st)
             seg_depth0 = st.depth
+        save()
 
     out.total_paths = st.total_paths
     em, eM = float(st.ent_min), float(st.ent_max)
     out.smallest_entropy = em if np.isfinite(em) else 1000.0
     out.largest_entropy = eM if np.isfinite(eM) else -1000.0
-    out.sort_postorder()
-    return out
+    return finish()

@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 PATHS = {
     "build": ("sa_sort", "sa_rank"),
-    "mine": ("rank", "compact", "segstats"),
+    "mine": ("rank", "compact", "segstats", "children", "decode"),
     "repro": ("repro_carry", "repro_async", "repro_dynstore"),
 }
 LAUNCHES = {k: 0 for keys in PATHS.values() for k in keys}
@@ -54,6 +54,12 @@ _SIGNATURES = {
     # use_egate, sym_mask, emin_lo, emax_hi, flags, ent, pair_out, stream
     "dsm_segstats": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D,
                      _P, _P, _P, _P],
+    # nb, pairs, olo, ohi, keep, U, P, pair_count, child_total, cnt,
+    # scratch, newp, nb_next, hist, stream
+    "dsm_children": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
+                     _P, _P, _P],
+    # hist, lvl_off, rows, jrel, m, maxj, base, syms, stream
+    "dsm_decode": [_P, _P, _P, _P, _I64, _I, _P, _P, _P],
     # rank, prev, n, k, lo_bits, bits, keys, order, work, stream
     "dsm_sa_sort": [_P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
     # n, tail, bits -> bytes

@@ -8,7 +8,8 @@ file imports no JAX, so it runs where JAX is not installed:
 (DSM_TEST_TPU=1 keeps tests/conftest.py from importing jax.)  Each kernel
 is held against its plain PyTorch version on the same CUDA tensors, at
 edge shapes; the suffix array also against dsm_tpu's numpy one; the
-mining run and the index build on the card against the port's CPU path.
+mining run (plain, killed and resumed from its snapshot, and halted) and
+the index build on the card against the port's CPU path.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
 version sums with index_add_, whose order on the card may differ).
 """
@@ -102,6 +103,146 @@ def test_segstats_kernel(cuda):
         fp, ep, pp = segstats_plain(nb, f_t, c_t, g)
         assert torch.equal(fk, fp) and torch.equal(pk, pp)
         assert float((ek - ep).abs().max()) < 1e-9
+
+
+def _history(rng, widths):
+    """Random parent pointers, level k >= 1 holding widths[k] nodes ->
+    (hist, lvl_off) int32 numpy."""
+    parts, offs, off = [], [], 0
+    for k in range(1, len(widths)):
+        parent = rng.integers(0, widths[k - 1], size=widths[k])
+        parts.append((parent * 4 + rng.integers(0, 4, size=widths[k]))
+                     .astype(np.int32))
+        offs.append(off)
+        off += widths[k]
+    return (np.concatenate(parts) if parts else np.zeros(1, np.int32),
+            np.asarray(offs, dtype=np.int32))
+
+
+@pytest.mark.parametrize("case", ["m=0", "one_row", "jrel=0", "mixed",
+                                  "deep"])
+def test_decode_kernel(cuda, case):
+    from dsm_tpu_torch.ops.decode import decode, decode_plain
+
+    widths = {"m=0": [3, 5, 7], "one_row": [2, 9, 4], "jrel=0": [40, 8],
+              "mixed": [5] + [3000] * 12, "deep": [7] + [200] * 90}[case]
+    m = {"m=0": 0, "one_row": 1, "jrel=0": 500, "mixed": 100_003,
+         "deep": 4097}[case]
+    rng = np.random.default_rng(len(widths) + m)
+    hist, offs = _history(rng, widths)
+    top = len(widths) - 1
+    jrel = (np.zeros(m, dtype=np.int32) if case == "jrel=0"
+            else rng.integers(0, top + 1, size=m).astype(np.int32))
+    if case == "one_row":
+        jrel[:] = top
+    rows = np.array([rng.integers(0, widths[j]) for j in jrel],
+                    dtype=np.int32)
+    maxj = top if case == "m=0" else int(jrel.max())
+    args = [torch.as_tensor(a, device=cuda) for a in (hist, offs, rows, jrel)]
+    before = _build.LAUNCHES["decode"]
+    base, syms = decode(*args, maxj)
+    assert _build.LAUNCHES["decode"] == before + (m > 0)
+    pbase, psyms = decode_plain(*args, maxj)
+    torch.cuda.synchronize()
+    assert base.shape == (m,) and syms.shape == (m, maxj)
+    assert torch.equal(base, pbase) and torch.equal(syms, psyms)
+
+
+def _children_layout(rng, sizes, frac, sym_mask):
+    U = len(sizes)
+    nb = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    P = int(nb[-1])
+    node = np.repeat(np.arange(U), sizes)
+    pairs = rng.integers(-2**31, 2**31, size=(P, 6)).astype(np.int32)
+    pairs[:, 5] = node
+    olo = rng.integers(-2**31, 2**31 - 5000, size=(8, P))
+    ohi = olo + rng.integers(0, 5000, size=(8, P))
+    keep = rng.random((4, P)) < frac
+    keep &= (((sym_mask >> np.arange(4)) & 1) > 0)[:, None]
+    return nb, pairs, olo.astype(np.int32), ohi.astype(np.int32), keep
+
+
+@pytest.mark.parametrize("case", ["U=1", "node_512", "nothing_kept",
+                                  "all_kept", "restricted", "no_pairs",
+                                  "wide"])
+def test_children_kernel(cuda, case):
+    from dsm_tpu_torch.ops.children import children, children_plain
+
+    rng = np.random.default_rng(len(case))
+    sizes = {"U=1": [3], "node_512": [2, 512, 1, 5], "no_pairs": [0, 0],
+             "wide": rng.integers(1, 6, size=300_001)}.get(
+                 case, rng.integers(1, 6, size=5000))
+    frac = {"nothing_kept": 0.0, "all_kept": 1.0}.get(case, 0.3)
+    sym_mask = 0b0010 if case == "restricted" else 0b1111
+    layout = _children_layout(rng, np.asarray(sizes), frac, sym_mask)
+    nb, pairs, olo, ohi, keep = (torch.as_tensor(a, device=cuda)
+                                 for a in layout)
+    pair_count = int(keep.sum())
+    node = pairs[:, 5].to(torch.int64)
+    c = torch.arange(4, device=cuda)[:, None]
+    child_total = int(torch.unique((node * 4 + c)[keep]).numel())
+    got_hist = torch.full((child_total + 5,), -7, dtype=torch.int32,
+                          device=cuda)
+    want_hist = got_hist.clone()
+    before = _build.LAUNCHES["children"]
+    got = children(nb, pairs, olo, ohi, keep, pair_count, child_total,
+                   got_hist)
+    assert _build.LAUNCHES["children"] == before + 1
+    want = children_plain(nb, pairs, olo, ohi, keep, pair_count,
+                          child_total, want_hist)
+    torch.cuda.synchronize()
+    assert got[0].shape == (pair_count, 6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got_hist, want_hist)
+
+
+def test_checkpoint_resume_on_card_equals_cpu(cuda, toy_indexes, tmp_path,
+                                              monkeypatch):
+    """Killed after its second snapshot and resumed, on the card; the
+    snapshot history pull included (small DSM_HIST_CAP)."""
+    from dsm_tpu.mining.config import MiningConfig
+    from dsm_tpu_torch.mining import checkpoint as ckpt
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    monkeypatch.setenv("DSM_HIST_CAP", "20000")
+    kw = dict(out_reserve=0, tail_width=0)
+    ck = str(tmp_path / "card.ckpt")
+    save = ckpt.save_checkpoint
+    saves = []
+
+    def killing(*a, **k):
+        save(*a, **k)
+        saves.append(1)
+        if len(saves) == 2:
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(ckpt, "save_checkpoint", killing)
+    with pytest.raises(KeyboardInterrupt):
+        mine_torch(toy_indexes, cfg, device=cuda, checkpoint=ck, **kw)
+    monkeypatch.setattr(ckpt, "save_checkpoint", save)
+    _build.reset_launches()
+    got = mine_torch(toy_indexes, cfg, device=cuda, checkpoint=ck, **kw)
+    assert _build.LAUNCHES["decode"] > 0 and _build.LAUNCHES["children"] > 0
+    assert not os.path.exists(ck)
+    want = mine_torch(toy_indexes, cfg, device="cpu", **kw)
+    assert got.format_lines() == want.format_lines()
+    assert (got.total_paths, got.total_output, got.total_occs) == \
+        (want.total_paths, want.total_output, want.total_occs)
+
+
+def test_halt_on_card_equals_cpu(cuda, toy_indexes):
+    from dsm_tpu.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    runs = []
+    for device in (cuda, "cpu"):
+        depths = []
+        out = mine_torch(toy_indexes, cfg, device=device, out_reserve=1,
+                         halt=lambda d, o: depths.append(d) or [b"A", b"GT"])
+        runs.append((out.format_lines(), out.total_paths, depths))
+    assert runs[0] == runs[1] and runs[0][2]
 
 
 @pytest.mark.parametrize("exits", ["default", "drain+histfull"])
