@@ -12,7 +12,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
   4. kernels: each CUDA kernel against its plain PyTorch version on the
      card at main-path shapes (equal integers; the f64 entropy within
      ENT_TOL), with both times.  The suffix array of toy0, forward and
-     reverse, must also equal dsm_tpu's host `suffix_array_np`; it is
+     reverse, must also equal the host `suffix_array_np`; it is
      timed there and at n = 2^24.  The sort's k = 16 round of toy0 is
      checked from the previous round's order and from scratch, its first
      round from scratch; the round's bytes a key and TB/s are printed
@@ -20,7 +20,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      device time, P3 also at N = 2^24.  The path decode (K6) walks a
      synthetic history of DEC_LEVELS levels of SEG_NODES nodes, and the
      children step (K3) runs on SEG_NODES nodes of 1..5 pairs with ~30%
-     of the lanes kept (all symbols, and one symbol alone);
+     of the lanes kept (all symbols, and one symbol alone).  The pairwise
+     distance matrices (K11) take DIST_R rows of DIST_D samples in
+     DIST_BINS bins (`distance_rows`: ~30% of the entries nonzero,
+     long-tailed), against
+     the plain version run in chunks on the card (count equal, the f64
+     sums within DIST_TOL) and against NumPy `pairwise_matrices` on the
+     first 4,096 rows; also d = 5 and d = 273 at fewer rows, and with
+     the normalising factors (this one after phase 7, so that the plain
+     version's library workspace is not in the mine's peak memory);
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
@@ -33,14 +41,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      HALT_RESERVE: the first poll before the tail); its lines are a
      subset of the warm ascending run's, none under A is deeper than the
      first poll, and the lines outside A are equal;
-  8. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
+  8. distance path: the gnu mine's 485 lines through
+     `DistanceAccumulator(smpls=5, maxents=entropy_steps(0.05))`, exact on
+     the host and exact=False on the card: count and noutput equal, the
+     f64 matrices within DIST_TOL, and the kernel launched;
+  9. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
      each launching its kernel.
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume and halt phases).
-Then one JSON line of kernels, the card's name and power limit, and the
-final line {"ok": true, "device": {...}}.
+Then one JSON line of kernels (each with its launches on its path, its
+error and time against the plain version, the least time the card could
+take for the same bytes and operations, and the time of the one PyTorch
+call that computes the same function, where there is one), the card's
+name and power limit, and the final line {"ok": true, "device": {...}}.
 
-The script imports torch and the port, never JAX.
+The script imports torch and the port, never JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -72,13 +87,22 @@ HALT_RESERVE = 500      # ascending: the first halt poll at depth 10
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
 P3_BIG = 1 << 24        # async_copy where bytes count (128 MB moved)
+DIST_R, DIST_D, DIST_BINS = 1 << 20, 64, 21   # K11: rows, samples, bins
+# K11's f64 sums against the plain version's: up to 2^20 same-signed terms
+# a matrix entry, added in another order (the kernel's row slices meet in
+# atomics), and against NumPy also another libm's log1p and lgamma
+DIST_TOL = 1e-9         # |got - want| <= DIST_TOL * (1 + |want|)
 HBM_TBS = 3.35          # H100 SXM HBM3 peak, TB/s
+F32_TOPS = 67.0         # H100 SXM peak outside the tensor cores, T op/s:
+#                         taken for f32 and, generously, for integer work
+F64_TOPS = 33.5         # f64 outside the tensor cores: half the f32 rate
 # the kernels of each path, by the name in the kernels line
 LAUNCH_KEY = {"occ_cum8": "rank", "compact_rows": "compact",
               "segstats": "segstats", "decode": "decode",
               "children": "children", "sa_sort": "sa_sort",
               "sa_rank": "sa_rank", "smem_carry": "repro_carry",
-              "async_copy": "repro_async", "dynamic_store": "repro_dynstore"}
+              "async_copy": "repro_async", "dynamic_store": "repro_dynstore",
+              "pairwise_matrices": "distance"}
 
 
 def log(msg: str) -> None:
@@ -149,12 +173,22 @@ def path_launches(path: str, label: str | None = None) -> dict:
     return launches
 
 
+def bound(nbytes: float, ops: float, tops: float = F32_TOPS) -> dict:
+    """The least time the card could take: `nbytes` (each input read once,
+    each output written once) at the memory's peak rate, or `ops`
+    operations at `tops` T op/s, whichever is longer."""
+    by_bytes = nbytes / (HBM_TBS * 1e12) * 1e3
+    by_ops = ops / (tops * 1e12) * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
 def phase_data(torch, toy, td: str, device):
     """Scale-100 toydata and its indexes, built on the card per sample;
     -> (indexes, toy0's forward and reverse codes, build launches)."""
-    from dsm_tpu.index.alphabet import transform
-    from dsm_tpu.index.fasta import read_fasta
     from dsm_tpu_torch.index import indexes_from_fasta
+    from dsm_tpu_torch.index.alphabet import transform
+    from dsm_tpu_torch.index.fasta import read_fasta
     from dsm_tpu_torch.index.fmindex import collection_codes
     from dsm_tpu_torch.ops import _build
 
@@ -257,7 +291,11 @@ def phase_kernels(torch, dev, device) -> list[dict]:
         replaces="dsm_tpu/ops/rank.py:241", max_abs_err=err,
         ms=cuda_ms(torch, lambda: occ_cum8(dev.frows, pos_t, soff_t)),
         plain_ms=cuda_ms(torch,
-                         lambda: occ_cum8_plain(dev.frows, pos_t, soff_t))))
+                         lambda: occ_cum8_plain(dev.frows, pos_t, soff_t)),
+        # the table rows these queries touch (128 B each) once, 8 B in and
+        # 32 B out a query; ~60 integer operations a query
+        **bound(128 * int(torch.unique((pos_t >> 7) + soff_t).numel())
+                + q * (8 + 32), 60 * q), library_ms=None))
     log(f"kernel rank: Q={q} equal; {results[-1]['ms']:.3f} ms vs plain "
         f"{results[-1]['plain_ms']:.3f} ms")
 
@@ -280,15 +318,20 @@ def phase_kernels(torch, dev, device) -> list[dict]:
             if frac == 0.3:
                 times[c] = (
                     cuda_ms(torch, lambda: compact_rows(mask, vals, k)),
-                    cuda_ms(torch, lambda: compact_rows_plain(mask, vals, k)))
-    for c, (km, pm) in times.items():
+                    cuda_ms(torch, lambda: compact_rows_plain(mask, vals, k)),
+                    cuda_ms(torch, lambda: vals[mask]), k)
+    for c, (km, pm, lm, _k) in times.items():
         log(f"kernel compact: N={n} C={c} 30% set: {km:.3f} ms vs plain "
-            f"{pm:.3f} ms")
+            f"{pm:.3f} ms (values[mask] {lm:.3f} ms)")
+    km, pm, lm, k = times[6]
     results.append(dict(
         name="compact_rows", route="cuda",
         source="dsm_tpu_torch/csrc/compact.cu",
         replaces="dsm_tpu/ops/pallas_compact.py:162", max_abs_err=0,
-        ms=times[6][0], plain_ms=times[6][1]))
+        ms=km, plain_ms=pm,
+        # the mask and the rows in, the kept rows and the count out; a
+        # scan step and a test a row
+        **bound(n * (1 + 6 * 4) + k * 6 * 4 + 4, 2 * n), library_ms=lm))
 
     # segstats: ~4M pairs in nodes of 1..5 pairs (S = 5 samples)
     sizes = rng.integers(1, 6, size=SEG_NODES)
@@ -313,7 +356,11 @@ def phase_kernels(torch, dev, device) -> list[dict]:
         name="segstats", route="cuda", source="dsm_tpu_torch/csrc/segstats.cu",
         replaces="dsm_tpu/mining/engine_device.py:726", max_abs_err=eerr,
         ms=cuda_ms(torch, lambda: segstats(nb_t, f_t, c_t, g)),
-        plain_ms=cuda_ms(torch, lambda: segstats_plain(nb_t, f_t, c_t, g))))
+        plain_ms=cuda_ms(torch, lambda: segstats_plain(nb_t, f_t, c_t, g)),
+        # nb, freq, cact in; flags, entropy, pair_out out; ~6 f64
+        # operations a pair (one of them a log) and ~6 a node
+        **bound(4 * (len(sizes) + 1) + 5 * p + 12 * len(sizes) + p,
+                6 * p + 6 * len(sizes), F64_TOPS), library_ms=None))
     log(f"kernel segstats: U={len(sizes)} P={p} equal (entropy err "
         f"{eerr:.3g}); {results[-1]['ms']:.3f} ms vs plain "
         f"{results[-1]['plain_ms']:.3f} ms")
@@ -348,7 +395,11 @@ def phase_level_kernels(torch, device) -> list[dict]:
         name="decode", route="cuda", source="dsm_tpu_torch/csrc/decode.cu",
         replaces="dsm_tpu/mining/engine_device.py:990", max_abs_err=0,
         ms=cuda_ms(torch, lambda: decode(*args)),
-        plain_ms=cuda_ms(torch, lambda: decode_plain(*args)))]
+        plain_ms=cuda_ms(torch, lambda: decode_plain(*args)),
+        # rows and jrel in, one 4-byte history entry a row a level, the
+        # base and one symbol byte a row a level out
+        **bound(w * (8 + 4 * DEC_LEVELS + 4 + DEC_LEVELS),
+                3 * w * DEC_LEVELS), library_ms=None)]
     log(f"kernel decode: m={w:,} rows x {DEC_LEVELS} levels equal; events "
         f"{results[-1]['ms']:.4f} ms vs plain {results[-1]['plain_ms']:.4f}"
         f" ms; device {fmt_ms(device_ms(torch, lambda: decode(*args)))} vs "
@@ -394,7 +445,12 @@ def phase_level_kernels(torch, device) -> list[dict]:
                 name="children", route="cuda",
                 source="dsm_tpu_torch/csrc/children.cu",
                 replaces="dsm_tpu/mining/engine_device.py:789",
-                max_abs_err=0, ms=ms, plain_ms=plain_ms))
+                max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                # nb, the pair rows, both rank outputs and the keep mask
+                # in; the kept rows, nb_next and the history entries out
+                **bound(4 * (w + 1) + p * (24 + 64 + 4) + 24 * pair_count
+                        + 4 * (child_total + 1) + 4 * child_total, 16 * p),
+                library_ms=None))
     return results
 
 
@@ -402,10 +458,10 @@ def phase_sa_kernels(torch, toy0, device) -> list[dict]:
     """The suffix-array kernels on toy0's collections (both directions)
     and at SA_BIG; toy0's first round checked, and its round k = 16 of
     each kernel timed alone (the sort's also at SA_BIG)."""
-    from dsm_tpu.ops.sa import suffix_array_np
     from dsm_tpu_torch.ops.sa import (rank_round, rank_round_plain,
                                       sort_round, sort_round_plain,
-                                      suffix_array, suffix_array_plain)
+                                      suffix_array, suffix_array_np,
+                                      suffix_array_plain)
 
     for label, codes in zip(("forward", "reverse"), toy0):
         c = torch.as_tensor(codes, device=device)
@@ -436,8 +492,9 @@ def phase_sa_kernels(torch, toy0, device) -> list[dict]:
                          "toy0's first round")
     log(f"kernel sa_sort: toy0 forward first round (k=1, from scratch, "
         f"codes < {top0 + 1}) equal")
-    rank, k, top, (keys, order), ms, plain_ms = sa_round(torch, c,
-                                                         "toy0 forward")
+    rank, k, top, (keys, order), ms, plain_ms, lib_ms = sa_round(
+        torch, c, "toy0 forward")
+    n0 = rank.shape[0]
     r1, r2 = rank.clone(), rank.clone()
     new1, new2 = rank_round(keys, order, r1), rank_round_plain(keys, order,
                                                                r2)
@@ -447,12 +504,20 @@ def phase_sa_kernels(torch, toy0, device) -> list[dict]:
     results = [
         dict(name="sa_sort", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
              replaces="dsm_tpu/ops/sa.py:109", max_abs_err=0, ms=ms,
-             plain_ms=plain_ms),
+             plain_ms=plain_ms,
+             # rank and the previous order in, keys and order out; one
+             # digit and one move a key a pass
+             **bound(n0 * (4 + 4 + 8 + 4),
+                     2 * n0 * sort_bytes_per_key(n0, k, top, True)[1]),
+             library_ms=lib_ms),
         dict(name="sa_rank", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
              replaces="dsm_tpu/ops/sa.py:110", max_abs_err=0,
              ms=cuda_ms(torch, lambda: rank_round(keys, order, r1)),
              plain_ms=cuda_ms(torch,
-                              lambda: rank_round_plain(keys, order, r2)))]
+                              lambda: rank_round_plain(keys, order, r2)),
+             # keys and order in, rank out; a compare, a scan step and a
+             # scatter a key
+             **bound(n0 * (8 + 4 + 4), 3 * n0), library_ms=None)]
     log(f"kernel sa_rank: toy0 forward n={len(toy0[0]):,} round k={k} "
         f"equal; {results[1]['ms']:.3f} ms vs plain "
         f"{results[1]['plain_ms']:.3f} ms")
@@ -474,7 +539,8 @@ def sa_round(torch, codes, label: str):
     """Round k = SA_ROUND_K of the prefix doubling of `codes` (the rounds
     before it by the plain versions): the kernel's sort from the previous
     round's order and from scratch, each against the plain sort, timed;
-    -> (rank, k, max rank, the plain (keys, order), ms, plain ms)."""
+    -> (rank, k, max rank, the plain (keys, order), ms, plain ms, the ms
+    of torch.sort alone on the packed keys)."""
     from dsm_tpu_torch.ops.sa import (rank_round_plain, sort_round,
                                       sort_round_plain)
 
@@ -495,15 +561,18 @@ def sa_round(torch, codes, label: str):
     ms = cuda_ms(torch, lambda: sort_round(rank, k, top, prev))
     scratch_ms = cuda_ms(torch, lambda: sort_round(rank, k, top))
     plain_ms = cuda_ms(torch, lambda: sort_round_plain(rank, k, top))
+    packed = want[0][torch.randperm(want[0].shape[0], device=rank.device)]
+    lib_ms = cuda_ms(torch, lambda: torch.sort(packed, stable=True))
     n, bits = rank.shape[0], top.bit_length()
     per_key, passes = sort_bytes_per_key(n, k, top, True)
     tbs = per_key * n / (ms * 1e-3) / 1e12
     log(f"kernel sa_sort: {label} n={n:,} round k={k} (ranks < {top + 1:,}"
         f": {bits} bits, {passes} passes) equal from the "
         f"previous order and from scratch; {ms:.4f} ms (from scratch "
-        f"{scratch_ms:.4f} ms) vs plain {plain_ms:.4f} ms; {per_key} B a "
+        f"{scratch_ms:.4f} ms) vs plain {plain_ms:.4f} ms (torch.sort alone "
+        f"{lib_ms:.4f} ms); {per_key} B a "
         f"key, {tbs:.3f} TB/s = {100 * tbs / HBM_TBS:.1f}% of {HBM_TBS} TB/s")
-    return rank, k, top, want, ms, plain_ms
+    return rank, k, top, want, ms, plain_ms, lib_ms
 
 
 def phase_repro_kernels(torch, device) -> list[dict]:
@@ -516,11 +585,14 @@ def phase_repro_kernels(torch, device) -> list[dict]:
     want = expected(device)
     x = torch.arange(N, dtype=torch.int32, device=device)
     results = []
-    for name, line, fn, plain in (
-            ("smem_carry", 81, repro.smem_carry, repro.smem_carry_plain),
-            ("async_copy", 101, repro.async_copy, repro.async_copy_plain),
+    # the one PyTorch call with the same result, where there is one
+    for name, line, fn, plain, library in (
+            ("smem_carry", 81, repro.smem_carry, repro.smem_carry_plain,
+             None),
+            ("async_copy", 101, repro.async_copy, repro.async_copy_plain,
+             lambda t: torch.mul(t, 2)),
             ("dynamic_store", 123, repro.dynamic_store,
-             repro.dynamic_store_plain)):
+             repro.dynamic_store_plain, torch.clone)):
         got = fn(x)
         torch.cuda.synchronize()
         if not (torch.equal(got, plain(x)) and torch.equal(got, want[name])):
@@ -530,7 +602,11 @@ def phase_repro_kernels(torch, device) -> list[dict]:
             name=name, route="cuda", source="dsm_tpu_torch/csrc/repro.cu",
             replaces=f"tools/pallas_repro.py:{line}", max_abs_err=0,
             ms=cuda_ms(torch, lambda: fn(x)),
-            plain_ms=cuda_ms(torch, lambda: plain(x))))
+            plain_ms=cuda_ms(torch, lambda: plain(x)),
+            # N int32 in, N out; one operation an element
+            **bound(8 * N, N),
+            library_ms=(None if library is None
+                        else cuda_ms(torch, lambda: library(x)))))
         log(f"kernel {name}: N={N} equal; events {results[-1]['ms']:.4f} ms "
             f"vs plain {results[-1]['plain_ms']:.4f} ms; device "
             f"{fmt_ms(device_ms(torch, lambda: fn(x)))} vs plain "
@@ -552,6 +628,155 @@ def phase_repro_kernels(torch, device) -> list[dict]:
         f"device {fmt_ms(dev)} vs plain "
         f"{fmt_ms(device_ms(torch, lambda: repro.async_copy_plain(xb)))}")
     return results
+
+
+def distance_rows(rng, rows: int, d: int, nbins: int):
+    """Mined-row-like inputs of K11: (rows, d) int32 frequencies, ~30% of
+    them nonzero with a long (Pareto) tail, and a bin a row in [0, nbins)
+    with bin 1 left empty when there are more than two."""
+    F = np.minimum(rng.pareto(1.1, size=(rows, d)) * 4 + 1, 2e6)
+    F = (F * (rng.random((rows, d)) < 0.3)).astype(np.int32)
+    bins = rng.integers(0, nbins, size=rows).astype(np.int32)
+    if nbins > 2:
+        bins[bins == 1] = 0
+    return F, bins
+
+
+def plain_in_chunks(torch, F, nbins, bins, nfactor, chunk: int) -> dict:
+    """pairwise_matrices_plain over row chunks (its (rows, d, d) f64
+    temporaries bound the chunk), summed."""
+    from dsm_tpu_torch.ops.distance import pairwise_matrices_plain
+
+    total = None
+    for r0 in range(0, F.shape[0], chunk):
+        part = pairwise_matrices_plain(F[r0:r0 + chunk], nbins,
+                                       bins[r0:r0 + chunk], nfactor)
+        if total is None:
+            total = part
+        else:
+            for kind in total:
+                total[kind] += part[kind]
+    return total
+
+
+def distance_err(got: dict, want: dict, label: str) -> float:
+    """Fails unless count is equal and the f64 matrices are within
+    DIST_TOL; -> the largest absolute difference.  Takes tensors or
+    NumPy arrays."""
+    def host(a):
+        return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+    if not np.array_equal(host(got["count"]), host(want["count"])):
+        raise SystemExit(f"{label}: count differs")
+    worst = 0.0
+    for kind in ("log", "sqrt", "lgamma"):
+        g, w = host(got[kind]), host(want[kind])
+        diff = np.abs(g - w)
+        if not np.isfinite(g).all() or (diff > DIST_TOL * (1 + np.abs(w))).any():
+            i = np.unravel_index(np.argmax(diff), diff.shape)
+            raise SystemExit(f"{label}: {kind} differs at {i}: got {g[i]!r}, "
+                             f"want {w[i]!r}")
+        worst = max(worst, float(diff.max(initial=0.0)))
+    return worst
+
+
+def phase_distance_kernel(torch, device) -> list[dict]:
+    """K11 against its plain version (in chunks on the card) and against
+    NumPy `pairwise_matrices`, at DIST_R x DIST_D in DIST_BINS bins, at
+    d = 5 and d = 273 with fewer rows, and with normalising factors."""
+    from dsm_tpu_torch.ops.distance import pairwise_matrices
+    from dsm_tpu_torch.post.distance import pairwise_matrices as oracle
+
+    rng = np.random.default_rng(2028)
+    result = None
+    for rows, d, nbins, chunk, scaled in (
+            (DIST_R, DIST_D, DIST_BINS, 8192, False),
+            ((1 << 18) + 77, 5, DIST_BINS, 1 << 16, False),
+            ((1 << 16) + 5, 273, 30, 512, False),
+            ((1 << 16) + 5, DIST_D, 3, 8192, True)):
+        F_np, bins_np = distance_rows(rng, rows, d, nbins)
+        F = torch.as_tensor(F_np, device=device)
+        bins = torch.as_tensor(bins_np, device=device)
+        nf_np = 1.0 / rng.uniform(500, 4000, size=d) if scaled else None
+        nf = None if nf_np is None else torch.as_tensor(nf_np, device=device)
+        got = pairwise_matrices(F, nbins, bins, nf)
+        torch.cuda.synchronize()
+        label = f"kernel pairwise_matrices R={rows:,} d={d} nbins={nbins}" \
+                + (" normalised" if scaled else "")
+        t0 = time.perf_counter()
+        want = plain_in_chunks(torch, F, nbins, bins, nf, chunk)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = distance_err(got, want, label + " vs plain")
+        head = 4096 if d <= DIST_D else 256   # NumPy's (head, d, d) temporaries
+        ref = oracle(F_np[:head].astype(np.int64), nbins, bins_np[:head],
+                     nf_np)
+        if scaled:
+            ref["lgamma"] = np.zeros_like(ref["lgamma"])
+        np_err = distance_err(
+            pairwise_matrices(F[:head].contiguous(), nbins, bins[:head], nf),
+            ref, label + f" vs NumPy on {head} rows")
+        ms = cuda_ms(torch, lambda: pairwise_matrices(F, nbins, bins, nf), 5)
+        dms = device_ms(torch, lambda: pairwise_matrices(F, nbins, bins, nf), 3)
+        # this data's work: per row with z nonzero entries, the j < k pairs
+        # with either entry nonzero (6 f64 operations for the two squared
+        # differences and 6 for the lgamma term each), those with both
+        # (one more lgamma), and 3 transcendentals a nonzero entry
+        z = (F > 0).sum(dim=1).to(torch.float64)
+        either = float((d * (d - 1) / 2 - (d - z) * (d - z - 1) / 2).sum())
+        both = float((z * (z - 1) / 2).sum())
+        ops = (6 if scaled else 12) * either + 3 * float(z.sum()) \
+            + (0 if scaled else both)
+        bnd = bound(rows * d * 4 + rows * 4 + 4 * nbins * d * d * 8, ops,
+                    F64_TOPS)
+        log(f"{label}: count equal, f64 sums within {DIST_TOL} of plain (max "
+            f"abs err {err:.3g}) and of NumPy on {head} rows ({np_err:.3g}); "
+            f"events {ms:.4f} ms, device {fmt_ms(dms)}, plain in chunks of "
+            f"{chunk} rows {plain_ms:.1f} ms (one run, host clock); "
+            f"{either:.4g} pairs with an entry, {both:.4g} with both; bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+        if result is None:
+            result = dict(
+                name="pairwise_matrices", route="cuda",
+                source="dsm_tpu_torch/csrc/distance.cu",
+                replaces="dsm_tpu/post/distance.py:323",
+                max_abs_err=max(err, np_err), ms=ms, plain_ms=plain_ms,
+                **bnd, library_ms=None)
+    return [result]
+
+
+def phase_distance(torch, device, gnu) -> dict:
+    """The distance path: the mined lines through the accumulator, exact on
+    the host and in chunks through the kernel on the card."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.post.distance import (DistanceAccumulator,
+                                             entropy_steps)
+
+    lines = gnu.format_lines().decode().splitlines()
+    kw = dict(smpls=5, maxents=entropy_steps(0.05))
+    exact = DistanceAccumulator(**kw)
+    exact.add_lines(lines)
+    want = exact.matrices()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fast = DistanceAccumulator(exact=False, device=device, **kw)
+    fast.add_lines(lines)
+    got = fast.matrices()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches("distance")
+    if not np.array_equal(got["noutput"], want["noutput"]):
+        raise SystemExit("distance: noutput differs")
+    err = distance_err(got, want, "distance path")
+    if not all(np.isfinite(got[k]).all() and got[k].shape == (21, 5, 5)
+               for k in ("log", "sqrt", "lgamma")):
+        raise SystemExit("distance: matrices of the wrong shape")
+    log(f"distance: {fast.rows_read} lines -> {int(got['noutput'][-1])} rows "
+        f"in {len(got['thresholds'])} nested bins in {wall:.4f} s; count and "
+        f"noutput equal the exact host path, f64 matrices within {DIST_TOL} "
+        f"(max abs err {err:.3g})")
+    return launches
 
 
 def phase_repro(torch, device) -> dict:
@@ -591,6 +816,7 @@ def phase_main(torch, idxs, dev, device) -> dict:
         return out
 
     torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
     _build.reset_launches()
     # the first run pays one-time costs (the host indexes' lazy dense
     # tables, first use of each torch op on the card); the second is warm
@@ -600,7 +826,8 @@ def phase_main(torch, idxs, dev, device) -> dict:
     torch.cuda.synchronize()
     launches = path_launches("mine")
     peak = torch.cuda.max_memory_allocated(device)
-    log(f"peak device memory (max_memory_allocated): {peak:,} bytes")
+    log(f"peak device memory (max_memory_allocated): {peak:,} bytes "
+        f"({before:,} allocated before the mine)")
 
     if cold.format_lines() != out.format_lines():
         raise SystemExit("two ascending runs on the card disagree")
@@ -608,7 +835,7 @@ def phase_main(torch, idxs, dev, device) -> dict:
             or gnu.total_paths != out.total_paths:
         raise SystemExit("gnu and ascending runs report different counts")
     check_reference(gnu, "scale-100 parity")
-    return launches, out
+    return launches, out, gnu
 
 
 def check_reference(gnu, label: str) -> None:
@@ -740,15 +967,21 @@ def main() -> int:
         kernels = (phase_kernels(torch, dev, device)
                    + phase_sa_kernels(torch, toy0, device)
                    + phase_repro_kernels(torch, device))
-        launches["mine"], warm = phase_main(torch, idxs, dev, device)
+        launches["mine"], warm, gnu = phase_main(torch, idxs, dev, device)
         phase_resume(torch, idxs, dev, device, td)
         phase_halt(torch, idxs, dev, device, warm)
+    # after the mine's peak memory is read: the plain version's f64 einsums
+    # leave the matrix library's 32 MiB workspace allocated for the process
+    kernels += phase_distance_kernel(torch, device)
+    log(f"device memory allocated after the K11 phase: "
+        f"{torch.cuda.memory_allocated(device):,} bytes")
+    launches["distance"] = phase_distance(torch, device, gnu)
     launches["repro"] = phase_repro(torch, device)
     counts = {k: v for path in launches.values() for k, v in path.items()}
     for k in kernels:
         k["launches"] = counts[LAUNCH_KEY[k["name"]]]
-    if "jax" in sys.modules:
-        raise SystemExit("chip_smoke: jax was imported")
+    if any(m == "jax" or m.split(".")[0] == "dsm_tpu" for m in sys.modules):
+        raise SystemExit("chip_smoke: jax or the JAX package was imported")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

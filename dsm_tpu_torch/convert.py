@@ -1,9 +1,16 @@
-"""What carries over from the JAX package to the port: tables and state.
+"""What carries over from the JAX package to the port: indexes, configs,
+tables and state.
 
-The mining run has no weights; its inputs on the device are the stacked
-fused occ tables, and its carried state is the episode (pair list, node
-starts, history, staged outputs, counters).
+The mining run has no weights; its inputs are the FM-indexes and the
+config, on the device the stacked fused occ tables, and its carried state
+is the episode (pair list, node starts, history, staged outputs,
+counters).  Nothing here imports dsm_tpu: the functions read the
+attributes of the objects they are given.
 
+  * `fmindex_from_jax(idx)`: a dsm_tpu FMIndex -> the port's FMIndex
+    (both directions, SA samples, metadata; the arrays are shared, not
+    copied);
+  * `config_from_jax(cfg)`: a dsm_tpu MiningConfig -> the port's;
   * `tables_from_device_indexes(jdev, device)`: a dsm_tpu DeviceIndexes
     (its host arrays) -> the port's DeviceIndexes on `device`;
   * `episode_state_from_numpy(state, device)`: a JAX episode state
@@ -16,11 +23,44 @@ starts, history, staged outputs, counters).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .index.fmindex import FMIndex, SASamples
 from .mining import engine_device as ted
+from .mining.config import MiningConfig
 from .mining.engine import DeviceIndexes
+from .ops.rank import OccTable
+
+
+def _occ_table(t) -> OccTable:
+    return OccTable(n=int(t.n), blocks=t.blocks, occ=t.occ, counts=t.counts,
+                    C=t.C)
+
+
+def fmindex_from_jax(idx) -> FMIndex:
+    """dsm_tpu.index.fmindex.FMIndex -> the port's FMIndex over the same
+    arrays.  The reverse table comes along when the index has one, and is
+    rebuilt lazily (as in dsm_tpu) when it has not."""
+    s = idx.sa_samples
+    samples = None if s is None else SASamples(
+        rows=s.rows, vals=s.vals, text_starts=s.text_starts,
+        endmarker_doc=s.endmarker_doc)
+    return FMIndex(
+        n=int(idx.n), table=_occ_table(idx.table),
+        number_of_texts=int(idx.number_of_texts),
+        max_text_length=int(idx.max_text_length),
+        samplerate=int(idx.samplerate), names=list(idx.names),
+        sa_samples=samples,
+        _rtable=None if idx._rtable is None else _occ_table(idx._rtable))
+
+
+def config_from_jax(cfg) -> MiningConfig:
+    """dsm_tpu.mining.config.MiningConfig -> the port's, field by field."""
+    return MiningConfig(**{f.name: getattr(cfg, f.name)
+                           for f in dataclasses.fields(MiningConfig)})
 
 
 def tables_from_device_indexes(jdev, device) -> DeviceIndexes:

@@ -1,11 +1,12 @@
 """Index construction, `dsm_tpu_torch build`: FASTA -> .dsmi or .fmi.
 
-Counterpart of dsm_tpu/index/build.py `build_index` with the suffix
-arrays on a torch device: read the records, apply the reference's
-transform, build one index over all records (or flush and merge every
-`buffer_symbols`), and save it with `FMIndex.save` (.dsmi) or
-`dsm_tpu.index.fmi_compat.save_fmi` (.fmi).  With -v, stderr carries the
-lines `dsm build -v` prints.
+Counterpart of dsm_tpu/index/build.py `build_index` (the reference's
+build flow, builder.cpp:203-285) with the suffix arrays on a torch device,
+or with device=None by the host NumPy sort (`--sa-backend numpy`): read
+the records, apply the reference's transform, build one index over all
+records (or flush and merge every `buffer_symbols`), and save it with
+`FMIndex.save` (.dsmi) or `fmi_compat.save_fmi` (.fmi).  With -v, stderr
+carries the lines `dsm build -v` prints.
 """
 
 from __future__ import annotations
@@ -14,23 +15,30 @@ import os
 import sys
 import time
 
-from dsm_tpu.index.alphabet import transform
-from dsm_tpu.index.build import INDEX_EXTENSION
-from dsm_tpu.index.fasta import read_fasta
-from dsm_tpu.index.fmindex import DEFAULT_SAMPLERATE, FMIndex
-
-from .fmindex import fmindex_from_texts
+from .alphabet import transform
+from .fasta import read_fasta
+from .fmindex import DEFAULT_SAMPLERATE, FMIndex
 from .incremental import IncrementalBuilder
+
+INDEX_EXTENSION = ".dsmi"
+
+
+def libname(path: str) -> str:
+    """Sample name from an index/input filename: basename up to the first
+    '.' (metaenumerate.cpp:79-88)."""
+    base = path.replace("\\", "/").rsplit("/", 1)[-1]
+    return base.split(".", 1)[0]
 
 
 def build_index(input_fasta: str, output: str | None = None,
                 samplerate: int = DEFAULT_SAMPLERATE, *, device,
                 fmt: str = "dsmi", buffer_symbols: int = 0,
                 verbose: bool = False) -> str:
-    """Build the index of one FASTA file on `device` and save it; ->
-    the path written."""
+    """Build the index of one FASTA file and save it; -> the path written.
+    `device`: the torch device of the suffix sorts, or None for the host
+    NumPy sort."""
     t0 = time.time()
-    if verbose:
+    if verbose and device is not None:
         print(f"builder: sa-backend auto -> {device}", file=sys.stderr)
     texts, names = [], []
     for rec in read_fasta(input_fasta):
@@ -47,10 +55,10 @@ def build_index(input_fasta: str, output: str | None = None,
             ib.insert(t, nm)
         idx = ib.finish()
     else:
-        idx = fmindex_from_texts(texts, names, samplerate=samplerate,
+        idx = FMIndex.from_texts(texts, names, samplerate=samplerate,
                                  device=device)
     if fmt == "fmi":
-        from dsm_tpu.index.fmi_compat import save_fmi
+        from .fmi_compat import save_fmi
 
         return save_fmi(idx, output if output is not None else input_fasta)
     out = output if output is not None else input_fasta + INDEX_EXTENSION
@@ -66,6 +74,6 @@ def build_index(input_fasta: str, output: str | None = None,
 def indexes_from_fasta(paths: list[str], device) -> list[FMIndex]:
     """One FM-index per FASTA file (one text per record), named by the
     file's basename, with the suffix arrays on `device`."""
-    return [fmindex_from_texts([transform(rec.seq) for rec in read_fasta(p)],
+    return [FMIndex.from_texts([transform(rec.seq) for rec in read_fasta(p)],
                                names=[os.path.basename(p)], device=device)
             for p in paths]

@@ -20,15 +20,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dsm_tpu.index.fmindex import FMIndex
-from dsm_tpu.mining.config import MiningConfig
-from dsm_tpu.mining.engine import EXT4
-from dsm_tpu.mining.engine_device import OUT_RESERVE, TAIL_WIDTH
-from dsm_tpu.mining.engine_np import LC_N, LC_ZERO, MinedOutput
-from dsm_tpu.ops.rank import ROWW, fused_rows
-
-from ..ops.rank import occ_cum8
+from ..index.fmindex import FMIndex
+from ..ops.rank import ROWW, fused_rows, occ_cum8
 from ..utils.device import resolve_device
+from .config import MiningConfig
+from .engine_np import LC_N, LC_ZERO, MinedOutput
+
+EXT4 = (2, 3, 4, 6)  # codes of A, C, G, T (alphabet.EXT_CODES as a tuple)
+# dsm_tpu's episode constants, kept so that both engines drain, poll and
+# save at the same levels and hand the same frontier to the host:
+OUT_RESERVE = 1 << 15  # staged output rows that make a DRAIN exit
+# hand the frontier to the host wavefront (engine_np.mine_from_level) once
+# it is this narrow and past engine_device.TAIL_MIN_DEPTH: deep tries (long
+# repeats) have thousands of near-empty levels, each a round of launches
+TAIL_WIDTH = 768
 
 # Hard sample-count bound of the episode engines: a node owns at most S
 # pairs, and the segstats kernel walks them in one thread.  The

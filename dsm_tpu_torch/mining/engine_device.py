@@ -47,18 +47,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from dsm_tpu.index.alphabet import EXT_CHARS
-from dsm_tpu.index.fmindex import FMIndex
-from dsm_tpu.mining import engine_device as jed
-from dsm_tpu.mining.config import MiningConfig
-from dsm_tpu.mining.engine_device import (ENT_MARGIN, FLAG_DONE, FLAG_DRAIN,
-                                          FLAG_HISTFULL, FLAG_RUN, FLAG_TAIL,
-                                          OC_DEPTH, OC_FREQ, OC_RLO, OC_ROW,
-                                          OC_SID, OUT_RESERVE,
-                                          TAIL_MIN_DEPTH, TAIL_WIDTH,
-                                          PathHistory, _hist_cap)
-from dsm_tpu.mining.engine_np import MinedOutput, node_entropy
-
+from ..index.alphabet import EXT_CHARS
+from ..index.fmindex import FMIndex
 from ..ops.children import (PAIR_COLS, PC_HI, PC_LO, PC_NID, PC_RLO,
                             PC_SID, PC_SOFF, children)
 from ..ops.compact import compact_rows
@@ -68,18 +58,76 @@ from ..ops.segstats import (EXISTS_SHIFT, F_PRESENT, F_STAT, Gates,
                             segstats)
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
-from .engine import MAX_SAMPLES, DeviceIndexes, leftchar_codes_pairs
+from .config import MiningConfig
+from .engine import (MAX_SAMPLES, OUT_RESERVE, TAIL_WIDTH, DeviceIndexes,
+                     leftchar_codes_pairs)
+from .engine_np import (MinedOutput, _Level, mine_from_level,
+                        node_entropy)
+from .gnulazy import LazyGnuOrder
 
-# the dsm_tpu pair-row column of each of the port's PC_* columns
-JAX_PAIR_COLS = [jed.PC_LO, jed.PC_HI, jed.PC_RLO, jed.PC_SID, jed.PC_SOFF,
-                 jed.PC_NID]
-# output-row columns ((k, 5) int32): OC_FREQ, OC_RLO, OC_SID, OC_ROW,
-# OC_DEPTH, as in dsm_tpu
+# the exits of a level, numbered as in dsm_tpu (whose FLAG_GROW, 3, has no
+# counterpart: the port's buffers take each level's exact sizes)
+FLAG_RUN, FLAG_DONE, FLAG_DRAIN, FLAG_HISTFULL, FLAG_TAIL = 0, 1, 2, 4, 5
+# TAIL_WIDTH (engine.py) takes effect from this depth on
+TAIL_MIN_DEPTH = 12
+# slack of the segstats kernel's entropy gate; the drain re-gates each
+# candidate with node_entropy's exact expression
+ENT_MARGIN = 1e-2
+# the dsm_tpu pair-row column of each of the port's PC_* columns: its
+# PC_LO, PC_HI, PC_RLO, PC_SID, PC_SOFF, PC_NID (dsm_tpu's rows hold the
+# node id in column 4 and the table offset in column 5)
+JAX_PAIR_COLS = [0, 1, 2, 3, 5, 4]
+# output-row columns ((k, 5) int32), as in dsm_tpu
+OC_FREQ, OC_RLO, OC_SID, OC_ROW, OC_DEPTH = range(5)
 OUT_COLS = 5
 # EXT_CHARS byte -> symbol code; 255 for a byte outside EXT_CHARS
 _CODE = np.full(256, 255, dtype=np.uint8)
 _CODE[np.frombuffer(EXT_CHARS, dtype=np.uint8)] = np.arange(len(EXT_CHARS))
 _EXT = np.frombuffer(EXT_CHARS, dtype=np.uint8)
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(x - 1, 1).bit_length()
+
+
+def _hist_cap(dev: DeviceIndexes) -> int:
+    """Device history sizing, dsm_tpu's rule: one int32 per union-trie
+    node.  Tries are typically a small multiple of the text length; 8x
+    covers everything measured, and overflow degrades to a (pulled)
+    FLAG_HISTFULL segment, never to an error.  The clamp spends up to
+    1 GiB of device memory (DSM_HIST_CAP overrides)."""
+    env = os.environ.get("DSM_HIST_CAP")
+    if env:
+        return int(env)
+    want = 8 * _next_pow2(int(dev.ns.sum()) + 1)
+    return max(1 << 20, min(want, 1 << 28))
+
+
+class PathHistory:
+    """The pulled parent-pointer history segments on the host
+    (`_history_codes` walks them; dsm_tpu's class of the same name also
+    decodes).
+
+    Only FLAG_HISTFULL exits pull history off the device; in the common
+    case this holds nothing and decoding happens on device.  Level d's
+    entries (one int32 per node: parent_row*4 + sym, in node-id order)
+    map rows at depth d to (parent row at d-1, symbol); segments
+    accumulate keyed by absolute depth.  base_paths seeds rows at
+    base_depth (checkpoint resume)."""
+
+    def __init__(self, base_depth: int = 0,
+                 base_paths: list[bytes] | None = None) -> None:
+        self.base_depth = base_depth
+        self.base = base_paths if base_paths is not None else [b""]
+        self.levels: dict[int, np.ndarray] = {}
+
+    def add_segment(self, d0: int, packed: np.ndarray,
+                    lens: np.ndarray) -> None:
+        """Levels d0+1 .. d0+len(lens) from one pulled device segment."""
+        off = 0
+        for k, ln in enumerate(np.asarray(lens, dtype=np.int64).tolist()):
+            self.levels[d0 + k + 1] = packed[off:off + ln]
+            off += ln
 
 
 @dataclass(frozen=True)
@@ -254,8 +302,8 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
 
 def _history_codes(ph: PathHistory, depth: int,
                    rows: np.ndarray) -> np.ndarray:
-    """PathHistory.decode(depth, rows) as an (m, depth) uint8 matrix of
-    symbol codes: the pulled segments walked down to the base, then the
+    """The paths of `rows` at `depth` (dsm_tpu's PathHistory.decode) as an
+    (m, depth) uint8 matrix of symbol codes: the pulled segments walked down to the base, then the
     base paths (a resumed snapshot's frontier)."""
     r = np.asarray(rows, dtype=np.int64)
     codes = np.empty((r.shape[0], depth), dtype=np.uint8)
@@ -476,8 +524,6 @@ def _handoff_tail(indexes, cfg, prefix, out, st: EpisodeState,
                   ph: PathHistory, seg_depth0: int, tracker=None) -> None:
     """FLAG_TAIL: densify the narrow frontier and finish on the host
     (engine_np.mine_from_level), where a thin level costs microseconds."""
-    from dsm_tpu.mining.engine_np import _Level, mine_from_level
-
     n, lo, hi, rlo, sid, nid = _pull_dense_frontier(st)
     S = len(indexes)
     lo_d = np.zeros((n, S), dtype=np.int64)
@@ -513,9 +559,9 @@ def mine_device(
 
     reader_order='gnu' emits byte-exactly like the reference server: the
     reader orders of the sparse emitted paths are reconstructed post hoc
-    (dsm_tpu/mining/gnulazy.py).  `dev` (tables already on a device)
+    (mining/gnulazy.py).  `dev` (tables already on a device)
     fixes the device.  The history buffer takes dsm_tpu's sizing rule
-    (engine_device._hist_cap; env DSM_HIST_CAP overrides).  A dict passed as
+    (_hist_cap; env DSM_HIST_CAP overrides).  A dict passed as
     `profile` receives host wall seconds per phase (levels, drain, tail,
     halt polls, saves), the level and save counts and the tail's start
     depth.
@@ -543,8 +589,6 @@ def mine_device(
     d = dev.S
     tracker = None
     if reader_order == "gnu":
-        from dsm_tpu.mining.gnulazy import LazyGnuOrder
-
         tracker = LazyGnuOrder(indexes, cfg.fmin, d,
                                server_prefix_len=max(1, len(prefix)))
     elif reader_order != "ascending":

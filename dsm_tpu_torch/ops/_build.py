@@ -14,7 +14,8 @@ passes the device's current stream, raises on a non-zero code and adds
 one to the kernel's count in `LAUNCHES`: the counts are of wrapper calls
 that launched the kernel, and nothing else adds to them.  `PATHS` names
 the kernels each entry point runs: `dsm_tpu_torch build` (the suffix
-array), `mine`, and the repro tool (`dsm_tpu_torch.tools.pallas_repro`).
+array), `mine`, `distance --fast`, and the repro tool
+(`dsm_tpu_torch.tools.pallas_repro`).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PATHS = {
     "build": ("sa_sort", "sa_rank"),
     "mine": ("rank", "compact", "segstats", "children", "decode"),
+    "distance": ("distance",),
     "repro": ("repro_carry", "repro_async", "repro_dynstore"),
 }
 LAUNCHES = {k: 0 for keys in PATHS.values() for k in keys}
@@ -60,6 +62,10 @@ _SIGNATURES = {
                      _P, _P, _P],
     # hist, lvl_off, rows, jrel, m, maxj, base, syms, stream
     "dsm_decode": [_P, _P, _P, _P, _I64, _I, _P, _P, _P],
+    # F, f_is64, bins, nfactor, R, d, nbins, slices, counts, order, count,
+    # log, sqrt, lgamma, stream
+    "dsm_pairwise": [_P, _I, _P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P, _P],
     # rank, prev, n, k, lo_bits, bits, keys, order, work, stream
     "dsm_sa_sort": [_P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
     # n, tail, bits -> bytes

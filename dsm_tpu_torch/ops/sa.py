@@ -1,7 +1,9 @@
 """Suffix array by prefix doubling (kernel K8, csrc/sa.cu).
 
-Counterpart of dsm_tpu/ops/sa.py `suffix_array_np` / `suffix_array_jax`,
-with their result element for element.  The initial rank is the code;
+Counterpart of dsm_tpu/ops/sa.py: `suffix_array_np` is the port's copy
+of the host NumPy sort (`build --sa-backend numpy`, and the oracle of the
+tests), `suffix_array` the counterpart of `suffix_array_jax`, with their
+result element for element.  The initial rank is the code;
 each round sorts the suffixes by (rank[i], rank[i+k]) with -1 past the
 end, gives each its number of distinct keys before it as the new rank,
 and stops when the ranks are all distinct (then the sorted order is the
@@ -25,6 +27,7 @@ int32 indices; codes must lie in [0, 2**31).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -178,6 +181,39 @@ def suffix_array(codes: torch.Tensor) -> torch.Tensor:
     return _prefix_doubling(codes, sort_round, rank_round)
 
 
-def bwt_from_sa(codes: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
-    """BWT[i] = codes[SA[i]-1] (cyclic), as dsm_tpu's bwt_from_sa."""
+def suffix_array_np(codes: np.ndarray) -> np.ndarray:
+    """Suffix array of `codes` via prefix doubling (host/NumPy)."""
+    n = int(codes.shape[0])
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    if n == 1:
+        return np.zeros(1, dtype=np.int64)
+
+    rank = np.ascontiguousarray(codes, dtype=np.int64)
+    k = 1
+    while True:
+        second = np.full(n, -1, dtype=np.int64)
+        second[: n - k] = rank[k:]
+        order = np.lexsort((second, rank))
+        kf, ks = rank[order], second[order]
+        neq = np.empty(n, dtype=np.int64)
+        neq[0] = 0
+        neq[1:] = (kf[1:] != kf[:-1]) | (ks[1:] != ks[:-1])
+        new_at_order = np.cumsum(neq)
+        if new_at_order[-1] == n - 1:
+            return order.astype(np.int64)
+        rank = np.empty(n, dtype=np.int64)
+        rank[order] = new_at_order
+        k *= 2
+
+
+def bwt_from_sa(codes, sa):
+    """BWT[i] = codes[SA[i]-1] (cyclic), of NumPy arrays or of tensors.
+    With every text terminated by code 0 the wrap-around lands on a
+    terminator, reproducing the counting semantics of the reference's
+    pseudo-BWT (FMIndex.cpp:473-480): LF on terminators is never taken by
+    the mining path, and per-symbol interval counts for terminator-free
+    patterns are exact."""
+    if isinstance(codes, np.ndarray):
+        return np.ascontiguousarray(codes[(sa - 1) % len(codes)])
     return codes[(sa.to(torch.int64) - 1) % codes.shape[0]]

@@ -2,7 +2,8 @@
 build`) against dsm_tpu's.
 
 On the CPU the suffix arrays run the plain PyTorch version.  Exact:
-`fmindex_from_texts` equals `FMIndex.from_texts` (JAX backend and numpy)
+the port's `FMIndex.from_texts` (sorting on the device, or on the host
+with device=None) equals dsm_tpu's (JAX backend and numpy)
 in every table array, the counts, the metadata and the SA samples; the
 incremental build equals dsm_tpu's; the CLI's `.dsmi` loads to the arrays
 of `dsm build --sa-backend numpy`'s, its `.fmi` is byte-equal, and its -v
@@ -25,7 +26,7 @@ from dsm_tpu.index.fasta import read_fasta
 from dsm_tpu.index.fmindex import FMIndex
 from dsm_tpu.index.incremental import IncrementalBuilder as DsmIncremental
 from dsm_tpu_torch.cli.main import main as port_main
-from dsm_tpu_torch.index.fmindex import fmindex_from_texts
+from dsm_tpu_torch.index.fmindex import FMIndex as PortFMIndex
 from dsm_tpu_torch.index.incremental import IncrementalBuilder
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -43,7 +44,7 @@ def texts():
     return [transform(r.seq) for r in recs], [r.name for r in recs]
 
 
-def assert_same_index(got: FMIndex, want: FMIndex) -> None:
+def assert_same_index(got, want: FMIndex) -> None:
     for a, b in ((got.table, want.table), (got.rtable, want.rtable)):
         for field in ("blocks", "occ", "counts", "C"):
             np.testing.assert_array_equal(getattr(a, field),
@@ -54,12 +55,12 @@ def assert_same_index(got: FMIndex, want: FMIndex) -> None:
                            want.samplerate, want.names)
 
 
-@pytest.mark.parametrize("backend,sample_sa", [("jax", False),
-                                               ("numpy", True)])
-def test_fmindex_from_texts_matches_dsm(texts, backend, sample_sa):
+@pytest.mark.parametrize("backend,sample_sa,device", [
+    ("jax", False, "cpu"), ("numpy", True, "cpu"), ("numpy", True, None)])
+def test_fmindex_from_texts_matches_dsm(texts, backend, sample_sa, device):
     seqs, names = texts
-    got = fmindex_from_texts(seqs, names, samplerate=31, device="cpu",
-                             sample_sa=sample_sa)
+    got = PortFMIndex.from_texts(seqs, names, samplerate=31, device=device,
+                                 sample_sa=sample_sa)
     want = FMIndex.from_texts(seqs, names, samplerate=31, sa_backend=backend,
                               sample_sa=sample_sa)
     assert_same_index(got, want)

@@ -25,6 +25,7 @@ from dsm_tpu.mining import checkpoint as jckpt
 from dsm_tpu.mining import engine_device as jed
 from dsm_tpu.mining.config import MiningConfig
 from dsm_tpu.mining.engine_np import mine_np
+from dsm_tpu_torch import convert
 from dsm_tpu_torch.cli.main import main as port_main
 from dsm_tpu_torch.mining import checkpoint as pckpt
 from dsm_tpu_torch.mining import engine_device as ted
@@ -56,7 +57,9 @@ class _Abort(RuntimeError):
 
 
 def _port(idxs, cfg=CFG, **kw):
-    return ted.mine_device(idxs, cfg, device="cpu", **kw)
+    """The port's engine on its own FMIndex and MiningConfig classes."""
+    return ted.mine_device([convert.fmindex_from_jax(i) for i in idxs],
+                           convert.config_from_jax(cfg), device="cpu", **kw)
 
 
 def _jax(idxs, cfg=CFG, **kw):

@@ -7,11 +7,13 @@ file imports no JAX, so it runs where JAX is not installed:
 
 (DSM_TEST_TPU=1 keeps tests/conftest.py from importing jax.)  Each kernel
 is held against its plain PyTorch version on the same CUDA tensors, at
-edge shapes; the suffix array also against dsm_tpu's numpy one; the
+edge shapes; the suffix array also against the host numpy one; the
 mining run (plain, killed and resumed from its snapshot, and halted) and
 the index build on the card against the port's CPU path.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
-version sums with index_add_, whose order on the card may differ).
+version sums with index_add_, whose order on the card may differ), and
+the f64 sums of the pairwise distance matrices: 1e-9 * (1 + |value|) (the
+kernel's row slices meet in atomics, in an order of their own).
 """
 
 import glob
@@ -200,7 +202,7 @@ def test_checkpoint_resume_on_card_equals_cpu(cuda, toy_indexes, tmp_path,
                                               monkeypatch):
     """Killed after its second snapshot and resumed, on the card; the
     snapshot history pull included (small DSM_HIST_CAP)."""
-    from dsm_tpu.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.config import MiningConfig
     from dsm_tpu_torch.mining import checkpoint as ckpt
     from dsm_tpu_torch.mining.engine import mine_torch
 
@@ -232,7 +234,7 @@ def test_checkpoint_resume_on_card_equals_cpu(cuda, toy_indexes, tmp_path,
 
 
 def test_halt_on_card_equals_cpu(cuda, toy_indexes):
-    from dsm_tpu.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.config import MiningConfig
     from dsm_tpu_torch.mining.engine import mine_torch
 
     cfg = MiningConfig(fmin=2, emax=1.2)
@@ -247,7 +249,7 @@ def test_halt_on_card_equals_cpu(cuda, toy_indexes):
 
 @pytest.mark.parametrize("exits", ["default", "drain+histfull"])
 def test_mine_on_card_equals_cpu(cuda, toy_indexes, exits, monkeypatch):
-    from dsm_tpu.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.config import MiningConfig
     from dsm_tpu_torch.mining.engine import mine_torch
 
     cfg = MiningConfig(fmin=2, emax=1.2)
@@ -266,8 +268,8 @@ def test_mine_on_card_equals_cpu(cuda, toy_indexes, exits, monkeypatch):
 
 
 def _sa_codes(case):
-    from dsm_tpu.index.alphabet import transform
-    from dsm_tpu.index.fasta import read_fasta
+    from dsm_tpu_torch.index.alphabet import transform
+    from dsm_tpu_torch.index.fasta import read_fasta
     from dsm_tpu_torch.index.fmindex import collection_codes
     from dsm_tpu_torch.ops.sa import RANK_BLOCK, SORT_TILE
 
@@ -303,8 +305,8 @@ def _sa_codes(case):
     "rank_bits=16", "rank_bits=24"] + [f"toy{i}:{d}" for i in range(5)
                                        for d in ("fwd", "rev")])
 def test_sa_kernel(cuda, case):
-    from dsm_tpu.ops.sa import suffix_array_np
-    from dsm_tpu_torch.ops.sa import suffix_array, suffix_array_plain
+    from dsm_tpu_torch.ops.sa import (suffix_array, suffix_array_np,
+                                      suffix_array_plain)
 
     codes = _sa_codes(case)
     codes_t = torch.as_tensor(codes, device=cuda)
@@ -384,3 +386,90 @@ def test_repro_tool_on_card(cuda):
     from dsm_tpu_torch.tools.pallas_repro import run_cases
 
     assert set(run_cases(cuda).values()) == {"PASS"}
+
+
+@pytest.mark.parametrize("rows,d,nbins,scaled", [
+    (5000, 5, 21, False),          # one pair tile, most of it idle
+    (4097, 64, 21, False),         # rows not a multiple of the staged 32
+    (700, 273, 30, False),         # ragged last tile, more bins
+    (31, 17, 1, False),            # fewer rows than one staging step
+    (3000, 40, 4, True),           # normalising factors: lgamma left zero
+    (0, 8, 3, False),
+    (9000, 12, 1000, False),       # more bins than rows in a sort block
+], ids=["d5", "d64", "d273", "tiny", "normalised", "no_rows", "many_bins"])
+def test_pairwise_matrices_kernel_matches_plain(cuda, rows, d, nbins, scaled):
+    """K11 against its plain version on the card and NumPy's on the host;
+    bins 1 and nbins-1 hold no row; one row's frequencies are past the
+    kernel's lgamma table; F as int32 and as int64."""
+    from dsm_tpu_torch.ops.distance import (pairwise_matrices,
+                                            pairwise_matrices_plain)
+    from dsm_tpu_torch.post.distance import pairwise_matrices as oracle
+
+    rng = np.random.default_rng(rows + d)
+    F_np = (np.minimum(rng.pareto(1.1, size=(rows, d)) * 4 + 1, 2e6)
+            * (rng.random((rows, d)) < 0.3)).astype(np.int64)
+    if rows:
+        F_np[rows // 2] = rng.integers(1500, 5000, size=d)
+    bins_np = rng.integers(0, nbins, size=rows)
+    bins_np[(bins_np == 1) | (bins_np == nbins - 1)] = 0
+    nf_np = 1.0 / rng.uniform(500, 4000, size=d) if scaled else None
+    nf = None if nf_np is None else torch.as_tensor(nf_np, device=cuda)
+    bins = torch.as_tensor(bins_np, device=cuda)
+    want_np = oracle(F_np, nbins, bins_np, nf_np)
+    if scaled:
+        want_np["lgamma"][:] = 0.0
+    before = _build.LAUNCHES["distance"]
+    for dtype in (torch.int32, torch.int64):
+        F = torch.as_tensor(F_np, device=cuda).to(dtype)
+        got = pairwise_matrices(F, nbins, bins, nf)
+        want = pairwise_matrices_plain(F, nbins, bins, nf)
+        torch.cuda.synchronize()
+        assert torch.equal(got["count"], want["count"])
+        assert np.array_equal(got["count"].cpu().numpy(), want_np["count"])
+        for kind in ("log", "sqrt", "lgamma"):
+            g = got[kind].cpu().numpy()
+            for w in (want[kind].cpu().numpy(), want_np[kind]):
+                assert (np.abs(g - w) <= 1e-9 * (1 + np.abs(w))).all(), kind
+    launched = _build.LAUNCHES["distance"] - before
+    assert launched == (2 if rows else 0)
+
+
+def test_pairwise_matrices_rejects_what_the_kernel_does_not_take(cuda):
+    from dsm_tpu_torch.ops.distance import pairwise_matrices
+
+    F = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    bins = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pairwise_matrices(F.to(torch.float32), 2, bins)
+    with pytest.raises(ValueError):
+        pairwise_matrices(F.T, 2, bins[:3])
+    with pytest.raises(ValueError):
+        pairwise_matrices(F, 2, bins.cpu())
+    with pytest.raises(ValueError):
+        pairwise_matrices(F, 2, bins, torch.ones(3, device=cuda))
+
+
+def test_distance_accumulator_on_the_card(cuda, toy_indexes):
+    """Mined toydata lines through the accumulator: exact on the host
+    against exact=False through the kernel."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+    from dsm_tpu_torch.post.distance import (DistanceAccumulator,
+                                             entropy_steps)
+
+    out = mine_torch(toy_indexes, MiningConfig(fmin=2, emax=1.2), device=cuda)
+    lines = out.format_lines().decode().splitlines()
+    assert lines
+    kw = dict(smpls=5, maxents=entropy_steps(0.05))
+    exact = DistanceAccumulator(**kw)
+    fast = DistanceAccumulator(exact=False, device=cuda, chunk_rows=7, **kw)
+    exact.add_lines(lines)
+    before = _build.LAUNCHES["distance"]
+    fast.add_lines(lines)
+    got, want = fast.matrices(), exact.matrices()
+    assert _build.LAUNCHES["distance"] - before == -(-len(lines) // 7)
+    assert np.array_equal(got["count"], want["count"])
+    assert np.array_equal(got["noutput"], want["noutput"])
+    for kind in ("log", "sqrt", "lgamma"):
+        np.testing.assert_allclose(got[kind], want[kind], rtol=1e-9,
+                                   atol=1e-9)

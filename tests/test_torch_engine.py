@@ -29,7 +29,8 @@ from dsm_tpu.index.fmindex import FMIndex
 from dsm_tpu.mining.config import MiningConfig
 from dsm_tpu.mining.engine import mine_tpu
 from dsm_tpu.mining.engine_np import mine_np
-from dsm_tpu_torch.mining.engine import mine_torch
+from dsm_tpu_torch import convert
+from dsm_tpu_torch.mining.engine import mine_torch as port_mine_torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -66,6 +67,13 @@ def small_indexes():
             rng.integers(0, 4, size=200)].tobytes()))
         idxs.append(FMIndex.from_texts(texts))
     return idxs
+
+
+def mine_torch(idxs, cfg, **kw):
+    """The port's front door on its own FMIndex and MiningConfig classes,
+    converted from dsm_tpu's."""
+    return port_mine_torch([convert.fmindex_from_jax(i) for i in idxs],
+                           convert.config_from_jax(cfg), **kw)
 
 
 def assert_same(got, want, entropy_tol=None):

@@ -18,6 +18,7 @@ from dsm_tpu.index.fmindex import FMIndex
 from dsm_tpu.mining import engine_device as jed
 from dsm_tpu.mining.config import MiningConfig
 from dsm_tpu.mining.engine_np import mine_np
+from dsm_tpu_torch import convert
 from dsm_tpu_torch.mining import engine_device as ted
 
 CFG = MiningConfig(fmin=2, emax=1.9)
@@ -35,6 +36,12 @@ def indexes():
         idxs.append(FMIndex.from_texts(
             [np.frombuffer(t, np.uint8) for t in texts]))
     return idxs
+
+
+def _port(indexes, **kw):
+    """The port's engine on its own FMIndex and MiningConfig classes."""
+    return ted.mine_device([convert.fmindex_from_jax(i) for i in indexes],
+                           convert.config_from_jax(CFG), device="cpu", **kw)
 
 
 def _steer(schedule):
@@ -68,8 +75,7 @@ SCHEDULES = {
 @pytest.mark.parametrize("name", list(SCHEDULES))
 def test_halt_equals_dsm_tpu(indexes, name):
     runs = {}
-    for engine, mine in (("port", lambda **kw: ted.mine_device(
-            indexes, CFG, device="cpu", **kw)),
+    for engine, mine in (("port", lambda **kw: _port(indexes, **kw)),
                          ("jax", lambda **kw: jed.mine_device(
                              indexes, CFG, **kw))):
         halt, depths = _steer(SCHEDULES[name])
@@ -85,8 +91,7 @@ def test_halt_equals_dsm_tpu(indexes, name):
 def test_halt_prunes_only_its_subtree(indexes):
     """tests/test_halt.py's three properties, for the port."""
     halt, depths = _steer([[b"A"]])
-    got = ted.mine_device(indexes, CFG, device="cpu", out_reserve=1,
-                          halt=halt)
+    got = _port(indexes, out_reserve=1, halt=halt)
     h = depths[0]
     got_lines = got.format_lines().splitlines(keepends=True)
     want_lines = mine_np(indexes, CFG).format_lines().splitlines(
@@ -102,8 +107,7 @@ def test_halt_prunes_only_its_subtree(indexes):
 
 def test_halt_nothing_is_identity(indexes):
     halt, depths = _steer([[]])
-    got = ted.mine_device(indexes, CFG, device="cpu", out_reserve=1,
-                          halt=halt)
+    got = _port(indexes, out_reserve=1, halt=halt)
     want = mine_np(indexes, CFG)
     assert depths
     assert got.format_lines() == want.format_lines()

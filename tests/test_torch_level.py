@@ -75,7 +75,8 @@ def test_level_matches_jax(tiny, case):
     jdev, pdev = tiny
     cfg, prefix = CASES[case]
     jsc = jed._Scalars.build(cfg, prefix_codes=prefix)
-    psc = ted._Scalars.build(cfg, prefix_codes=prefix)
+    psc = ted._Scalars.build(convert.config_from_jax(cfg),
+                             prefix_codes=prefix)
     step = _jax_level(jdev.S)
     jstate = jed._seed_episode(jdev, B, HIST_CAP)
     emitted = 0

@@ -15,6 +15,7 @@ from dsm_tpu.index.alphabet import transform
 from dsm_tpu.index.fmindex import FMIndex
 from dsm_tpu.mining.engine import EXT4, leftchar_codes_pairsT
 from dsm_tpu.ops.rank import BLOCK, LOG2_BLOCK, OccTable, fused_rows, occ_cum8T
+from dsm_tpu_torch.convert import fmindex_from_jax
 from dsm_tpu_torch.mining.engine import DeviceIndexes, leftchar_codes_pairs
 from dsm_tpu_torch.ops.rank import occ_cum8, occ_cum8_plain
 
@@ -85,7 +86,7 @@ def test_leftchar_codes_pairs_matches_jax():
     idxs = [FMIndex.from_texts([transform(
         bases[rng.integers(0, 4, size=int(rng.integers(50, 400)))].tobytes())
         for _ in range(4)]) for _ in range(3)]
-    dev = DeviceIndexes.build(idxs, "cpu")
+    dev = DeviceIndexes.build([fmindex_from_jax(i) for i in idxs], "cpu")
     k = 4000
     sid = rng.integers(0, 3, size=k)
     n = dev.ns[sid]
