@@ -28,7 +28,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      sums within DIST_TOL) and against NumPy `pairwise_matrices` on the
      first 4,096 rows; also d = 5 and d = 273 at fewer rows, and with
      the normalising factors (this one after phase 7, so that the plain
-     version's library workspace is not in the mine's peak memory);
+     version's library workspace is not in the mine's peak memory).  The
+     kernels of the sharded level and drain run on SEG_NODES nodes of 1..5
+     pairs over S = 5 samples split into shards of 2 and 3: the partial
+     rows of each shard (K9a: integers equal, the fixed-point entropy sums
+     within one unit a pair), the gates and global child ids from both
+     shards' rows (K9b: integers equal, the entropy within ENT_TOL), the
+     outside-ids children step of each shard (K9c) and the gather of 2 and
+     5 blocks of GATHER_ROWS rows (K10);
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
@@ -41,11 +48,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      HALT_RESERVE: the first poll before the tail); its lines are a
      subset of the warm ascending run's, none under A is deeper than the
      first poll, and the lines outside A are equal;
-  8. distance path: the gnu mine's 485 lines through
+  8. sharded path: on the card-built indexes `mine_device_sharded` with
+     1, 2 and 5 shards on the one card, gnu order, each against the frozen
+     reference; the 2-shard ascending run's lines equal the warm
+     single-device run's; the 2-shard gnu run with `checkpoint=` at
+     RESUME_RESERVE killed at its second save and resumed by the
+     SINGLE-DEVICE `mine_torch` to the frozen reference; and the 2-shard
+     gnu run once more inside a one-rank NCCL process group, so that the
+     level's all-reduce and the drain's all-gathers run on the card between
+     the kernels.  Every kernel of the sharded path must have been
+     launched by the plain 2-shard gnu run;
+  9. distance path: the gnu mine's 485 lines through
      `DistanceAccumulator(smpls=5, maxents=entropy_steps(0.05))`, exact on
      the host and exact=False on the card: count and noutput equal, the
      f64 matrices within DIST_TOL, and the kernel launched;
-  9. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
+ 10. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
      each launching its kernel.
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume and halt phases).
@@ -87,6 +104,7 @@ HALT_RESERVE = 500      # ascending: the first halt poll at depth 10
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
 P3_BIG = 1 << 24        # async_copy where bytes count (128 MB moved)
+GATHER_ROWS = 100_000   # rows a block of the gather kernel's check (K10)
 DIST_R, DIST_D, DIST_BINS = 1 << 20, 64, 21   # K11: rows, samples, bins
 # K11's f64 sums against the plain version's: up to 2^20 same-signed terms
 # a matrix entry, added in another order (the kernel's row slices meet in
@@ -102,7 +120,9 @@ LAUNCH_KEY = {"occ_cum8": "rank", "compact_rows": "compact",
               "children": "children", "sa_sort": "sa_sort",
               "sa_rank": "sa_rank", "smem_carry": "repro_carry",
               "async_copy": "repro_async", "dynamic_store": "repro_dynstore",
-              "pairwise_matrices": "distance"}
+              "pairwise_matrices": "distance",
+              "shard_partials": "shard_partials", "node_gates": "node_gates",
+              "children_ids": "children_ids", "gather_pack": "gather_pack"}
 
 
 def log(msg: str) -> None:
@@ -451,6 +471,165 @@ def phase_level_kernels(torch, device) -> list[dict]:
                 **bound(4 * (w + 1) + p * (24 + 64 + 4) + 24 * pair_count
                         + 4 * (child_total + 1) + 4 * child_total, 16 * p),
                 library_ms=None))
+    return results
+
+
+def phase_sharded_kernels(torch, device) -> list[dict]:
+    """K9a, K9b, K9c and K10 against their plain versions: a level of
+    SEG_NODES nodes over 5 samples (each node holds 1..5 of them), split
+    into shards of samples [0, 2) and [2, 5), made on the card from a seed;
+    K10 on blocks of GATHER_ROWS rows."""
+    from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
+    from dsm_tpu_torch.ops.gatherpack import gather_pack, gather_pack_plain
+    from dsm_tpu_torch.ops.segstats import Gates
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, node_gates,
+                                              node_gates_plain,
+                                              shard_partials,
+                                              shard_partials_plain)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2029)
+    i32 = dict(dtype=torch.int32, device=device, generator=gen)
+    U, S, bounds = SEG_NODES, 5, (0, 2, 5)
+    member = torch.rand((U, S), generator=gen, device=device) < 0.5
+    member[torch.arange(U, device=device),
+           torch.randint(0, S, (U,), device=device, generator=gen)] = True
+    g = Gates(depth=7, s_total=S, mindepth=0, pmin=2, pmax=0,
+              use_egate=True, sym_mask=0b1111, emin_lo=-0.01, emax_hi=1.21)
+    parts = torch.empty((2, U, PART_COLS), dtype=torch.int64, device=device)
+    shards, results = [], []
+    for k in range(2):
+        own = member[:, bounds[k]:bounds[k + 1]]
+        nid, sid = torch.nonzero(own, as_tuple=True)
+        nb = torch.zeros(U + 1, dtype=torch.int32, device=device)
+        nb[1:] = torch.cumsum(own.sum(1), 0)
+        p = nid.shape[0]
+        freq = torch.randint(0, 3000, (p,), **i32)
+        freq[torch.rand(p, generator=gen, device=device) < 0.1] = 0
+        cbits = (torch.randint(0, 16, (p,), **i32)
+                 * (freq > 0)).to(torch.uint8)
+        shard_partials(nb, freq, cbits, parts[k])
+        want = shard_partials_plain(nb, freq, cbits)
+        torch.cuda.synchronize()
+        # the fixed-point term truncates a log: the card's two libraries may
+        # round it apart by one unit a pair
+        off = (parts[k][:, 1] - want[:, 1]).abs()
+        if not torch.equal(parts[k][:, [0, 2]], want[:, [0, 2]]) \
+                or bool((off > (nb[1:] - nb[:-1])).any()):
+            raise SystemExit(f"shard_partials disagrees with its plain "
+                             f"version (shard {k})")
+        shards.append((nb, nid, sid, freq, cbits))
+        empty = int((nb[1:] == nb[:-1]).sum())
+        log(f"kernel shard_partials: shard {k} U={U:,} P={p:,} ({empty:,} "
+            f"nodes without a local pair) equal (fixed-point sums off by at "
+            f"most {int(off.max())} units)")
+    nb, nid, _sid, freq, cbits = shards[1]          # the larger shard
+    p = nid.shape[0]
+    out = torch.empty((U, PART_COLS), dtype=torch.int64, device=device)
+    freq64 = freq.to(torch.int64)
+    results.append(dict(
+        name="shard_partials", route="cuda",
+        source="dsm_tpu_torch/csrc/shardstats.cu",
+        replaces="dsm_tpu/mining/engine_device.py:421",
+        max_abs_err=float(off.max()),
+        ms=cuda_ms(torch, lambda: shard_partials(nb, freq, cbits, out)),
+        plain_ms=cuda_ms(torch,
+                         lambda: shard_partials_plain(nb, freq, cbits)),
+        # nb, freq, cbits in, a 24-byte row a node out; ~6 f64 operations a
+        # pair (one a log)
+        **bound(4 * (U + 1) + 5 * p + 24 * U, 6 * p, F64_TOPS),
+        # one of the row's three columns by index_add_
+        library_ms=cuda_ms(torch, lambda: torch.zeros(
+            U, dtype=torch.int64, device=device).index_add_(0, nid, freq64))))
+    log(f"kernel shard_partials: {results[-1]['ms']:.4f} ms vs plain "
+        f"{results[-1]['plain_ms']:.4f} ms (index_add_ of one column "
+        f"{results[-1]['library_ms']:.4f} ms)")
+
+    hk = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
+    hp = hk.clone()
+    (fk, ek, kk, ck), (fp, ep, kp, cp) = (node_gates(parts, g, hk),
+                                          node_gates_plain(parts, g, hp))
+    torch.cuda.synchronize()
+    eerr = float((ek - ep).abs().max())
+    if not (torch.equal(fk, fp) and torch.equal(kk, kp)
+            and torch.equal(ck, cp) and torch.equal(hk, hp)) \
+            or eerr > ENT_TOL:
+        raise SystemExit(f"node_gates disagrees with its plain version "
+                         f"(entropy max abs err {eerr})")
+    child_total = int(ck[0])
+    results.append(dict(
+        name="node_gates", route="cuda",
+        source="dsm_tpu_torch/csrc/shardstats.cu",
+        replaces="dsm_tpu/mining/engine_device.py:440", max_abs_err=eerr,
+        ms=cuda_ms(torch, lambda: node_gates(parts, g, hk)),
+        plain_ms=cuda_ms(torch, lambda: node_gates_plain(parts, g, hp)),
+        # two shards' rows in; flags, entropy and first child id a node and
+        # an entry a child out; ~12 f64 operations a node (one a log)
+        **bound(2 * 24 * U + 16 * U + 4 * child_total, 12 * U, F64_TOPS),
+        library_ms=None))
+    log(f"kernel node_gates: 2 x U={U:,} rows -> {child_total:,} children, "
+        f"{int(ck[1]):,} present nodes, equal (entropy err {eerr:.3g}); "
+        f"{results[-1]['ms']:.4f} ms vs plain "
+        f"{results[-1]['plain_ms']:.4f} ms")
+
+    # K9c: every active child lane kept (the full symbol mask), the ids
+    # from K9b; rank outputs with ohi >= olo
+    for k, (nb, nid, sid, freq, cbits) in enumerate(shards):
+        p = nid.shape[0]
+        pairs = torch.randint(-2**31, 2**31 - 1, (p, 6), **i32)
+        pairs[:, 3], pairs[:, 5] = sid.to(torch.int32), nid.to(torch.int32)
+        olo = torch.randint(-2**31, 2**31 - 5000, (8, p), **i32)
+        ohi = olo + torch.randint(0, 5000, (8, p), **i32)
+        keep = ((cbits.to(torch.int32)[None, :] >> torch.arange(
+            4, device=device, dtype=torch.int32)[:, None]) & 1) > 0
+        pair_count = int(keep.sum())
+        cargs = (nb, pairs, olo, ohi, keep, fk, kk, pair_count, child_total)
+        (kr, kn), (pr_, pn) = children_ids(*cargs), children_ids_plain(*cargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(kr, pr_) and torch.equal(kn, pn)):
+            raise SystemExit(f"children_ids disagrees with its plain version "
+                             f"(shard {k})")
+        ms = cuda_ms(torch, lambda: children_ids(*cargs))
+        plain_ms = cuda_ms(torch, lambda: children_ids_plain(*cargs))
+        log(f"kernel children_ids: shard {k} U={U:,} P={p:,}: {pair_count:,} "
+            f"lanes kept into {child_total:,} children, equal; {ms:.4f} ms "
+            f"vs plain {plain_ms:.4f} ms")
+    results.append(dict(
+        name="children_ids", route="cuda",
+        source="dsm_tpu_torch/csrc/children.cu",
+        replaces="dsm_tpu/mining/engine_device.py:490", max_abs_err=0,
+        ms=ms, plain_ms=plain_ms,
+        # nb, flags, kid0, the pair rows, both rank outputs and the keep
+        # mask in; the kept rows and nb_next out
+        **bound(12 * U + 4 + p * (24 + 64 + 4) + 24 * pair_count
+                + 4 * (child_total + 1), 16 * p), library_ms=None))
+
+    for nblk in (2, 5):
+        sizes = [GATHER_ROWS + 1000 * b for b in range(nblk)]
+        blocks = [torch.randint(-2**31, 2**31 - 1000, (m, 5), **i32)
+                  for m in sizes]
+        lcs = [torch.randint(0, 6, (m,), **i32).to(torch.int8)
+               for m in sizes]
+        bases = [7 * b for b in range(nblk)]
+        gargs = (blocks, bases, 2, lcs)
+        (kr, kl), (pr_, pl) = gather_pack(*gargs), gather_pack_plain(*gargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(kr, pr_) and torch.equal(kl, pl)):
+            raise SystemExit(f"gather_pack disagrees with its plain version "
+                             f"({nblk} blocks)")
+        ms = cuda_ms(torch, lambda: gather_pack(*gargs))
+        plain_ms = cuda_ms(torch, lambda: gather_pack_plain(*gargs))
+        log(f"kernel gather_pack: {nblk} blocks, {sum(sizes):,} rows of 5 "
+            f"with codes, equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    results.append(dict(
+        name="gather_pack", route="cuda",
+        source="dsm_tpu_torch/csrc/gatherpack.cu",
+        replaces="dsm_tpu/parallel/engine_episode.py:226", max_abs_err=0,
+        ms=ms, plain_ms=plain_ms,
+        # 21 bytes a row in and out, the 32-byte table rows; a bisection and
+        # an add a row
+        **bound(2 * 21 * sum(sizes) + 32 * nblk, 8 * sum(sizes)),
+        library_ms=None))
     return results
 
 
@@ -913,6 +1092,115 @@ def phase_resume(torch, idxs, dev, device, td: str) -> None:
     check_reference(gnu, "resume parity")
 
 
+def phase_sharded(torch, idxs, dev, device, warm, td: str) -> dict:
+    """The sharded episode on the one card; -> the launches of the plain
+    2-shard gnu run."""
+    import torch.distributed as dist
+
+    from dsm_tpu_torch.mining import checkpoint as ckpt
+    from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import (global_samples_mesh,
+                                                  initialize)
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+
+    def run(label: str, mesh, tables, order: str = "gnu", **kw):
+        prof = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = mine_device_sharded(idxs, cfg, mesh=mesh, dev=tables,
+                                  reader_order=order, profile=prof, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"sharded mine {label}: {out.total_paths} paths, "
+            f"{out.total_output} lines in {wall:.4f} s; host phases "
+            + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                          for k, v in prof.items()})
+            + "; launches " + json.dumps(
+                {k: _build.LAUNCHES[k] for k in _build.PATHS["mine_sharded"]})
+            + f"; peak device memory "
+              f"{torch.cuda.max_memory_allocated(device):,} bytes")
+        return out
+
+    launches = None
+    for n in (1, 2, 5):
+        mesh = global_samples_mesh(n, device)
+        tables = ShardedIndexes.build(idxs, mesh)
+        gnu = run(f"{n} shard(s), gnu", mesh, tables)
+        if n == 2:
+            launches = path_launches("mine_sharded")
+            mesh2, tables2 = mesh, tables
+        check_reference(gnu, f"sharded parity, {n} shard(s)")
+    asc = run("2 shards, ascending", mesh2, tables2, order="ascending")
+    if asc.format_lines() != warm.format_lines():
+        raise SystemExit("the 2-shard ascending run's lines differ from the "
+                         "single-device run's")
+    log("sharded mine: the 2-shard ascending lines equal the single-device "
+        "run's")
+
+    # killed at its second save, resumed by the single-device engine
+    path = os.path.join(td, "sharded.ckpt")
+    save = ckpt.save_checkpoint
+    saves = []
+
+    def killing(p, state, *a, **k):
+        save(p, state, *a, **k)
+        saves.append((int(state["depth"]), int(state["nvalid"])))
+        if len(saves) == 2:
+            raise Killed()
+
+    ckpt.save_checkpoint = killing
+    try:
+        try:
+            run("2 shards, gnu, to be killed", mesh2, tables2,
+                out_reserve=RESUME_RESERVE, checkpoint=path)
+            raise SystemExit("sharded resume: the run was not killed")
+        except Killed:
+            pass
+    finally:
+        ckpt.save_checkpoint = save
+    if not os.path.exists(path):
+        raise SystemExit("sharded resume: the killed run left no snapshot")
+    t0 = time.perf_counter()
+    gnu = mine_torch(idxs, cfg, dev=dev, device=device, reader_order="gnu",
+                     checkpoint=path)
+    torch.cuda.synchronize()
+    log(f"sharded resume: killed after saves (depth, nodes) "
+        f"{json.dumps(saves)}; resumed by the single-device engine in "
+        f"{time.perf_counter() - t0:.4f} s")
+    if os.path.exists(path):
+        raise SystemExit("sharded resume: the snapshot file outlived the run")
+    check_reference(gnu, "sharded snapshot resumed single-device")
+
+    # the collectives on the card: a process group of this one process
+    t0 = time.perf_counter()
+    initialize(f"file://{os.path.join(td, 'nccl_rendezvous')}", 1, 0,
+               backend="nccl")
+    try:
+        mesh = global_samples_mesh(2, device)
+        if mesh.group is None or mesh.world != 1:
+            raise SystemExit("no one-rank process group after initialize()")
+        up = time.perf_counter() - t0
+        # the first collective makes the communicator: timed apart, so that
+        # the run's level_s reads what a level's collectives cost
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, dtype=torch.int64, device=device))
+        torch.cuda.synchronize()
+        log(f"nccl: one-rank group up in {up:.4f} s (backend "
+            f"{dist.get_backend()}), its first all_reduce "
+            f"{time.perf_counter() - t0:.4f} s")
+        gnu = run("2 shards, gnu, in a one-rank NCCL group", mesh, tables2)
+        check_reference(gnu, "sharded parity inside the NCCL group")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def phase_halt(torch, idxs, dev, device, warm) -> None:
     """The ascending mine halted under A at its first poll, against the
     warm ascending run `warm`."""
@@ -965,11 +1253,14 @@ def main() -> int:
         idxs, toy0, launches["build"] = phase_data(torch, toy, td, device)
         dev = DeviceIndexes.build(idxs, device)
         kernels = (phase_kernels(torch, dev, device)
+                   + phase_sharded_kernels(torch, device)
                    + phase_sa_kernels(torch, toy0, device)
                    + phase_repro_kernels(torch, device))
         launches["mine"], warm, gnu = phase_main(torch, idxs, dev, device)
         phase_resume(torch, idxs, dev, device, td)
         phase_halt(torch, idxs, dev, device, warm)
+        launches["mine_sharded"] = phase_sharded(torch, idxs, dev, device,
+                                                 warm, td)
     # after the mine's peak memory is read: the plain version's f64 einsums
     # leave the matrix library's 32 MiB workspace allocated for the process
     kernels += phase_distance_kernel(torch, device)
@@ -977,7 +1268,12 @@ def main() -> int:
         f"{torch.cuda.memory_allocated(device):,} bytes")
     launches["distance"] = phase_distance(torch, device, gnu)
     launches["repro"] = phase_repro(torch, device)
-    counts = {k: v for path in launches.values() for k, v in path.items()}
+    # a kernel of two paths (rank, compact, decode) keeps the count of the
+    # first, the single-device mine
+    counts = {}
+    for path in launches.values():
+        for k, v in path.items():
+            counts.setdefault(k, v)
     for k in kernels:
         k["launches"] = counts[LAUNCH_KEY[k["name"]]]
     if any(m == "jax" or m.split(".")[0] == "dsm_tpu" for m in sys.modules):

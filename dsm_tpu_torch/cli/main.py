@@ -17,14 +17,19 @@ mine:     stdout is `out.format_lines()`; with -v, stderr carries the index
           loads and the same four counter lines.  --checkpoint FILE
           snapshots the run at its drain exits and resumes from FILE when
           it exists (dsm_tpu's snapshot format, so a snapshot of `dsm mine
-          --checkpoint` resumes here and the other way round).
+          --checkpoint` resumes here and the other way round).  --engine
+          numpy mines on the host (engine_np.mine_np); --engine
+          sharded-episode shards the samples over DSM_SHARDS (environment,
+          default 1) shards on --device (parallel/engine_episode); --engine
+          sharded maps to it (dsm's per-level mesh engine is not ported).
+enumerate: only --check (the index's self-test) is ported.
 distance: mined rows on stdin -> the four pairwise matrix files.  Without
           --fast the rows are accumulated one by one on the host in f64
           (byte parity with the reference, whatever --device says); with
           --fast whole chunks go through the pairwise-matrix kernel on
           --device.
-enumerate, serve, launch, mine --engine and the multi-host flags are not
-ported yet and exit with status 1.
+enumerate without --check, serve, launch, mine --engine auto and the
+multi-host flags are not ported yet and exit with status 1.
 """
 
 from __future__ import annotations
@@ -109,18 +114,30 @@ def _load_index(path: str):
     return FMIndex.load(path), libname(path)
 
 
+# ------------------------------------------------------------ enumerate --
+
+def cmd_enumerate(args) -> int:
+    if not args.check:
+        _not_ported(args)
+    idx, _name = _load_index(args.index)
+    ok = idx.check()
+    print(f"{args.index}: {'OK' if ok else 'FAILED'}", file=sys.stderr)
+    return 0 if ok else 1
+
+
 # ----------------------------------------------------------------- mine --
 
 def cmd_mine(args) -> int:
     from ..mining.config import UNLIMITED, MiningConfig
-    from ..mining.engine import mine_torch
 
     if args.emax is None:
         _die("dsm mine: error: expecting parameter --emax")
-    if args.engine != "tpu" or args.num_hosts:
-        _die("dsm_tpu_torch mine: only the default engine is ported "
-             "(no --engine or --num-hosts yet)")
-    device = _device(args, "mine")
+    if args.engine == "auto" or args.num_hosts:
+        _die("dsm_tpu_torch mine: --engine auto (mining/bigindex) and "
+             "--num-hosts (prefix ownership, parallel/multihost) are the "
+             "next slice of the port; `dsm mine` runs them")
+    # the host engine needs no device
+    device = None if args.engine == "numpy" else _device(args, "mine")
     cfg = MiningConfig(
         fmin=args.fmin, maxdepth=args.maxdepth or UNLIMITED,
         pmin=args.pmin, pmax=args.pmax, emin=args.emin, emax=args.emax,
@@ -132,9 +149,23 @@ def cmd_mine(args) -> int:
         if args.verbose:
             print(f"loaded {path} (n = {idx.n})", file=sys.stderr)
     prefix = args.prefix.encode() if args.prefix else b""
-    out = mine_torch(indexes, cfg, prefix=prefix,
-                     reader_order=args.reader_order, device=device,
-                     checkpoint=args.checkpoint)
+    if args.engine == "numpy":
+        from ..mining.engine_np import mine_np
+
+        out = mine_np(indexes, cfg, prefix=prefix,
+                      reader_order=args.reader_order)
+    elif args.engine in ("sharded", "sharded-episode"):
+        from ..parallel.engine_episode import mine_device_sharded
+
+        out = mine_device_sharded(indexes, cfg, prefix=prefix,
+                                  reader_order=args.reader_order,
+                                  checkpoint=args.checkpoint, device=device)
+    else:
+        from ..mining.engine import mine_torch
+
+        out = mine_torch(indexes, cfg, prefix=prefix,
+                         reader_order=args.reader_order, device=device,
+                         checkpoint=args.checkpoint)
     sys.stdout.buffer.write(out.format_lines())
     if args.verbose:
         print(f"Number of paths: {out.total_paths}\n"
@@ -195,7 +226,8 @@ def cmd_distance(args) -> int:
 
 def _not_ported(args) -> int:
     _die(f"dsm_tpu_torch: '{args.cmd}' is not ported yet (only 'build', "
-         "'mine' and 'distance'; the JAX package's `dsm` runs the others)")
+         "'mine', 'distance' and 'enumerate --check'; the JAX package's "
+         "`dsm` runs the others)")
 
 
 def _add_device(sub_parser, what: str) -> None:
@@ -232,7 +264,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     e = sub.add_parser(
         "enumerate",
-        help="stream a sample's trie to servers (not ported yet)")
+        help="stream a sample's trie to servers (only --check, the index's "
+             "self-test, is ported)")
     e.add_argument("index")
     e.add_argument("-f", "--fmin", type=_int_min(1, "-f, --fmin"), default=10)
     e.add_argument("-M", "--maxdepth",
@@ -240,7 +273,7 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("-C", "--check", action="store_true")
     e.add_argument("-v", "--verbose", action="store_true")
     e.add_argument("--debug", action="store_true")
-    e.set_defaults(fn=_not_ported)
+    e.set_defaults(fn=cmd_enumerate)
 
     s = sub.add_parser(
         "serve", help="merge trie streams + entropy gates (not ported yet)")
@@ -284,8 +317,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["tpu", "auto", "numpy", "sharded",
                             "sharded-episode"],
                    default="tpu",
-                   help="dsm's engine choice; only the default, the "
-                        "device-resident episode, is ported")
+                   help="tpu (default): the device-resident episode; numpy: "
+                        "the host engine; sharded-episode: the episode with "
+                        "the samples in DSM_SHARDS (environment, default 1) "
+                        "shards on --device; sharded: the same (dsm's "
+                        "per-level mesh engine is not ported); auto: not "
+                        "ported yet")
     m.add_argument("--hbm-budget", type=_int_min(1, "--hbm-budget"),
                    default=None, help="for --engine auto (not ported yet)")
     m.add_argument("--reader-order", choices=["ascending", "gnu"],

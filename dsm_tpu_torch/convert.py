@@ -18,7 +18,16 @@ attributes of the objects they are given.
     port's EpisodeState;
   * `episode_state_to_numpy(st)`: the port's state -> the JAX names and
     column layouts, cut to the live sizes (the JAX state is padded to its
-    capacities; compare it after cutting it with `live_numpy`).
+    capacities; compare it after cutting it with `live_numpy`);
+  * `sharded_tables_from_jax(jdev, mesh, d)`: a dsm_tpu ShardedIndexes
+    (its host arrays) -> the port's ShardedIndexes of the d real samples;
+  * `sharded_live_numpy(state, s_loc, d)`: the stacked JAX state of the sharded
+    episode (`_seed_sharded_episode` / `_level_sharded` under shard_map)
+    cut to its live sizes under GLOBAL sample ids (s_loc: dsm_tpu's
+    samples a shard), the inert padding samples dropped;
+  * `sharded_state_from_numpy(state, s_loc, dev)` /
+    `sharded_state_to_numpy(st, dev)`: that state <-> the port's ShardedEpisodeState, whose shards
+    need not be dsm_tpu's (the pairs are dealt out again by sample).
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from .index.fmindex import FMIndex, SASamples
 from .mining import engine_device as ted
 from .mining.config import MiningConfig
 from .mining.engine import DeviceIndexes
-from .ops.rank import OccTable
+from .ops.rank import ROWW, OccTable
+from .parallel import engine_episode as tee
+from .parallel.engine_sharded import ShardedIndexes
 
 
 def _occ_table(t) -> OccTable:
@@ -125,3 +136,110 @@ def episode_state_to_numpy(st: "ted.EpisodeState") -> dict:
         nlev=len(st.lvl_off), out=out, ocount=st.ocount,
         total_paths=st.total_paths, ent_min=float(st.ent_min),
         ent_max=float(st.ent_max))
+
+
+def sharded_tables_from_jax(jdev, mesh, d: int | None = None
+                            ) -> ShardedIndexes:
+    """dsm_tpu.parallel.engine_sharded.ShardedIndexes -> the port's, over
+    its first `d` samples (the real ones; dsm_tpu pads the sample set with
+    dummies).  dsm_tpu pads every sample's table to one row count: the
+    padded tables are stacked as they are, with the row offsets to match."""
+    d = int(jdev.S) if d is None else d
+    n = mesh.n_shards
+    nbp = int(jdev.fnp.shape[1])
+    bounds = np.array([k * d // n for k in range(n + 1)], dtype=np.int64)
+    shards = []
+    for k in range(mesh.first_shard, mesh.first_shard + mesh.shards_per_rank):
+        a, b = int(bounds[k]), int(bounds[k + 1])
+        shards.append(DeviceIndexes.from_host(
+            jdev.ns[a:b], jdev.fnp[a:b].reshape(-1, ROWW),
+            jdev.rnp[a:b].reshape(-1, ROWW), np.arange(b - a) * nbp,
+            mesh.device))
+    return ShardedIndexes(S=d, ns=np.asarray(jdev.ns[:d], dtype=np.int64),
+                          bounds=bounds, first=mesh.first_shard,
+                          shards=shards, device=mesh.device)
+
+
+def _canonical(rows: np.ndarray, nid_col: int, sid_col: int) -> np.ndarray:
+    return rows[np.lexsort((rows[:, sid_col], rows[:, nid_col]))]
+
+
+def sharded_live_numpy(state: dict, s_loc: int, d: int) -> dict:
+    """A stacked JAX sharded-episode state (numpy) -> its live part: `pr`
+    (m, 6) in the port's PC_* columns and `out` (k, 5), both under global
+    sample ids (shard * s_loc + local) without the padding samples (ids >=
+    d), in (node, sample) order; the replicated scalars and the live
+    history."""
+    par = int(state["parity"])
+    npairs, ocount = np.asarray(state["npairs"]), np.asarray(state["ocount"])
+    n_shards = npairs.shape[0]
+    prs, outs = [], []
+    for k in range(n_shards):
+        pr = np.asarray(state["pr"])[k, par, :int(npairs[k]), :6][
+            :, ted.JAX_PAIR_COLS].copy()
+        pr[:, ted.PC_SID] += k * s_loc
+        prs.append(pr[pr[:, ted.PC_SID] < d])
+        o = np.asarray(state["out"])[k, :int(ocount[k]), :ted.OUT_COLS].copy()
+        o[:, ted.OC_SID] += k * s_loc
+        outs.append(o[o[:, ted.OC_SID] < d])
+    n_hist, nlev = int(state["hist_len"]), int(state["nlev"])
+    return dict(
+        pr=_canonical(np.concatenate(prs), ted.PC_NID, ted.PC_SID),
+        out=_canonical(np.concatenate(outs), ted.OC_ROW, ted.OC_SID),
+        nnodes=int(state["nnodes"]), depth=int(state["depth"]),
+        hist=np.asarray(state["hist"])[:n_hist], hist_len=n_hist,
+        lvl_off=np.asarray(state["lvl_off"])[:nlev], nlev=nlev,
+        total_paths=int(state["total_paths"]),
+        ent_min=float(state["ent_min"]), ent_max=float(state["ent_max"]))
+
+
+def sharded_state_from_numpy(state: dict, s_loc: int, dev: ShardedIndexes
+                             ) -> "tee.ShardedEpisodeState":
+    """A stacked JAX sharded-episode state (numpy; s_loc: dsm_tpu's
+    samples a shard) -> the port's state on `dev`'s shards, with a history
+    buffer as long as the JAX one."""
+    if int(state["eskip"]) != 0:
+        raise ValueError("a state in the middle of a chunked emission "
+                         "(eskip > 0) has no counterpart in the port")
+    live = sharded_live_numpy(state, s_loc, dev.S)
+    st = tee._fresh_state(
+        tee._stack_pairs_by_shard(live["pr"], live["nnodes"], dev),
+        live["nnodes"], live["depth"], np.asarray(state["hist"]).shape[0],
+        dev.device, live["total_paths"], live["ent_min"], live["ent_max"])
+    st.hist[:live["hist_len"]] = torch.tensor(live["hist"])
+    st.hist_len = live["hist_len"]
+    st.lvl_off = [int(v) for v in live["lvl_off"]]
+    out = live["out"]
+    shard_of = np.searchsorted(dev.bounds, out[:, ted.OC_SID],
+                               side="right") - 1
+    for k, sh in enumerate(st.shards):
+        own = out[shard_of == dev.first + k].copy()
+        own[:, ted.OC_SID] -= dev.base(k)
+        if own.shape[0]:
+            sh.out, sh.ocount = [torch.tensor(own, device=dev.device)], \
+                own.shape[0]
+    return st
+
+
+def sharded_state_to_numpy(st: "tee.ShardedEpisodeState",
+                           dev: ShardedIndexes) -> dict:
+    """The port's sharded state -> the keys of `sharded_live_numpy` (one
+    process: the shards of `st` are all the shards)."""
+    prs, outs = [], []
+    for k, sh in enumerate(st.shards):
+        pr = sh.pairs.cpu().numpy().copy()
+        pr[:, ted.PC_SID] += dev.base(k)
+        prs.append(pr)
+        for o in sh.out:
+            o = o.cpu().numpy().copy()
+            o[:, ted.OC_SID] += dev.base(k)
+            outs.append(o)
+    outs.append(np.zeros((0, ted.OUT_COLS), dtype=np.int32))
+    return dict(
+        pr=_canonical(np.concatenate(prs), ted.PC_NID, ted.PC_SID),
+        out=_canonical(np.concatenate(outs), ted.OC_ROW, ted.OC_SID),
+        nnodes=st.nnodes, depth=st.depth,
+        hist=st.hist[:st.hist_len].cpu().numpy(), hist_len=st.hist_len,
+        lvl_off=np.asarray(st.lvl_off, dtype=np.int32),
+        nlev=len(st.lvl_off), total_paths=st.total_paths,
+        ent_min=float(st.ent_min), ent_max=float(st.ent_max))

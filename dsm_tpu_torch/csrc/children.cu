@@ -12,7 +12,8 @@
 //   1. count:   one thread per node counts its kept lanes per symbol (a node
 //               has at most MAX_SAMPLES = 512 pairs) and the block sums the
 //               packed value (kept lanes << 32 | symbols with one);
-//   2. scan:    one block turns the block sums into exclusive block offsets;
+//   2. scan:    one block turns the block sums into exclusive block offsets
+//               (scan.cuh);
 //   3. scatter: each block scans its nodes' packed values again (warp
 //               shuffles), so node u knows its first output row and its
 //               first child id; it gives each of its symbols with kept lanes
@@ -20,6 +21,15 @@
 //               entry u*4 + c, and walks its pairs writing each kept lane's
 //               row at its symbol's next slot.  The last node writes
 //               nb_next[child_total] = pair_count.
+//
+// dsm_children_ids is the same step for one shard of a sample-sharded level
+// (dsm_tpu/mining/engine_device.py _level_sharded, the children block at
+// :474-507): a child exists when ANY shard keeps a lane of it, so which
+// symbols of a node have a child (the exists bits of `flags`) and the node's
+// first child id (`kid0`) come from the level's global numbering
+// (shardstats.cu), every existing child gets an nb_next entry here (an empty
+// segment when this shard keeps no lane of it), and the history, one a rank,
+// is not written.
 //
 // What bounds it on an H100: bytes.  Per pair it reads the keep mask twice
 // (4 + 4 bytes), 12 bytes of the pair row and, per kept lane, 16 bytes of the
@@ -31,10 +41,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // nodes (and threads) per block
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = kScanThreads;  // nodes (and threads) per block
 
 __device__ __forceinline__ long long packed(int4 c) {
   long long lanes = (long long)c.x + c.y + c.z + c.w;
@@ -46,7 +57,6 @@ __global__ void count_kernel(const int32_t* __restrict__ nb,
                              const uint8_t* __restrict__ keep, long long U,
                              long long P, int4* __restrict__ cnt,
                              long long* __restrict__ block_sum) {
-  __shared__ long long warp_sum[kWarps];
   long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
   long long v = 0;
   if (u < U) {
@@ -61,79 +71,29 @@ __global__ void count_kernel(const int32_t* __restrict__ nb,
     cnt[u] = c;
     v = packed(c);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sum[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long t = 0;
-    for (int w = 0; w < kWarps; ++w) t += warp_sum[w];
-    block_sum[blockIdx.x] = t;
-  }
+  block_sum_to(v, block_sum);
 }
 
-// One block of 1024 threads: thread t owns a contiguous chunk of the block
-// sums, so any number of blocks is scanned in one launch.
-__global__ void scan_kernel(const long long* __restrict__ block_sum,
-                            long long nblocks,
-                            long long* __restrict__ block_off) {
-  __shared__ long long part[1024];
-  int t = threadIdx.x;
-  long long chunk = (nblocks + 1023) / 1024;
-  long long b0 = t * chunk;
-  long long b1 = b0 + chunk < nblocks ? b0 + chunk : nblocks;
-  long long s = 0;
-  for (long long b = b0; b < b1; ++b) s += block_sum[b];
-  part[t] = s;
-  __syncthreads();
-  // Hillis-Steele inclusive scan over the 1024 chunk sums
-  for (int o = 1; o < 1024; o <<= 1) {
-    long long v = t >= o ? part[t - o] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  long long run = part[t] - s;  // exclusive
-  for (long long b = b0; b < b1; ++b) {
-    block_off[b] = run;
-    run += block_sum[b];
-  }
-}
-
+// kOutsideIds: the child ids come from `flags` (exists bits 4-7) and `kid0`
+// and no history entry is written; otherwise the symbols with a kept lane
+// are numbered here and `hist` gets their entries.
+template <bool kOutsideIds>
 __global__ void scatter_kernel(
     const int32_t* __restrict__ nb, const int32_t* __restrict__ pairs,
     const int32_t* __restrict__ olo, const int32_t* __restrict__ ohi,
     const uint8_t* __restrict__ keep, long long U, long long P,
     const int4* __restrict__ cnt, const long long* __restrict__ block_off,
+    const int32_t* __restrict__ flags, const int32_t* __restrict__ kid0,
     long long pair_count, long long child_total, int32_t* __restrict__ newp,
     int32_t* __restrict__ nb_next, int32_t* __restrict__ hist) {
-  __shared__ long long warp_off[kWarps];
   long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
   int4 c = u < U ? cnt[u] : make_int4(0, 0, 0, 0);
-  long long v = packed(c);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  long long incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    long long t = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (lane >= o) incl += t;
-  }
-  if (lane == 31) warp_off[warp] = incl;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      long long t = warp_off[w];
-      warp_off[w] = run;
-      run += t;
-    }
-  }
-  __syncthreads();
+  long long first = block_exclusive_scan(packed(c));
   if (u >= U) return;
-  long long first = block_off[blockIdx.x] + warp_off[warp] + incl - v;
+  first += block_off[blockIdx.x];
   long long row = first >> 32;             // the node's first output row
-  long long kid = first & 0xFFFFFFFFll;    // the node's first child id
+  long long kid = kOutsideIds ? (long long)kid0[u] : first & 0xFFFFFFFFll;
+  const int exists = kOutsideIds ? (flags[u] >> 4) & 15 : 0;
   const int count[4] = {c.x, c.y, c.z, c.w};
   long long slot[4];
   int child[4];
@@ -142,10 +102,10 @@ __global__ void scatter_kernel(
     slot[s] = row;
     row += count[s];
     child[s] = (int)kid;
-    if (count[s] > 0) {
+    if (kOutsideIds ? (exists >> s) & 1 : count[s] > 0) {
       if (kid < child_total) {
         nb_next[kid] = (int32_t)slot[s];
-        hist[kid] = (int32_t)(u * 4 + s);
+        if (!kOutsideIds) hist[kid] = (int32_t)(u * 4 + s);
       }
       ++kid;
     }
@@ -173,16 +133,12 @@ __global__ void scatter_kernel(
   }
 }
 
-}  // namespace
-
-// cnt: (U, 4) int32; scratch: 2 * nblocks int64 (block sums, then block
-// offsets), nblocks = ceil(U / 256).  U >= 1.
-extern "C" int dsm_children(const void* nb, const void* pairs, const void* olo,
-                            const void* ohi, const void* keep, long long U,
-                            long long P, long long pair_count,
-                            long long child_total, void* cnt, void* scratch,
-                            void* newp, void* nb_next, void* hist,
-                            void* stream) {
+template <bool kOutsideIds>
+int run(const void* nb, const void* pairs, const void* olo, const void* ohi,
+        const void* keep, long long U, long long P, const void* flags,
+        const void* kid0, long long pair_count, long long child_total,
+        void* cnt, void* scratch, void* newp, void* nb_next, void* hist,
+        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   long long nblocks = (U + kThreads - 1) / kThreads;
   long long* block_sum = (long long*)scratch;
@@ -194,10 +150,38 @@ extern "C" int dsm_children(const void* nb, const void* pairs, const void* olo,
   scan_kernel<<<1, 1024, 0, s>>>(block_sum, nblocks, block_off);
   err = (int)cudaGetLastError();
   if (err) return err;
-  scatter_kernel<<<(unsigned)nblocks, kThreads, 0, s>>>(
+  scatter_kernel<kOutsideIds><<<(unsigned)nblocks, kThreads, 0, s>>>(
       (const int32_t*)nb, (const int32_t*)pairs, (const int32_t*)olo,
       (const int32_t*)ohi, (const uint8_t*)keep, U, P, (const int4*)cnt,
-      block_off, pair_count, child_total, (int32_t*)newp, (int32_t*)nb_next,
-      (int32_t*)hist);
+      block_off, (const int32_t*)flags, (const int32_t*)kid0, pair_count,
+      child_total, (int32_t*)newp, (int32_t*)nb_next, (int32_t*)hist);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// cnt: (U, 4) int32; scratch: 2 * nblocks int64 (block sums, then block
+// offsets), nblocks = ceil(U / 256).  U >= 1.
+extern "C" int dsm_children(const void* nb, const void* pairs, const void* olo,
+                            const void* ohi, const void* keep, long long U,
+                            long long P, long long pair_count,
+                            long long child_total, void* cnt, void* scratch,
+                            void* newp, void* nb_next, void* hist,
+                            void* stream) {
+  return run<false>(nb, pairs, olo, ohi, keep, U, P, nullptr, nullptr,
+                    pair_count, child_total, cnt, scratch, newp, nb_next, hist,
+                    stream);
+}
+
+// flags, kid0: (U,) int32 from dsm_node_gates; nb_next has child_total + 1
+// entries whatever this shard keeps.
+extern "C" int dsm_children_ids(const void* nb, const void* pairs,
+                                const void* olo, const void* ohi,
+                                const void* keep, long long U, long long P,
+                                const void* flags, const void* kid0,
+                                long long pair_count, long long child_total,
+                                void* cnt, void* scratch, void* newp,
+                                void* nb_next, void* stream) {
+  return run<true>(nb, pairs, olo, ohi, keep, U, P, flags, kid0, pair_count,
+                   child_total, cnt, scratch, newp, nb_next, nullptr, stream);
 }

@@ -219,6 +219,27 @@ def _seed_episode(dev: DeviceIndexes, hist_cap: int) -> EpisodeState:
         ent_max=torch.tensor(-np.inf, **f64))
 
 
+def _expand(frows: torch.Tensor, pr: torch.Tensor, fmin: int,
+            sym_mask: int):
+    """The expand step of a level on the pair rows `pr`: the rank kernel
+    at both interval ends.  -> (olo, ohi (8, P) int32 rank outputs, freq
+    (P,) int32, 0 for an empty interval, keepc (4, P) bool, the child
+    lanes that are active and allowed by `sym_mask`, cbits (P,) uint8, the
+    active child symbols as bits)."""
+    lo, hi, soff = pr[:, PC_LO], pr[:, PC_HI], pr[:, PC_SOFF]
+    olo = occ_cum8(frows, lo, soff)                         # (8, P)
+    ohi = occ_cum8(frows, hi, soff)
+    pa = hi > lo
+    freq = torch.where(pa, hi - lo, 0)
+    cact = pa[None, :] & (ohi[:4] - olo[:4] >= fmin)        # (4, P)
+    symv = torch.tensor([(sym_mask >> c) & 1 for c in range(4)],
+                        dtype=torch.bool, device=pr.device)
+    keepc = cact & symv[:, None]
+    c8 = cact.to(torch.uint8)
+    cbits = c8[0] | (c8[1] << 1) | (c8[2] << 2) | (c8[3] << 3)
+    return olo, ohi, freq, keepc, cbits
+
+
 def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
            eskip: int = 0) -> int:
     """Run one trie level on `st` in place; returns the exit flag.
@@ -228,23 +249,13 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
     pairs of its nodes whose cumulative gated count ends at or below
     `eskip` were drained before the snapshot and are not staged again
     (dsm_tpu engine_device.py:850-855)."""
-    pr = st.pairs
-    P, depth, device = st.npairs, st.depth, pr.device
-    lo, hi, rlo = pr[:, PC_LO], pr[:, PC_HI], pr[:, PC_RLO]
-    sid, soff, nid = pr[:, PC_SID], pr[:, PC_SOFF], pr[:, PC_NID]
+    pr, depth = st.pairs, st.depth
+    nid = pr[:, PC_NID]
     g = sc.gates(depth, dev.S)
 
     # ---- expand: rank at both interval ends ----------------------------
-    olo = occ_cum8(dev.frows, lo, soff)                     # (8, P)
-    ohi = occ_cum8(dev.frows, hi, soff)
-    pa = hi > lo
-    freq = torch.where(pa, hi - lo, 0)
-    cact = pa[None, :] & (ohi[:4] - olo[:4] >= sc.fmin)    # (4, P)
-    symv = torch.tensor([(g.sym_mask >> c) & 1 for c in range(4)],
-                        dtype=torch.bool, device=device)
-    keepc = cact & symv[:, None]
-    c8 = cact.to(torch.uint8)
-    cbits = c8[0] | (c8[1] << 1) | (c8[2] << 2) | (c8[3] << 3)
+    olo, ohi, freq, keepc, cbits = _expand(dev.frows, pr, sc.fmin,
+                                           g.sym_mask)
 
     # ---- stats + gates: one thread per node ----------------------------
     flags, ent, pair_out = segstats(st.nb, freq, cbits, g)
@@ -276,12 +287,7 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
 
     # ---- emit: stage the gated pairs' rows -----------------------------
     if n_gated:
-        orows = torch.stack(
-            [hi - lo, rlo, sid, nid,
-             torch.full((P,), depth, dtype=torch.int32, device=device)],
-            dim=1)
-        staged, _ = compact_rows(pair_out, orows, n_gated)
-        st.out.append(staged)
+        st.out.append(_stage(pr, pair_out, n_gated, depth))
         st.ocount += n_gated
 
     # ---- children: (node, symbol, pair)-ordered rows, ids, history ------
@@ -298,6 +304,18 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
     if st.ocount > sc.out_reserve:
         return FLAG_DRAIN
     return FLAG_RUN
+
+
+def _stage(pr: torch.Tensor, pair_out: torch.Tensor, n_gated: int,
+           depth: int) -> torch.Tensor:
+    """The emit step: the (freq, rlo, sid, nid, depth) output rows of the
+    `n_gated` pairs of `pr` that `pair_out` marks, compacted in order."""
+    orows = torch.stack(
+        [pr[:, PC_HI] - pr[:, PC_LO], pr[:, PC_RLO], pr[:, PC_SID],
+         pr[:, PC_NID],
+         torch.full((pr.shape[0],), depth, dtype=torch.int32,
+                    device=pr.device)], dim=1)
+    return compact_rows(pair_out, orows, n_gated)[0]
 
 
 def _history_codes(ph: PathHistory, depth: int,
@@ -390,13 +408,15 @@ def _apply_halt(st: EpisodeState, ph: PathHistory, seg_depth0: int,
     return int(kill.sum())
 
 
-def _snapshot_state(st: EpisodeState) -> dict:
+def _snapshot_state(st, live: np.ndarray) -> dict:
     """The drained episode in dsm_tpu's snapshot layout (checkpoint
-    _STATE_KEYS): its int32 and float32 scalars, and the live pair rows as
-    (m, 8) int32 in its column order with the two pad columns zero.
-    Snapshots of the port never stop inside a level: eskip is 0."""
-    pairs = np.zeros((st.npairs, 8), dtype=np.int32)
-    pairs[:, JAX_PAIR_COLS] = st.pairs.cpu().numpy()
+    _STATE_KEYS): its int32 and float32 scalars, and the live pair rows
+    `live` ((m, 6), the port's columns, global sample ids, in (node,
+    sample) order) as (m, 8) int32 in its column order with the two pad
+    columns zero.  Snapshots of the port never stop inside a level: eskip
+    is 0."""
+    pairs = np.zeros((live.shape[0], 8), dtype=np.int32)
+    pairs[:, JAX_PAIR_COLS] = live
     return dict(pairs=pairs, nvalid=np.int32(st.nnodes),
                 depth=np.int32(st.depth),
                 total_paths=np.int32(st.total_paths),
@@ -404,26 +424,39 @@ def _snapshot_state(st: EpisodeState) -> dict:
                 ent_max=np.float32(float(st.ent_max)), eskip=np.int32(0))
 
 
+def _load_snapshot(path: str, cfg: MiningConfig, prefix: bytes, ns):
+    """A snapshot of either package -> (its state arrays, the live pair
+    rows as (m, 6) int32 in the port's columns with global sample ids, in
+    (node, sample) order, MinedOutput, the frontier's paths).  Raises
+    ValueError when it was written for another config, prefix or input."""
+    host, out, base_paths = ckpt.load_checkpoint(path, cfg, prefix, ns)
+    pairs = np.ascontiguousarray(
+        np.asarray(host["pairs"], dtype=np.int32)[:, JAX_PAIR_COLS])
+    return host, pairs, out, base_paths
+
+
+def _node_starts(nid: np.ndarray, n: int) -> np.ndarray:
+    """nb (n + 1,) int32 of a pair list sorted by node id `nid`."""
+    return np.concatenate([[0], np.cumsum(np.bincount(nid, minlength=n))]
+                          ).astype(np.int32)
+
+
 def _resume(path: str, cfg: MiningConfig, prefix: bytes, dev: DeviceIndexes,
             hist_cap: int):
     """A snapshot of either package -> (EpisodeState, MinedOutput,
     PathHistory seeded with the frontier's paths, eskip), as dsm_tpu's
-    mine_device resumes (engine_device.py:1365-1397).  Raises ValueError
-    when the snapshot was written for another config, prefix or input."""
-    host, out, base_paths = ckpt.load_checkpoint(path, cfg, prefix, dev.ns)
-    pairs = np.ascontiguousarray(
-        np.asarray(host["pairs"], dtype=np.int32)[:, JAX_PAIR_COLS])
+    mine_device resumes (engine_device.py:1365-1397)."""
+    host, pairs, out, base_paths = _load_snapshot(path, cfg, prefix, dev.ns)
     # the snapshot may come from another sample layout: this run's offsets
     pairs[:, PC_SOFF] = dev.soff.cpu().numpy()[pairs[:, PC_SID]]
     n = int(host["nvalid"])
-    nb = np.concatenate([[0], np.cumsum(np.bincount(pairs[:, PC_NID],
-                                                    minlength=n))])
+    nb = _node_starts(pairs[:, PC_NID], n)
     depth = int(host["depth"])
     device = dev.device
     f64 = dict(dtype=torch.float64, device=device)
     st = EpisodeState(
         pairs=torch.as_tensor(pairs, device=device),
-        nb=torch.as_tensor(nb.astype(np.int32), device=device), depth=depth,
+        nb=torch.as_tensor(nb, device=device), depth=depth,
         hist=torch.zeros(hist_cap, dtype=torch.int32, device=device),
         total_paths=int(host["total_paths"]),
         ent_min=torch.tensor(float(host["ent_min"]), **f64),
@@ -461,8 +494,17 @@ def _drain(out: MinedOutput, cfg: MiningConfig, d: int, st: EpisodeState,
     lc_dev = leftchar_codes_pairs(
         dev.rrows, dev.soff[orows[:, OC_SID].to(torch.int64)],
         orows[:, OC_RLO], orows[:, OC_FREQ])
-    orows_h = orows.cpu().numpy()
-    lc = lc_dev.cpu().numpy()
+    _emit_drained(out, cfg, d, st, ph, seg_depth0, orows.cpu().numpy(),
+                  lc_dev.cpu().numpy(), tracker)
+
+
+def _emit_drained(out: MinedOutput, cfg: MiningConfig, d: int, st,
+                  ph: PathHistory, seg_depth0: int, orows_h: np.ndarray,
+                  lc: np.ndarray, tracker=None) -> None:
+    """The host half of a drain: the pulled output rows `orows_h` ((n, 5),
+    global sample ids) and their leftChar codes `lc`, grouped by node,
+    re-gated and emitted.  `st` is the episode whose history the rows'
+    paths are decoded from."""
     freq = orows_h[:, OC_FREQ]
     sid = orows_h[:, OC_SID]
     rows = orows_h[:, OC_ROW]
@@ -513,25 +555,19 @@ def _drain(out: MinedOutput, cfg: MiningConfig, d: int, st: EpisodeState,
         out.lines.append((paths[j], ent_val, occs))
 
 
-def _pull_dense_frontier(st: EpisodeState):
-    """The live pair list on the host: (nnodes, lo, hi, rlo, sid, nid)."""
-    prs = st.pairs.cpu().numpy()
-    return (st.nnodes, prs[:, PC_LO], prs[:, PC_HI], prs[:, PC_RLO],
-            prs[:, PC_SID], prs[:, PC_NID])
-
-
-def _handoff_tail(indexes, cfg, prefix, out, st: EpisodeState,
+def _handoff_tail(indexes, cfg, prefix, out, st, live: np.ndarray,
                   ph: PathHistory, seg_depth0: int, tracker=None) -> None:
-    """FLAG_TAIL: densify the narrow frontier and finish on the host
+    """FLAG_TAIL: densify the narrow frontier (`live`: its pair rows on
+    the host, global sample ids) and finish on the host
     (engine_np.mine_from_level), where a thin level costs microseconds."""
-    n, lo, hi, rlo, sid, nid = _pull_dense_frontier(st)
-    S = len(indexes)
+    n, S = st.nnodes, len(indexes)
+    nid, sid = live[:, PC_NID], live[:, PC_SID]
     lo_d = np.zeros((n, S), dtype=np.int64)
     hi_d = np.zeros((n, S), dtype=np.int64)
     rlo_d = np.zeros((n, S), dtype=np.int64)
-    lo_d[nid, sid] = lo
-    hi_d[nid, sid] = hi
-    rlo_d[nid, sid] = rlo
+    lo_d[nid, sid] = live[:, PC_LO]
+    hi_d[nid, sid] = live[:, PC_HI]
+    rlo_d[nid, sid] = live[:, PC_RLO]
     paths = _decode_rows(st, ph, seg_depth0, np.arange(n),
                          np.full(n, st.depth))
     level = _Level(paths=paths, lo=lo_d, hi=hi_d, rlo=rlo_d)
@@ -577,16 +613,45 @@ def mine_device(
     staged rows that make a DRAIN exit; lower means finer snapshots) is
     clamped to OUT_RESERVE, so both engines drain, poll and save at the
     same levels."""
-    cfg.validate()
     device = resolve_device(device)
     if dev is None:
         dev = DeviceIndexes.build(indexes, device)
     elif dev.device != device:
         raise ValueError(f"tables live on {dev.device}, not on {device}")
-    if dev.S > MAX_SAMPLES:
-        raise ValueError(f"mine_device supports at most {MAX_SAMPLES} "
-                         f"samples (got {dev.S})")
+    tracker, sc, prof = _episode_setup(indexes, cfg, prefix, tail_width,
+                                       out_reserve, reader_order, profile)
     d = dev.S
+    hist_cap = _hist_cap(dev)
+    eskip = 0
+    if checkpoint is not None and os.path.exists(checkpoint):
+        st, out, ph, eskip = _resume(checkpoint, cfg, prefix, dev, hist_cap)
+    else:
+        st = _seed_episode(dev, hist_cap)
+        out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
+        ph = PathHistory()
+    return _run_episode(
+        "mine_device", indexes, cfg, prefix, dev.ns, st, out, ph, eskip,
+        tracker, prof, checkpoint, halt=halt,
+        level=lambda eskip: _level(dev, sc, st, eskip),
+        drain=lambda seg_depth0: _drain(out, cfg, d, st, ph, seg_depth0, dev,
+                                        tracker),
+        live_pairs=lambda: st.pairs.cpu().numpy())
+
+
+def _episode_setup(indexes, cfg: MiningConfig, prefix: bytes,
+                   tail_width: int, out_reserve: int, reader_order: str,
+                   profile: dict | None):
+    """What both episode engines make of their arguments: -> (the gnu
+    reader-order tracker or None, the run's _Scalars, the profile dict
+    with its keys set to zero)."""
+    cfg.validate()
+    d = len(indexes)
+    if d > MAX_SAMPLES:
+        raise ValueError(
+            f"at most {MAX_SAMPLES} samples per mining episode (got {d}; "
+            "the reference caps a server at 273 readers too, "
+            "metaserver.cpp:19): a node's pairs are walked by one thread, "
+            "and a sharded level sums their counts in fields that wide")
     tracker = None
     if reader_order == "gnu":
         tracker = LazyGnuOrder(indexes, cfg.fmin, d,
@@ -597,31 +662,32 @@ def mine_device(
                         out_reserve=min(out_reserve, OUT_RESERVE),
                         prefix_codes=tuple(EXT_CHARS.index(b)
                                            for b in prefix))
-    debug = os.environ.get("DSM_DEBUG") == "1"
     prof = profile if profile is not None else {}
     for k in ("level_s", "drain_s", "tail_s", "halt_s", "save_s"):
         prof[k] = 0.0
-    prof["levels"] = 0
-    prof["saves"] = 0
-    prof["tail_depth"] = None
+    prof.update(levels=0, saves=0, tail_depth=None)
+    return tracker, sc, prof
 
-    hist_cap = _hist_cap(dev)
-    eskip = 0
-    if checkpoint is not None and os.path.exists(checkpoint):
-        st, out, ph, eskip = _resume(checkpoint, cfg, prefix, dev, hist_cap)
-        if debug:
-            print(f"mine_device: resumed depth={st.depth} "
-                  f"nnodes={st.nnodes} eskip={eskip}", file=sys.stderr)
-    else:
-        st = _seed_episode(dev, hist_cap)
-        out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
-        ph = PathHistory()
+
+def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
+                 st, out: MinedOutput, ph: PathHistory, eskip: int, tracker,
+                 prof: dict, checkpoint: str | None, *, level, drain,
+                 live_pairs, halt=None, writes: bool = True) -> MinedOutput:
+    """The episode loop and its exits, shared by the single-device and
+    the sharded engine (`name` in the DSM_DEBUG lines).  `st` holds the
+    history, depth, node count and counters (EpisodeState or
+    parallel/engine_episode.ShardedEpisodeState).  level(eskip) runs one
+    level on it and returns the exit flag; drain(seg_depth0) emits the
+    staged rows into `out`; live_pairs() pulls the live pair rows to the
+    host ((m, 6), global sample ids, (node, sample) order) for a snapshot
+    or the tail handoff.  `writes`: this process writes and removes the
+    snapshot file (one process of a group does; all of them call
+    live_pairs, which is a collective there)."""
+    debug = os.environ.get("DSM_DEBUG") == "1"
     seg_depth0 = st.depth
-
-    def drain() -> None:
-        t = time.perf_counter()
-        _drain(out, cfg, d, st, ph, seg_depth0, dev, tracker)
-        prof["drain_s"] += time.perf_counter() - t
+    if debug and seg_depth0:
+        print(f"{name}: resumed depth={st.depth} nnodes={st.nnodes} "
+              f"eskip={eskip}", file=sys.stderr)
 
     def poll_halt() -> None:
         if halt is None:
@@ -630,38 +696,41 @@ def mine_device(
         n = _apply_halt(st, ph, seg_depth0, halt(st.depth, out))
         prof["halt_s"] += time.perf_counter() - t
         if debug and n:
-            print(f"mine_device: halt prunes {n} nodes at depth {st.depth}",
+            print(f"{name}: halt prunes {n} nodes at depth {st.depth}",
                   file=sys.stderr)
 
     def save() -> None:
         if checkpoint is None:
             return
         t = time.perf_counter()
-        ckpt.save_checkpoint(checkpoint, _snapshot_state(st), out, cfg,
-                             prefix, dev.ns,
-                             _frontier_codes(st, ph, seg_depth0))
+        live = live_pairs()
+        if writes:
+            ckpt.save_checkpoint(checkpoint, _snapshot_state(st, live), out,
+                                 cfg, prefix, ns,
+                                 _frontier_codes(st, ph, seg_depth0))
         prof["save_s"] += time.perf_counter() - t
         prof["saves"] += 1
 
     def finish() -> MinedOutput:
-        if checkpoint is not None and os.path.exists(checkpoint):
+        if checkpoint is not None and writes and os.path.exists(checkpoint):
             os.unlink(checkpoint)
         out.sort_postorder()
         return out
 
     while True:
         t0 = time.perf_counter()
-        flag = _level(dev, sc, st, eskip)
+        flag = level(eskip)
         eskip = 0   # a resumed level commits: its history segment is empty
         prof["level_s"] += time.perf_counter() - t0
         prof["levels"] += 1
         if debug and flag != FLAG_RUN:
-            print(f"mine_device: flag={flag} depth={st.depth} "
-                  f"nnodes={st.nnodes} npairs={st.npairs} "
-                  f"ocount={st.ocount}", file=sys.stderr, flush=True)
+            print(f"{name}: flag={flag} depth={st.depth} nnodes={st.nnodes}",
+                  file=sys.stderr, flush=True)
         if flag == FLAG_RUN:
             continue
-        drain()
+        t0 = time.perf_counter()
+        drain(seg_depth0)
+        prof["drain_s"] += time.perf_counter() - t0
         if flag == FLAG_DONE:
             break
         poll_halt()
@@ -675,8 +744,8 @@ def mine_device(
                 out.largest_entropy = max(out.largest_entropy, eM)
             t = time.perf_counter()
             prof["tail_depth"] = st.depth
-            _handoff_tail(indexes, cfg, prefix, out, st, ph, seg_depth0,
-                          tracker=tracker)
+            _handoff_tail(indexes, cfg, prefix, out, st, live_pairs(), ph,
+                          seg_depth0, tracker=tracker)
             prof["tail_s"] += time.perf_counter() - t
             return finish()
         if flag == FLAG_HISTFULL:

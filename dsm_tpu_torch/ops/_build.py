@@ -14,8 +14,8 @@ passes the device's current stream, raises on a non-zero code and adds
 one to the kernel's count in `LAUNCHES`: the counts are of wrapper calls
 that launched the kernel, and nothing else adds to them.  `PATHS` names
 the kernels each entry point runs: `dsm_tpu_torch build` (the suffix
-array), `mine`, `distance --fast`, and the repro tool
-(`dsm_tpu_torch.tools.pallas_repro`).
+array), `mine`, `mine --engine sharded-episode`, `distance --fast`, and
+the repro tool (`dsm_tpu_torch.tools.pallas_repro`).
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PATHS = {
     "build": ("sa_sort", "sa_rank"),
     "mine": ("rank", "compact", "segstats", "children", "decode"),
+    "mine_sharded": ("rank", "compact", "shard_partials", "node_gates",
+                     "children_ids", "gather_pack", "decode"),
     "distance": ("distance",),
     "repro": ("repro_carry", "repro_async", "repro_dynstore"),
 }
@@ -60,6 +62,19 @@ _SIGNATURES = {
     # scratch, newp, nb_next, hist, stream
     "dsm_children": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
                      _P, _P, _P],
+    # nb, pairs, olo, ohi, keep, U, P, flags, kid0, pair_count, child_total,
+    # cnt, scratch, newp, nb_next, stream
+    "dsm_children_ids": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I64,
+                         _P, _P, _P, _P, _P],
+    # nb, freq, cbits, U, part, stream
+    "dsm_shard_partials": [_P, _P, _P, _I64, _P, _P],
+    # parts, n_parts, U, depth, s_total, mindepth, pmin, pmax, use_egate,
+    # sym_mask, emin_lo, emax_hi, flags, ent, kid0, scratch, hist, room,
+    # counts, stream
+    "dsm_node_gates": [_P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P,
+                       _P, _P, _P, _P, _I64, _P, _P],
+    # table, nblk, n_tot, C, sid_col, out, lc_out, stream
+    "dsm_gather_pack": [_P, _I, _I64, _I, _I, _P, _P, _P],
     # hist, lvl_off, rows, jrel, m, maxj, base, syms, stream
     "dsm_decode": [_P, _P, _P, _P, _I64, _I, _P, _P, _P],
     # F, f_is64, bins, nfactor, R, d, nbins, slices, counts, order, count,

@@ -20,6 +20,15 @@ JAX sort order:
 pair_count and child_total are the level's counts (the number of kept
 lanes and of (node, symbol) groups with one), which the level has already
 read back to size the outputs.
+
+`children_ids(...)` (kernel K9c) is the same step for one shard of a
+sample-sharded level (dsm_tpu/mining/engine_device.py `_level_sharded`,
+:474-507).  A child exists when any shard keeps a lane of it, so the ids
+come from outside, from the level's global numbering (ops/shardstats
+`node_gates`: the exists bits of `flags`, and `kid0`, each node's first
+child id): nb_next has child_total + 1 entries on every shard, a child of
+which this shard keeps no lane has an empty segment, and no history entry
+is written (the history is one a process, written by `node_gates`).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from . import _build
 from .compact import compact_rows_plain
+from .segstats import EXISTS_SHIFT
 
 # pair-row columns ((P, 6) int32); the JAX rows (PROW, 8) swap PC_SOFF and
 # PC_NID (mining/engine_device.JAX_PAIR_COLS maps them)
@@ -36,14 +46,13 @@ PAIR_COLS = 6
 THREADS = 256   # csrc/children.cu kThreads: nodes per block
 
 
-def children_plain(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
-                   ohi: torch.Tensor, keep: torch.Tensor, pair_count: int,
-                   child_total: int, hist: torch.Tensor):
-    """Plain PyTorch version of the children kernel (any device): each
-    node's lanes permuted from (pair, c) to (c, pair) order, so lane
-    (p, c) of a node whose pairs start at s and number w lands at
-    4s + c*w + (p - s), then compacted; a second compaction of the
-    (node, symbol) boundaries gives nb_next and the history entries."""
+def _lanes_plain(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
+                 ohi: torch.Tensor, keep: torch.Tensor, pair_count: int,
+                 last: torch.Tensor) -> torch.Tensor:
+    """The kept lanes' rows in (node, symbol, pair) order, with `last`
+    ((4, P) int32) as their sixth column: each node's lanes permuted from
+    (pair, c) to (c, pair) order, so lane (p, c) of a node whose pairs
+    start at s and number w lands at 4s + c*w + (p - s), then compacted."""
     device = pairs.device
     P = pairs.shape[0]
     rlo, sid, soff, nid = (pairs[:, PC_RLO], pairs[:, PC_SID],
@@ -57,13 +66,25 @@ def children_plain(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
            + (torch.arange(P, device=device) - first)).reshape(-1)
     cand = torch.stack(
         [olo[:4], ohi[:4], rlo + (ohi[4:] - olo[4:]), sid.expand(4, P),
-         soff.expand(4, P), nid * 4 + sym64.to(torch.int32)],
-        dim=2).reshape(4 * P, PAIR_COLS)
+         soff.expand(4, P), last], dim=2).reshape(4 * P, PAIR_COLS)
     vals = torch.empty_like(cand)
     vals[dst] = cand
     mask = torch.empty(4 * P, dtype=torch.bool, device=device)
     mask[dst] = keep.reshape(-1)
-    newp, _ = compact_rows_plain(mask, vals, pair_count)
+    return compact_rows_plain(mask, vals, pair_count)[0]
+
+
+def children_plain(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
+                   ohi: torch.Tensor, keep: torch.Tensor, pair_count: int,
+                   child_total: int, hist: torch.Tensor):
+    """Plain PyTorch version of the children kernel (any device): the
+    ordered lanes (_lanes_plain) carry hv = node*4 + symbol; a second
+    compaction of the (node, symbol) boundaries gives nb_next and the
+    history entries."""
+    device = pairs.device
+    sym = torch.arange(4, dtype=torch.int32, device=device)[:, None]
+    newp = _lanes_plain(nb, pairs, olo, ohi, keep, pair_count,
+                        pairs[:, PC_NID] * 4 + sym)
     hv = newp[:, PC_NID]
     bdry = torch.ones(pair_count, dtype=torch.bool, device=device)
     bdry[1:] = hv[1:] != hv[:-1]
@@ -76,6 +97,33 @@ def children_plain(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
     nb_next[:child_total] = heads[:, 0]
     nb_next[child_total] = pair_count
     hist[:child_total] = heads[:, 1]
+    return newp, nb_next
+
+
+def children_ids_plain(nb: torch.Tensor, pairs: torch.Tensor,
+                       olo: torch.Tensor, ohi: torch.Tensor,
+                       keep: torch.Tensor, flags: torch.Tensor,
+                       kid0: torch.Tensor, pair_count: int,
+                       child_total: int):
+    """Plain PyTorch version of the outside-ids children kernel (any
+    device): lane (c, p) goes to child kid0[node] + (the node's existing
+    symbols below c); nb_next is the scan of the kept lanes a (node,
+    symbol), read at the existing ones."""
+    device = pairs.device
+    U = nb.shape[0] - 1
+    sym = torch.arange(4, device=device)
+    ex = ((flags.to(torch.int64)[:, None] >> (EXISTS_SHIFT + sym)) & 1)
+    below = torch.cumsum(ex, 1) - ex                            # (U, 4)
+    nid64 = pairs[:, PC_NID].to(torch.int64)
+    last = (kid0.to(torch.int64)[nid64][None, :] + below[nid64].T).to(
+        torch.int32)                                            # (4, P)
+    newp = _lanes_plain(nb, pairs, olo, ohi, keep, pair_count, last)
+    lanes = torch.zeros((U, 4), dtype=torch.int64, device=device).index_add_(
+        0, nid64, keep.T.to(torch.int64)).reshape(-1)
+    starts = torch.cumsum(lanes, 0) - lanes
+    nb_next = torch.empty(child_total + 1, dtype=torch.int32, device=device)
+    nb_next[:child_total] = starts[ex.reshape(-1) > 0].to(torch.int32)
+    nb_next[child_total] = pair_count
     return newp, nb_next
 
 
@@ -124,4 +172,50 @@ def children(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
                   keep.data_ptr(), U, P, pair_count, child_total,
                   cnt.data_ptr(), scratch.data_ptr(), newp.data_ptr(),
                   nb_next.data_ptr(), hist.data_ptr())
+    return newp, nb_next
+
+
+def children_ids(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
+                 ohi: torch.Tensor, keep: torch.Tensor, flags: torch.Tensor,
+                 kid0: torch.Tensor, pair_count: int, child_total: int):
+    """-> (newp (pair_count, 6) int32, nb_next (child_total + 1,) int32)
+    of one shard, with the child ids given by `flags` and `kid0` ((U,)
+    int32, from ops/shardstats.node_gates); the other arguments as in
+    `children`.  Every lane of `keep` must lie on an existing symbol of
+    its node.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    if pairs.device.type == "cpu":
+        return children_ids_plain(nb, pairs, olo, ohi, keep, flags, kid0,
+                                  pair_count, child_total)
+    device = pairs.device
+    if device.type != "cuda":
+        raise ValueError(f"children_ids: unsupported device {device}")
+    P = pairs.shape[0]
+    U = nb.shape[0] - 1
+    for name, t, dt, shape in (
+            ("nb", nb, torch.int32, (U + 1,)),
+            ("pairs", pairs, torch.int32, (P, PAIR_COLS)),
+            ("olo", olo, torch.int32, (8, P)),
+            ("ohi", ohi, torch.int32, (8, P)),
+            ("keep", keep, torch.bool, (4, P)),
+            ("flags", flags, torch.int32, (U,)),
+            ("kid0", kid0, torch.int32, (U,))):
+        if (t.dtype != dt or t.shape != shape or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"children_ids: {name} must be contiguous {dt} "
+                             f"of shape {tuple(shape)} on {device}")
+    newp = torch.empty((pair_count, PAIR_COLS), dtype=torch.int32,
+                       device=device)
+    nb_next = torch.empty(child_total + 1, dtype=torch.int32, device=device)
+    if U <= 0:
+        nb_next.zero_()
+        return newp, nb_next
+    nblocks = -(-U // THREADS)
+    cnt = torch.empty((U, 4), dtype=torch.int32, device=device)
+    scratch = torch.empty(2 * nblocks, dtype=torch.int64, device=device)
+    _build.launch("dsm_children_ids", "children_ids", device, nb.data_ptr(),
+                  pairs.data_ptr(), olo.data_ptr(), ohi.data_ptr(),
+                  keep.data_ptr(), U, P, flags.data_ptr(), kid0.data_ptr(),
+                  pair_count, child_total, cnt.data_ptr(),
+                  scratch.data_ptr(), newp.data_ptr(), nb_next.data_ptr())
     return newp, nb_next

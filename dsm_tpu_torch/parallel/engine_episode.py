@@ -1,0 +1,396 @@
+"""The device-resident mining episode with the samples sharded: over the
+shards one process holds on its device, and over the processes of a
+`torch.distributed` group.
+
+Counterpart of dsm_tpu/parallel/engine_episode.py `mine_device_sharded`
+(the episode loop under `shard_map` over a ('samples',) mesh), with the
+same semantics as the single-device episode (mining/engine_device) and
+engine_np.mine_np, and the same exits: DONE, TAIL, DRAIN, HISTFULL.
+
+Layout (parallel/mesh.SamplesMesh: world x shards_per_rank shards):
+
+  * a shard: its samples' occ tables (parallel/engine_sharded), its pair
+    list with LOCAL sample ids, `nb` (node -> first local pair; a node may
+    own no pair here, so nb has nnodes + 1 entries on every shard) and its
+    staged output rows;
+  * a process, once: the parent-pointer history, the level offsets, the
+    depth, the node count, total_paths and the entropy range.  dsm_tpu
+    keeps a replicated copy a shard; the shards of one device share one.
+
+A level (`_level_sharded`, dsm_tpu mining/engine_device.py:350-597):
+  1. a shard: two rank-kernel calls a pair, freq, active children
+     (engine_device._expand, as the single-device level);
+  2. a shard: the partials kernel (ops/shardstats.shard_partials), one
+     integer row a node;
+  3. the trie merge: where the mesh has a process group, ONE
+     `all_reduce` of the rows a level (the library's collective, as
+     `lax.psum` was XLA's); the sum over this process's shards is taken by
+  4. the gates kernel (ops/shardstats.node_gates), once a process: gates,
+     existing children, global child ids, history entries;
+  5. a shard: the outside-ids children kernel (ops/children.children_ids)
+     and the emit through the compaction kernel;
+  6. the exit: HISTFULL, DONE and TAIL follow from reduced values; DRAIN
+     when any shard of any process has more than `out_reserve` rows
+     staged (a scalar max-reduce over the processes).  One count readback
+     a level a process.
+Everything derived from the reduced rows is a function of integer sums, so
+every shard and process gates, numbers and exits alike.
+
+A drain (`_drain_sharded`, dsm_tpu :311-410) takes each shard's leftChar
+codes from its own reverse table, packs all shards' rows into one list
+with global sample ids (ops/gatherpack, after an all-gather of the padded
+lists where there are several processes: every process ends with the same
+rows and emits the full output), and hands it to the single-device drain's
+host half.  Snapshots hold global sample ids in (node, sample) order, so
+they resume in the single-device engine, at another shard count and in
+dsm_tpu, and theirs here.
+
+No counterpart, because the port allocates every level to its size:
+`_resize_sharded`, `_auto_cap_sharded`, the bucket ladder, FLAG_GROW,
+refit/boost, the chunked emit, `_single_controller`.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..index.fmindex import FMIndex
+from ..mining.config import MiningConfig
+from ..mining.engine import OUT_RESERVE, TAIL_WIDTH, leftchar_codes_pairs
+from ..mining.engine_device import (FLAG_DONE, FLAG_DRAIN, FLAG_HISTFULL,
+                                    FLAG_RUN, FLAG_TAIL, OC_FREQ, OC_RLO,
+                                    OC_SID, OUT_COLS, TAIL_MIN_DEPTH,
+                                    PathHistory, _emit_drained,
+                                    _episode_setup, _expand, _hist_cap,
+                                    _load_snapshot, _node_starts,
+                                    _run_episode, _Scalars, _stage)
+from ..mining.engine_np import MinedOutput
+from ..ops.children import (PAIR_COLS, PC_HI, PC_NID, PC_SID, PC_SOFF,
+                            children_ids)
+from ..ops.gatherpack import gather_pack
+from ..ops.segstats import F_GATED, F_STAT
+from ..ops.shardstats import (NACT_SHIFT, PART_COLS, node_gates,
+                              shard_partials)
+from .engine_sharded import ShardedIndexes
+from .mesh import SamplesMesh
+from .multihost import global_samples_mesh, shards_from_env
+
+
+@dataclass
+class ShardState:
+    """One shard's part of the episode: pairs (P, 6) int32 with LOCAL
+    sample ids, sorted by node; nb (nnodes + 1,) int32; out: the staged
+    (k, 5) output rows (local sample ids) awaiting a drain."""
+
+    pairs: torch.Tensor
+    nb: torch.Tensor
+    out: list = field(default_factory=list)
+    ocount: int = 0
+
+
+@dataclass
+class ShardedEpisodeState:
+    """One episode on a process: its shards' states and what is one a
+    process (the fields of engine_device.EpisodeState of the same names,
+    which the decode and history helpers read)."""
+
+    shards: list
+    nnodes: int
+    depth: int
+    hist: torch.Tensor
+    hist_len: int = 0
+    lvl_off: list = field(default_factory=list)
+    total_paths: int = 0
+    ent_min: torch.Tensor | None = None
+    ent_max: torch.Tensor | None = None
+
+
+def _fresh_state(shards: list, nnodes: int, depth: int, hist_cap: int,
+                 device, total_paths: int = 0, ent_min: float = np.inf,
+                 ent_max: float = -np.inf) -> ShardedEpisodeState:
+    f64 = dict(dtype=torch.float64, device=device)
+    return ShardedEpisodeState(
+        shards=shards, nnodes=nnodes, depth=depth,
+        hist=torch.zeros(hist_cap, dtype=torch.int32, device=device),
+        total_paths=total_paths, ent_min=torch.tensor(ent_min, **f64),
+        ent_max=torch.tensor(ent_max, **f64))
+
+
+def _seed_sharded_episode(dev: ShardedIndexes,
+                          hist_cap: int) -> ShardedEpisodeState:
+    """The root: one node; shard k holds one pair [0, n_s) for each of its
+    samples (local ids 0.., global id = dev.base(k) + local)."""
+    device = dev.device
+    shards = []
+    for sd in dev.shards:
+        pairs = torch.zeros((sd.S, PAIR_COLS), dtype=torch.int32,
+                            device=device)
+        pairs[:, PC_HI] = torch.as_tensor(sd.ns, dtype=torch.int32,
+                                          device=device)
+        pairs[:, PC_SID] = torch.arange(sd.S, dtype=torch.int32,
+                                        device=device)
+        pairs[:, PC_SOFF] = sd.soff
+        shards.append(ShardState(
+            pairs=pairs,
+            nb=torch.tensor([0, sd.S], dtype=torch.int32, device=device)))
+    return _fresh_state(shards, 1, 0, hist_cap, device)
+
+
+def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
+                   st: ShardedEpisodeState, mesh: SamplesMesh,
+                   eskip: int = 0) -> int:
+    """Run one trie level on `st` in place; returns the exit flag, the
+    same on every process.  FLAG_HISTFULL leaves `st` untouched.  `eskip`
+    > 0 redoes the level of a dsm_tpu snapshot taken in the middle of a
+    chunked emission: the nodes whose cumulative count of gated GLOBAL
+    pairs ends at or below `eskip` were drained before the snapshot
+    (dsm_tpu engine_device.py:515-519)."""
+    depth, U, device = st.depth, st.nnodes, dev.device
+    g = sc.gates(depth, dev.S)
+    grouped = mesh.group is not None
+
+    # ---- a shard: expand, partial rows --------------------------------
+    parts = torch.empty((len(st.shards), U, PART_COLS), dtype=torch.int64,
+                        device=device)
+    expanded = []
+    for k, sh in enumerate(st.shards):
+        olo, ohi, freq, keepc, cbits = _expand(dev.shards[k].frows, sh.pairs,
+                                               sc.fmin, g.sym_mask)
+        shard_partials(sh.nb, freq, cbits, parts[k])
+        expanded.append((olo, ohi, keepc))
+
+    # ---- the trie merge, then gates and child ids once a process ------
+    if grouped:
+        dist.all_reduce(parts, group=mesh.group)
+    flags, ent, kid0, counts = node_gates(parts, g, st.hist[st.hist_len:])
+    gated = (flags & F_GATED) != 0
+    if eskip:
+        gp = torch.where(gated, flags >> NACT_SHIFT, 0)
+        gated = gated & (torch.cumsum(gp, 0) > eskip)
+    pair_outs, sums = [], []
+    for k, sh in enumerate(st.shards):
+        po = gated[sh.pairs[:, PC_NID].to(torch.int64)]
+        pair_outs.append(po)
+        sums += [expanded[k][2].sum(), po.sum()]
+    sums = torch.stack(sums)
+    ocounts = torch.tensor([sh.ocount for sh in st.shards], device=device)
+    staged = (sums[1::2] + ocounts).max().reshape(1)
+    if grouped:
+        dist.all_reduce(staged, op=dist.ReduceOp.MAX, group=mesh.group)
+    child_total, n_present, staged, *sums = torch.cat(
+        [counts, staged, sums]).tolist()
+
+    room = st.hist.shape[0] - st.hist_len
+    if child_total > room:
+        if st.hist_len == 0:
+            raise ValueError(
+                f"one level has {child_total} children, more than the "
+                f"history capacity {room} (DSM_HIST_CAP)")
+        return FLAG_HISTFULL
+
+    st.total_paths += n_present
+    stat = (flags & F_STAT) != 0
+    st.ent_min = torch.minimum(st.ent_min,
+                               torch.where(stat, ent, np.inf).min())
+    st.ent_max = torch.maximum(st.ent_max,
+                               torch.where(stat, ent, -np.inf).max())
+
+    # ---- a shard: emit, children --------------------------------------
+    for k, sh in enumerate(st.shards):
+        pair_count, n_gated = sums[2 * k], sums[2 * k + 1]
+        if n_gated:
+            sh.out.append(_stage(sh.pairs, pair_outs[k], n_gated, depth))
+            sh.ocount += n_gated
+        olo, ohi, keepc = expanded[k]
+        sh.pairs, sh.nb = children_ids(sh.nb, sh.pairs, olo, ohi, keepc,
+                                       flags, kid0, pair_count, child_total)
+        expanded[k] = None
+
+    st.lvl_off.append(st.hist_len)
+    st.hist_len += child_total
+    st.nnodes, st.depth = child_total, depth + 1
+    if child_total == 0:
+        return FLAG_DONE
+    if child_total <= sc.tail_width and depth + 1 >= TAIL_MIN_DEPTH:
+        return FLAG_TAIL
+    if staged > sc.out_reserve:
+        return FLAG_DRAIN
+    return FLAG_RUN
+
+
+def _all_gather_rows(rows: torch.Tensor, mesh: SamplesMesh) -> torch.Tensor:
+    """Every process's (m_r, C) int32 rows, in rank order, on every
+    process: the counts and the lists padded to the longest are
+    all-gathered, and the gather kernel packs the count-bounded slices."""
+    device, C = rows.device, rows.shape[1]
+    count = torch.tensor([rows.shape[0]], dtype=torch.int64, device=device)
+    counts = _all_gather(count, mesh).reshape(-1).tolist()
+    padded = torch.zeros((max(max(counts), 1), C), dtype=torch.int32,
+                         device=device)
+    padded[:rows.shape[0]] = rows
+    every = _all_gather(padded, mesh)
+    return gather_pack([every[r, :m] for r, m in enumerate(counts)],
+                       [0] * mesh.world, 0)[0]
+
+
+def _all_gather(t: torch.Tensor, mesh: SamplesMesh) -> torch.Tensor:
+    """(world, *t.shape): `t` of every process.  NCCL gathers into one
+    tensor; gloo builds lack that and gather into a list."""
+    if t.device.type == "cuda":
+        out = torch.empty((mesh.world, *t.shape), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t, group=mesh.group)
+        return out
+    parts = [torch.empty_like(t) for _ in range(mesh.world)]
+    dist.all_gather(parts, t, group=mesh.group)
+    return torch.stack(parts)
+
+
+def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
+                   st: ShardedEpisodeState, ph: PathHistory, seg_depth0: int,
+                   dev: ShardedIndexes, mesh: SamplesMesh,
+                   tracker=None) -> None:
+    """Every shard's staged rows with their leftChar codes (each from the
+    shard's own reverse table) packed into one list under global sample
+    ids, the same on every process; then the host half of the
+    single-device drain (engine_device._emit_drained)."""
+    blocks, lcs, bases = [], [], []
+    for k, sh in enumerate(st.shards):
+        if not sh.ocount:
+            continue
+        orows = sh.out[0] if len(sh.out) == 1 else torch.cat(sh.out)
+        sh.out, sh.ocount = [], 0
+        sd = dev.shards[k]
+        lcs.append(leftchar_codes_pairs(
+            sd.rrows, sd.soff[orows[:, OC_SID].to(torch.int64)],
+            orows[:, OC_RLO], orows[:, OC_FREQ]))
+        blocks.append(orows)
+        bases.append(dev.base(k))
+    if blocks:
+        rows, lc = gather_pack(blocks, bases, OC_SID, lcs)
+    else:
+        rows = torch.empty((0, OUT_COLS), dtype=torch.int32,
+                           device=dev.device)
+        lc = torch.empty(0, dtype=torch.int8, device=dev.device)
+    if mesh.group is not None:
+        # the codes ride as a sixth column through the one gather
+        both = _all_gather_rows(
+            torch.cat([rows, lc.to(torch.int32)[:, None]], dim=1), mesh)
+        rows, lc = both[:, :OUT_COLS], both[:, OUT_COLS]
+    if rows.shape[0]:
+        _emit_drained(out, cfg, d, st, ph, seg_depth0, rows.cpu().numpy(),
+                      lc.cpu().numpy(), tracker)
+
+
+def _gather_live_pairs(st: ShardedEpisodeState, dev: ShardedIndexes,
+                       mesh: SamplesMesh) -> np.ndarray:
+    """The live pair rows of every shard of every process on the host,
+    (m, 6) int32 with global sample ids, in canonical (node, sample)
+    order: what a snapshot stores and the tail handoff densifies."""
+    rows = gather_pack([sh.pairs for sh in st.shards],
+                       [dev.base(k) for k in range(len(st.shards))],
+                       PC_SID)[0]
+    if mesh.group is not None:
+        rows = _all_gather_rows(rows, mesh)
+    rows = rows.cpu().numpy()
+    return rows[np.lexsort((rows[:, PC_SID], rows[:, PC_NID]))]
+
+
+def _stack_pairs_by_shard(pairs: np.ndarray, n_nodes: int,
+                          dev: ShardedIndexes) -> list:
+    """Split canonical pair rows ((m, 6), global sample ids, sorted by
+    node then sample) into this process's ShardStates: local sample ids,
+    and PC_SOFF recomputed for this run's tables (the snapshot may come
+    from another shard count, the single-device engine or dsm_tpu)."""
+    shard_of = np.searchsorted(dev.bounds, pairs[:, PC_SID],
+                               side="right") - 1
+    shards = []
+    for k, sd in enumerate(dev.shards):
+        loc = pairs[shard_of == dev.first + k].copy()
+        loc[:, PC_SID] -= dev.base(k)
+        loc[:, PC_SOFF] = sd.soff.cpu().numpy()[loc[:, PC_SID]]
+        shards.append(ShardState(
+            pairs=torch.as_tensor(loc, device=dev.device),
+            nb=torch.as_tensor(_node_starts(loc[:, PC_NID], n_nodes),
+                               device=dev.device)))
+    return shards
+
+
+def _resume_sharded(path: str, cfg: MiningConfig, prefix: bytes,
+                    dev: ShardedIndexes, hist_cap: int):
+    """A snapshot of either engine or package -> (ShardedEpisodeState,
+    MinedOutput, PathHistory seeded with the frontier's paths, eskip)."""
+    host, pairs, out, base_paths = _load_snapshot(path, cfg, prefix, dev.ns)
+    n, depth = int(host["nvalid"]), int(host["depth"])
+    st = _fresh_state(_stack_pairs_by_shard(pairs, n, dev), n, depth,
+                      hist_cap, dev.device, int(host["total_paths"]),
+                      float(host["ent_min"]), float(host["ent_max"]))
+    return (st, out, PathHistory(base_depth=depth, base_paths=base_paths),
+            int(host.get("eskip", 0)))
+
+
+def mine_device_sharded(
+    indexes: list[FMIndex],
+    cfg: MiningConfig,
+    mesh: SamplesMesh | None = None,
+    prefix: bytes = b"",
+    tail_width: int = TAIL_WIDTH,
+    out_reserve: int = OUT_RESERVE,
+    checkpoint: str | None = None,
+    reader_order: str = "ascending",
+    device="cuda",
+    profile: dict | None = None,
+    dev: ShardedIndexes | None = None,
+) -> MinedOutput:
+    """Mine with the device-resident episode over a sharded sample set.
+    Same output as engine_np.mine_np and engine_device.mine_device
+    (`prefix`, `reader_order`, `tail_width`, `out_reserve` and `profile`
+    as there; there is no `halt`, as in dsm_tpu).
+
+    `mesh`: the samples axis (parallel/multihost.global_samples_mesh); by
+    default every initialised process of `torch.distributed` (one process
+    without a group) with DSM_SHARDS (default 1) shards each on `device`.
+    Every process is given ALL the indexes, uploads its own shards'
+    tables (or is given them as `dev`, built on the same mesh), takes the
+    same exits and returns the full output.  A mesh with a process group,
+    be it of one process, runs the collectives.
+
+    `checkpoint`: a snapshot file in dsm_tpu's format, written at every
+    DRAIN and HISTFULL exit (by rank 0; the other processes read it on
+    resume, so the path is one all of them see), resumed from when it
+    exists and removed when the run ends.  It holds global sample ids in
+    (node, sample) order: it resumes in mine_device, at another shard
+    count and in dsm_tpu, and theirs resume here."""
+    if mesh is None:
+        mesh = global_samples_mesh(shards_from_env(), device)
+    tracker, sc, prof = _episode_setup(indexes, cfg, prefix, tail_width,
+                                       out_reserve, reader_order, profile)
+    if dev is None:
+        dev = ShardedIndexes.build(indexes, mesh)
+    elif (dev.device != mesh.device or dev.first != mesh.first_shard
+          or len(dev.bounds) != mesh.n_shards + 1
+          or len(dev.shards) != mesh.shards_per_rank):
+        raise ValueError("the tables were built on another mesh")
+    d = dev.S
+    hist_cap = _hist_cap(dev)
+    eskip = 0
+    if checkpoint is not None and os.path.exists(checkpoint):
+        st, out, ph, eskip = _resume_sharded(checkpoint, cfg, prefix, dev,
+                                             hist_cap)
+    else:
+        st = _seed_sharded_episode(dev, hist_cap)
+        out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
+        ph = PathHistory()
+    return _run_episode(
+        "mine_device_sharded", indexes, cfg, prefix, dev.ns, st, out, ph,
+        eskip, tracker, prof, checkpoint, writes=mesh.rank == 0,
+        level=lambda eskip: _level_sharded(dev, sc, st, mesh, eskip),
+        drain=lambda seg_depth0: _drain_sharded(out, cfg, d, st, ph,
+                                                seg_depth0, dev, mesh,
+                                                tracker),
+        live_pairs=lambda: _gather_live_pairs(st, dev, mesh))

@@ -10,8 +10,14 @@ is held against its plain PyTorch version on the same CUDA tensors, at
 edge shapes; the suffix array also against the host numpy one; the
 mining run (plain, killed and resumed from its snapshot, and halted) and
 the index build on the card against the port's CPU path.
+The kernels of the sharded level and drain (the partial rows, the gates
+from their sums, the outside-ids children step, the gather) are held
+against their plain versions at ragged sizes with empty segments, and a
+sharded mine (2 and 7 shards on the card) against the single-device one.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
-version sums with index_add_, whose order on the card may differ), and
+version sums with index_add_, whose order on the card may differ), the
+fixed-point entropy sums of the partial rows (each term truncated from a
+log that the card's two libraries may round apart: one unit a pair), and
 the f64 sums of the pairwise distance matrices: 1e-9 * (1 + |value|) (the
 kernel's row slices meet in atomics, in an order of their own).
 """
@@ -196,6 +202,156 @@ def test_children_kernel(cuda, case):
     assert got[0].shape == (pair_count, 6)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got_hist, want_hist)
+
+
+def _sharded_level(rng, S, U, n):
+    """A node-sorted pair list over S samples (nodes of 0..S pairs) and its
+    split into n sample shards: [(nb, freq, cbits, own)]."""
+    member = rng.random((U, S)) < rng.choice([0.0, 0.3, 0.9], size=(U, 1))
+    nid, sid = np.nonzero(member)
+    P = nid.shape[0]
+    freq = rng.integers(0, 3000, size=P).astype(np.int32)
+    freq[rng.random(P) < 0.15] = 0
+    cbits = (rng.integers(0, 16, size=P) * (freq > 0)).astype(np.uint8)
+    shards = []
+    for k in range(n):
+        own = (sid >= k * S // n) & (sid < (k + 1) * S // n)
+        nb = np.concatenate([[0], np.cumsum(np.bincount(
+            nid[own], minlength=U))]).astype(np.int32)
+        shards.append((nb, freq[own], cbits[own], own))
+    return nid.astype(np.int32), sid.astype(np.int32), shards
+
+
+@pytest.mark.parametrize("S,U,n", [(5, 1, 1), (5, 257, 2), (5, 5000, 7),
+                                   (64, 3000, 5), (512, 300, 3),
+                                   (5, 300_001, 2)])
+def test_shardstats_kernels(cuda, S, U, n):
+    from dsm_tpu_torch.ops.segstats import Gates
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, node_gates,
+                                              node_gates_plain,
+                                              shard_partials,
+                                              shard_partials_plain)
+
+    rng = np.random.default_rng(S * U + n)
+    _nid, _sid, shards = _sharded_level(rng, S, U, n)
+    parts = torch.empty((n, U, PART_COLS), dtype=torch.int64, device=cuda)
+    before = dict(_build.LAUNCHES)
+    for k, (nb, freq, cbits, _own) in enumerate(shards):
+        args = [torch.as_tensor(a, device=cuda) for a in (nb, freq, cbits)]
+        shard_partials(*args, parts[k])
+        want = shard_partials_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(parts[k][:, [0, 2]], want[:, [0, 2]])
+        width = torch.as_tensor(np.diff(nb), device=cuda)
+        assert bool(((parts[k][:, 1] - want[:, 1]).abs() <= width).all())
+    assert _build.LAUNCHES["shard_partials"] == before["shard_partials"] + n
+    for depth, sym_mask, room in ((0, 0b1111, 4 * U), (6, 0b1111, 4 * U),
+                                  (6, 0b0100, 4 * U), (6, 0b1111, U // 3)):
+        g = Gates(depth=depth, s_total=S, mindepth=2, pmin=2, pmax=0,
+                  use_egate=True, sym_mask=sym_mask, emin_lo=0.2,
+                  emax_hi=1.6)
+        got_hist = torch.full((room,), -7, dtype=torch.int32, device=cuda)
+        want_hist = got_hist.clone()
+        got = node_gates(parts, g, got_hist)
+        want = node_gates_plain(parts, g, want_hist)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert float((got[1] - want[1]).abs().max()) < 1e-9
+        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        assert torch.equal(got_hist, want_hist)
+    assert _build.LAUNCHES["node_gates"] == before["node_gates"] + 4
+
+
+@pytest.mark.parametrize("S,U,n", [(5, 1, 1), (5, 257, 2), (5, 5000, 7),
+                                   (512, 300, 3), (5, 300_001, 2)])
+def test_children_ids_kernel(cuda, S, U, n):
+    from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
+
+    rng = np.random.default_rng(S + U + n)
+    nid, sid, shards = _sharded_level(rng, S, U, n)
+    P = nid.shape[0]
+    keep = rng.random((4, P)) < 0.35
+    ex = np.zeros((U, 4), dtype=np.int64)
+    c, p = np.nonzero(keep)
+    ex[nid[p], c] = 1
+    flags = torch.as_tensor(((ex << np.arange(4)).sum(1) << 4 | 5).astype(
+        np.int32), device=cuda)
+    kid0 = torch.as_tensor((np.cumsum(ex.sum(1)) - ex.sum(1)).astype(
+        np.int32), device=cuda)
+    child_total = int(ex.sum())
+    rows = 0
+    for nb, _freq, _cbits, own in shards:
+        m = int(own.sum())
+        pairs = rng.integers(-2**31, 2**31, size=(m, 6)).astype(np.int32)
+        pairs[:, 5], pairs[:, 3] = nid[own], sid[own]
+        olo = rng.integers(-2**31, 2**31 - 5000, size=(8, m))
+        ohi = olo + rng.integers(0, 5000, size=(8, m))
+        kp = np.ascontiguousarray(keep[:, own])
+        args = [torch.as_tensor(a, device=cuda) for a in (
+            nb, pairs, olo.astype(np.int32), ohi.astype(np.int32), kp)]
+        before = _build.LAUNCHES["children_ids"]
+        got = children_ids(*args, flags, kid0, int(kp.sum()), child_total)
+        assert _build.LAUNCHES["children_ids"] == before + 1
+        want = children_ids_plain(*args, flags, kid0, int(kp.sum()),
+                                  child_total)
+        torch.cuda.synchronize()
+        assert got[1].shape == (child_total + 1,)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        rows += got[0].shape[0]
+    assert rows == int(keep.sum())
+
+
+@pytest.mark.parametrize("sizes", [[1], [4, 0, 7], [0, 0, 3, 0],
+                                   [100_003, 0, 1, 65_536, 257]])
+def test_gather_pack_kernel(cuda, sizes):
+    from dsm_tpu_torch.ops.gatherpack import gather_pack, gather_pack_plain
+
+    rng = np.random.default_rng(sum(sizes))
+    for C, sid_col, with_lc in ((5, 2, True), (6, 3, False)):
+        blocks = [torch.as_tensor(rng.integers(-10**6, 10**6, size=(m, C))
+                                  .astype(np.int32), device=cuda)
+                  for m in sizes]
+        lcs = [torch.as_tensor(rng.integers(0, 6, size=m).astype(np.int8),
+                               device=cuda) for m in sizes] \
+            if with_lc else None
+        bases = [int(b) for b in rng.integers(0, 500, size=len(sizes))]
+        before = _build.LAUNCHES["gather_pack"]
+        got = gather_pack(blocks, bases, sid_col, lcs)
+        assert _build.LAUNCHES["gather_pack"] == before + 1
+        want = gather_pack_plain(blocks, bases, sid_col, lcs)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None and want[1] is None) \
+            or torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shards", [2, 7])
+@pytest.mark.parametrize("order", ["ascending", "gnu"])
+def test_sharded_mine_on_card_equals_single_device(cuda, toy_indexes, shards,
+                                                   order, tmp_path):
+    """The sharded episode on the card (7 shards of 5 samples: two are
+    empty) against the single-device one, with small drains and a
+    snapshot file: lines and counters equal, every kernel of its path
+    launched."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    ck = str(tmp_path / "card.ckpt")
+    _build.reset_launches()
+    got = mine_device_sharded(
+        toy_indexes, cfg, mesh=global_samples_mesh(shards, cuda),
+        reader_order=order, out_reserve=16, checkpoint=ck)
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["mine_sharded"])
+    assert _build.LAUNCHES["segstats"] == _build.LAUNCHES["children"] == 0
+    assert not os.path.exists(ck)
+    want = mine_torch(toy_indexes, cfg, device=cuda, reader_order=order)
+    assert got.format_lines() == want.format_lines()
+    assert (got.total_paths, got.total_output, got.total_occs) == \
+        (want.total_paths, want.total_output, want.total_occs)
+    assert abs(got.smallest_entropy - want.smallest_entropy) < 1e-5
 
 
 def test_checkpoint_resume_on_card_equals_cpu(cuda, toy_indexes, tmp_path,

@@ -9,9 +9,16 @@ the reference server's frozen output.  Exact: the emitted bytes,
 total_paths, total_output, total_occs and freq_histogram.  The entropy
 min/max diagnostics (f32 on the TPU path): absolute 5e-6.
 
+Enforced prefixes on the device engine (`prefix=`): `A`, `GA`, one under
+which the trie is empty, one longer than maxdepth, and one longer than
+dsm_tpu's PFX_MAX = 16 symbols (dsm_tpu refuses it: held against the
+port's own `mine_np` alone), exactly.
+
 The CLI, `python -m dsm_tpu_torch mine --device cpu`, must print what
-`dsm mine` prints; the port must not import jax; and CUDA asked for
-where there is none is an error, not a quiet move to the CPU.
+`dsm mine` prints, also with `--engine numpy`, and `enumerate --check`
+what `dsm enumerate --check` prints; `--engine auto` and `--num-hosts`
+exit 1; the port must not import jax; and CUDA asked for where there is
+none is an error, not a quiet move to the CPU.
 """
 
 import glob
@@ -31,6 +38,7 @@ from dsm_tpu.mining.engine import mine_tpu
 from dsm_tpu.mining.engine_np import mine_np
 from dsm_tpu_torch import convert
 from dsm_tpu_torch.mining.engine import mine_torch as port_mine_torch
+from dsm_tpu_torch.mining.engine_np import mine_np as port_mine_np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -122,6 +130,39 @@ def test_mine_torch_gnu_matches_reference_golden(indexes):
     assert_same(got, want, entropy_tol=5e-6)
 
 
+# a path the toydata mines at depth 114: its first 12 symbols are longer
+# than CONFIGS["default"]'s maxdepth, its first 17 than dsm_tpu's PFX_MAX
+DEEP = b"AATCTCCTGTTAAGAATCGAGCGC"
+PREFIXES = {"A": b"A", "GA": b"GA", "empty-trie": b"GATTACAGAT",
+            "past-maxdepth": DEEP[:12], "past-16": DEEP[:17],
+            "past-16-empty": b"A" * 17}
+
+
+@pytest.mark.parametrize("case", list(PREFIXES))
+@pytest.mark.parametrize("depth", ["maxdepth-10", "unbounded"])
+def test_mine_torch_enforced_prefix(indexes, case, depth):
+    prefix = PREFIXES[case]
+    cfg = CONFIGS["default"] if depth == "maxdepth-10" \
+        else MiningConfig(fmin=2, emax=1.2)
+    got = mine_torch(indexes, cfg, prefix=prefix, device="cpu")
+    want = port_mine_np([convert.fmindex_from_jax(i) for i in indexes],
+                        convert.config_from_jax(cfg), prefix=prefix)
+    assert_same(got, want, entropy_tol=1e-12)
+    if case == "empty-trie":
+        assert got.total_output == 0
+    if case == "past-16" and depth == "unbounded":
+        assert got.total_output == 1
+    if len(prefix) <= 16:
+        assert_same(got, mine_np(indexes, cfg, prefix=prefix),
+                    entropy_tol=1e-12)
+        if depth == "maxdepth-10":   # the JAX episode: once a prefix
+            assert_same(got, mine_tpu(indexes, cfg, prefix=prefix),
+                        entropy_tol=5e-6)
+    else:
+        with pytest.raises(ValueError, match="longer than 16"):
+            mine_tpu(indexes, cfg, prefix=prefix)
+
+
 @pytest.fixture(scope="module")
 def dsmi_files(indexes, tmp_path_factory):
     out = tmp_path_factory.mktemp("torch_cli")
@@ -147,6 +188,49 @@ def test_cli_mine_matches_dsm_mine(dsmi_files):
     assert got.stdout == want.stdout and got.stdout
     assert got.stderr.decode().splitlines()[-4:] == \
         want.stderr.decode().splitlines()[-4:]
+
+
+def test_cli_mine_engine_numpy_matches_dsm(dsmi_files):
+    """--engine numpy: the host engine, with no device asked for."""
+    args = ["mine", "--engine", "numpy", "-f", "2", "-E", "1.2", "-M", "8",
+            "--prefix", "GA", "--reader-order", "gnu", "-v", *dsmi_files]
+    want = _run("dsm_tpu", *args)
+    got = _run("dsm_tpu_torch", *args,
+               env={**ENV, "CUDA_VISIBLE_DEVICES": ""})
+    assert want.returncode == 0, want.stderr.decode()
+    assert got.returncode == 0, got.stderr.decode()
+    assert got.stdout == want.stdout and got.stdout
+    assert got.stderr.decode().splitlines()[-4:] == \
+        want.stderr.decode().splitlines()[-4:]
+
+
+def test_cli_enumerate_check_matches_dsm(dsmi_files, tmp_path):
+    """enumerate --check: the index's self-test, OK on a sound index and
+    FAILED (exit 1) on one whose last occ checkpoint counts one A too
+    many."""
+    from dsm_tpu_torch.index.fmindex import FMIndex as PortFMIndex
+
+    bad = PortFMIndex.load(dsmi_files[0])
+    bad.table.occ[bad.n >> 7, 2] += 1   # the checkpoint rank(A, n) reads
+    broken = str(tmp_path / "broken.dsmi")
+    bad.save(broken)
+    for path, rc in ((dsmi_files[0], 0), (broken, 1)):
+        want = _run("dsm_tpu", "enumerate", "--check", path)
+        got = _run("dsm_tpu_torch", "enumerate", "--check", path)
+        assert want.returncode == got.returncode == rc, got.stderr.decode()
+        assert got.stderr.decode().splitlines()[-1] == \
+            want.stderr.decode().splitlines()[-1]
+    p = _run("dsm_tpu_torch", "enumerate", dsmi_files[0])
+    assert p.returncode == 1 and b"not ported" in p.stderr
+
+
+@pytest.mark.parametrize("flags", [["--engine", "auto"],
+                                   ["--num-hosts", "2", "--host-id", "0"]])
+def test_cli_unported_mine_flags_exit_1(dsmi_files, flags):
+    p = _run("dsm_tpu_torch", "mine", "-f", "2", "-E", "1.2", "--device",
+             "cpu", *flags, *dsmi_files)
+    assert p.returncode == 1 and not p.stdout
+    assert b"next slice" in p.stderr
 
 
 def test_port_never_imports_jax(dsmi_files):

@@ -6,7 +6,10 @@ tables, the NumPy suffix sort and engine, the gnu-order models, the index
 file formats and the snapshot codec exist twice.  Here the same inputs go
 through both and everything is equal: arrays, file bytes (.fmi) and file
 contents (.dsmi, snapshots), mined lines byte for byte.  `convert` carries
-a dsm_tpu FMIndex and MiningConfig over to the port's classes.
+a dsm_tpu FMIndex and MiningConfig over to the port's classes.  The
+samples axis (parallel/mesh, parallel/multihost without a process group)
+and the sharded tables (parallel/engine_sharded) are held against
+dsm_tpu's axis name and its `ShardedIndexes` host arrays, row for row.
 """
 
 import glob
@@ -14,6 +17,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from dsm_tpu.index import alphabet as jalphabet
 from dsm_tpu.index import fasta as jfasta
@@ -28,6 +32,8 @@ from dsm_tpu.mining.config import MiningConfig as JMiningConfig
 from dsm_tpu.mining.gnulazy import LazyGnuOrder as JLazyGnuOrder
 from dsm_tpu.ops import rank as jrank
 from dsm_tpu.ops import sa as jsa
+from dsm_tpu.parallel import mesh as jmesh
+from dsm_tpu.parallel.engine_sharded import ShardedIndexes as JShardedIndexes
 from dsm_tpu_torch import convert
 from dsm_tpu_torch.index import alphabet, fasta, fmi_compat, incremental
 from dsm_tpu_torch.index.build import libname
@@ -37,6 +43,10 @@ from dsm_tpu_torch.mining import engine_np, gnuorder
 from dsm_tpu_torch.mining.config import MiningConfig
 from dsm_tpu_torch.mining.gnulazy import LazyGnuOrder
 from dsm_tpu_torch.ops import rank, sa
+from dsm_tpu_torch.parallel import mesh as pmesh
+from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+from dsm_tpu_torch.parallel.multihost import (global_samples_mesh,
+                                              shards_from_env)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOYDATA = os.path.join(HERE, "data", "toydata")
@@ -344,3 +354,53 @@ def test_rlcsa_artifact_loads_equal():
     kw = dict(fmin=1, emax=99, pmin=1)
     assert engine_np.mine_np([got], MiningConfig(**kw)).format_lines() == \
         jnp_engine.mine_np([want], JMiningConfig(**kw)).format_lines()
+
+
+def test_samples_axis_without_a_group(monkeypatch):
+    """No process group: one process that holds every shard."""
+    assert pmesh.SAMPLES_AXIS == jmesh.SAMPLES_AXIS
+    mesh = global_samples_mesh(3, "cpu")
+    assert (mesh.group, mesh.rank, mesh.world, mesh.n_shards,
+            mesh.first_shard) == (None, 0, 1, 3, 0)
+    assert pmesh.SamplesMesh(None, 2, 4, 3, mesh.device).first_shard == 6
+    with pytest.raises(ValueError):
+        global_samples_mesh(0, "cpu")
+    monkeypatch.delenv("DSM_SHARDS", raising=False)
+    assert shards_from_env() == 1
+    monkeypatch.setenv("DSM_SHARDS", "5")
+    assert shards_from_env() == 5
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 5, 8])
+def test_sharded_tables_equal(jindexes, pindexes, shards):
+    """Every sample's forward and reverse table rows and length in the
+    port's shard that holds it equal dsm_tpu's (which pads every sample to
+    one row count and the set with dummy samples); with 8 shards three of
+    the port's are empty.  `convert.sharded_tables_from_jax` stacks
+    dsm_tpu's padded rows and answers the same rank queries."""
+    jdev = JShardedIndexes.build(jindexes, pad_to=8)
+    mesh = global_samples_mesh(shards, "cpu")
+    pdev = ShardedIndexes.build(pindexes, mesh)
+    cdev = convert.sharded_tables_from_jax(jdev, mesh, len(jindexes))
+    assert pdev.S == cdev.S == len(jindexes)
+    np.testing.assert_array_equal(pdev.ns, jdev.ns[:pdev.S])
+    assert list(pdev.bounds) == list(cdev.bounds) == \
+        [k * pdev.S // shards for k in range(shards + 1)]
+    assert sum(sd.S for sd in pdev.shards) == pdev.S
+    rng = np.random.default_rng(shards)
+    for k, (sd, cd) in enumerate(zip(pdev.shards, cdev.shards)):
+        assert sd.S == cd.S == pdev.bounds[k + 1] - pdev.bounds[k]
+        soff = np.append(sd.soff.numpy(), sd.frows.shape[0])
+        for loc in range(sd.S):
+            g = pdev.base(k) + loc
+            assert sd.ns[loc] == jindexes[g].n
+            for got, want in ((sd.frows, jdev.fnp), (sd.rrows, jdev.rnp)):
+                rows = got.numpy()[soff[loc]:soff[loc + 1]].view(np.uint32)
+                np.testing.assert_array_equal(rows, want[g, :rows.shape[0]])
+                assert not want[g, rows.shape[0]:].any()
+            pos = torch.as_tensor(rng.integers(0, sd.ns[loc] + 1, size=50),
+                                  dtype=torch.int32)
+            for a, b in ((sd.frows, cd.frows), (sd.rrows, cd.rrows)):
+                assert torch.equal(
+                    rank.occ_cum8(a, pos, sd.soff[loc].expand(50)),
+                    rank.occ_cum8(b, pos, cd.soff[loc].expand(50)))

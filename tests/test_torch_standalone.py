@@ -62,7 +62,13 @@ def report():
 def test_the_walk_finds_the_package():
     for name in ("dsm_tpu_torch.cli.main", "dsm_tpu_torch.post.distance",
                  "dsm_tpu_torch.ops.distance", "dsm_tpu_torch.index.rlcsa",
-                 "dsm_tpu_torch.mining.gnulazy", "chip_smoke"):
+                 "dsm_tpu_torch.mining.gnulazy",
+                 "dsm_tpu_torch.parallel.mesh",
+                 "dsm_tpu_torch.parallel.multihost",
+                 "dsm_tpu_torch.parallel.engine_sharded",
+                 "dsm_tpu_torch.parallel.engine_episode",
+                 "dsm_tpu_torch.ops.shardstats",
+                 "dsm_tpu_torch.ops.gatherpack", "chip_smoke"):
         assert name in MODULES
 
 
