@@ -17,10 +17,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      checked from the previous round's order and from scratch, its first
      round from scratch; the round's bytes a key and TB/s are printed
      (toy0 and 2^24).  P2-P4 are timed by events and by the profiler's
-     device time, P3 also at N = 2^24.  The path decode (K6) walks a
-     synthetic history of DEC_LEVELS levels of SEG_NODES nodes, and the
-     children step (K3) runs on SEG_NODES nodes of 1..5 pairs with ~30%
-     of the lanes kept (all symbols, and one symbol alone).  The pairwise
+     device time, also at N = 2^24 beside the PyTorch call with the same
+     result.  The compaction (P1) also runs with width below the count,
+     an unaligned mask and a tail to zero, and its emit entry
+     (`stage_rows`) on the children case's pairs with 0.1% and 30% of
+     them marked.  The path decode (K6) walks a synthetic history of
+     DEC_LEVELS levels of SEG_NODES nodes, and the children step (K3)
+     runs on SEG_NODES nodes of 1..5 pairs with ~30% of the lanes kept
+     (all symbols, and one symbol alone), on the same ~4.2M pairs in
+     nodes of 1..64 and 1..273 pairs (K9c too), with nodes that hold no
+     pair, and with nothing kept.  The pairwise
      distance matrices (K11) take DIST_R rows of DIST_D samples in
      DIST_BINS bins (`distance_rows`: ~30% of the entries nonzero,
      long-tailed), against
@@ -40,6 +46,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
      prove the build, and every mining kernel must have been launched;
+     one more warm ascending run under torch.profiler gives the device
+     time and the number of device activities of a run;
   6. resume: the gnu-order mine with `checkpoint=` (out_reserve
      RESUME_RESERVE: saves where the frontier is wide) is killed by a
      raise from `save_checkpoint` after its second save and resumed from
@@ -103,7 +111,7 @@ RESUME_RESERVE = 100    # gnu order: saves at depths 10-12, 33, 59
 HALT_RESERVE = 500      # ascending: the first halt poll at depth 10
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
-P3_BIG = 1 << 24        # async_copy where bytes count (128 MB moved)
+REPRO_BIG = 1 << 24     # P2-P4 where bytes count (128 MB moved a call)
 GATHER_ROWS = 100_000   # rows a block of the gather kernel's check (K10)
 DIST_R, DIST_D, DIST_BINS = 1 << 20, 64, 21   # K11: rows, samples, bins
 # K11's f64 sums against the plain version's: up to 2^20 same-signed terms
@@ -117,7 +125,8 @@ F64_TOPS = 33.5         # f64 outside the tensor cores: half the f32 rate
 # the kernels of each path, by the name in the kernels line
 LAUNCH_KEY = {"occ_cum8": "rank", "compact_rows": "compact",
               "segstats": "segstats", "decode": "decode",
-              "children": "children", "sa_sort": "sa_sort",
+              "children": "children", "stage_rows": "compact",
+              "sa_sort": "sa_sort",
               "sa_rank": "sa_rank", "smem_carry": "repro_carry",
               "async_copy": "repro_async", "dynamic_store": "repro_dynstore",
               "pairwise_matrices": "distance",
@@ -249,6 +258,29 @@ def device_ms(torch, fn, reps: int = 20):
     return us / reps / 1000 if us else None
 
 
+def device_profile(torch, fn):
+    """One call of fn under torch.profiler -> (the device activities'
+    summed duration in ms, or None when none was recorded; their number;
+    the eight names with the most time, ms each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, n = {}, 0     # by the name's first 60 characters
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n += 1
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) \
+                + e.time_range.elapsed_us() / 1000
+    top = {k: round(v, 3) for k, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:8]}
+    return (sum(by_name.values()) if n else None), n, top
+
+
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -335,6 +367,8 @@ def phase_kernels(torch, dev, device) -> list[dict]:
             if int(gcnt) != int(wcnt) or not torch.equal(got, want):
                 raise SystemExit(f"compact kernel disagrees with its plain "
                                  f"version at C={c} frac={frac}")
+            if frac == 0.3 and c == 6:
+                compact_edges(torch, mask, vals, k)
             if frac == 0.3:
                 times[c] = (
                     cuda_ms(torch, lambda: compact_rows(mask, vals, k)),
@@ -349,9 +383,10 @@ def phase_kernels(torch, dev, device) -> list[dict]:
         source="dsm_tpu_torch/csrc/compact.cu",
         replaces="dsm_tpu/ops/pallas_compact.py:162", max_abs_err=0,
         ms=km, plain_ms=pm,
-        # the mask and the rows in, the kept rows and the count out; a
-        # scan step and a test a row
-        **bound(n * (1 + 6 * 4) + k * 6 * 4 + 4, 2 * n), library_ms=lm))
+        # the mask and the kept rows in, the kept rows and the count out
+        # (the rows that are dropped need not be read); a scan step and a
+        # test a row
+        **bound(n + 2 * k * 6 * 4 + 8, 2 * n), library_ms=lm))
 
     # segstats: ~4M pairs in nodes of 1..5 pairs (S = 5 samples)
     sizes = rng.integers(1, 6, size=SEG_NODES)
@@ -385,6 +420,71 @@ def phase_kernels(torch, dev, device) -> list[dict]:
         f"{eerr:.3g}); {results[-1]['ms']:.3f} ms vs plain "
         f"{results[-1]['plain_ms']:.3f} ms")
     return results + phase_level_kernels(torch, device)
+
+
+def compact_edges(torch, mask, vals, k: int) -> None:
+    """The one-pass compaction where the main path does not go: width
+    below the count (the count is still the total), a mask that starts
+    at an odd byte, and width above the count into an output that held
+    garbage (the kernel zeroes the tail; the whole output is compared)."""
+    from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
+
+    c = vals.shape[1]
+    odd = torch.cat([mask[:5], mask])[5:]
+    if odd.data_ptr() % 16 == 0 or not odd.is_contiguous():
+        raise SystemExit("compact: the mask view is not unaligned")
+    for label, m, width in (("width < count", mask, k // 2),
+                            ("unaligned mask", odd, k),
+                            ("zeroed tail", mask, k + 100_003)):
+        junk = torch.full((width, c), -0x5A5A5A5B, dtype=torch.int32,
+                          device=vals.device)
+        torch.cuda.synchronize()
+        del junk         # the wrapper's torch.empty takes this block again
+        got, gcnt = compact_rows(m, vals, width)
+        want, wcnt = compact_rows_plain(m, vals, width)
+        torch.cuda.synchronize()
+        if int(gcnt) != int(wcnt) or int(gcnt) != k \
+                or not torch.equal(got, want):
+            raise SystemExit(f"compact kernel disagrees with its plain "
+                             f"version ({label})")
+    log(f"kernel compact: N={vals.shape[0]} C={c}: width < count, an "
+        f"unaligned mask and the zeroed tail equal")
+
+
+def synthetic_level(torch, gen, sizes, device):
+    """A level whose node u holds sizes[u] pairs: nb, the pair rows (their
+    node in the last column), rank outputs with ohi >= olo; -> (nb, pairs,
+    olo, ohi, P)."""
+    i32 = dict(dtype=torch.int32, device=device, generator=gen)
+    w = sizes.shape[0]
+    nb = torch.zeros(w + 1, dtype=torch.int32, device=device)
+    nb[1:] = torch.cumsum(sizes, 0)
+    p = int(nb[-1])
+    pairs = torch.randint(-2**31, 2**31 - 1, (p, 6), **i32)
+    pairs[:, 5] = torch.repeat_interleave(
+        torch.arange(w, dtype=torch.int32, device=device),
+        sizes.to(torch.int64))
+    olo = torch.randint(-2**31, 2**31 - 5000, (8, p), **i32)
+    ohi = olo + torch.randint(0, 5000, (8, p), **i32)
+    return nb, pairs, olo, ohi, p
+
+
+def lane_bytes(keep) -> int:
+    """The bytes that the children step must move for the lanes of a (4, P)
+    keep mask: the mask, the 24-byte row of every pair that keeps a lane,
+    the four rank outputs (16 B) of a kept lane in and its 24-byte row out.
+    The rank outputs of the lanes that are dropped need not be read."""
+    p, kept = keep.shape[1], int(keep.sum())
+    return 4 * p + 24 * int(keep.any(0).sum()) + (16 + 24) * kept
+
+
+def level_sizes(torch, gen, label: str, device):
+    """Node sizes of the children cases: `lo..hi` pairs a node, as many
+    nodes as give ~SEG_NODES * 3 pairs."""
+    lo, hi = map(int, label.split(".."))
+    nodes = SEG_NODES if hi <= 5 else 2 * 3 * SEG_NODES // (lo + hi)
+    return torch.randint(lo, hi + 1, (nodes,), dtype=torch.int32,
+                         device=device, generator=gen)
 
 
 def phase_level_kernels(torch, device) -> list[dict]:
@@ -426,24 +526,23 @@ def phase_level_kernels(torch, device) -> list[dict]:
         f"plain {fmt_ms(device_ms(torch, lambda: decode_plain(*args)))}")
     del hist, args, kb, ks, pb, ps
 
-    # children: w nodes of 1..5 pairs, rank outputs with ohi >= olo, ~30%
-    # of the lanes kept under the full symbol mask and under G alone
-    sizes = torch.randint(1, 6, (w,), **i32)
-    nb = torch.zeros(w + 1, dtype=torch.int32, device=device)
-    nb[1:] = torch.cumsum(sizes, 0)
-    p = int(nb[-1])
-    pairs = torch.randint(-2**31, 2**31 - 1, (p, 6), **i32)
-    pairs[:, 5] = torch.repeat_interleave(
-        torch.arange(w, dtype=torch.int32, device=device),
-        sizes.to(torch.int64))
-    olo = torch.randint(-2**31, 2**31 - 5000, (8, p), **i32)
-    ohi = olo + torch.randint(0, 5000, (8, p), **i32)
-    kept = torch.rand((4, p), generator=gen, device=device) < 0.3
-    lane = pairs[:, 5].to(torch.int64) * 4 + torch.arange(
-        4, device=device)[:, None]
-    for label, mask in (("all symbols", kept),
-                        ("G alone", kept & (torch.arange(
-                            4, device=device)[:, None] == 2))):
+    # children: nodes of 1..5 pairs (the table's row; ~30% of the lanes
+    # kept under the full symbol mask and under G alone), then the same
+    # ~4.2M pairs in nodes of 1..64 and 1..273 pairs (wider collections),
+    # nodes of 0..5 pairs (a sixth hold none) and a level that keeps nothing
+    sym = torch.arange(4, device=device)[:, None]
+    for sizes_label, label, frac, only in (
+            ("1..5", "all symbols", 0.3, None), ("1..5", "G alone", 0.3, 2),
+            ("1..64", "d = 64", 0.3, None), ("1..273", "d = 273", 0.3, None),
+            ("0..5", "nodes without a pair", 0.3, None),
+            ("1..5", "nothing kept", 0.0, None)):
+        sizes = level_sizes(torch, gen, sizes_label, device)
+        nb, pairs, olo, ohi, p = synthetic_level(torch, gen, sizes, device)
+        u = sizes.shape[0]
+        mask = torch.rand((4, p), generator=gen, device=device) < frac
+        if only is not None:
+            mask &= sym == only
+        lane = pairs[:, 5].to(torch.int64) * 4 + sym
         pair_count = int(mask.sum())
         child_total = int(torch.unique(lane[mask]).numel())
         hk = torch.full((child_total,), -1, dtype=torch.int32, device=device)
@@ -454,24 +553,89 @@ def phase_level_kernels(torch, device) -> list[dict]:
         if not (torch.equal(kr, pr_) and torch.equal(kn, pn)
                 and torch.equal(hk, hp)):
             raise SystemExit(f"children kernel disagrees with its plain "
-                             f"version ({label})")
+                             f"version ({sizes_label} pairs a node, {label})")
         ms = cuda_ms(torch, lambda: children(*cargs, hk))
         plain_ms = cuda_ms(torch, lambda: children_plain(*cargs, hp))
-        log(f"kernel children: U={w:,} P={p:,} {label}: {pair_count:,} "
-            f"lanes kept, {child_total:,} children, equal; {ms:.4f} ms vs "
-            f"plain {plain_ms:.4f} ms")
+        # nb in, the lanes' bytes, nb_next and the history entries out
+        bnd = bound(4 * (u + 1) + lane_bytes(mask) + 4 * (child_total + 1)
+                    + 4 * child_total, 16 * p)
+        log(f"kernel children: U={u:,} P={p:,} {sizes_label} pairs a node, "
+            f"{label}: {pair_count:,} lanes kept, {child_total:,} children, "
+            f"equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms (bound "
+            f"{bnd['bound_ms']:.4f} ms)")
         if label == "all symbols":
             results.append(dict(
                 name="children", route="cuda",
                 source="dsm_tpu_torch/csrc/children.cu",
                 replaces="dsm_tpu/mining/engine_device.py:789",
-                max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                # nb, the pair rows, both rank outputs and the keep mask
-                # in; the kept rows, nb_next and the history entries out
-                **bound(4 * (w + 1) + p * (24 + 64 + 4) + 24 * pair_count
-                        + 4 * (child_total + 1) + 4 * child_total, 16 * p),
+                max_abs_err=0, ms=ms, plain_ms=plain_ms, **bnd,
                 library_ms=None))
+            results.append(stage_rows_check(torch, gen, pairs))
+        if label.startswith("d = "):
+            outside_ids_check(torch, gen, label, nb, pairs, olo, ohi, mask)
     return results
+
+
+def stage_rows_check(torch, gen, pairs) -> dict:
+    """The emit entry of the compaction kernel against its plain version on
+    the children case's pair rows, 0.1% (a level's emit) and 30% of them
+    marked; -> its entry of the kernels line, at 0.1%."""
+    from dsm_tpu_torch.ops.compact import stage_rows, stage_rows_plain
+
+    p, depth, entry = pairs.shape[0], 23, None
+    for frac in (0.001, 0.3):
+        mark = torch.rand(p, generator=gen, device=pairs.device) < frac
+        k = int(mark.sum())
+        for width in (k, k // 2):
+            got, gcnt = stage_rows(mark, pairs, depth, width)
+            want, wcnt = stage_rows_plain(mark, pairs, depth, width)
+            torch.cuda.synchronize()
+            if int(gcnt) != int(wcnt) or not torch.equal(got, want):
+                raise SystemExit(f"stage_rows disagrees with its plain "
+                                 f"version ({frac:.1%} marked, width {width})")
+        ms = cuda_ms(torch, lambda: stage_rows(mark, pairs, depth, k))
+        plain_ms = cuda_ms(torch,
+                           lambda: stage_rows_plain(mark, pairs, depth, k))
+        # the mask and the marked pairs' rows in, 20 B a row and the count
+        # out; a scan step and a test a pair
+        bnd = bound(p + k * (24 + 20) + 8, 2 * p)
+        dms = device_ms(torch, lambda: stage_rows(mark, pairs, depth, k))
+        log(f"kernel stage_rows: P={p:,} {frac:.1%} marked ({k:,} rows) "
+            f"equal; events {ms:.4f} ms (device {fmt_ms(dms)}: the memset "
+            f"and the kernel) vs plain {plain_ms:.4f} ms (bound "
+            f"{bnd['bound_ms']:.4f} ms)")
+        entry = entry or dict(
+            name="stage_rows", route="cuda",
+            source="dsm_tpu_torch/csrc/compact.cu",
+            replaces="dsm_tpu/mining/engine_device.py:858", max_abs_err=0,
+            ms=ms, plain_ms=plain_ms, **bnd, library_ms=None)
+    return entry
+
+
+def outside_ids_check(torch, gen, label, nb, pairs, olo, ohi, keep) -> None:
+    """K9c on a synthetic level as one shard of a sharded one: a tenth of
+    the (node, symbol) children exist only on other shards."""
+    from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
+
+    device, u = pairs.device, nb.shape[0] - 1
+    exists = torch.rand((u, 4), generator=gen, device=device) < 0.1
+    c, at = torch.nonzero(keep, as_tuple=True)
+    exists[pairs[at, 5].to(torch.int64), c] = True
+    nchild = exists.sum(1)
+    kid0 = (torch.cumsum(nchild, 0) - nchild).to(torch.int32)
+    flags = ((exists.to(torch.int32) << torch.arange(
+        4, device=device, dtype=torch.int32)).sum(1, dtype=torch.int32) << 4) | 5
+    cargs = (nb, pairs, olo, ohi, keep, flags, kid0, int(keep.sum()),
+             int(nchild.sum()))
+    (kr, kn), (pr_, pn) = children_ids(*cargs), children_ids_plain(*cargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(kr, pr_) and torch.equal(kn, pn)):
+        raise SystemExit(f"children_ids disagrees with its plain version "
+                         f"({label})")
+    log(f"kernel children_ids: {label}, U={u:,} P={pairs.shape[0]:,}: "
+        f"{cargs[7]:,} lanes kept into {cargs[8]:,} children, equal; "
+        f"{cuda_ms(torch, lambda: children_ids(*cargs)):.4f} ms vs plain "
+        f"{cuda_ms(torch, lambda: children_ids_plain(*cargs)):.4f} ms")
 
 
 def phase_sharded_kernels(torch, device) -> list[dict]:
@@ -599,10 +763,10 @@ def phase_sharded_kernels(torch, device) -> list[dict]:
         source="dsm_tpu_torch/csrc/children.cu",
         replaces="dsm_tpu/mining/engine_device.py:490", max_abs_err=0,
         ms=ms, plain_ms=plain_ms,
-        # nb, flags, kid0, the pair rows, both rank outputs and the keep
-        # mask in; the kept rows and nb_next out
-        **bound(12 * U + 4 + p * (24 + 64 + 4) + 24 * pair_count
-                + 4 * (child_total + 1), 16 * p), library_ms=None))
+        # nb, flags and kid0 in, the lanes' bytes (the last shard's), and
+        # nb_next out
+        **bound(12 * U + 4 + lane_bytes(keep) + 4 * (child_total + 1),
+                16 * p), library_ms=None))
 
     for nblk in (2, 5):
         sizes = [GATHER_ROWS + 1000 * b for b in range(nblk)]
@@ -756,8 +920,8 @@ def sa_round(torch, codes, label: str):
 
 def phase_repro_kernels(torch, device) -> list[dict]:
     """P2-P4 against their plain versions and the repro tool's expected
-    arrays, timed by events and by the profiler's device time; P3 also
-    at N = P3_BIG."""
+    arrays, timed by events and by the profiler's device time, at the
+    tool's N and at N = REPRO_BIG."""
     from dsm_tpu_torch.ops import repro
     from dsm_tpu_torch.tools.pallas_repro import N, expected
 
@@ -791,21 +955,32 @@ def phase_repro_kernels(torch, device) -> list[dict]:
             f"{fmt_ms(device_ms(torch, lambda: fn(x)))} vs plain "
             f"{fmt_ms(device_ms(torch, lambda: plain(x)))}")
 
+    # where bytes count: N = REPRO_BIG (128 MB moved a call), each beside
+    # the PyTorch call with the same result
     rng = np.random.default_rng(2026)
-    xb = torch.as_tensor(rng.integers(-2**30, 2**30, size=P3_BIG,
+    xb = torch.as_tensor(rng.integers(-2**30, 2**30, size=REPRO_BIG,
                                       dtype=np.int64).astype(np.int32),
                          device=device)
-    if not torch.equal(repro.async_copy(xb), repro.async_copy_plain(xb)):
-        raise SystemExit(f"async_copy disagrees with its plain version at "
-                         f"N={P3_BIG}")
-    ms = cuda_ms(torch, lambda: repro.async_copy(xb))
-    dev = device_ms(torch, lambda: repro.async_copy(xb))
-    moved = 2 * 4 * P3_BIG
-    log(f"kernel async_copy: N={P3_BIG:,} equal; events {ms:.4f} ms "
-        f"({moved / (ms * 1e-3) / 1e12:.3f} TB/s) vs plain "
-        f"{cuda_ms(torch, lambda: repro.async_copy_plain(xb)):.4f} ms; "
-        f"device {fmt_ms(dev)} vs plain "
-        f"{fmt_ms(device_ms(torch, lambda: repro.async_copy_plain(xb)))}")
+    xb[0] = 3     # dynamic_store's offset is x[0] * 0
+    moved = 2 * 4 * REPRO_BIG
+    for name, fn, plain, library in (
+            ("smem_carry", repro.smem_carry, repro.smem_carry_plain, None),
+            ("async_copy", repro.async_copy, repro.async_copy_plain,
+             lambda t: torch.mul(t, 2)),
+            ("dynamic_store", repro.dynamic_store, repro.dynamic_store_plain,
+             torch.clone)):
+        if not torch.equal(fn(xb), plain(xb)):
+            raise SystemExit(f"{name} disagrees with its plain version at "
+                             f"N={REPRO_BIG}")
+        ms = cuda_ms(torch, lambda: fn(xb))
+        lib = "" if library is None else \
+            f", library call {cuda_ms(torch, lambda: library(xb)):.4f} ms"
+        log(f"kernel {name}: N={REPRO_BIG:,} equal; events {ms:.4f} ms "
+            f"({moved / (ms * 1e-3) / 1e12:.3f} TB/s, bound "
+            f"{bound(moved, REPRO_BIG)['bound_ms']:.4f} ms) vs plain "
+            f"{cuda_ms(torch, lambda: plain(xb)):.4f} ms{lib}; device "
+            f"{fmt_ms(device_ms(torch, lambda: fn(xb)))} vs plain "
+            f"{fmt_ms(device_ms(torch, lambda: plain(xb)))}")
     return results
 
 
@@ -1004,6 +1179,11 @@ def phase_main(torch, idxs, dev, device) -> dict:
     gnu = run("gnu", "gnu")
     torch.cuda.synchronize()
     launches = path_launches("mine")
+    ms, acts, top = device_profile(torch, lambda: mine_torch(
+        idxs, cfg, dev=dev, device=device, reader_order="ascending"))
+    log(f"mine ascending (warm, under torch.profiler): device time "
+        f"{fmt_ms(ms)} in {acts:,} device activities; the largest: "
+        + json.dumps(top))
     peak = torch.cuda.max_memory_allocated(device)
     log(f"peak device memory (max_memory_allocated): {peak:,} bytes "
         f"({before:,} allocated before the mine)")

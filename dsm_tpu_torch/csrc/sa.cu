@@ -58,6 +58,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -76,11 +77,13 @@ constexpr int kHistBatch = 4;             // keys a thread loads at once
 constexpr int kRankBlock = 1024;          // keys (and threads) per rank block
 constexpr int kScanThreads = 1024;
 
-// A look-back status word: the pass + 1 from bit 34 up, the flag in bits
-// 32-33, the tile's count of the digit (aggregate) or the count up to and
-// including the tile (prefix) in bits 0-31.
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kPrefix = 2ull << 32;
+// A look-back status word (lookback.cuh): the pass + 1 from bit 34 up,
+// the flag in bits 32-33, the tile's count of the digit (aggregate) or the
+// count up to and including the tile (prefix) in bits 0-31.
+using dsm::get;
+using dsm::kAggregate;
+using dsm::kPrefix;
+using dsm::put;
 
 struct Round {
   const int32_t* rank;
@@ -104,16 +107,6 @@ __device__ __forceinline__ K make_key(const Round& r, long long i) {
   K key = (K)(uint32_t)r.rank[i] << r.lo_bits;
   if (r.lo_bits) key |= (K)second(r, i);
   return key;
-}
-
-__device__ __forceinline__ unsigned long long get(
-    const unsigned long long* p) {
-  return *(const volatile unsigned long long*)p;
-}
-
-__device__ __forceinline__ void put(unsigned long long* p,
-                                    unsigned long long v) {
-  *(volatile unsigned long long*)p = v;
 }
 
 // Exclusive scan of v over the block; *total, if not null, receives the

@@ -1,5 +1,5 @@
-// Exclusive scan of per-block sums, shared by the kernels that number
-// their outputs in two passes (children.cu, shardstats.cu): a first kernel
+// Exclusive scan of per-block sums, for the kernels that number their
+// outputs in two passes (shardstats.cu): a first kernel
 // leaves one int64 sum a block, this one turns the sums into each block's
 // offset, and a second pass scans inside the block again
 // (block_exclusive_scan) and adds the block's offset.

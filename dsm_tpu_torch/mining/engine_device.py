@@ -51,7 +51,7 @@ from ..index.alphabet import EXT_CHARS
 from ..index.fmindex import FMIndex
 from ..ops.children import (PAIR_COLS, PC_HI, PC_LO, PC_NID, PC_RLO,
                             PC_SID, PC_SOFF, children)
-from ..ops.compact import compact_rows
+from ..ops.compact import stage_rows
 from ..ops.decode import decode
 from ..ops.rank import occ_cum8
 from ..ops.segstats import (EXISTS_SHIFT, F_PRESENT, F_STAT, Gates,
@@ -310,12 +310,7 @@ def _stage(pr: torch.Tensor, pair_out: torch.Tensor, n_gated: int,
            depth: int) -> torch.Tensor:
     """The emit step: the (freq, rlo, sid, nid, depth) output rows of the
     `n_gated` pairs of `pr` that `pair_out` marks, compacted in order."""
-    orows = torch.stack(
-        [pr[:, PC_HI] - pr[:, PC_LO], pr[:, PC_RLO], pr[:, PC_SID],
-         pr[:, PC_NID],
-         torch.full((pr.shape[0],), depth, dtype=torch.int32,
-                    device=pr.device)], dim=1)
-    return compact_rows(pair_out, orows, n_gated)[0]
+    return stage_rows(pair_out, pr, depth, n_gated)[0]
 
 
 def _history_codes(ph: PathHistory, depth: int,

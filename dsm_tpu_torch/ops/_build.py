@@ -12,7 +12,10 @@ Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`.  A wrapper calls it through `launch()`, which
 passes the device's current stream, raises on a non-zero code and adds
 one to the kernel's count in `LAUNCHES`: the counts are of wrapper calls
-that launched the kernel, and nothing else adds to them.  `PATHS` names
+that launched the kernel, and nothing else adds to them.  The key
+`compact` counts launches of the compaction kernel by either of its
+entries, `compact_rows` and the emit's `stage_rows`: the mine and sharded
+paths reach it through the emit.  `PATHS` names
 the kernels each entry point runs: `dsm_tpu_torch build` (the suffix
 array), `mine`, `mine --engine sharded-episode`, `distance --fast`, and
 the repro tool (`dsm_tpu_torch.tools.pallas_repro`).
@@ -52,20 +55,22 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # rows, pos, pos_stride, soff, soff_stride, out, q, stream
     "dsm_occ_cum8": [_P, _P, _I64, _P, _I64, _P, _I64, _P],
-    # mask, values, n, c, out, width, block_count, block_off, count, stream
-    "dsm_compact_rows": [_P, _P, _I64, _I, _P, _I64, _P, _P, _P, _P],
+    # mask, values, n, c, out, width, scratch, count, stream
+    "dsm_compact_rows": [_P, _P, _I64, _I, _P, _I64, _P, _P, _P],
+    # mask, pairs, n, depth, out, width, scratch, count, stream
+    "dsm_stage_rows": [_P, _P, _I64, _I, _P, _I64, _P, _P, _P],
     # nb, freq, cact, n_nodes, depth, s_total, mindepth, pmin, pmax,
     # use_egate, sym_mask, emin_lo, emax_hi, flags, ent, pair_out, stream
     "dsm_segstats": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D,
                      _P, _P, _P, _P],
-    # nb, pairs, olo, ohi, keep, U, P, pair_count, child_total, cnt,
-    # scratch, newp, nb_next, hist, stream
+    # nb, pairs, olo, ohi, keep, U, P, pair_count, child_total, scratch,
+    # newp, nb_next, hist, stream
     "dsm_children": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
-                     _P, _P, _P],
+                     _P, _P],
     # nb, pairs, olo, ohi, keep, U, P, flags, kid0, pair_count, child_total,
-    # cnt, scratch, newp, nb_next, stream
+    # scratch, newp, nb_next, stream
     "dsm_children_ids": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I64,
-                         _P, _P, _P, _P, _P],
+                         _P, _P, _P, _P],
     # nb, freq, cbits, U, part, stream
     "dsm_shard_partials": [_P, _P, _P, _I64, _P, _P],
     # parts, n_parts, U, depth, s_total, mindepth, pmin, pmax, use_egate,

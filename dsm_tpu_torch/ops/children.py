@@ -17,6 +17,11 @@ JAX sort order:
   * nb_next (child_total + 1,): each child's first row, then pair_count;
   * hist[:child_total]: each child's history entry node*4 + symbol.
 
+The kernel finds a pair's node in its PC_NID column (nb[node] <= p <
+nb[node + 1], as every level leaves it) and stops the launch with a fault
+if a node holds more than 512 pairs (MAX_SAMPLES), the most a tile of its
+shared memory is sized for.
+
 pair_count and child_total are the level's counts (the number of kept
 lanes and of (node, symbol) groups with one), which the level has already
 read back to size the outputs.
@@ -43,7 +48,7 @@ from .segstats import EXISTS_SHIFT
 # PC_NID (mining/engine_device.JAX_PAIR_COLS maps them)
 PC_LO, PC_HI, PC_RLO, PC_SID, PC_SOFF, PC_NID = range(6)
 PAIR_COLS = 6
-THREADS = 256   # csrc/children.cu kThreads: nodes per block
+TILE_PAIRS = 1024   # csrc/children.cu kTilePairs
 
 
 def _lanes_plain(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
@@ -127,6 +132,13 @@ def children_ids_plain(nb: torch.Tensor, pairs: torch.Tensor,
     return newp, nb_next
 
 
+def _scratch(P: int, device) -> torch.Tensor:
+    """The kernel's look-back words: two a tile of TILE_PAIRS pairs and the
+    tile counter (the kernel clears them)."""
+    return torch.empty(2 * max(1, -(-P // TILE_PAIRS)) + 1,
+                       dtype=torch.int64, device=device)
+
+
 def children(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
              ohi: torch.Tensor, keep: torch.Tensor, pair_count: int,
              child_total: int, hist: torch.Tensor):
@@ -164,13 +176,11 @@ def children(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
     if U <= 0:
         nb_next.zero_()
         return newp, nb_next
-    nblocks = -(-U // THREADS)
-    cnt = torch.empty((U, 4), dtype=torch.int32, device=device)
-    scratch = torch.empty(2 * nblocks, dtype=torch.int64, device=device)
+    scratch = _scratch(P, device)       # held until the launch is enqueued
     _build.launch("dsm_children", "children", device, nb.data_ptr(),
                   pairs.data_ptr(), olo.data_ptr(), ohi.data_ptr(),
                   keep.data_ptr(), U, P, pair_count, child_total,
-                  cnt.data_ptr(), scratch.data_ptr(), newp.data_ptr(),
+                  scratch.data_ptr(), newp.data_ptr(),
                   nb_next.data_ptr(), hist.data_ptr())
     return newp, nb_next
 
@@ -210,12 +220,10 @@ def children_ids(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
     if U <= 0:
         nb_next.zero_()
         return newp, nb_next
-    nblocks = -(-U // THREADS)
-    cnt = torch.empty((U, 4), dtype=torch.int32, device=device)
-    scratch = torch.empty(2 * nblocks, dtype=torch.int64, device=device)
+    scratch = _scratch(P, device)       # held until the launch is enqueued
     _build.launch("dsm_children_ids", "children_ids", device, nb.data_ptr(),
                   pairs.data_ptr(), olo.data_ptr(), ohi.data_ptr(),
                   keep.data_ptr(), U, P, flags.data_ptr(), kid0.data_ptr(),
-                  pair_count, child_total, cnt.data_ptr(),
-                  scratch.data_ptr(), newp.data_ptr(), nb_next.data_ptr())
+                  pair_count, child_total, scratch.data_ptr(),
+                  newp.data_ptr(), nb_next.data_ptr())
     return newp, nb_next

@@ -1,12 +1,21 @@
-"""Order-preserving masked row compaction (kernel 2, csrc/compact.cu).
+"""Order-preserving masked row compaction (kernel P1, csrc/compact.cu),
+and the emit step of a trie level that runs on it (K4).
 
-Counterpart of dsm_tpu/ops/pallas_compact.py `compact_rows`, with the
-semantics of dsm_tpu/ops/compact.py `compact_kidx_sort` followed by a row
-take: the rows of `values` (N, C) whose mask is set move, in order, to
-the front of a (width, C) output.  Any N is accepted.  Rows past the
-live count are zero.  The count comes back as a 0-dim int64 tensor on
-the values' device (reading it synchronises; the episode already knows
-it from its per-level count readback).
+`compact_rows` is the counterpart of dsm_tpu/ops/pallas_compact.py
+`compact_rows`, with the semantics of dsm_tpu/ops/compact.py
+`compact_kidx_sort` followed by a row take: the rows of `values` (N, C)
+whose mask is set move, in order, to the front of a (width, C) output.
+Any N is accepted.  Rows past the live count are zero, rows past `width`
+are dropped.  The count (of set mask entries, whatever `width` is) comes
+back as a 0-dim int64 tensor on the values' device (reading it
+synchronises; the episode already knows it from its per-level count
+readback).
+
+`stage_rows` is the emit block of dsm_tpu/mining/engine_device.py
+`_level_single` (`build_stage`: orows, `compact_kidx_sort`, take): the
+(hi - lo, rlo, sid, nid, depth) rows of the marked pairs, in order.  On
+the card it is a second entry of the same one-pass kernel that makes each
+row from its pair row as it copies it, so no (P, 5) matrix is built.
 """
 
 from __future__ import annotations
@@ -15,7 +24,10 @@ import torch
 
 from . import _build
 
-ROWS_PER_BLOCK = 1024   # csrc/compact.cu kRows
+TILE_ROWS = 4096   # csrc/compact.cu kTile
+# pair-row columns (ops/children.py PC_*) the emit rows are made of
+_PC_LO, _PC_HI, _PC_RLO, _PC_SID, _PC_NID = 0, 1, 2, 3, 5
+STAGE_COLS = 5
 
 
 def compact_rows_plain(mask: torch.Tensor, values: torch.Tensor,
@@ -28,33 +40,70 @@ def compact_rows_plain(mask: torch.Tensor, values: torch.Tensor,
     return out, mask.sum(dtype=torch.int64)
 
 
+def stage_rows_plain(pair_out: torch.Tensor, pairs: torch.Tensor,
+                     depth: int, width: int):
+    """Plain PyTorch version of the emit entry (any device): the (P, 5)
+    rows stacked, then compacted."""
+    orows = torch.stack(
+        [pairs[:, _PC_HI] - pairs[:, _PC_LO], pairs[:, _PC_RLO],
+         pairs[:, _PC_SID], pairs[:, _PC_NID],
+         torch.full((pairs.shape[0],), depth, dtype=torch.int32,
+                    device=pairs.device)], dim=1)
+    return compact_rows_plain(pair_out, orows, width)
+
+
+def _check(name: str, mask: torch.Tensor, rows: torch.Tensor) -> None:
+    if rows.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {rows.device}")
+    if (rows.dtype != torch.int32 or rows.dim() != 2
+            or not rows.is_contiguous()):
+        raise ValueError(f"{name}: rows must be contiguous (N, C) int32")
+    if (mask.dtype != torch.bool or mask.shape != (rows.shape[0],)
+            or not mask.is_contiguous() or mask.device != rows.device):
+        raise ValueError(f"{name}: mask must be contiguous (N,) bool on the "
+                         f"rows' device")
+
+
+def _launch(entry: str, mask: torch.Tensor, rows: torch.Tensor, arg: int,
+            cols: int, width: int):
+    """One launch of the compaction kernel through `entry`; `arg` is the
+    entry's own scalar (the row width, or the depth).  The mask may start
+    at any byte (a slice): the kernel then reads it byte by byte."""
+    device, n = rows.device, rows.shape[0]
+    if n == 0:
+        return (torch.zeros((width, cols), dtype=torch.int32, device=device),
+                torch.zeros((), dtype=torch.int64, device=device))
+    out = torch.empty((width, cols), dtype=torch.int32, device=device)
+    count = torch.empty((), dtype=torch.int64, device=device)
+    scratch = torch.empty(-(-n // TILE_ROWS) + 1, dtype=torch.int64,
+                          device=device)
+    _build.launch(entry, "compact", device, mask.data_ptr(), rows.data_ptr(),
+                  n, arg, out.data_ptr(), width, scratch.data_ptr(),
+                  count.data_ptr())
+    return out, count
+
+
 def compact_rows(mask: torch.Tensor, values: torch.Tensor, width: int):
     """-> (out (width, C) int32, count).  mask: (N,) bool; values:
     (N, C) int32 contiguous.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     if values.device.type == "cpu":
         return compact_rows_plain(mask, values, width)
-    if values.device.type != "cuda":
-        raise ValueError(f"compact_rows: unsupported device {values.device}")
-    if (values.dtype != torch.int32 or values.dim() != 2
-            or not values.is_contiguous()):
-        raise ValueError("compact_rows: values must be contiguous (N, C) "
-                         "int32")
-    n, c = values.shape
-    if (mask.dtype != torch.bool or mask.shape != (n,)
-            or not mask.is_contiguous() or mask.device != values.device):
-        raise ValueError("compact_rows: mask must be contiguous (N,) bool "
-                         "on the values' device")
-    out = torch.zeros((width, c), dtype=torch.int32, device=values.device)
-    count = torch.zeros((), dtype=torch.int64, device=values.device)
-    if n == 0:
-        return out, count
-    nblocks = -(-n // ROWS_PER_BLOCK)
-    block_count = torch.empty(nblocks, dtype=torch.int32,
-                              device=values.device)
-    block_off = torch.empty(nblocks, dtype=torch.int64, device=values.device)
-    _build.launch("dsm_compact_rows", "compact", values.device,
-                  mask.data_ptr(), values.data_ptr(), n, c, out.data_ptr(),
-                  width, block_count.data_ptr(), block_off.data_ptr(),
-                  count.data_ptr())
-    return out, count
+    _check("compact_rows", mask, values)
+    return _launch("dsm_compact_rows", mask, values, values.shape[1],
+                   values.shape[1], width)
+
+
+def stage_rows(pair_out: torch.Tensor, pairs: torch.Tensor, depth: int,
+               width: int):
+    """-> (out (width, 5) int32, count): the (hi - lo, rlo, sid, nid,
+    depth) rows of the pairs that `pair_out` marks, in order.  pair_out:
+    (P,) bool; pairs: (P, 6) int32 contiguous pair rows.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if pairs.device.type == "cpu":
+        return stage_rows_plain(pair_out, pairs, depth, width)
+    _check("stage_rows", pair_out, pairs)
+    if pairs.shape[1] != 6:
+        raise ValueError("stage_rows: pairs must be (P, 6) pair rows")
+    return _launch("dsm_stage_rows", pair_out, pairs, depth, STAGE_COLS,
+                   width)

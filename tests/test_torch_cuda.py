@@ -91,6 +91,81 @@ def test_compact_kernel(cuda, n, c):
             assert torch.equal(got, want), (frac, width)
 
 
+def _garbage(shape, cuda):
+    """Fill and free a block of the size of `shape`, so that the next
+    torch.empty of that size on the card starts from garbage."""
+    g = torch.full(shape, -0x5A5A5A5B, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    del g
+
+
+@pytest.mark.parametrize("case", [
+    "narrow_width", "unaligned_mask", "zeroed_tail", "wide_zeroed_tail",
+    "all_false", "all_true", "more_tiles_than_blocks", "mask_bytes_not_one"])
+def test_compact_kernel_cases(cuda, case):
+    """The one-pass kernel's edges: width below the count (the count is
+    still the total), a mask that is a slice starting at an odd byte, the
+    tail zeroed by the kernel in an output that held garbage, more tiles
+    than the card holds blocks (the look-back across waves), and a mask
+    whose set bytes are not 1."""
+    from dsm_tpu_torch.ops.compact import (TILE_ROWS, compact_rows,
+                                           compact_rows_plain)
+
+    rng = np.random.default_rng(len(case))
+    n = {"more_tiles_than_blocks": TILE_ROWS * 3000 + 17,
+         "wide_zeroed_tail": 5 * TILE_ROWS + 3}.get(case, 200_003)
+    c = 6
+    frac = {"all_false": 0.0, "all_true": 1.0, "wide_zeroed_tail": 0.01}.get(
+        case, 0.3)
+    vals = torch.as_tensor(rng.integers(-2**31, 2**31, size=(n, c),
+                                        dtype=np.int64).astype(np.int32),
+                           device=cuda)
+    if case == "unaligned_mask":
+        mask = torch.as_tensor(rng.random(n + 3) < frac, device=cuda)[3:]
+        assert mask.data_ptr() % 16 and mask.is_contiguous()
+    elif case == "mask_bytes_not_one":
+        raw = rng.integers(0, 256, size=n).astype(np.uint8)
+        raw[rng.random(n) < 0.6] = 0
+        mask = torch.as_tensor(raw, device=cuda).view(torch.bool)
+    else:
+        mask = torch.as_tensor(rng.random(n) < frac, device=cuda)
+    k = int(mask.view(torch.uint8).ne(0).sum())
+    width = {"narrow_width": k // 3, "zeroed_tail": k + 1001,
+             "wide_zeroed_tail": n, "all_false": 4097}.get(case, k)
+    _garbage((width, c), cuda)
+    before = _build.LAUNCHES["compact"]
+    got, gc = compact_rows(mask, vals, width)
+    assert _build.LAUNCHES["compact"] == before + 1
+    want, _wc = compact_rows_plain(mask.view(torch.uint8).ne(0), vals, width)
+    torch.cuda.synchronize()
+    assert int(gc) == k
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.001, 0.3, 1.0])
+@pytest.mark.parametrize("p", [1, 4095, 4097, 1_000_003])
+def test_stage_rows_kernel(cuda, p, frac):
+    """The emit entry against its plain version: width below, at and above
+    the count, the last into an output that held garbage."""
+    from dsm_tpu_torch.ops.compact import stage_rows, stage_rows_plain
+
+    rng = np.random.default_rng(p)
+    pairs = torch.as_tensor(rng.integers(-2**31, 2**31, size=(p, 6),
+                                         dtype=np.int64).astype(np.int32),
+                            device=cuda)
+    mask = torch.as_tensor(rng.random(p) < frac, device=cuda)
+    k = int(mask.sum())
+    for width in (k, k // 2, k + 77):
+        _garbage((width, 5), cuda)
+        before = _build.LAUNCHES["compact"]
+        got, gc = stage_rows(mask, pairs, 41, width)
+        assert _build.LAUNCHES["compact"] == before + 1
+        want, wc = stage_rows_plain(mask, pairs, 41, width)
+        torch.cuda.synchronize()
+        assert int(gc) == int(wc) == k
+        assert torch.equal(got, want), width
+
+
 def test_segstats_kernel(cuda):
     from dsm_tpu_torch.ops.segstats import Gates, segstats, segstats_plain
 
@@ -170,17 +245,44 @@ def _children_layout(rng, sizes, frac, sym_mask):
     return nb, pairs, olo.astype(np.int32), ohi.astype(np.int32), keep
 
 
+def _with_gaps(rng, sizes, share):
+    """`sizes` with a share of the nodes holding no pair."""
+    sizes = np.array(sizes)
+    sizes[rng.random(sizes.size) < share] = 0
+    return sizes
+
+
 @pytest.mark.parametrize("case", ["U=1", "node_512", "nothing_kept",
                                   "all_kept", "restricted", "no_pairs",
-                                  "wide"])
+                                  "wide", "d64", "d273", "d273_all_kept",
+                                  "nodes_of_512", "nodes_without_pairs",
+                                  "d273_nothing_kept", "long_gap",
+                                  "tile_multiple"])
 def test_children_kernel(cuda, case):
-    from dsm_tpu_torch.ops.children import children, children_plain
+    """Among the cases: nodes of up to 64, 273 and 512 pairs (a tile of
+    1024 pair positions then holds up to 1535 pairs, and with every lane
+    kept its rows take several staging rounds), nodes that hold no pair
+    (alone, in a run longer than a block, and at the end), nothing kept at
+    all, and a pair count that is a multiple of the tile."""
+    from dsm_tpu_torch.ops.children import (TILE_PAIRS, children,
+                                            children_plain)
 
     rng = np.random.default_rng(len(case))
     sizes = {"U=1": [3], "node_512": [2, 512, 1, 5], "no_pairs": [0, 0],
-             "wide": rng.integers(1, 6, size=300_001)}.get(
+             "wide": rng.integers(1, 6, size=300_001),
+             "d64": rng.integers(1, 65, size=40_000),
+             "d273": rng.integers(1, 274, size=10_000),
+             "d273_all_kept": rng.integers(1, 274, size=3000),
+             "d273_nothing_kept": _with_gaps(
+                 rng, rng.integers(1, 274, size=3000), 0.2),
+             "nodes_of_512": [512] * 37 + [0, 0, 511, 1, 512, 0],
+             "nodes_without_pairs": _with_gaps(
+                 rng, rng.integers(1, 6, size=50_000), 0.4),
+             "long_gap": [3] + [0] * 5000 + [2] + [0] * 700,
+             "tile_multiple": [4] * (TILE_PAIRS // 2) + [0, 0]}.get(
                  case, rng.integers(1, 6, size=5000))
-    frac = {"nothing_kept": 0.0, "all_kept": 1.0}.get(case, 0.3)
+    frac = {"nothing_kept": 0.0, "d273_nothing_kept": 0.0, "all_kept": 1.0,
+            "d273_all_kept": 1.0}.get(case, 0.3)
     sym_mask = 0b0010 if case == "restricted" else 0b1111
     layout = _children_layout(rng, np.asarray(sizes), frac, sym_mask)
     nb, pairs, olo, ohi, keep = (torch.as_tensor(a, device=cuda)
@@ -263,7 +365,9 @@ def test_shardstats_kernels(cuda, S, U, n):
 
 
 @pytest.mark.parametrize("S,U,n", [(5, 1, 1), (5, 257, 2), (5, 5000, 7),
-                                   (512, 300, 3), (5, 300_001, 2)])
+                                   (512, 300, 3), (5, 300_001, 2),
+                                   (64, 20_000, 3), (273, 5000, 2),
+                                   (273, 3000, 5)])
 def test_children_ids_kernel(cuda, S, U, n):
     from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
 
