@@ -11,43 +11,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernels; every build-path kernel must have been launched;
   4. kernels: each CUDA kernel against its plain PyTorch version on the
      card at main-path shapes (equal integers; the f64 entropy within
-     ENT_TOL), with both times.  The suffix array of toy0, forward and
-     reverse, must also equal the host `suffix_array_np`; it is
-     timed there and at n = 2^24.  The sort's k = 16 round of toy0 is
-     checked from the previous round's order and from scratch, its first
-     round from scratch; the round's bytes a key and TB/s are printed
-     (toy0 and 2^24).  P2-P4 are timed by events and by the profiler's
-     device time, also at N = 2^24 beside the PyTorch call with the same
-     result.  The compaction (P1) also runs with width below the count,
-     an unaligned mask and a tail to zero, and its emit entry
-     (`stage_rows`) on the children case's pairs with 0.1% and 30% of
-     them marked.  The path decode (K6) walks a synthetic history of
-     DEC_LEVELS levels of SEG_NODES nodes, and the children step (K3)
-     runs on SEG_NODES nodes of 1..5 pairs with ~30% of the lanes kept
-     (all symbols, and one symbol alone), on the same ~4.2M pairs in
-     nodes of 1..64 and 1..273 pairs (K9c too), with nodes that hold no
-     pair, and with nothing kept.  The pairwise
-     distance matrices (K11) take DIST_R rows of DIST_D samples in
+     ENT_TOL), with both times. The rank kernel runs by all three of its
+     entries: one end at RANK_Q queries, both ends on strided columns, and
+     the level's expand step at the widest level of the scale-100 mine
+     (made by the port's own level loop) and on a synthetic level of ~4.2M
+     pairs with as many pairs whose two ends share a table row. The suffix
+     array of toy0, forward and reverse, must also equal the host
+     `suffix_array_np`; it is timed there and at n = 2^24. The sort's
+     k = 16 round of toy0 is checked from the previous round's order and
+     from scratch, its first round from scratch; the round's bytes a key
+     and TB/s are printed (toy0 and 2^24). P2-P4 are timed by events and by
+     the profiler's device time, also at N = 2^24 beside the PyTorch call
+     with the same result (P4's entry in the kernels line is at 2^24). The
+     compaction (P1) also runs with width below the count, an unaligned
+     mask and a tail to zero, and its emit entry (`stage_rows`) on the
+     children case's pairs with 0.1% and 30% of them marked. The path
+     decode (K6) walks a synthetic history of DEC_LEVELS levels of
+     SEG_NODES nodes, and the children step (K3) runs on SEG_NODES nodes of
+     1..5 pairs with ~30% of the lanes kept (all symbols, and one symbol
+     alone), on the same ~4.2M pairs in nodes of 1..64 and 1..273 pairs
+     (K9c too), with nodes that hold no pair, and with nothing kept. The
+     pairwise distance matrices (K11) take DIST_R rows of DIST_D samples in
      DIST_BINS bins (`distance_rows`: ~30% of the entries nonzero,
-     long-tailed), against
-     the plain version run in chunks on the card (count equal, the f64
-     sums within DIST_TOL) and against NumPy `pairwise_matrices` on the
-     first 4,096 rows; also d = 5 and d = 273 at fewer rows, and with
-     the normalising factors (this one after phase 7, so that the plain
-     version's library workspace is not in the mine's peak memory).  The
-     kernels of the sharded level and drain run on SEG_NODES nodes of 1..5
-     pairs over S = 5 samples split into shards of 2 and 3: the partial
-     rows of each shard (K9a: integers equal, the fixed-point entropy sums
-     within one unit a pair), the gates and global child ids from both
-     shards' rows (K9b: integers equal, the entropy within ENT_TOL), the
-     outside-ids children step of each shard (K9c) and the gather of 2 and
-     5 blocks of GATHER_ROWS rows (K10);
+     long-tailed), against the plain version run in chunks on the card
+     (count equal, the f64 sums within DIST_TOL) and against NumPy
+     `pairwise_matrices` on the first 4,096 rows; also d = 5 and d = 273 at
+     fewer rows, and with the normalising factors (this one after phase 7,
+     so that the plain version's library workspace is not in the mine's
+     peak memory). The kernels of the sharded level and drain run on
+     SEG_NODES nodes of 1..5 pairs over S = 5 samples split into shards of
+     2 and 3: the partial rows of each shard (K9a: integers equal, the
+     fixed-point entropy sums within one unit a pair), the gates and global
+     child ids from both shards' rows (K9b: integers equal, the entropy
+     within ENT_TOL), the outside-ids children step of each shard (K9c) and
+     the gather of 2 and 5 blocks of GATHER_ROWS rows (K10);
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
      prove the build, and every mining kernel must have been launched;
      one more warm ascending run under torch.profiler gives the device
-     time and the number of device activities of a run;
+     time and the number of device activities of a run and a level, and
+     must launch the rank kernel once a level and once a drain;
   6. resume: the gnu-order mine with `checkpoint=` (out_reserve
      RESUME_RESERVE: saves where the frontier is wide) is killed by a
      raise from `save_checkpoint` after its second save and resumed from
@@ -123,7 +127,7 @@ F32_TOPS = 67.0         # H100 SXM peak outside the tensor cores, T op/s:
 #                         taken for f32 and, generously, for integer work
 F64_TOPS = 33.5         # f64 outside the tensor cores: half the f32 rate
 # the kernels of each path, by the name in the kernels line
-LAUNCH_KEY = {"occ_cum8": "rank", "compact_rows": "compact",
+LAUNCH_KEY = {"occ_cum8": "rank", "expand": "rank", "compact_rows": "compact",
               "segstats": "segstats", "decode": "decode",
               "children": "children", "stage_rows": "compact",
               "sa_sort": "sa_sort",
@@ -317,7 +321,8 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
 
 def phase_kernels(torch, dev, device) -> list[dict]:
     from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
-    from dsm_tpu_torch.ops.rank import occ_cum8, occ_cum8_plain
+    from dsm_tpu_torch.ops.rank import (occ_cum8, occ_cum8_pair,
+                                        occ_cum8_pair_plain, occ_cum8_plain)
     from dsm_tpu_torch.ops.segstats import Gates, segstats, segstats_plain
 
     rng = np.random.default_rng(2024)
@@ -348,8 +353,26 @@ def phase_kernels(torch, dev, device) -> list[dict]:
         # 32 B out a query; ~60 integer operations a query
         **bound(128 * int(torch.unique((pos_t >> 7) + soff_t).numel())
                 + q * (8 + 32), 60 * q), library_ms=None))
-    log(f"kernel rank: Q={q} equal; {results[-1]['ms']:.3f} ms vs plain "
-        f"{results[-1]['plain_ms']:.3f} ms")
+    log(f"kernel rank: Q={q} equal; {results[-1]['ms']:.4f} ms vs plain "
+        f"{results[-1]['plain_ms']:.4f} ms (bound "
+        f"{results[-1]['bound_ms']:.4f} ms)")
+    # the two-ended entry (the drain's leftChar) on strided pair-row columns
+    pr = torch.zeros((q // 2, 6), dtype=torch.int32, device=device)
+    pr[:, 0], pr[:, 1], pr[:, 4] = pos_t[0::2], pos_t[1::2], soff_t[0::2]
+    pr[:, 1] = torch.where(soff_t[1::2] == soff_t[0::2], pr[:, 1], pr[:, 0])
+    cols = (pr[:, 0], pr[:, 1], pr[:, 4])
+    got, want = occ_cum8_pair(dev.rrows, *cols), \
+        occ_cum8_pair_plain(dev.rrows, *cols)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("occ_cum8_pair disagrees with its plain version")
+    log(f"kernel rank, two-ended entry: Q={q // 2} pairs on strided columns "
+        f"equal; {cuda_ms(torch, lambda: occ_cum8_pair(dev.rrows, *cols)):.4f}"
+        f" ms vs plain "
+        f"{cuda_ms(torch, lambda: occ_cum8_pair_plain(dev.rrows, *cols)):.4f}"
+        f" ms")
+    del pr, cols, got, want
+    results.append(phase_expand(torch, dev, device))
 
     # compact: N = 2^23 rows, C in (2, 5, 6, 8), masks 0%, ~30%, 100%
     n = COMPACT_N
@@ -420,6 +443,102 @@ def phase_kernels(torch, dev, device) -> list[dict]:
         f"{eerr:.3g}); {results[-1]['ms']:.3f} ms vs plain "
         f"{results[-1]['plain_ms']:.3f} ms")
     return results + phase_level_kernels(torch, device)
+
+
+def widest_level(torch, dev):
+    """The pair rows that enter the widest level of the scale-100 mine,
+    made on the card by the port's own level loop (`_seed_episode`,
+    `_level`; the staged rows are dropped, not drained) -> (pairs, depth)."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine_device import (FLAG_DONE, FLAG_HISTFULL,
+                                                    FLAG_TAIL, _hist_cap,
+                                                    _level, _Scalars,
+                                                    _seed_episode)
+
+    sc = _Scalars.build(MiningConfig(fmin=FMIN, emax=EMAX))
+    st = _seed_episode(dev, _hist_cap(dev))
+    best, depth = st.pairs, 0
+    while True:
+        flag = _level(dev, sc, st)
+        if flag == FLAG_HISTFULL:
+            st.hist_len, st.lvl_off = 0, []
+            continue
+        st.out, st.ocount = [], 0
+        if st.npairs > best.shape[0]:
+            best, depth = st.pairs, st.depth
+        if flag in (FLAG_DONE, FLAG_TAIL):
+            return best, depth
+
+
+def synthetic_pairs(torch, dev, gen, p: int, share: float):
+    """(p, 6) int32 pair rows over the card's tables, their samples drawn
+    at random: lo uniform in the text, hi in lo's table row for a `share`
+    of the pairs (a uniform end up to the row's end or n) and up to 4,000
+    symbols past the next row's start for the rest, clipped to n."""
+    device = dev.frows.device
+    sid = torch.randint(0, dev.S, (p,), device=device, generator=gen)
+    n = torch.as_tensor(dev.ns, device=device)[sid]
+    u = torch.rand((2, p), device=device, generator=gen, dtype=torch.float64)
+    lo = (u[0] * (n + 1)).to(torch.int64)
+    row_end = torch.minimum(n, lo | 127)
+    near = lo + (u[1] * (row_end - lo + 1)).to(torch.int64)
+    far = torch.minimum(n, (lo & ~127) + 128 + torch.randint(
+        0, 4000, (p,), device=device, generator=gen))
+    same = torch.rand(p, device=device, generator=gen) < share
+    pairs = torch.randint(0, 1 << 20, (p, 6), dtype=torch.int32,
+                          device=device, generator=gen)
+    pairs[:, 0], pairs[:, 1] = lo, torch.where(same, near, far)
+    pairs[:, 3], pairs[:, 4] = sid, dev.soff[sid]
+    return pairs
+
+
+def expand_case(torch, dev, pairs, label: str):
+    """The expand entry of the rank kernel against expand_plain on `pairs`
+    (fmin FMIN, all symbols), timed; -> (its entry of the kernels line, the
+    share of pairs with both ends in one table row)."""
+    from dsm_tpu_torch.ops.rank import expand, expand_plain
+
+    args = (dev.frows, pairs, FMIN, 0b1111)
+    got, want = expand(*args), expand_plain(*args)
+    torch.cuda.synchronize()
+    if not all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want)):
+        raise SystemExit(f"expand disagrees with its plain version ({label})")
+    p = pairs.shape[0]
+    blo = (pairs[:, 0] >> 7) + pairs[:, 4]
+    bhi = (pairs[:, 1] >> 7) + pairs[:, 4]
+    share = float((blo == bhi).double().mean())
+    rows = int(torch.unique(torch.cat([blo, bhi])).numel())
+    # the pair rows in (every 32-byte sector holds a needed word), each
+    # table row touched once, 64 B of ranks, freq, keepc and cbits out a
+    # pair; ~120 integer operations a pair
+    entry = dict(
+        name="expand", route="cuda", source="dsm_tpu_torch/csrc/rank.cu",
+        replaces="dsm_tpu/mining/engine_device.py:714", max_abs_err=0,
+        ms=cuda_ms(torch, lambda: expand(*args)),
+        plain_ms=cuda_ms(torch, lambda: expand_plain(*args)),
+        **bound(24 * p + 128 * rows + (64 + 4 + 4 + 1) * p, 120 * p),
+        library_ms=None)
+    log(f"kernel expand: {label}: P={p:,}, {share:.1%} of the pairs with "
+        f"both ends in one table row, {rows:,} table rows touched; equal; "
+        f"{entry['ms']:.4f} ms vs plain {entry['plain_ms']:.4f} ms (bound "
+        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']})")
+    return entry, share
+
+
+def phase_expand(torch, dev, device) -> dict:
+    """The level's expand step (K1's expand entry) at the widest level of
+    the real scale-100 mine and on a synthetic level of SEG_NODES nodes of
+    1..5 pairs (~4.2M) whose share of pairs with both ends in one table row
+    is the real level's; -> the synthetic level's entry."""
+    pairs, depth = widest_level(torch, dev)
+    _entry, share = expand_case(
+        torch, dev, pairs, f"the widest level of the mine (depth {depth})")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2030)
+    sizes = torch.randint(1, 6, (SEG_NODES,), device=device, generator=gen)
+    synth = synthetic_pairs(torch, dev, gen, int(sizes.sum()), share)
+    return expand_case(torch, dev, synth, "synthetic level")[0]
 
 
 def compact_edges(torch, mask, vals, k: int) -> None:
@@ -921,7 +1040,8 @@ def sa_round(torch, codes, label: str):
 def phase_repro_kernels(torch, device) -> list[dict]:
     """P2-P4 against their plain versions and the repro tool's expected
     arrays, timed by events and by the profiler's device time, at the
-    tool's N and at N = REPRO_BIG."""
+    tool's N and at N = REPRO_BIG; -> their entries of the kernels line,
+    P2's and P3's at the tool's N, P4's at N = REPRO_BIG."""
     from dsm_tpu_torch.ops import repro
     from dsm_tpu_torch.tools.pallas_repro import N, expected
 
@@ -963,24 +1083,31 @@ def phase_repro_kernels(torch, device) -> list[dict]:
                          device=device)
     xb[0] = 3     # dynamic_store's offset is x[0] * 0
     moved = 2 * 4 * REPRO_BIG
-    for name, fn, plain, library in (
-            ("smem_carry", repro.smem_carry, repro.smem_carry_plain, None),
-            ("async_copy", repro.async_copy, repro.async_copy_plain,
-             lambda t: torch.mul(t, 2)),
-            ("dynamic_store", repro.dynamic_store, repro.dynamic_store_plain,
-             torch.clone)):
+    for entry, fn, plain, library in zip(results, (
+            repro.smem_carry, repro.async_copy, repro.dynamic_store), (
+            repro.smem_carry_plain, repro.async_copy_plain,
+            repro.dynamic_store_plain), (
+            None, lambda t: torch.mul(t, 2), torch.clone)):
+        name = entry["name"]
         if not torch.equal(fn(xb), plain(xb)):
             raise SystemExit(f"{name} disagrees with its plain version at "
                              f"N={REPRO_BIG}")
-        ms = cuda_ms(torch, lambda: fn(xb))
+        # 50 calls a timing: the first call's enqueue is not a tenth of it
+        big = dict(ms=cuda_ms(torch, lambda: fn(xb), 50),
+                   plain_ms=cuda_ms(torch, lambda: plain(xb)),
+                   **bound(moved, REPRO_BIG),
+                   library_ms=(None if library is None
+                               else cuda_ms(torch, lambda: library(xb), 50)))
         lib = "" if library is None else \
-            f", library call {cuda_ms(torch, lambda: library(xb)):.4f} ms"
-        log(f"kernel {name}: N={REPRO_BIG:,} equal; events {ms:.4f} ms "
-            f"({moved / (ms * 1e-3) / 1e12:.3f} TB/s, bound "
-            f"{bound(moved, REPRO_BIG)['bound_ms']:.4f} ms) vs plain "
-            f"{cuda_ms(torch, lambda: plain(xb)):.4f} ms{lib}; device "
-            f"{fmt_ms(device_ms(torch, lambda: fn(xb)))} vs plain "
-            f"{fmt_ms(device_ms(torch, lambda: plain(xb)))}")
+            f", library call {big['library_ms']:.4f} ms"
+        log(f"kernel {name}: N={REPRO_BIG:,} equal; events {big['ms']:.4f} ms "
+            f"({moved / (big['ms'] * 1e-3) / 1e12:.3f} TB/s, bound "
+            f"{big['bound_ms']:.4f} ms) vs plain {big['plain_ms']:.4f} "
+            f"ms{lib}; device {fmt_ms(device_ms(torch, lambda: fn(xb)))} vs "
+            f"plain {fmt_ms(device_ms(torch, lambda: plain(xb)))}")
+        if name == "dynamic_store":
+            # P4's entry: the copy where its bytes count, beside torch.clone
+            entry.update(big)
     return results
 
 
@@ -1179,11 +1306,21 @@ def phase_main(torch, idxs, dev, device) -> dict:
     gnu = run("gnu", "gnu")
     torch.cuda.synchronize()
     launches = path_launches("mine")
+    prof = {}
+    rank0 = _build.LAUNCHES["rank"]
     ms, acts, top = device_profile(torch, lambda: mine_torch(
-        idxs, cfg, dev=dev, device=device, reader_order="ascending"))
+        idxs, cfg, dev=dev, device=device, reader_order="ascending",
+        profile=prof))
+    ranks = _build.LAUNCHES["rank"] - rank0
     log(f"mine ascending (warm, under torch.profiler): device time "
-        f"{fmt_ms(ms)} in {acts:,} device activities; the largest: "
-        + json.dumps(top))
+        f"{fmt_ms(ms)} in {acts:,} device activities, {prof['levels']} "
+        f"levels on the device: {acts / prof['levels']:.1f} activities and "
+        f"{ranks / prof['levels']:.3f} rank launches a level "
+        f"({ranks} = {prof['levels']} expand steps + {prof['drains']} "
+        f"drains' leftChar); the largest: " + json.dumps(top))
+    if ranks != prof["levels"] + prof["drains"]:
+        raise SystemExit("the rank kernel was not launched once a level and "
+                         "once a drain")
     peak = torch.cuda.max_memory_allocated(device)
     log(f"peak device memory (max_memory_allocated): {peak:,} bytes "
         f"({before:,} allocated before the mine)")

@@ -1,85 +1,303 @@
-// Fused rank over the baked-C4 occ tables: the per-pair, per-level hot
-// primitive of the mining episode.
+// Fused rank over the baked-C4 occ tables (K1), and the level's expand step
+// built on it: the per-pair, per-level hot primitive of the mining episode.
 //
 // Replaces dsm_tpu/ops/rank.py occ_cumT / occ_cum8T (the XLA column gather
-// over the transposed (32, R) table).  Here the table stays row-major
-// (R, 32) uint32: one 128-byte row per 128-symbol block holds the 8 cum
-// words (C4 baked in, wrapping mod 2^32) and five thermometer bit planes of
-// 4 words each (ops/rank.py fused_rows).
+// over the transposed (32, R) table) and, with the `expand` entry, the
+// expand step of dsm_tpu/mining/engine_device.py _level_single (714-724)
+// and _level_sharded (409-419): both interval ends of every pair and the
+// gate inputs (freq, the active and kept child lanes, the child bits) in
+// one launch.  Here the table stays row-major (R, 32) uint32: one 128-byte
+// row per 128-symbol block holds the 8 cum words (C4 baked in, wrapping mod
+// 2^32) and five thermometer bit planes of 4 words each (ops/rank.py
+// fused_rows); words 28..31 are padding.
 //
-// One thread per query.  A query reads 7 uint4 (words 0..27 of its row),
-// popcounts the first `rem` bits of each plane and adds the cum words 1..5.
-// All arithmetic is uint32 and the results are reinterpreted as int32, as
-// lax.bitcast_convert_type does in the JAX version.
+// What bounds it on an H100: one dependent row gather per interval end.
+// At scale 100 the forward table (~8 MB) sits in the 50 MB L2, so the
+// gather costs L1/L2 transactions rather than DRAM bytes: one thread per
+// query issuing seven scattered 16-byte loads made each warp instruction
+// touch 32 different 128-byte lines (7 x 32 L1 tag lookups for 32 queries).
+// The needed DRAM bytes are the inputs once (24 B a pair row, a table row
+// once) and the outputs once (64 B of ranks, 9 B of gate inputs a pair).
 //
-// What bounds it on an H100: one dependent 112-byte row gather per query,
-// two queries per pair per level.  At scale 100 the forward table is
-// ~8 MB, small enough for the 50 MB L2 cache; the popcounts are a few
-// dozen integer instructions.  Output (8, Q) int32 is written with
-// coalesced stores (row k at k*Q + q).
+// The design:
+//   * a group of 8 lanes serves one query (or pair): lane k loads 16-byte
+//     word-group k of the row, so one warp instruction covers four whole
+//     rows (4 lookups instead of 32).  Lanes 2..6 hold the planes j = 1..5
+//     and popcount theirs under the position's mask; lanes 0..1 hold the
+//     cum words, which three shuffles hand to the plane lanes; lane 7's
+//     words are padding and are not loaded.  One more shuffle gives each
+//     plane lane its neighbour's count, and lanes 2, 3, 4 and 6 each write
+//     two of the eight outputs.
+//   * both ends in one pass: when lo and hi fall in the same table row (most
+//     pairs from depth ~10 on) the group reuses the loaded row and its cum
+//     words under hi's mask; otherwise both rows' loads are issued together.
+//   * a block takes a tile of kTile pairs: the 24-byte pair rows come in with
+//     coalesced 16-byte loads into shared memory (no strided column reads),
+//     the (8, tile) outputs of both ends are staged in shared memory, and
+//     each output row is stored coalesced, with freq, keepc and cbits in the
+//     same epilogue.
+// With the lookups cut, the work of an end bounds it rather than bytes:
+// every lane of the group computes the masks and four popcounts (POPC runs
+// at a quarter of the integer rate), so an end that reuses its pair's row
+// costs nearly what an end that loads one does.  A quad of lanes a query
+// (two 16-byte loads a lane, all four lanes popcounting) measured faster
+// for one end but slower for the expand step (more registers, fewer blocks
+// an SM), so the group stays 8 lanes.
+// All arithmetic is uint32, reinterpreted as int32, as lax.bitcast_convert
+// does in the JAX version; the baked-C4 wrap-around stays bit-exact.
+//
+// Entries (one kernel body, a mode each; ops/rank.py counts all of them as
+// launches of `rank`): dsm_occ_cum8 (one end, (8, Q)), dsm_occ_cum8_pair
+// (both ends of strided lo/hi/soff, the drain's leftChar), dsm_expand (the
+// (P, 6) pair rows -> olo, ohi, freq, keepc, cbits).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void occ_cum8_kernel(const uint4* __restrict__ rows,
-                                const int32_t* __restrict__ pos,
-                                long long pos_stride,
-                                const int32_t* __restrict__ soff,
-                                long long soff_stride,
-                                int32_t* __restrict__ out, long long q_total) {
-  long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= q_total) return;
-  uint32_t p = (uint32_t)pos[q * pos_stride];
-  long long blk = (long long)(p >> 7) + (long long)soff[q * soff_stride];
-  uint32_t rem = p & 127u;
-  const uint4* r = rows + blk * 8;  // 32 words = 8 uint4 per row
+constexpr int kThreads = 256;           // 32 groups of 8 lanes
+constexpr int kGroups = kThreads / 8;
+constexpr int kTile = 256;              // queries (pairs) a block
+// the staging and the epilogue give each thread one query of the tile
+static_assert(kTile == kThreads, "one thread a query at both ends");
+constexpr int kPairCols = 6;            // ops/children.py PAIR_COLS
+constexpr int kLo = 0, kHi = 1, kSoff = 4;   // PC_LO, PC_HI, PC_SOFF
+// a staged output row: + 8 words puts the four writing lanes of a group
+// (rows 0..3, or 4..7, at one column) and the warp's four groups
+// (neighbouring columns) in 16 distinct banks
+constexpr int kOutStride = kTile + 8;
 
-  uint32_t w[28];
-#pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    uint4 v = __ldg(r + k);
-    w[4 * k + 0] = v.x;
-    w[4 * k + 1] = v.y;
-    w[4 * k + 2] = v.z;
-    w[4 * k + 3] = v.w;
-  }
-  uint32_t wi = rem >> 5;
-  uint32_t part = (1u << (rem & 31u)) - 1u;
-  uint32_t m[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    m[k] = ((uint32_t)k < wi) ? 0xFFFFFFFFu : (((uint32_t)k == wi) ? part : 0u);
+enum Mode { kSingle = 0, kPair = 1, kExpand = 2 };
 
-  uint32_t c[5];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    uint32_t cnt = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cnt += __popc(w[8 + 4 * j + k] & m[k]);
-    c[j] = w[1 + j] + cnt;
+struct Args {
+  const uint4* rows;
+  const int32_t* pairs;                  // kExpand: (n, 6) rows
+  const int32_t* lo;                     // kSingle (pos), kPair
+  const int32_t* hi;                     // kPair
+  const int32_t* soff;                   // kSingle, kPair
+  long long lo_stride, hi_stride, soff_stride;
+  int32_t* olo;                          // (8, n)
+  int32_t* ohi;                          // (8, n), kPair and kExpand
+  int32_t* freq;                         // (n,), kExpand
+  uint8_t* keepc;                        // (4, n) bool, kExpand
+  uint8_t* cbits;                        // (n,), kExpand
+  long long n;
+  int fmin, sym_mask;
+};
+
+// The row of `blk`'s word-group `lane` (lane 7's is padding).
+__device__ __forceinline__ uint4 load_row(const uint4* rows, long long blk,
+                                          int lane) {
+  return lane < 7 ? __ldg(rows + blk * 8 + lane) : make_uint4(0, 0, 0, 0);
+}
+
+// Cum word (lane - 1) of the row whose word-groups 0 and 1 lanes 0 and 1
+// hold, in plane lanes 2..6 (cum1..3 from lane 0, cum4..5 from lane 1).
+__device__ __forceinline__ uint32_t cum_word(uint4 v, int lane,
+                                             unsigned mask) {
+  const int from = lane <= 4 ? 0 : 1;
+  const uint32_t t1 = __shfl_sync(mask, v.y, from, 8);    // cum1 | cum5
+  const uint32_t t2 = __shfl_sync(mask, v.z, 0, 8);       // cum2
+  const uint32_t t3 =
+      __shfl_sync(mask, lane == 0 ? v.w : v.x, from, 8);  // cum3 | cum4
+  return lane == 3 ? t2 : ((lane == 4 || lane == 5) ? t3 : t1);
+}
+
+// The low max(b, 0) bits set, all 32 from b = 32 on: PTX shl takes a
+// shift of 32 or more as 32 (C++ leaves it undefined), so a mask costs a
+// max, a shift and a not instead of compares and selects.
+__device__ __forceinline__ uint32_t low_bits(int b) {
+  uint32_t r;
+  const uint32_t shift = b > 0 ? b : 0;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(0xFFFFFFFFu), "r"(shift));
+  return ~r;
+}
+
+// One interval end: in plane lane 2 + j, c[j] = cum(j+1) + the popcount of
+// plane j+1 under pos's mask; lanes 2, 3, 4 and 6 then write outputs
+// (r, r + 4) of column `col` in the staged rows `out`:
+//   [c1-c0, c2-c1, c3-c2, pos-c4, c0, c1, c2, c4].
+__device__ __forceinline__ void rank_end(uint4 v, uint32_t cum, uint32_t pos,
+                                         int lane, unsigned mask,
+                                         int32_t* out, int col) {
+  const int rem = (int)(pos & 127u);
+  const uint32_t m0 = low_bits(rem);
+  const uint32_t m1 = low_bits(rem - 32);
+  const uint32_t m2 = low_bits(rem - 64);
+  const uint32_t m3 = low_bits(rem - 96);
+  const uint32_t c = cum + __popc(v.x & m0) + __popc(v.y & m1) +
+                     __popc(v.z & m2) + __popc(v.w & m3);
+  const uint32_t next = __shfl_down_sync(mask, c, 1, 8);
+  if (lane >= 2 && lane != 5 && lane != 7) {
+    const int r = lane == 6 ? 3 : lane - 2;
+    out[r * kOutStride + col] = (int32_t)(lane == 6 ? pos - c : next - c);
+    out[(r + 4) * kOutStride + col] = (int32_t)c;
   }
-  out[0 * q_total + q] = (int32_t)(c[1] - c[0]);
-  out[1 * q_total + q] = (int32_t)(c[2] - c[1]);
-  out[2 * q_total + q] = (int32_t)(c[3] - c[2]);
-  out[3 * q_total + q] = (int32_t)(p - c[4]);
-  out[4 * q_total + q] = (int32_t)c[0];
-  out[5 * q_total + q] = (int32_t)c[1];
-  out[6 * q_total + q] = (int32_t)c[2];
-  out[7 * q_total + q] = (int32_t)c[4];
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    rank_kernel(const Args a) {
+  constexpr bool kTwo = kMode != kSingle;
+  __shared__ __align__(16) int32_t pw[kTile * kPairCols];
+  __shared__ int32_t s_lo[8 * kOutStride];
+  __shared__ int32_t s_hi[kTwo ? 8 * kOutStride : 1];
+
+  const long long base = (long long)blockIdx.x * kTile;
+  const int cnt = a.n - base < kTile ? (int)(a.n - base) : kTile;
+  const int t = threadIdx.x;
+
+  // ---- the tile's queries into shared memory, in pair-row layout -------
+  if constexpr (kMode == kExpand) {
+    const int32_t* src = a.pairs + base * kPairCols;   // 16-byte aligned
+    const int words = cnt * kPairCols;
+    const int vec = words >> 2;
+    for (int i = t; i < vec; i += kThreads)
+      reinterpret_cast<int4*>(pw)[i] =
+          __ldg(reinterpret_cast<const int4*>(src) + i);
+    for (int i = 4 * vec + t; i < words; i += kThreads) pw[i] = src[i];
+  } else if (t < cnt) {
+    const long long q = base + t;
+    pw[t * kPairCols + kLo] = a.lo[q * a.lo_stride];
+    pw[t * kPairCols + kSoff] = a.soff[q * a.soff_stride];
+    if constexpr (kTwo) pw[t * kPairCols + kHi] = a.hi[q * a.hi_stride];
+  }
+  __syncthreads();
+
+  // ---- a group of 8 lanes a query: rows gathered whole -----------------
+  const int lane = t & 7;
+  const int g = t >> 3;
+  const unsigned mask = 0xFFu << (t & 24);
+#pragma unroll 1
+  for (int i0 = g; i0 < cnt; i0 += 2 * kGroups) {
+    // two queries of the group in flight: all their row loads first
+    const int i1 = i0 + kGroups;
+    const bool has1 = i1 < cnt;
+    const int32_t* p0 = pw + i0 * kPairCols;
+    const int32_t* p1 = pw + (has1 ? i1 : i0) * kPairCols;
+    const uint32_t lo0 = (uint32_t)p0[kLo], lo1 = (uint32_t)p1[kLo];
+    const long long b_lo0 = (long long)(lo0 >> 7) + p0[kSoff];
+    const long long b_lo1 = (long long)(lo1 >> 7) + p1[kSoff];
+    const uint4 v_lo0 = load_row(a.rows, b_lo0, lane);
+    const uint4 v_lo1 = has1 ? load_row(a.rows, b_lo1, lane) : v_lo0;
+    if constexpr (!kTwo) {
+      rank_end(v_lo0, cum_word(v_lo0, lane, mask), lo0, lane, mask, s_lo, i0);
+      if (has1)
+        rank_end(v_lo1, cum_word(v_lo1, lane, mask), lo1, lane, mask, s_lo,
+                 i1);
+      continue;
+    }
+    const uint32_t hi0 = (uint32_t)p0[kHi], hi1 = (uint32_t)p1[kHi];
+    const long long b_hi0 = (long long)(hi0 >> 7) + p0[kSoff];
+    const long long b_hi1 = (long long)(hi1 >> 7) + p1[kSoff];
+    // group-uniform: every lane of a group reads the same pair
+    const bool same0 = b_hi0 == b_lo0, same1 = b_hi1 == b_lo1;
+    const uint4 v_hi0 = same0 ? v_lo0 : load_row(a.rows, b_hi0, lane);
+    const uint4 v_hi1 = (same1 || !has1) ? v_lo1
+                                         : load_row(a.rows, b_hi1, lane);
+    uint32_t cum = cum_word(v_lo0, lane, mask);
+    rank_end(v_lo0, cum, lo0, lane, mask, s_lo, i0);
+    if (!same0) cum = cum_word(v_hi0, lane, mask);
+    rank_end(v_hi0, cum, hi0, lane, mask, s_hi, i0);
+    if (has1) {
+      cum = cum_word(v_lo1, lane, mask);
+      rank_end(v_lo1, cum, lo1, lane, mask, s_lo, i1);
+      if (!same1) cum = cum_word(v_hi1, lane, mask);
+      rank_end(v_hi1, cum, hi1, lane, mask, s_hi, i1);
+    }
+  }
+  __syncthreads();
+
+  // ---- epilogue: a thread a query, every output row coalesced ----------
+  if (t >= cnt) return;
+  const long long q = base + t;
+  const long long n = a.n;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a.olo[k * n + q] = s_lo[k * kOutStride + t];
+  if constexpr (kTwo) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a.ohi[k * n + q] = s_hi[k * kOutStride + t];
+  }
+  if constexpr (kMode == kExpand) {
+    const int32_t lo = pw[t * kPairCols + kLo], hi = pw[t * kPairCols + kHi];
+    const bool pa = hi > lo;
+    a.freq[q] = pa ? (int32_t)((uint32_t)hi - (uint32_t)lo) : 0;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int32_t cf = (int32_t)((uint32_t)s_hi[c * kOutStride + t] -
+                                   (uint32_t)s_lo[c * kOutStride + t]);
+      const bool act = pa && cf >= a.fmin;
+      a.keepc[c * n + q] = (uint8_t)(act && ((a.sym_mask >> c) & 1));
+      bits |= (uint32_t)act << c;
+    }
+    a.cbits[q] = (uint8_t)bits;
+  }
+}
+
+template <int kMode>
+int launch(const Args& a, void* stream) {
+  const long long blocks = (a.n + kTile - 1) / kTile;
+  rank_kernel<kMode><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// rows (R, 32) int32; pos, soff (q,) int32 at any stride; out (8, q).
 extern "C" int dsm_occ_cum8(const void* rows, const void* pos,
                             long long pos_stride, const void* soff,
                             long long soff_stride, void* out,
                             long long q_total, void* stream) {
-  const int threads = 256;
-  long long blocks = (q_total + threads - 1) / threads;
-  occ_cum8_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)rows, (const int32_t*)pos, pos_stride,
-      (const int32_t*)soff, soff_stride, (int32_t*)out, q_total);
-  return (int)cudaGetLastError();
+  Args a{};
+  a.rows = (const uint4*)rows;
+  a.lo = (const int32_t*)pos;
+  a.lo_stride = pos_stride;
+  a.soff = (const int32_t*)soff;
+  a.soff_stride = soff_stride;
+  a.olo = (int32_t*)out;
+  a.n = q_total;
+  return launch<kSingle>(a, stream);
+}
+
+// Both ends: lo, hi, soff (q,) int32 at any stride; olo, ohi (8, q).
+extern "C" int dsm_occ_cum8_pair(const void* rows, const void* lo,
+                                 long long lo_stride, const void* hi,
+                                 long long hi_stride, const void* soff,
+                                 long long soff_stride, void* olo, void* ohi,
+                                 long long q_total, void* stream) {
+  Args a{};
+  a.rows = (const uint4*)rows;
+  a.lo = (const int32_t*)lo;
+  a.lo_stride = lo_stride;
+  a.hi = (const int32_t*)hi;
+  a.hi_stride = hi_stride;
+  a.soff = (const int32_t*)soff;
+  a.soff_stride = soff_stride;
+  a.olo = (int32_t*)olo;
+  a.ohi = (int32_t*)ohi;
+  a.n = q_total;
+  return launch<kPair>(a, stream);
+}
+
+// The expand step: pairs (p, 6) int32 contiguous and 16-byte aligned;
+// olo, ohi (8, p) int32, freq (p,) int32, keepc (4, p) bool, cbits (p,)
+// uint8.
+extern "C" int dsm_expand(const void* rows, const void* pairs, void* olo,
+                          void* ohi, void* freq, void* keepc, void* cbits,
+                          long long p, int fmin, int sym_mask, void* stream) {
+  Args a{};
+  a.rows = (const uint4*)rows;
+  a.pairs = (const int32_t*)pairs;
+  a.olo = (int32_t*)olo;
+  a.ohi = (int32_t*)ohi;
+  a.freq = (int32_t*)freq;
+  a.keepc = (uint8_t*)keepc;
+  a.cbits = (uint8_t*)cbits;
+  a.n = p;
+  a.fmin = fmin;
+  a.sym_mask = sym_mask;
+  return launch<kExpand>(a, stream);
 }

@@ -2,7 +2,7 @@
 // isolated Mosaic toolchain faults (an SMEM carry over the grid, one DMA
 // from a VMEM scratch, a store at a data-dependent offset); here each is
 // the same computation written for CUDA.  At the repro's N = 1024 they
-// move a few KB: launch latency bounds all three.
+// move a few KB: launch latency bounds all three; at large N their bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -11,7 +11,7 @@
 
 namespace {
 
-constexpr int kBlk = 256;          // elements (and threads) per block, P2, P4
+constexpr int kBlk = 256;          // elements (and threads) per block, P2
 constexpr int kAsyncTile = 8192;   // int32 per P3 block: 32 KB of shared
 constexpr int kAsyncThreads = 256;
 
@@ -66,13 +66,52 @@ __global__ void __launch_bounds__(kAsyncThreads)
 // from the data at run time.  The TPU kernel took off = v[0] * 0; nvcc
 // folds a product with the literal 0, so the factor is a launch argument
 // (always 0) and the offset stays a run-time value.
-__global__ void dynstore_kernel(const int32_t* __restrict__ v,
-                                int32_t* __restrict__ out, long long n,
-                                int factor) {
-  long long i = (long long)blockIdx.x * kBlk + threadIdx.x;
-  if (i >= n) return;
-  long long off = (long long)v[0] * factor;
-  out[off + i] = v[i];
+//
+// A copy is bound by its bytes (N int32 in and out: 0.040 ms at 2^24 at
+// 3.35 TB/s).  One thread a 4-byte word issued 2^24 4-byte loads and
+// stores; here a thread moves one 16-byte word: two, four or eight words a
+// thread, all loads before the stores, measured slower on the H100 at 2^24
+// (PERF.md), one ties torch.clone.  The 16-byte body starts where
+// out + off is 16-byte aligned: a scalar head of up to 3 words before it
+// and a tail of up to 3 after it, by the first block.  Where v + head is
+// not 16-byte aligned too (a view such as x[1:]), each stored word joins
+// two aligned 16-byte loads (the second is the neighbouring thread's
+// first, an L1 hit), so loads and stores stay 16 bytes whatever the
+// alignment.
+constexpr int kCopyThreads = 256;
+
+__device__ __forceinline__ int4 join(int4 a, int4 b, int shift) {
+  switch (shift) {
+    case 1: return make_int4(a.y, a.z, a.w, b.x);
+    case 2: return make_int4(a.z, a.w, b.x, b.y);
+    default: return make_int4(a.w, b.x, b.y, b.z);
+  }
+}
+
+__global__ void __launch_bounds__(kCopyThreads)
+    dynstore_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ out,
+                    long long n, int factor) {
+  const long long off = (long long)__ldg(v) * factor;
+  int32_t* dst = out + off;
+  long long head = (long long)(((16 - ((uintptr_t)dst & 15)) & 15) >> 2);
+  head = head < n ? head : n;
+  const long long m = (n - head) >> 2;           // the body's 16-byte words
+  const int32_t* src = v + head;
+  const int shift = (int)(((uintptr_t)src & 15) >> 2);
+  const int4* s4 = reinterpret_cast<const int4*>(src - shift);
+  const long long j = (long long)blockIdx.x * kCopyThreads + threadIdx.x;
+  if (j < m) {
+    // s4[j + 1] <= s4[m] holds src[4m - shift], a word of v: the aligned
+    // 16 bytes around it lie in v's allocation
+    reinterpret_cast<int4*>(dst + head)[j] =
+        shift ? join(__ldg(s4 + j), __ldg(s4 + j + 1), shift) : __ldg(s4 + j);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 4) {
+    const long long i = threadIdx.x;
+    if (i < head) dst[i] = v[i];
+    const long long k = head + 4 * m + i;        // the tail
+    if (k < n) dst[k] = v[k];
+  }
 }
 
 }  // namespace
@@ -93,9 +132,12 @@ extern "C" int dsm_repro_async(const void* x, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
+// v, out: n int32 at any 4-byte alignment.
 extern "C" int dsm_repro_dynstore(const void* v, void* out, long long n,
                                   int factor, void* stream) {
-  dynstore_kernel<<<(unsigned)((n + kBlk - 1) / kBlk), kBlk, 0,
+  const long long words = (n + 3) / 4;
+  const long long blocks = (words + kCopyThreads - 1) / kCopyThreads;
+  dynstore_kernel<<<(unsigned)(blocks ? blocks : 1), kCopyThreads, 0,
                     (cudaStream_t)stream>>>((const int32_t*)v, (int32_t*)out,
                                             n, factor);
   return (int)cudaGetLastError();

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..index.fmindex import FMIndex
-from ..ops.rank import ROWW, fused_rows, occ_cum8
+from ..ops.rank import ROWW, fused_rows, occ_cum8_pair
 from ..utils.device import resolve_device
 from .config import MiningConfig
 from .engine_np import LC_N, LC_ZERO, MinedOutput
@@ -120,12 +120,12 @@ def leftchar_codes_pairs(rrows: torch.Tensor, soff_pair: torch.Tensor,
                          rlo: torch.Tensor, freq: torch.Tensor
                          ) -> torch.Tensor:
     """leftChar codes (EnumerateQuery.cpp:77-103) of K (node, sample)
-    pairs from two rank-kernel calls on the reverse table: a concrete
+    pairs from one two-ended rank-kernel launch on the reverse table
+    (`occ_cum8_pair` at rlo and rlo + freq): a concrete
     base (code 2..5) iff every occurrence extends with it, LC_N if the
     extensions are mixed, LC_ZERO if none.  Counterpart of
     dsm_tpu.mining.engine.leftchar_codes_pairsT.  -> (K,) int8."""
-    o_lo = occ_cum8(rrows, rlo, soff_pair)
-    o_hi = occ_cum8(rrows, rlo + freq, soff_pair)
+    o_lo, o_hi = occ_cum8_pair(rrows, rlo, rlo + freq, soff_pair)
     rcnt = o_hi[:4] - o_lo[:4]                              # (4, K)
     is_full = (rcnt == freq[None, :]) & (freq[None, :] > 0)
     code = torch.where(

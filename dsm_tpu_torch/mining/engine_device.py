@@ -17,9 +17,10 @@ no (soff, sid) operand packing and no int32 fixed-point entropy windows.
 Each level reads ONE small count tensor back to the host and allocates
 its outputs to the exact sizes.  Per level:
 
-  * expand:   the rank kernel (ops/rank.occ_cum8) at lo and at hi of
-              every pair gives the four child intervals and the children's
-              reverse starts;
+  * expand:   the rank kernel's expand entry (ops/rank.expand), one
+              launch: the ranks at lo and at hi of every pair (the four
+              child intervals and the children's reverse starts) and the
+              gate inputs freq, keepc and cbits;
   * stats:    the segstats kernel (ops/segstats) walks each node's
               contiguous pairs: entropy, gates, existing children;
   * emit:     the compaction kernel (ops/compact) keeps the gated pairs'
@@ -53,7 +54,7 @@ from ..ops.children import (PAIR_COLS, PC_HI, PC_LO, PC_NID, PC_RLO,
                             PC_SID, PC_SOFF, children)
 from ..ops.compact import stage_rows
 from ..ops.decode import decode
-from ..ops.rank import occ_cum8
+from ..ops.rank import expand
 from ..ops.segstats import (EXISTS_SHIFT, F_PRESENT, F_STAT, Gates,
                             segstats)
 from ..utils.device import resolve_device
@@ -221,23 +222,13 @@ def _seed_episode(dev: DeviceIndexes, hist_cap: int) -> EpisodeState:
 
 def _expand(frows: torch.Tensor, pr: torch.Tensor, fmin: int,
             sym_mask: int):
-    """The expand step of a level on the pair rows `pr`: the rank kernel
-    at both interval ends.  -> (olo, ohi (8, P) int32 rank outputs, freq
-    (P,) int32, 0 for an empty interval, keepc (4, P) bool, the child
-    lanes that are active and allowed by `sym_mask`, cbits (P,) uint8, the
-    active child symbols as bits)."""
-    lo, hi, soff = pr[:, PC_LO], pr[:, PC_HI], pr[:, PC_SOFF]
-    olo = occ_cum8(frows, lo, soff)                         # (8, P)
-    ohi = occ_cum8(frows, hi, soff)
-    pa = hi > lo
-    freq = torch.where(pa, hi - lo, 0)
-    cact = pa[None, :] & (ohi[:4] - olo[:4] >= fmin)        # (4, P)
-    symv = torch.tensor([(sym_mask >> c) & 1 for c in range(4)],
-                        dtype=torch.bool, device=pr.device)
-    keepc = cact & symv[:, None]
-    c8 = cact.to(torch.uint8)
-    cbits = c8[0] | (c8[1] << 1) | (c8[2] << 2) | (c8[3] << 3)
-    return olo, ohi, freq, keepc, cbits
+    """The expand step of a level on the pair rows `pr`: one launch of the
+    rank kernel's expand entry, both interval ends and the gate inputs.
+    -> (olo, ohi (8, P) int32 rank outputs, freq (P,) int32, 0 for an
+    empty interval, keepc (4, P) bool, the child lanes that are active and
+    allowed by `sym_mask`, cbits (P,) uint8, the active child symbols as
+    bits)."""
+    return expand(frows, pr, fmin, sym_mask)
 
 
 def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
@@ -253,7 +244,7 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
     nid = pr[:, PC_NID]
     g = sc.gates(depth, dev.S)
 
-    # ---- expand: rank at both interval ends ----------------------------
+    # ---- expand: rank at both interval ends, gate inputs ---------------
     olo, ohi, freq, keepc, cbits = _expand(dev.frows, pr, sc.fmin,
                                            g.sym_mask)
 
@@ -476,14 +467,15 @@ def _pull_segment(ph: PathHistory, seg_depth0: int, st: EpisodeState) -> None:
 
 def _drain(out: MinedOutput, cfg: MiningConfig, d: int, st: EpisodeState,
            ph: PathHistory, seg_depth0: int, dev: DeviceIndexes,
-           tracker=None) -> None:
+           tracker=None) -> bool:
     """Pull the staged output candidates, apply the deferred
     left-branching gate (leftChar codes on the device for just these
     pairs), re-gate the entropy window in exact f64 per node, decode the
-    paths and append the lines (dsm_tpu engine_device._drain)."""
+    paths and append the lines (dsm_tpu engine_device._drain).  -> whether
+    rows were staged."""
     n = st.ocount
     if n == 0:
-        return
+        return False
     orows = torch.cat(st.out)
     st.out, st.ocount = [], 0
     lc_dev = leftchar_codes_pairs(
@@ -491,6 +483,7 @@ def _drain(out: MinedOutput, cfg: MiningConfig, d: int, st: EpisodeState,
         orows[:, OC_RLO], orows[:, OC_FREQ])
     _emit_drained(out, cfg, d, st, ph, seg_depth0, orows.cpu().numpy(),
                   lc_dev.cpu().numpy(), tracker)
+    return True
 
 
 def _emit_drained(out: MinedOutput, cfg: MiningConfig, d: int, st,
@@ -594,8 +587,9 @@ def mine_device(
     fixes the device.  The history buffer takes dsm_tpu's sizing rule
     (_hist_cap; env DSM_HIST_CAP overrides).  A dict passed as
     `profile` receives host wall seconds per phase (levels, drain, tail,
-    halt polls, saves), the level and save counts and the tail's start
-    depth.
+    halt polls, saves), the counts of levels run on the device (a level
+    redone after HISTFULL counts again), of drains that found staged rows
+    and of saves, and the tail's start depth.
 
     `checkpoint`: a snapshot file in dsm_tpu's format (mining/checkpoint.py),
     written at every DRAIN and HISTFULL exit, resumed from when it exists
@@ -660,7 +654,7 @@ def _episode_setup(indexes, cfg: MiningConfig, prefix: bytes,
     prof = profile if profile is not None else {}
     for k in ("level_s", "drain_s", "tail_s", "halt_s", "save_s"):
         prof[k] = 0.0
-    prof.update(levels=0, saves=0, tail_depth=None)
+    prof.update(levels=0, drains=0, saves=0, tail_depth=None)
     return tracker, sc, prof
 
 
@@ -673,11 +667,12 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
     history, depth, node count and counters (EpisodeState or
     parallel/engine_episode.ShardedEpisodeState).  level(eskip) runs one
     level on it and returns the exit flag; drain(seg_depth0) emits the
-    staged rows into `out`; live_pairs() pulls the live pair rows to the
-    host ((m, 6), global sample ids, (node, sample) order) for a snapshot
-    or the tail handoff.  `writes`: this process writes and removes the
-    snapshot file (one process of a group does; all of them call
-    live_pairs, which is a collective there)."""
+    staged rows into `out` and returns whether it found any; live_pairs()
+    pulls the live pair rows to the host ((m, 6), global sample ids,
+    (node, sample) order) for a snapshot or the tail handoff.  `writes`:
+    this process writes and removes the snapshot file (one process of a
+    group does; all of them call live_pairs, which is a collective
+    there)."""
     debug = os.environ.get("DSM_DEBUG") == "1"
     seg_depth0 = st.depth
     if debug and seg_depth0:
@@ -724,7 +719,7 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
         if flag == FLAG_RUN:
             continue
         t0 = time.perf_counter()
-        drain(seg_depth0)
+        prof["drains"] += bool(drain(seg_depth0))
         prof["drain_s"] += time.perf_counter() - t0
         if flag == FLAG_DONE:
             break

@@ -12,7 +12,10 @@ Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`.  A wrapper calls it through `launch()`, which
 passes the device's current stream, raises on a non-zero code and adds
 one to the kernel's count in `LAUNCHES`: the counts are of wrapper calls
-that launched the kernel, and nothing else adds to them.  The key
+that launched the kernel, and nothing else adds to them.  The key `rank`
+counts launches of the rank kernel by any of its three entries,
+`occ_cum8`, `occ_cum8_pair` (the drain's leftChar) and `expand` (a
+level's expand step).  The key
 `compact` counts launches of the compaction kernel by either of its
 entries, `compact_rows` and the emit's `stage_rows`: the mine and sharded
 paths reach it through the emit.  `PATHS` names
@@ -55,6 +58,11 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # rows, pos, pos_stride, soff, soff_stride, out, q, stream
     "dsm_occ_cum8": [_P, _P, _I64, _P, _I64, _P, _I64, _P],
+    # rows, lo, lo_stride, hi, hi_stride, soff, soff_stride, olo, ohi, q,
+    # stream
+    "dsm_occ_cum8_pair": [_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P],
+    # rows, pairs, olo, ohi, freq, keepc, cbits, p, fmin, sym_mask, stream
+    "dsm_expand": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     # mask, values, n, c, out, width, scratch, count, stream
     "dsm_compact_rows": [_P, _P, _I64, _I, _P, _I64, _P, _P, _P],
     # mask, pairs, n, depth, out, width, scratch, count, stream

@@ -21,17 +21,24 @@ its storage layout and NumPy oracles:
     order, index/alphabet.py, which is what makes <=-counts enough);
   * `occ_prefix_np`, `occ_cum_np`: the NumPy oracles.
 
-The device half is the counterpart of `occ_cumT` / `occ_cum8T`.  Its table
-is the ROW-major (R, ROWW) `fused_rows` table (stored as int32 bit
+The device half is the counterpart of `occ_cumT` / `occ_cum8T` and of the
+expand step built on them (dsm_tpu/mining/engine_device.py:714-724).  Its
+table is the ROW-major (R, ROWW) `fused_rows` table (stored as int32 bit
 patterns: torch has no general uint32 arithmetic); dsm_tpu's transposed
-(32, R) layout is not carried over.
+(32, R) layout is not carried over.  One kernel body (csrc/rank.cu) has
+three entries, all counted as launches of `rank`:
 
-`occ_cum8(rows, pos, soff)` -> (8, Q) int32 with rows
-[C4A+occA, C4C+occC, C4G+occG, pos-c5(+C4T), c1, c2, c3, c5] at the text
-positions `pos` of the samples whose table rows start at `soff`: rows 0:4
-are the four child interval bounds, rows 4:8 the lexicographic prefix
-sums.  The JAX form takes (blk, rem, pos) with blk = (pos >> 7) + soff and
-rem = pos & 127; the kernel derives both itself.
+  * `occ_cum8(rows, pos, soff)` -> (8, Q) int32 with rows
+    [C4A+occA, C4C+occC, C4G+occG, pos-c5(+C4T), c1, c2, c3, c5] at the
+    text positions `pos` of the samples whose table rows start at `soff`:
+    rows 0:4 are the four child interval bounds, rows 4:8 the
+    lexicographic prefix sums.  The JAX form takes (blk, rem, pos) with
+    blk = (pos >> 7) + soff and rem = pos & 127; the kernel derives both;
+  * `occ_cum8_pair(rows, lo, hi, soff)` -> (occ_cum8 at lo, at hi) in one
+    launch (the drain's leftChar);
+  * `expand(frows, pairs, fmin, sym_mask)`: the level's expand step on the
+    (P, 6) pair rows -> (olo, ohi, freq, keepc, cbits), both ends' ranks
+    and the gate inputs in one launch.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 
 from ..index.alphabet import PAD, SIGMA
 from . import _build
+from .children import PAIR_COLS, PC_HI, PC_LO, PC_SOFF
 
 BLOCK = 128        # BWT codes per block: one table row
 LOG2_BLOCK = 7
@@ -188,6 +196,51 @@ def occ_cum8_plain(rows: torch.Tensor, pos: torch.Tensor,
     return _wrap32(out)
 
 
+def occ_cum8_pair_plain(rows: torch.Tensor, lo: torch.Tensor,
+                        hi: torch.Tensor, soff: torch.Tensor):
+    """Plain PyTorch version of the two-ended entry: (at lo, at hi)."""
+    return occ_cum8_plain(rows, lo, soff), occ_cum8_plain(rows, hi, soff)
+
+
+def expand_plain(frows: torch.Tensor, pairs: torch.Tensor, fmin: int,
+                 sym_mask: int):
+    """Plain PyTorch version of the expand step (any device): the rank at
+    both interval ends of every pair row and the gate inputs, as
+    dsm_tpu's level computes them (engine_device.py:714-724)."""
+    lo, hi, soff = pairs[:, PC_LO], pairs[:, PC_HI], pairs[:, PC_SOFF]
+    olo, ohi = occ_cum8_pair_plain(frows, lo, hi, soff)
+    pa = hi > lo
+    freq = torch.where(pa, hi - lo, 0)
+    cact = pa[None, :] & (ohi[:4] - olo[:4] >= fmin)        # (4, P)
+    symv = (sym_mask >> torch.arange(4, device=pairs.device)) & 1
+    keepc = cact & (symv[:, None] != 0)
+    c8 = cact.to(torch.uint8)
+    cbits = c8[0] | (c8[1] << 1) | (c8[2] << 2) | (c8[3] << 3)
+    return olo, ohi, freq, keepc, cbits
+
+
+def _check_rows(rows: torch.Tensor, who: str) -> None:
+    if rows.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {rows.device}")
+    if (rows.dtype != torch.int32 or rows.dim() != 2
+            or rows.shape[1] != ROWW or not rows.is_contiguous()):
+        raise ValueError(f"{who}: rows must be contiguous (R, 32) int32")
+
+
+def _check_queries(rows: torch.Tensor, who: str, **cols) -> int:
+    """The query columns' common length; raises unless each is a 1-D
+    int32 tensor on the table's device."""
+    q = None
+    for name, t in cols.items():
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device != rows.device:
+            raise ValueError(f"{who}: {name} must be 1-D int32 on "
+                             f"{rows.device}")
+        if q is not None and t.shape[0] != q:
+            raise ValueError(f"{who}: {', '.join(cols)} differ in length")
+        q = t.shape[0]
+    return q
+
+
 def occ_cum8(rows: torch.Tensor, pos: torch.Tensor,
              soff: torch.Tensor) -> torch.Tensor:
     """(8, Q) int32 fused rank.  rows: (R, ROWW) int32 contiguous;
@@ -195,18 +248,8 @@ def occ_cum8(rows: torch.Tensor, pos: torch.Tensor,
     version; CUDA tensors launch the kernel."""
     if rows.device.type == "cpu":
         return occ_cum8_plain(rows, pos, soff)
-    if rows.device.type != "cuda":
-        raise ValueError(f"occ_cum8: unsupported device {rows.device}")
-    if (rows.dtype != torch.int32 or rows.dim() != 2
-            or rows.shape[1] != ROWW or not rows.is_contiguous()):
-        raise ValueError("occ_cum8: rows must be contiguous (R, 32) int32")
-    for name, t in (("pos", pos), ("soff", soff)):
-        if t.dtype != torch.int32 or t.dim() != 1 or t.device != rows.device:
-            raise ValueError(f"occ_cum8: {name} must be 1-D int32 on "
-                             f"{rows.device}")
-    q = pos.shape[0]
-    if soff.shape[0] != q:
-        raise ValueError("occ_cum8: pos and soff differ in length")
+    _check_rows(rows, "occ_cum8")
+    q = _check_queries(rows, "occ_cum8", pos=pos, soff=soff)
     out = torch.empty((8, q), dtype=torch.int32, device=rows.device)
     if q == 0:
         return out
@@ -214,3 +257,54 @@ def occ_cum8(rows: torch.Tensor, pos: torch.Tensor,
                   pos.data_ptr(), pos.stride(0), soff.data_ptr(),
                   soff.stride(0), out.data_ptr(), q)
     return out
+
+
+def occ_cum8_pair(rows: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  soff: torch.Tensor):
+    """(occ_cum8 at lo, occ_cum8 at hi), each (8, Q) int32, in one launch.
+    lo, hi, soff: (Q,) int32, any stride."""
+    if rows.device.type == "cpu":
+        return occ_cum8_pair_plain(rows, lo, hi, soff)
+    _check_rows(rows, "occ_cum8_pair")
+    q = _check_queries(rows, "occ_cum8_pair", lo=lo, hi=hi, soff=soff)
+    olo = torch.empty((8, q), dtype=torch.int32, device=rows.device)
+    ohi = torch.empty_like(olo)
+    if q == 0:
+        return olo, ohi
+    _build.launch("dsm_occ_cum8_pair", "rank", rows.device, rows.data_ptr(),
+                  lo.data_ptr(), lo.stride(0), hi.data_ptr(), hi.stride(0),
+                  soff.data_ptr(), soff.stride(0), olo.data_ptr(),
+                  ohi.data_ptr(), q)
+    return olo, ohi
+
+
+def expand(frows: torch.Tensor, pairs: torch.Tensor, fmin: int,
+           sym_mask: int):
+    """The expand step of a level on the (P, 6) int32 pair rows (columns
+    PC_*, ops/children.py) -> (olo, ohi (8, P) int32 ranks at lo and hi,
+    freq (P,) int32 (hi - lo, 0 for an empty interval), keepc (4, P) bool
+    (the child lanes with at least `fmin` occurrences of a non-empty
+    interval and allowed by the bits of `sym_mask`), cbits (P,) uint8 (the
+    active child lanes as bits, whatever `sym_mask` says)).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel, one launch,
+    which wants `pairs` contiguous and 16-byte aligned."""
+    if frows.device.type == "cpu":
+        return expand_plain(frows, pairs, fmin, sym_mask)
+    _check_rows(frows, "expand")
+    if (pairs.dtype != torch.int32 or pairs.dim() != 2
+            or pairs.shape[1] != PAIR_COLS or not pairs.is_contiguous()
+            or pairs.device != frows.device or pairs.data_ptr() % 16):
+        raise ValueError(f"expand: pairs must be contiguous, 16-byte aligned "
+                         f"(P, {PAIR_COLS}) int32 on {frows.device}")
+    p, device = pairs.shape[0], frows.device
+    olo = torch.empty((8, p), dtype=torch.int32, device=device)
+    ohi = torch.empty_like(olo)
+    freq = torch.empty(p, dtype=torch.int32, device=device)
+    keepc = torch.empty((4, p), dtype=torch.bool, device=device)
+    cbits = torch.empty(p, dtype=torch.uint8, device=device)
+    if p:
+        _build.launch("dsm_expand", "rank", device, frows.data_ptr(),
+                      pairs.data_ptr(), olo.data_ptr(), ohi.data_ptr(),
+                      freq.data_ptr(), keepc.data_ptr(), cbits.data_ptr(), p,
+                      int(fmin), int(sym_mask))
+    return olo, ohi, freq, keepc, cbits

@@ -18,8 +18,9 @@ Layout (parallel/mesh.SamplesMesh: world x shards_per_rank shards):
     keeps a replicated copy a shard; the shards of one device share one.
 
 A level (`_level_sharded`, dsm_tpu mining/engine_device.py:350-597):
-  1. a shard: two rank-kernel calls a pair, freq, active children
-     (engine_device._expand, as the single-device level);
+  1. a shard: the expand step, one launch of the rank kernel: both
+     interval ends, freq, active children (engine_device._expand, as the
+     single-device level);
   2. a shard: the partials kernel (ops/shardstats.shard_partials), one
      integer row a node;
   3. the trie merge: where the mesh has a process group, ONE
@@ -254,11 +255,12 @@ def _all_gather(t: torch.Tensor, mesh: SamplesMesh) -> torch.Tensor:
 def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
                    st: ShardedEpisodeState, ph: PathHistory, seg_depth0: int,
                    dev: ShardedIndexes, mesh: SamplesMesh,
-                   tracker=None) -> None:
+                   tracker=None) -> bool:
     """Every shard's staged rows with their leftChar codes (each from the
     shard's own reverse table) packed into one list under global sample
     ids, the same on every process; then the host half of the
-    single-device drain (engine_device._emit_drained)."""
+    single-device drain (engine_device._emit_drained).  -> whether a
+    shard of this process had rows staged."""
     blocks, lcs, bases = [], [], []
     for k, sh in enumerate(st.shards):
         if not sh.ocount:
@@ -285,6 +287,7 @@ def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
     if rows.shape[0]:
         _emit_drained(out, cfg, d, st, ph, seg_depth0, rows.cpu().numpy(),
                       lc.cpu().numpy(), tracker)
+    return bool(blocks)
 
 
 def _gather_live_pairs(st: ShardedEpisodeState, dev: ShardedIndexes,

@@ -73,6 +73,94 @@ def test_rank_kernel(cuda, toy_indexes):
     assert occ_cum8(dev.frows, empty, empty).shape == (8, 0)
 
 
+def _card_pairs(dev, p, share, rng, cuda):
+    """(p, 6) int32 pair rows over the card's tables: lo uniform in each
+    sample's text (its end among them), hi in lo's table row for about
+    `share` of the pairs (empty intervals among them) and in a later row
+    for the rest, clipped to n."""
+    sid = rng.integers(0, dev.S, size=p)
+    n = dev.ns[sid]
+    lo = (rng.random(p) * (n + 1)).astype(np.int64)
+    lo[:min(p, dev.S)] = n[:dev.S]
+    row_end = np.minimum(n, lo | 127)
+    same = rng.random(p) < share
+    hi = np.where(same, lo + (rng.random(p) * (row_end - lo + 1)).astype(
+        np.int64), np.minimum(n, (lo & ~127) + 128 + rng.integers(
+            0, 4000, size=p)))
+    pr = np.zeros((p, 6), dtype=np.int32)
+    pr[:, 0], pr[:, 1], pr[:, 3] = lo, hi, sid
+    pr[:, 2] = rng.integers(0, 1 << 20, size=p)
+    pr[:, 5] = rng.integers(0, 1 << 20, size=p)
+    pt = torch.as_tensor(pr, device=cuda)
+    pt[:, 4] = dev.soff[pt[:, 3].to(torch.int64)]
+    return pt
+
+
+@pytest.mark.parametrize("share", [0.0, 0.7, 1.0])
+@pytest.mark.parametrize("p", [0, 1, 7, 4097, (1 << 20) + 3])
+def test_expand_kernel(cuda, toy_indexes, p, share):
+    """The level's expand step (one launch: both ends, freq, keepc, cbits)
+    against expand_plain, with none, ~70% and all of the pairs' two ends
+    in one table row, under several fmin and symbol masks."""
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+    from dsm_tpu_torch.ops.rank import expand, expand_plain
+
+    dev = DeviceIndexes.build(toy_indexes, cuda)
+    pairs = _card_pairs(dev, p, share, np.random.default_rng(p), cuda)
+    for fmin, sym_mask in ((1, 0b1111), (2, 0), (5, 0b0110), (2, 0b1000)):
+        before = _build.LAUNCHES["rank"]
+        got = expand(dev.frows, pairs, fmin, sym_mask)
+        assert _build.LAUNCHES["rank"] == before + (p > 0)
+        want = expand_plain(dev.frows, pairs, fmin, sym_mask)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (fmin, sym_mask)
+    if p > 7:
+        same = ((pairs[:, 0] >> 7) == (pairs[:, 1] >> 7)).double().mean()
+        assert abs(float(same) - share) < 0.05
+    with pytest.raises(ValueError):
+        expand(dev.frows, pairs[:, :5], 2, 15)
+
+
+def test_occ_cum8_pair_kernel(cuda, toy_indexes):
+    """The two-ended entry on strided pair-row columns, and the drain's
+    leftChar on it, against their plain versions."""
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+    from dsm_tpu_torch.ops.rank import occ_cum8_pair, occ_cum8_pair_plain
+
+    dev = DeviceIndexes.build(toy_indexes, cuda)
+    pairs = _card_pairs(dev, 300_007, 0.5, np.random.default_rng(3), cuda)
+    cols = (pairs[:, 0], pairs[:, 1], pairs[:, 4])
+    before = _build.LAUNCHES["rank"]
+    got = occ_cum8_pair(dev.rrows, *cols)
+    assert _build.LAUNCHES["rank"] == before + 1
+    want = occ_cum8_pair_plain(dev.rrows, *cols)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert [t.shape for t in occ_cum8_pair(dev.rrows, empty, empty, empty)] \
+        == [(8, 0), (8, 0)]
+
+
+@pytest.mark.parametrize("exits", ["default", "drain+histfull"])
+def test_mine_rank_launches_one_a_level(cuda, toy_indexes, exits,
+                                        monkeypatch):
+    """The expand step is one launch a level on the device, and a drain
+    with staged rows adds one (its leftChar)."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    kw = {}
+    if exits == "drain+histfull":
+        kw["out_reserve"] = 0
+        monkeypatch.setenv("DSM_HIST_CAP", "20000")
+    prof = {}
+    _build.reset_launches()
+    mine_torch(toy_indexes, MiningConfig(fmin=2, emax=1.2), device=cuda,
+               profile=prof, **kw)
+    assert prof["drains"] > 0
+    assert _build.LAUNCHES["rank"] == prof["levels"] + prof["drains"]
+
+
 @pytest.mark.parametrize("n,c", [(1, 1), (1023, 5), (1025, 6), (300_001, 8)])
 def test_compact_kernel(cuda, n, c):
     from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
@@ -640,6 +728,27 @@ def test_repro_kernels(cuda, n):
         assert _build.LAUNCHES[key] == before + 1
         torch.cuda.synchronize()
         assert torch.equal(got, plain(x)), key
+
+
+@pytest.mark.parametrize("n", [1, 3, 256, (1 << 20) + 5])
+@pytest.mark.parametrize("skip", [0, 1, 2, 3])
+def test_dynamic_store_kernel(cuda, n, skip):
+    """P4's 16-byte copy on views that start 0-3 words past a 16-byte
+    boundary (x[skip:]), so that the aligned body, the joined body and the
+    scalar head and tail all run."""
+    from dsm_tpu_torch.ops import repro
+
+    x = torch.as_tensor(np.random.default_rng(n).integers(
+        -2**30, 2**30, size=n + skip).astype(np.int32), device=cuda)
+    x[skip] = 3
+    v = x[skip:]
+    assert v.data_ptr() % 16 == 4 * skip
+    before = _build.LAUNCHES["repro_dynstore"]
+    got = repro.dynamic_store(v)
+    assert _build.LAUNCHES["repro_dynstore"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, repro.dynamic_store_plain(v))
+    assert torch.equal(got, v)
 
 
 def test_repro_tool_on_card(cuda):

@@ -6,7 +6,9 @@ walked on disk) and chip_smoke, one after the other, and reports after
 each import the modules of `sys.modules` that are `jax`, `dsm_tpu` or
 start with `dsm_tpu.`.  A module's case fails when such a module is
 loaded once it has been imported (so the first offender and every module
-after it fail).
+after it fail).  Another subprocess imports each module as the first of
+the port (the port's modules are dropped from `sys.modules` before each),
+so that an import cycle that only a first import meets shows.
 """
 
 import json
@@ -49,14 +51,39 @@ print(json.dumps(report))
 """
 
 
-@pytest.fixture(scope="module")
-def report():
+_FIRST = """
+import importlib, json, sys
+report = {}
+for name in json.loads(sys.argv[1]):
+    for m in [m for m in sys.modules
+              if m.split(".")[0] in ("dsm_tpu_torch", "chip_smoke")]:
+        del sys.modules[m]
+    try:
+        importlib.import_module(name)
+        report[name] = None
+    except Exception as e:   # reported to the test of that module
+        report[name] = repr(e)
+print(json.dumps(report))
+"""
+
+
+def _probe(code: str) -> dict:
     env = {**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""}
-    p = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(MODULES)],
+    p = subprocess.run([sys.executable, "-c", code, json.dumps(MODULES)],
                        env=env, cwd=REPO, capture_output=True, text=True,
                        timeout=300)
     assert p.returncode == 0, p.stderr
     return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def report():
+    return _probe(_PROBE)
+
+
+@pytest.fixture(scope="module")
+def first_report():
+    return _probe(_FIRST)
 
 
 def test_the_walk_finds_the_package():
@@ -76,6 +103,11 @@ def test_the_walk_finds_the_package():
 def test_import_loads_no_jax_and_no_dsm_tpu(report, name):
     assert report[name]["error"] is None
     assert report[name]["foreign"] == []
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_imports_as_the_first_of_the_port(first_report, name):
+    assert first_report[name] is None
 
 
 def _sources() -> list[str]:
