@@ -2,6 +2,11 @@
 
     python3 chip_smoke.py
 
+and, for timings alone (see `level_times` and `variant_times`),
+
+    python3 -c 'import torch, chip_smoke as c; c.level_times(torch, torch.device("cuda", 0))'
+    python3 -c 'import torch, chip_smoke as c; c.variant_times(torch, torch.device("cuda", 0))'
+
 Phases, each of which fails the run (non-zero exit, no result line):
   1. environment: the card, torch/CUDA versions, nvcc, triton;
   2. build: nvcc builds dsm_tpu_torch/csrc into build/kernels;
@@ -25,9 +30,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with the same result (P4's entry in the kernels line is at 2^24). The
      compaction (P1) also runs with width below the count, an unaligned
      mask and a tail to zero, and its emit entry (`stage_rows`) on the
-     children case's pairs with 0.1% and 30% of them marked. The path
-     decode (K6) walks a synthetic history of DEC_LEVELS levels of
-     SEG_NODES nodes, and the children step (K3) runs on SEG_NODES nodes of
+     children case's pairs with 0.1% and 30% of them marked. The stats
+     step (K2) runs on ~4.2M pairs in nodes of 1..5, 1..64 and 1..273
+     pairs: one launch each, flags, pair_out and the level's counts equal,
+     the entropy and its range within ENT_TOL. The path decode (K6) walks
+     a synthetic history of DEC_LEVELS levels of SEG_NODES nodes, random and
+     shaped as a trie (rows in order, children numbered in (parent,
+     symbol) order; its bound also by the distinct ancestors the walks
+     read), and the children step (K3) runs on SEG_NODES nodes of
      1..5 pairs with ~30% of the lanes kept (all symbols, and one symbol
      alone), on the same ~4.2M pairs in nodes of 1..64 and 1..273 pairs
      (K9c too), with nodes that hold no pair, and with nothing kept. The
@@ -55,7 +65,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. resume: the gnu-order mine with `checkpoint=` (out_reserve
      RESUME_RESERVE: saves where the frontier is wide) is killed by a
      raise from `save_checkpoint` after its second save and resumed from
-     the file; the same frozen reference, and the file must be gone;
+     the file; the same frozen reference, and the file must be gone; the
+     frontier decode of its saves with the most rows x levels is then held
+     against the plain version and timed (K6 on the real trie);
   7. halt: the ascending mine with `halt` returning [b"A"] (out_reserve
      HALT_RESERVE: the first poll before the tail); its lines are a
      subset of the warm ascending run's, none under A is deeper than the
@@ -96,6 +108,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -110,6 +123,12 @@ SCALE = 100             # the scale of the frozen reference
 RANK_Q = 1 << 22        # rank queries (two per pair per level)
 COMPACT_N = 1 << 23     # candidate rows of a plateau level's children
 SEG_NODES = 1_400_000   # nodes of 1..5 pairs (S = 5 samples): ~4.2M pairs
+SEG_WIDTHS = ("1..5", "1..64", "1..273")   # K2's node widths, in pairs
+# build variants that `variant_times` times against the sources as they are:
+# (source in dsm_tpu_torch/csrc, constant, its value in the variant)
+VARIANTS = (("decode.cu", "kRows", 1), ("decode.cu", "kRows", 4),
+            ("segstats.cu", "kMaxTile", 256), ("segstats.cu", "kWide", 32),
+            ("segstats.cu", "kLut", 1))
 DEC_LEVELS = 48         # levels each decoded row walks (K6)
 RESUME_RESERVE = 100    # gnu order: saves at depths 10-12, 33, 59
 HALT_RESERVE = 500      # ascending: the first halt poll at depth 10
@@ -323,7 +342,6 @@ def phase_kernels(torch, dev, device) -> list[dict]:
     from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
     from dsm_tpu_torch.ops.rank import (occ_cum8, occ_cum8_pair,
                                         occ_cum8_pair_plain, occ_cum8_plain)
-    from dsm_tpu_torch.ops.segstats import Gates, segstats, segstats_plain
 
     rng = np.random.default_rng(2024)
     results = []
@@ -411,38 +429,79 @@ def phase_kernels(torch, dev, device) -> list[dict]:
         # test a row
         **bound(n + 2 * k * 6 * 4 + 8, 2 * n), library_ms=lm))
 
-    # segstats: ~4M pairs in nodes of 1..5 pairs (S = 5 samples)
-    sizes = rng.integers(1, 6, size=SEG_NODES)
+    # segstats: ~4.2M pairs in nodes of 1..5 pairs (S = 5 samples; the
+    # kernels line's entry), then about as many in nodes of 1..64 and
+    # 1..273 pairs (the d = 64 and d = 273 collections)
+    seg = [segstats_case(torch, label, device) for label in SEG_WIDTHS]
+    return results + seg[:1] + phase_level_kernels(torch, device)
+
+
+def segstats_level(torch, label: str, device):
+    """A synthetic level for the stats step (K2), made from a seed: ~4.2M
+    pairs in nodes of `label` ("lo..hi") pairs, freq in 0..2999 (10% 0);
+    -> (nb, freq, cact, gates), the entropy window around the middle of
+    these nodes' entropies."""
+    from dsm_tpu_torch.ops.segstats import Gates
+
+    lo, hi = map(int, label.split(".."))
+    rng = np.random.default_rng(900 + hi)
+    sizes = rng.integers(lo, hi + 1, size=SEG_NODES if hi <= 5
+                         else 2 * 3 * SEG_NODES // (lo + hi))
     nb = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
-    p = int(nb[-1])
+    p, s = int(nb[-1]), max(5, hi)
     freq = rng.integers(0, 3000, size=p)
     freq[rng.random(p) < 0.1] = 0
     cact = (rng.integers(0, 16, size=p) * (freq > 0)).astype(np.uint8)
-    nb_t = torch.as_tensor(nb, device=device)
-    f_t = torch.as_tensor(freq.astype(np.int32), device=device)
-    c_t = torch.as_tensor(cact, device=device)
-    g = Gates(depth=7, s_total=5, mindepth=0, pmin=2, pmax=0,
-              use_egate=True, sym_mask=0b1111, emin_lo=-0.01, emax_hi=1.21)
-    fk, ek, pk = segstats(nb_t, f_t, c_t, g)
-    fp, ep, pp = segstats_plain(nb_t, f_t, c_t, g)
+    g = Gates(depth=7, s_total=s, mindepth=0, pmin=2, pmax=0,
+              use_egate=True, sym_mask=0b1111, emin_lo=-0.01,
+              emax_hi=EMAX + 0.01 if s == 5 else float(np.log2(s)) - 1.0)
+    return (torch.as_tensor(nb, device=device),
+            torch.as_tensor(freq.astype(np.int32), device=device),
+            torch.as_tensor(cact, device=device), g)
+
+
+def segstats_case(torch, label: str, device) -> dict:
+    """The stats step (K2) against its plain version on `segstats_level`'s
+    level: one launch; flags, pair_out and the level's counts equal, the
+    entropy and its range within ENT_TOL; timed; -> its entry of the
+    kernels line."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.segstats import (S_ENT_MIN, segstats,
+                                            segstats_plain)
+
+    args = segstats_level(torch, label, device)
+    u, p = args[0].shape[0] - 1, args[1].shape[0]
+    before = _build.LAUNCHES["segstats"]
+    fk, ek, pk, sk = segstats(*args)
+    launched = _build.LAUNCHES["segstats"] - before
+    fp, ep, pp, sp = segstats_plain(*args)
     torch.cuda.synchronize()
     eerr = float((ek - ep).abs().max())
-    if not (torch.equal(fk, fp) and torch.equal(pk, pp)) or eerr > ENT_TOL:
+    got, want = sk.tolist(), sp.tolist()
+    rerr = max(abs(a - b) if a != b else 0.0
+               for a, b in zip(got[S_ENT_MIN:], want[S_ENT_MIN:]))
+    if launched != 1 or not (torch.equal(fk, fp) and torch.equal(pk, pp)) \
+            or got[:S_ENT_MIN] != want[:S_ENT_MIN] \
+            or max(eerr, rerr) > ENT_TOL:
         raise SystemExit(f"segstats kernel disagrees with its plain version "
-                         f"(entropy max abs err {eerr})")
-    results.append(dict(
+                         f"({label} pairs a node: {launched} launches, "
+                         f"entropy max abs err {eerr}, sums {got} vs {want})")
+    entry = dict(
         name="segstats", route="cuda", source="dsm_tpu_torch/csrc/segstats.cu",
-        replaces="dsm_tpu/mining/engine_device.py:726", max_abs_err=eerr,
-        ms=cuda_ms(torch, lambda: segstats(nb_t, f_t, c_t, g)),
-        plain_ms=cuda_ms(torch, lambda: segstats_plain(nb_t, f_t, c_t, g)),
-        # nb, freq, cact in; flags, entropy, pair_out out; ~6 f64
-        # operations a pair (one of them a log) and ~6 a node
-        **bound(4 * (len(sizes) + 1) + 5 * p + 12 * len(sizes) + p,
-                6 * p + 6 * len(sizes), F64_TOPS), library_ms=None))
-    log(f"kernel segstats: U={len(sizes)} P={p} equal (entropy err "
-        f"{eerr:.3g}); {results[-1]['ms']:.3f} ms vs plain "
-        f"{results[-1]['plain_ms']:.3f} ms")
-    return results + phase_level_kernels(torch, device)
+        replaces="dsm_tpu/mining/engine_device.py:726",
+        max_abs_err=max(eerr, rerr),
+        ms=cuda_ms(torch, lambda: segstats(*args)),
+        plain_ms=cuda_ms(torch, lambda: segstats_plain(*args)),
+        # nb, freq, cact in; flags, entropy, pair_out and the six sums out;
+        # ~6 f64 operations a pair (one of them a log) and ~6 a node
+        **bound(4 * (u + 1) + 5 * p + 12 * u + p + 48, 6 * p + 6 * u,
+                F64_TOPS), library_ms=None)
+    log(f"kernel segstats: {label} pairs a node, U={u:,} P={p:,}: one "
+        f"launch, equal (entropy err {eerr:.3g}, its range {rerr:.3g}; "
+        f"sums {json.dumps(got)}); {entry['ms']:.4f} ms vs plain "
+        f"{entry['plain_ms']:.4f} ms (bound {entry['bound_ms']:.4f} ms); "
+        f"device {fmt_ms(device_ms(torch, lambda: segstats(*args)))}")
+    return entry
 
 
 def widest_level(torch, dev):
@@ -606,44 +665,112 @@ def level_sizes(torch, gen, label: str, device):
                          device=device, generator=gen)
 
 
-def phase_level_kernels(torch, device) -> list[dict]:
-    """K6 (decode) and K3 (children) against their plain versions on
-    SEG_NODES-wide synthetic levels, made on the card from a seed."""
-    from dsm_tpu_torch.ops.children import children, children_plain
-    from dsm_tpu_torch.ops.decode import decode, decode_plain
+def trie_history(torch, gen, levels: int, width: int, device):
+    """A trie-shaped parent-pointer history on the card: the base holds
+    `width` nodes and each node has 0-4 children (1 on average) with
+    distinct ascending symbols, numbered in (parent, symbol) order as the
+    children step numbers them; -> (hist, lvl_off, the top level's
+    width)."""
+    probs = torch.tensor([0.5, 0.2, 0.15, 0.1, 0.05], device=device)
+    parts, offs, off, wid = [], [], 0, width
+    for _ in range(levels):
+        kids = torch.multinomial(probs, wid, replacement=True, generator=gen)
+        kids[0] = kids[0].clamp(min=1)
+        parent = torch.repeat_interleave(
+            torch.arange(wid, device=device), kids)
+        within = torch.arange(parent.shape[0], device=device) \
+            - (torch.cumsum(kids, 0) - kids)[parent]
+        shift = (torch.rand(wid, generator=gen, device=device)
+                 * (5 - kids)).to(torch.int64)
+        parts.append((parent * 4 + within + shift[parent]).to(torch.int32))
+        offs.append(off)
+        off += parent.shape[0]
+        wid = parent.shape[0]
+    return (torch.cat(parts),
+            torch.tensor(offs, dtype=torch.int32, device=device), wid)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(2027)
-    i32 = dict(dtype=torch.int32, device=device, generator=gen)
+
+def distinct_ancestors(torch, hist, lvl_off, rows, jrel, maxj: int) -> int:
+    """The distinct (level, node) entries the rows' walks read: the least
+    history words a decode must fetch."""
+    r, n = rows.to(torch.int64), 0
+    for lev in range(maxj, 0, -1):
+        take = jrel >= lev
+        n += int(torch.unique(r[take]).numel())
+        e = hist[torch.where(take, r + int(lvl_off[lev - 1]), 0)]
+        r = torch.where(take, (e >> 2).to(torch.int64), r)
+    return n
+
+
+def decode_inputs(torch, gen, device):
+    """K6's synthetic inputs, made on the card from `gen`: DEC_LEVELS
+    levels of SEG_NODES nodes whose parents are drawn at random in the
+    level before (SEG_NODES rows at the top, drawn at random, walk all of
+    them), then a history of the same size shaped as a trie (rows 0..w'-1
+    at the top, children numbered in (parent, symbol) order); yields
+    (label, (hist, lvl_off, rows, jrel, maxj))."""
     w = SEG_NODES
-
-    # decode: DEC_LEVELS levels of w nodes, each with a parent in the
-    # level before; w rows at the top walk all of them
+    i32 = dict(dtype=torch.int32, device=device, generator=gen)
     hist = (torch.randint(0, w, (DEC_LEVELS * w,), **i32) * 4
             + torch.randint(0, 4, (DEC_LEVELS * w,), **i32))
     lvl_off = torch.arange(0, DEC_LEVELS * w, w, dtype=torch.int32,
                            device=device)
-    rows = torch.randint(0, w, (w,), **i32)
-    jrel = torch.full((w,), DEC_LEVELS, dtype=torch.int32, device=device)
-    args = (hist, lvl_off, rows, jrel, DEC_LEVELS)
+    yield "random history", (
+        hist, lvl_off, torch.randint(0, w, (w,), **i32),
+        torch.full((w,), DEC_LEVELS, dtype=torch.int32, device=device),
+        DEC_LEVELS)
+    hist, lvl_off, top = trie_history(torch, gen, DEC_LEVELS, w, device)
+    yield "trie-shaped history", (
+        hist, lvl_off, torch.arange(top, dtype=torch.int32, device=device),
+        torch.full((top,), DEC_LEVELS, dtype=torch.int32, device=device),
+        DEC_LEVELS)
+
+
+def decode_case(torch, label: str, args) -> dict:
+    """The decode kernel (K6) against its plain version on `args` (hist,
+    lvl_off, rows, jrel, maxj), timed; -> its entry of the kernels line,
+    bound by the bytes the walks need: 4 a distinct ancestor a level (the
+    bound by 4 a row a level, which charges a word each walk reads again,
+    is logged beside it)."""
+    from dsm_tpu_torch.ops.decode import decode, decode_plain
+
+    hist, lvl_off, rows, jrel, maxj = args
     (kb, ks), (pb, ps) = decode(*args), decode_plain(*args)
     torch.cuda.synchronize()
     if not (torch.equal(kb, pb) and torch.equal(ks, ps)):
-        raise SystemExit("decode kernel disagrees with its plain version")
-    results = [dict(
+        raise SystemExit(f"decode kernel disagrees with its plain version "
+                         f"({label})")
+    m, steps = rows.shape[0], int(jrel.to(torch.int64).sum())
+    words = distinct_ancestors(torch, hist, lvl_off, rows, jrel, maxj)
+    # rows and jrel in, one 4-byte history entry a distinct ancestor a
+    # level (or a row a level), the base and maxj symbol bytes a row out
+    entry = dict(
         name="decode", route="cuda", source="dsm_tpu_torch/csrc/decode.cu",
         replaces="dsm_tpu/mining/engine_device.py:990", max_abs_err=0,
         ms=cuda_ms(torch, lambda: decode(*args)),
         plain_ms=cuda_ms(torch, lambda: decode_plain(*args)),
-        # rows and jrel in, one 4-byte history entry a row a level, the
-        # base and one symbol byte a row a level out
-        **bound(w * (8 + 4 * DEC_LEVELS + 4 + DEC_LEVELS),
-                3 * w * DEC_LEVELS), library_ms=None)]
-    log(f"kernel decode: m={w:,} rows x {DEC_LEVELS} levels equal; events "
-        f"{results[-1]['ms']:.4f} ms vs plain {results[-1]['plain_ms']:.4f}"
-        f" ms; device {fmt_ms(device_ms(torch, lambda: decode(*args)))} vs "
-        f"plain {fmt_ms(device_ms(torch, lambda: decode_plain(*args)))}")
-    del hist, args, kb, ks, pb, ps
+        **bound(m * (8 + 4 + maxj) + 4 * words, 3 * steps), library_ms=None)
+    by_rows = bound(m * (8 + 4 + maxj) + 4 * steps, 3 * steps)["bound_ms"]
+    log(f"kernel decode: {label}, m={m:,} rows, maxj {maxj}, {steps:,} "
+        f"steps, {words:,} distinct ancestors ({words / max(steps, 1):.4f} a "
+        f"step): equal; events {entry['ms']:.4f} ms vs plain "
+        f"{entry['plain_ms']:.4f} ms; device "
+        f"{fmt_ms(device_ms(torch, lambda: decode(*args)))}; bound "
+        f"{entry['bound_ms']:.4f} ms by distinct ancestors, {by_rows:.4f} ms "
+        f"by rows")
+    return entry
+
+
+def phase_level_kernels(torch, device) -> list[dict]:
+    """K6 (decode) and K3 (children) against their plain versions on
+    SEG_NODES-wide synthetic levels, made on the card from a seed."""
+    from dsm_tpu_torch.ops.children import children, children_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2027)
+    # decode: the random history's entry goes into the kernels line
+    results = [decode_case(torch, label, args)
+               for label, args in decode_inputs(torch, gen, device)][:1]
 
     # children: nodes of 1..5 pairs (the table's row; ~30% of the lanes
     # kept under the full symbol mask and under G alone), then the same
@@ -1352,10 +1479,42 @@ class Killed(Exception):
     """Raised from save_checkpoint to abort a mining run."""
 
 
+def frontier_recorder(*records):
+    """A stand-in for engine_device._frontier_codes that keeps, in each
+    (store, key) of `records`, the inputs of the frontier decode with the
+    largest key(nodes, levels of the segment), then decodes as the original
+    does."""
+    from dsm_tpu_torch.mining import engine_device as ed
+
+    frontier_codes = ed._frontier_codes
+
+    def recording(st, ph, seg_depth0):
+        j = st.depth - seg_depth0
+        for store, key in records:
+            if key(st.nnodes, j) > store.get("key", 0):
+                store.update(key=key(st.nnodes, j), n=st.nnodes, jrel=j,
+                             hist=st.hist[:st.hist_len].clone(),
+                             lvl_off=list(st.lvl_off))
+        return frontier_codes(st, ph, seg_depth0)
+
+    return recording
+
+
+def frontier_args(torch, f: dict, device):
+    """A recorded frontier decode -> decode's (hist, lvl_off, rows, jrel,
+    maxj): rows 0..n-1, each walking the segment's jrel levels."""
+    n, j = f["n"], f["jrel"]
+    return (f["hist"], torch.tensor(f["lvl_off"][:j], dtype=torch.int32,
+                                    device=device),
+            torch.arange(n, dtype=torch.int32, device=device),
+            torch.full((n,), j, dtype=torch.int32, device=device), j)
+
+
 def phase_resume(torch, idxs, dev, device, td: str) -> None:
     """The gnu-order mine with a snapshot file, killed after its second
     save and resumed from it in this process."""
     from dsm_tpu_torch.mining import checkpoint as ckpt
+    from dsm_tpu_torch.mining import engine_device as ed
     from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
     from dsm_tpu_torch.ops import _build
 
@@ -1363,6 +1522,8 @@ def phase_resume(torch, idxs, dev, device, td: str) -> None:
     path = os.path.join(td, "mine.ckpt")
     save = ckpt.save_checkpoint
     saves = []     # (depth, frontier nodes, write seconds, file bytes)
+    frontier_codes = ed._frontier_codes
+    biggest = {}   # the inputs of the frontier decode of the most steps
 
     def killing(p, state, *a, **k):
         t0 = time.perf_counter()
@@ -1374,6 +1535,7 @@ def phase_resume(torch, idxs, dev, device, td: str) -> None:
             raise Killed()
 
     ckpt.save_checkpoint = killing
+    ed._frontier_codes = frontier_recorder((biggest, lambda n, j: n * j))
     killed = None
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -1396,12 +1558,19 @@ def phase_resume(torch, idxs, dev, device, td: str) -> None:
         resumed = time.perf_counter() - t0
     finally:
         ckpt.save_checkpoint = save
+        ed._frontier_codes = frontier_codes
     path_launches("mine", "the resume phase")
     log(f"resume: killed after save 2 at {killed:.4f} s, resumed run "
         f"{resumed:.4f} s; {len(saves)} saves (depth, frontier nodes, "
         f"write s, bytes): {json.dumps([list(s) for s in saves])}; the "
         f"resumed run's {prof['saves']} saves took {prof['save_s']:.4f} s "
         f"in all (frontier decode and write)")
+    # the real frontier decode (K6) of the most rows x levels, rows 0..n-1
+    # (the widest frontier, at depth 12, is decoded by the resumed run from
+    # a segment of one level)
+    decode_case(torch, f"the resume phase's largest frontier decode "
+                f"({biggest['n']:,} nodes, {biggest['jrel']} levels of the "
+                f"segment)", frontier_args(torch, biggest, device))
     if len(saves) < 3 or min(s[1] for s in saves) < 100_000:
         raise SystemExit("resume: fewer than three saves at wide frontiers")
     if os.path.exists(path):
@@ -1556,8 +1725,180 @@ def phase_halt(torch, idxs, dev, device, warm) -> None:
         "first poll, the lines outside A equal")
 
 
+def level_times(torch, device) -> None:
+    """Times, without checks, the kernels and runs of the package beside
+    this file that a redesign of the level's kernels moves, and prints one
+    JSON line: the stats step (K2) on `segstats_level`'s three levels (CUDA
+    events: three timings of 20 calls; the profiler's device time), the
+    decode (K6) on `decode_inputs`' two histories and on two real frontier
+    decodes of the scale-100 gnu mine at RESUME_RESERVE (the widest, and
+    the one of the most rows x levels; its snapshot writes skipped), the
+    warm ascending mine (five walls and level_s, then one run under
+    torch.profiler: device time and activities) and the gnu mine's walls
+    and level_s with 2 and 5 sample shards on the one card (three runs
+    each).  A copy of this file in the root of another tree of the repo
+    times that tree, so that two commits are compared in turns with the
+    same code."""
+    from dsm_tpu_torch.mining import checkpoint as ckpt
+    from dsm_tpu_torch.mining import engine_device as ed
+    from dsm_tpu_torch.mining.engine import (DeviceIndexes, MiningConfig,
+                                             mine_torch)
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.decode import decode
+    from dsm_tpu_torch.ops.segstats import segstats
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    res = {"tree": HERE, "smi": smi_line()}
+    phase_build()
+    for label in SEG_WIDTHS:
+        args = segstats_level(torch, label, device)
+        res[f"k2_{label}_ms"] = [cuda_ms(torch, lambda: segstats(*args), 20)
+                                 for _ in range(3)]
+        res[f"k2_{label}_device_ms"] = device_ms(
+            torch, lambda: segstats(*args), 10)
+        res[f"k2_{label}_shape"] = [args[0].shape[0] - 1, args[1].shape[0]]
+    del args
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    with tempfile.TemporaryDirectory(prefix="dsm_times_") as td:
+        idxs, _toy0, _ = phase_data(torch, load_make_toydata(), td, device)
+        dev = DeviceIndexes.build(idxs, device)
+        widest, most = {}, {}
+        fc, save = ed._frontier_codes, ckpt.save_checkpoint
+        ed._frontier_codes = frontier_recorder(
+            (widest, lambda n, j: n), (most, lambda n, j: n * j))
+        ckpt.save_checkpoint = lambda *a, **k: None
+        try:
+            mine_torch(idxs, cfg, dev=dev, device=device, reader_order="gnu",
+                       out_reserve=RESUME_RESERVE,
+                       checkpoint=os.path.join(td, "times.ckpt"))
+        finally:
+            ed._frontier_codes, ckpt.save_checkpoint = fc, save
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2027)
+    cases = list(decode_inputs(torch, gen, device)) + [
+        ("frontier_widest", frontier_args(torch, widest, device)),
+        ("frontier_most", frontier_args(torch, most, device))]
+    for label, args in cases:
+        key = "k6_" + label.split()[0].replace("-", "_")
+        res[f"{key}_ms"] = [cuda_ms(torch, lambda: decode(*args), 10)
+                            for _ in range(3)]
+        res[f"{key}_device_ms"] = device_ms(torch, lambda: decode(*args), 5)
+        res[f"{key}_shape"] = [args[2].shape[0], args[4]]
+    del cases, args
+
+    mine_torch(idxs, cfg, dev=dev, device=device)
+    res["warm_wall_s"], res["warm_level_s"] = [], []
+    for _ in range(5):
+        prof = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mine_torch(idxs, cfg, dev=dev, device=device, profile=prof)
+        torch.cuda.synchronize()
+        res["warm_wall_s"].append(time.perf_counter() - t0)
+        res["warm_level_s"].append(prof["level_s"])
+    prof = {}
+    _build.reset_launches()
+    ms, acts, top = device_profile(torch, lambda: mine_torch(
+        idxs, cfg, dev=dev, device=device, profile=prof))
+    res.update(warm_device_ms=ms, warm_activities=acts,
+               warm_levels=prof["levels"], warm_top=top,
+               warm_activities_a_level=acts / prof["levels"],
+               warm_launches=dict(_build.LAUNCHES))
+    del dev
+    for nsh in (2, 5):
+        mesh = global_samples_mesh(nsh, device)
+        tables = ShardedIndexes.build(idxs, mesh)
+        walls, lvl = [], []
+        for _ in range(3):
+            prof = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mine_device_sharded(idxs, cfg, mesh=mesh, dev=tables,
+                                reader_order="gnu", profile=prof)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            lvl.append(prof["level_s"])
+        res[f"sharded{nsh}_wall_s"], res[f"sharded{nsh}_level_s"] = walls, lvl
+        del tables
+    print(json.dumps(res), flush=True)
+
+
+def variant_times(torch, device) -> None:
+    """The decode (K6) on `decode_inputs`' histories and the stats step
+    (K2) on `segstats_level`'s levels, each held against its plain version
+    and timed (CUDA events: three timings of 10 calls) through the
+    package's wrappers, first as built and then with each of VARIANTS: its
+    source with one constant changed, built with the other sources into its
+    own library under build/variants/; prints one JSON line."""
+    import re
+    import shutil
+
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.decode import decode, decode_plain
+    from dsm_tpu_torch.ops.segstats import S_ENT_MIN, segstats, segstats_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2027)
+    cases = {"decode.cu": (decode, decode_plain,
+                           dict(decode_inputs(torch, gen, device))),
+             "segstats.cu": (segstats, segstats_plain, {
+                 label: segstats_level(torch, label, device)
+                 for label in SEG_WIDTHS})}
+    want = {src: {label: plain(*args) for label, args in inputs.items()}
+            for src, (_fn, plain, inputs) in cases.items()}
+    res = {"smi": smi_line()}
+
+    def time_source(src: str, tag: str) -> None:
+        fn, _plain, inputs = cases[src]
+        for label, args in inputs.items():
+            got, exp = fn(*args), want[src][label]
+            if src == "segstats.cu":   # flags, pair_out, counts; entropy
+                equal = (torch.equal(got[0], exp[0])
+                         and torch.equal(got[2], exp[2])
+                         and got[3][:S_ENT_MIN].tolist()
+                         == exp[3][:S_ENT_MIN].tolist()
+                         and float((got[1] - exp[1]).abs().max()) <= ENT_TOL)
+            else:
+                equal = all(torch.equal(a, b) for a, b in zip(got, exp))
+            if not equal:
+                raise SystemExit(f"variant_times: {tag} disagrees with the "
+                                 f"plain version on {label}")
+            res[f"{tag} {label}"] = [cuda_ms(torch, lambda: fn(*args), 10)
+                                     for _ in range(3)]
+
+    phase_build()
+    for src in cases:
+        time_source(src, f"{src} as built")
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    try:
+        for src, name, value in VARIANTS:
+            work = os.path.join(HERE, "build", "variants", f"{name}{value}")
+            shutil.rmtree(work, ignore_errors=True)
+            shutil.copytree(csrc, os.path.join(work, "csrc"))
+            path = os.path.join(work, "csrc", src)
+            with open(path) as fh:
+                text, n = re.subn(rf"constexpr int {name} = \d+;",
+                                  f"constexpr int {name} = {value};",
+                                  fh.read())
+            if n != 1:
+                raise SystemExit(f"variant_times: no constant {name} in {src}")
+            with open(path, "w") as fh:
+                fh.write(text)
+            _build.CSRC = Path(work) / "csrc"
+            _build.BUILD_DIR, _build._lib = Path(work), None
+            _build.lib()
+            time_source(src, f"{src} {name} = {value}")
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
+    print(json.dumps(res), flush=True)
+
+
 def main() -> int:
     import torch
+
 
     smi = phase_env(torch)
     from dsm_tpu_torch.mining.engine import DeviceIndexes

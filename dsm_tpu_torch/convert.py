@@ -119,8 +119,7 @@ def episode_state_from_numpy(state: dict, device) -> "ted.EpisodeState":
         lvl_off=[int(v) for v in live["lvl_off"]],
         out=[t(out)] if out.shape[0] else [], ocount=live["ocount"],
         total_paths=live["total_paths"],
-        ent_min=t(live["ent_min"], torch.float64),
-        ent_max=t(live["ent_max"], torch.float64))
+        ent_min=live["ent_min"], ent_max=live["ent_max"])
 
 
 def episode_state_to_numpy(st: "ted.EpisodeState") -> dict:

@@ -21,8 +21,10 @@ its outputs to the exact sizes.  Per level:
               launch: the ranks at lo and at hi of every pair (the four
               child intervals and the children's reverse starts) and the
               gate inputs freq, keepc and cbits;
-  * stats:    the segstats kernel (ops/segstats) walks each node's
-              contiguous pairs: entropy, gates, existing children;
+  * stats:    the segstats kernel (ops/segstats) reduces each node's
+              contiguous pairs: entropy, gates, existing children, and
+              the level's sums (kept lanes, children, gated pairs,
+              present nodes, entropy range), read back at once;
   * emit:     the compaction kernel (ops/compact) keeps the gated pairs'
               (freq, rlo, sid, nid, depth) rows in the output staging list;
   * children: the children kernel (ops/children) writes the kept (pair,
@@ -55,7 +57,7 @@ from ..ops.children import (PAIR_COLS, PC_HI, PC_LO, PC_NID, PC_RLO,
 from ..ops.compact import stage_rows
 from ..ops.decode import decode
 from ..ops.rank import expand
-from ..ops.segstats import (EXISTS_SHIFT, F_PRESENT, F_STAT, Gates,
+from ..ops.segstats import (S_ENT_MAX, S_ENT_MIN, S_GATED, Gates,
                             segstats)
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
@@ -179,7 +181,8 @@ class EpisodeState:
     int32: node -> first pair, nb[U] = P.  hist (hist_cap,) int32: the
     current segment's parent-pointer history (parent_row*4 + symbol, one
     entry per node), level k of the segment starting at lvl_off[k].
-    out: staged (k, 5) output-candidate rows awaiting a drain."""
+    out: staged (k, 5) output-candidate rows awaiting a drain.
+    ent_min, ent_max: the entropy range of the levels run so far."""
 
     pairs: torch.Tensor
     nb: torch.Tensor
@@ -190,8 +193,8 @@ class EpisodeState:
     out: list = field(default_factory=list)
     ocount: int = 0
     total_paths: int = 0
-    ent_min: torch.Tensor | None = None
-    ent_max: torch.Tensor | None = None
+    ent_min: float = np.inf
+    ent_max: float = -np.inf
 
     @property
     def npairs(self) -> int:
@@ -210,14 +213,11 @@ def _seed_episode(dev: DeviceIndexes, hist_cap: int) -> EpisodeState:
                                       device=device)
     pairs[:, PC_SID] = torch.arange(S, dtype=torch.int32, device=device)
     pairs[:, PC_SOFF] = dev.soff
-    f64 = dict(dtype=torch.float64, device=device)
     return EpisodeState(
         pairs=pairs,
         nb=torch.tensor([0, S], dtype=torch.int32, device=device),
         depth=0,
-        hist=torch.zeros(hist_cap, dtype=torch.int32, device=device),
-        ent_min=torch.tensor(np.inf, **f64),
-        ent_max=torch.tensor(-np.inf, **f64))
+        hist=torch.zeros(hist_cap, dtype=torch.int32, device=device))
 
 
 def _expand(frows: torch.Tensor, pr: torch.Tensor, fmin: int,
@@ -241,25 +241,22 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
     `eskip` were drained before the snapshot and are not staged again
     (dsm_tpu engine_device.py:850-855)."""
     pr, depth = st.pairs, st.depth
-    nid = pr[:, PC_NID]
     g = sc.gates(depth, dev.S)
 
     # ---- expand: rank at both interval ends, gate inputs ---------------
     olo, ohi, freq, keepc, cbits = _expand(dev.frows, pr, sc.fmin,
                                            g.sym_mask)
 
-    # ---- stats + gates: one thread per node ----------------------------
-    flags, ent, pair_out = segstats(st.nb, freq, cbits, g)
+    # ---- stats + gates and the level's sums: one launch, one readback --
+    _flags, _ent, pair_out, sums = segstats(st.nb, freq, cbits, g)
     if eskip:
         cg = torch.cumsum(pair_out, 0)
-        cg_end = cg[st.nb.to(torch.int64)[nid.to(torch.int64) + 1] - 1]
+        nid = pr[:, PC_NID].to(torch.int64)
+        cg_end = cg[st.nb.to(torch.int64)[nid + 1] - 1]
         pair_out = pair_out & (cg_end > eskip)
-    exists = (flags >> EXISTS_SHIFT) & 0b1111
-    nchild = ((exists & 1) + ((exists >> 1) & 1) + ((exists >> 2) & 1)
-              + ((exists >> 3) & 1))
-    present = (flags & F_PRESENT) != 0
-    pair_count, child_total, n_gated, n_present = torch.stack(
-        [keepc.sum(), nchild.sum(), pair_out.sum(), present.sum()]).tolist()
+        sums[S_GATED] = pair_out.sum()
+    sums = sums.tolist()
+    pair_count, child_total, n_gated, n_present = map(int, sums[:S_ENT_MIN])
 
     hist_cap = st.hist.shape[0]
     if st.hist_len + child_total > hist_cap:
@@ -270,11 +267,8 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
         return FLAG_HISTFULL
 
     st.total_paths += n_present
-    stat = (flags & F_STAT) != 0
-    st.ent_min = torch.minimum(st.ent_min,
-                               torch.where(stat, ent, np.inf).min())
-    st.ent_max = torch.maximum(st.ent_max,
-                               torch.where(stat, ent, -np.inf).max())
+    st.ent_min = min(st.ent_min, sums[S_ENT_MIN])
+    st.ent_max = max(st.ent_max, sums[S_ENT_MAX])
 
     # ---- emit: stage the gated pairs' rows -----------------------------
     if n_gated:
@@ -439,14 +433,12 @@ def _resume(path: str, cfg: MiningConfig, prefix: bytes, dev: DeviceIndexes,
     nb = _node_starts(pairs[:, PC_NID], n)
     depth = int(host["depth"])
     device = dev.device
-    f64 = dict(dtype=torch.float64, device=device)
     st = EpisodeState(
         pairs=torch.as_tensor(pairs, device=device),
         nb=torch.as_tensor(nb, device=device), depth=depth,
         hist=torch.zeros(hist_cap, dtype=torch.int32, device=device),
         total_paths=int(host["total_paths"]),
-        ent_min=torch.tensor(float(host["ent_min"]), **f64),
-        ent_max=torch.tensor(float(host["ent_max"]), **f64))
+        ent_min=float(host["ent_min"]), ent_max=float(host["ent_max"]))
     ph = PathHistory(base_depth=depth, base_paths=base_paths)
     return st, out, ph, int(host.get("eskip", 0))
 

@@ -67,10 +67,11 @@ _SIGNATURES = {
     "dsm_compact_rows": [_P, _P, _I64, _I, _P, _I64, _P, _P, _P],
     # mask, pairs, n, depth, out, width, scratch, count, stream
     "dsm_stage_rows": [_P, _P, _I64, _I, _P, _I64, _P, _P, _P],
-    # nb, freq, cact, n_nodes, depth, s_total, mindepth, pmin, pmax,
-    # use_egate, sym_mask, emin_lo, emax_hi, flags, ent, pair_out, stream
-    "dsm_segstats": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D,
-                     _P, _P, _P, _P],
+    # nb, freq, cact, n_nodes, n_pairs, depth, s_total, mindepth, pmin,
+    # pmax, use_egate, sym_mask, emin_lo, emax_hi, flags, ent, pair_out,
+    # state, sums, stream
+    "dsm_segstats": [_P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I, _I, _D,
+                     _D, _P, _P, _P, _P, _P, _P],
     # nb, pairs, olo, ohi, keep, U, P, pair_count, child_total, scratch,
     # newp, nb_next, hist, stream
     "dsm_children": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,

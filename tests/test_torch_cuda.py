@@ -263,17 +263,72 @@ def test_segstats_kernel(cuda):
                          .astype(np.int32), device=cuda)
     p = int(sizes.sum())
     freq = rng.integers(0, 500, size=p).astype(np.int32)
+    # frequencies past the kernel's table of terms
+    big = rng.random(p) < 0.05
+    freq[big] = rng.integers(4096, 1 << 24, size=int(big.sum()))
     freq[rng.random(p) < 0.2] = 0
     cact = (rng.integers(0, 16, size=p) * (freq > 0)).astype(np.uint8)
     f_t = torch.as_tensor(freq, device=cuda)
     c_t = torch.as_tensor(cact, device=cuda)
-    for depth, sym in ((0, 15), (5, 15), (9, 4)):
-        g = Gates(depth=depth, s_total=5, mindepth=2, pmin=2, pmax=4,
-                  use_egate=True, sym_mask=sym, emin_lo=0.1, emax_hi=1.5)
-        fk, ek, pk = segstats(nb, f_t, c_t, g)
-        fp, ep, pp = segstats_plain(nb, f_t, c_t, g)
-        assert torch.equal(fk, fp) and torch.equal(pk, pp)
+    # on the default stream and on a side stream (a ticket each)
+    for stream in (torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda)):
+        for depth, sym in ((0, 15), (5, 15), (9, 4)):
+            g = Gates(depth=depth, s_total=5, mindepth=2, pmin=2, pmax=4,
+                      use_egate=True, sym_mask=sym, emin_lo=0.1, emax_hi=1.5)
+            with torch.cuda.stream(stream):
+                fk, ek, pk, sk = segstats(nb, f_t, c_t, g)
+            stream.synchronize()
+            fp, ep, pp, sp = segstats_plain(nb, f_t, c_t, g)
+            assert torch.equal(fk, fp) and torch.equal(pk, pp)
+            assert float((ek - ep).abs().max()) < 1e-9
+            _assert_sums(sk, sp)
+
+
+def _assert_sums(got, want):
+    """The level's sums: the four counts equal, the entropy range within
+    1e-9 (the plain version's index_add_ sums a node's terms in the order
+    of the card's atomics)."""
+    from dsm_tpu_torch.ops.segstats import S_ENT_MIN
+
+    g, w = got.tolist(), want.tolist()
+    assert g[:S_ENT_MIN] == w[:S_ENT_MIN]
+    for a, b in zip(g[S_ENT_MIN:], w[S_ENT_MIN:]):
+        assert a == b or abs(a - b) < 1e-9, (g, w)
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 5), (1, 64), (1, 273), (64, 273),
+                                   (0, 5)])
+def test_segstats_kernel_widths(cuda, lo, hi):
+    """The stats step at nodes of 1..5, 1..64 and 1..273 pairs (about 1M
+    pairs; the wider nodes are reduced by a warp each), nodes of 64..273
+    alone, and nodes without a pair among them: one launch, flags,
+    pair_out and the counts equal, the entropy and its range within 1e-9,
+    under the full symbol mask, one symbol and none."""
+    from dsm_tpu_torch.ops.segstats import Gates, segstats, segstats_plain
+
+    rng = np.random.default_rng(hi * 7 + lo)
+    sizes = rng.integers(lo, hi + 1, size=(1 << 21) // (lo + hi))
+    nb = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)])
+                         .astype(np.int32), device=cuda)
+    p = int(sizes.sum())
+    freq = rng.integers(0, 3000, size=p).astype(np.int32)
+    freq[rng.random(p) < 0.1] = 0
+    cact = (rng.integers(0, 16, size=p) * (freq > 0)).astype(np.uint8)
+    f_t = torch.as_tensor(freq, device=cuda)
+    c_t = torch.as_tensor(cact, device=cuda)
+    for sym in (0b1111, 0b0010, 0):
+        g = Gates(depth=7, s_total=max(hi, 5), mindepth=0, pmin=2, pmax=0,
+                  use_egate=True, sym_mask=sym, emin_lo=-0.01,
+                  emax_hi=float(np.log2(hi + 1)) - 0.5)
+        before = _build.LAUNCHES["segstats"]
+        fk, ek, pk, sk = segstats(nb, f_t, c_t, g)
+        assert _build.LAUNCHES["segstats"] == before + 1
+        fp, ep, pp, sp = segstats_plain(nb, f_t, c_t, g)
+        torch.cuda.synchronize()
+        assert torch.equal(fk, fp) and torch.equal(pk, pp), sym
         assert float((ek - ep).abs().max()) < 1e-9
+        _assert_sums(sk, sp)
+        assert sk[2] > 0 or sym == 0
 
 
 def _history(rng, widths):
@@ -290,24 +345,60 @@ def _history(rng, widths):
             np.asarray(offs, dtype=np.int32))
 
 
+def _trie_history(rng, levels, width):
+    """A trie-shaped history: each node has 0-4 children (1 on average),
+    numbered in (parent, symbol) order -> (hist, lvl_off, widths)."""
+    widths, parts, offs, off = [width], [], [], 0
+    for _ in range(levels):
+        kids = rng.choice(5, size=widths[-1], p=[0.5, 0.2, 0.15, 0.1, 0.05])
+        kids[0] = max(kids[0], 1)
+        parent = np.repeat(np.arange(widths[-1]), kids)
+        within = np.arange(parent.size) - (np.cumsum(kids) - kids)[parent]
+        shift = (rng.random(widths[-1]) * (5 - kids)).astype(np.int64)
+        parts.append((parent * 4 + within + shift[parent]).astype(np.int32))
+        offs.append(off)
+        off += parent.size
+        widths.append(parent.size)
+    return np.concatenate(parts), np.asarray(offs, dtype=np.int32), widths
+
+
 @pytest.mark.parametrize("case", ["m=0", "one_row", "jrel=0", "mixed",
-                                  "deep"])
+                                  "deep", "random_maxj1", "random_maxj48",
+                                  "random_maxj96", "trie_maxj1",
+                                  "trie_maxj48", "trie_maxj96",
+                                  "trie_maxj130"])
 def test_decode_kernel(cuda, case):
+    """The decode kernel against its plain version: random and trie-shaped
+    histories (rows in (level, row) order, every row at the top for the
+    trie cases), m not a multiple of the kernel's tile, maxj of 1, 48, 96
+    and 130 (above what the kernel stages at once: two windows)."""
     from dsm_tpu_torch.ops.decode import decode, decode_plain
 
-    widths = {"m=0": [3, 5, 7], "one_row": [2, 9, 4], "jrel=0": [40, 8],
-              "mixed": [5] + [3000] * 12, "deep": [7] + [200] * 90}[case]
+    kind, _, levels = case.partition("_maxj")
+    if kind == "trie":
+        rng = np.random.default_rng(int(levels))
+        hist, offs, widths = _trie_history(rng, int(levels), 20_000)
+    else:
+        widths = {"m=0": [3, 5, 7], "one_row": [2, 9, 4], "jrel=0": [40, 8],
+                  "mixed": [5] + [3000] * 12, "deep": [7] + [200] * 90,
+                  "random": [7] + [5000] * int(levels or 1)}[kind]
     m = {"m=0": 0, "one_row": 1, "jrel=0": 500, "mixed": 100_003,
-         "deep": 4097}[case]
-    rng = np.random.default_rng(len(widths) + m)
-    hist, offs = _history(rng, widths)
+         "deep": 4097, "random": 70_001, "trie": 20_003}[kind]
+    if kind != "trie":
+        rng = np.random.default_rng(len(widths) + m)
+        hist, offs = _history(rng, widths)
     top = len(widths) - 1
     jrel = (np.zeros(m, dtype=np.int32) if case == "jrel=0"
             else rng.integers(0, top + 1, size=m).astype(np.int32))
     if case == "one_row":
         jrel[:] = top
+    if kind == "trie":
+        jrel[m // 2:] = top
     rows = np.array([rng.integers(0, widths[j]) for j in jrel],
                     dtype=np.int32)
+    if kind == "trie":
+        order = np.lexsort((rows, jrel))
+        rows, jrel = rows[order], jrel[order]
     maxj = top if case == "m=0" else int(jrel.max())
     args = [torch.as_tensor(a, device=cuda) for a in (hist, offs, rows, jrel)]
     before = _build.LAUNCHES["decode"]

@@ -2,7 +2,9 @@
 dsm_tpu's `_jitted_decode`, and what the mining episode builds on it.
 
 `decode` (CPU tensors: its plain version) and `_jitted_decode` (jitted on
-the CPU) walk the same random parent-pointer history from the same rows:
+the CPU) walk the same random parent-pointer history from the same rows,
+and a trie-shaped one (parents in (parent, symbol) order) from rows
+sorted within each level as a drain stages them:
 equal base rows, and equal symbols up to each row's relative level (the
 port's are zero past it).  The episode's path assembly (the device
 segment, a pulled PathHistory segment and a resumed snapshot's base
@@ -39,13 +41,39 @@ def _history(rng, widths):
     return np.concatenate(parts), np.asarray(offs, dtype=np.int32)
 
 
-# widths per level (level 0 is the segment base), rows, their levels
+def _trie_history(rng, levels, width):
+    """A trie-shaped history: the base holds `width` nodes and each node
+    has 0-4 children (1 on average) with distinct ascending symbols,
+    numbered in (parent, symbol) order as the children step numbers them,
+    so each level's parents are non-decreasing.  -> (hist, lvl_off,
+    widths)."""
+    widths, parts, offs, off = [width], [], [], 0
+    for _ in range(levels):
+        kids = rng.choice(5, size=widths[-1], p=[0.5, 0.2, 0.15, 0.1, 0.05])
+        kids[0] = max(kids[0], 1)                 # no level is empty
+        parent = np.repeat(np.arange(widths[-1]), kids)
+        first = np.cumsum(kids) - kids
+        within = np.arange(parent.size) - first[parent]
+        shift = (rng.random(widths[-1]) * (5 - kids)).astype(np.int64)
+        sym = within + shift[parent]
+        parts.append((parent * 4 + sym).astype(np.int32))
+        offs.append(off)
+        off += parent.size
+        widths.append(parent.size)
+    return np.concatenate(parts), np.asarray(offs, dtype=np.int32), widths
+
+
+# widths per level (level 0 is the segment base), rows, their levels; the
+# trie cases: (levels, base width), rows in (level, row) order, as a drain
+# stages them
 CASES = {
     "mixed": ([3, 7, 20, 50, 40, 90, 130, 5, 60], 400, "random"),
     "one_row": ([2, 5, 9], 1, "deepest"),
     "all_jrel0": ([6, 4], 30, "zero"),
     "one_level": ([1, 1], 12, "deepest"),
     "wide": ([50] + [700] * 30, 2000, "random"),
+    "trie_maxj1": ((1, 300), 500, "sorted"),
+    "trie_maxj96": ((96, 300), 3000, "sorted"),
 }
 
 
@@ -53,13 +81,23 @@ CASES = {
 def test_decode_matches_jax(case):
     widths, m, levels = CASES[case]
     rng = np.random.default_rng(len(widths) * 1000 + m)
-    hist, offs = _history(rng, widths)
+    if levels == "sorted":
+        hist, offs, widths = _trie_history(rng, *widths)
+    else:
+        hist, offs = _history(rng, widths)
     top = len(widths) - 1
     jrel = {"random": rng.integers(0, top + 1, size=m),
+            "sorted": rng.integers(0, top + 1, size=m),
             "deepest": np.full(m, top),
             "zero": np.zeros(m, dtype=np.int64)}[levels].astype(np.int32)
+    if levels == "sorted":
+        jrel[:m // 10] = 0
+        jrel[-1] = top
     rows = np.array([rng.integers(0, widths[j]) for j in jrel],
                     dtype=np.int32)
+    if levels == "sorted":
+        order = np.lexsort((rows, jrel))
+        rows, jrel = rows[order], jrel[order]
     maxj = int(jrel.max(initial=0))
     base, syms = decode(torch.from_numpy(hist), torch.from_numpy(offs),
                         torch.from_numpy(rows), torch.from_numpy(jrel), maxj)

@@ -363,7 +363,7 @@ def test_partials_and_gates_match_segstats(S, n):
             g = Gates(depth=depth, s_total=S, mindepth=3, pmin=pmin, pmax=4,
                       use_egate=True, sym_mask=sym_mask, emin_lo=0.2,
                       emax_hi=1.6)
-            want_flags, want_ent, _ = segstats_plain(
+            want_flags, want_ent, _, _ = segstats_plain(
                 t(_nb(nid, U)), t(freq), t(cbits), g)
             hist = torch.full((4 * U,), -1, dtype=torch.int32)
             flags, ent, kid0, counts = node_gates_plain(parts, g, hist)
