@@ -48,13 +48,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      `pairwise_matrices` on the first 4,096 rows; also d = 5 and d = 273 at
      fewer rows, and with the normalising factors (this one after phase 7,
      so that the plain version's library workspace is not in the mine's
-     peak memory). The kernels of the sharded level and drain run on
-     SEG_NODES nodes of 1..5 pairs over S = 5 samples split into shards of
-     2 and 3: the partial rows of each shard (K9a: integers equal, the
-     fixed-point entropy sums within one unit a pair), the gates and global
-     child ids from both shards' rows (K9b: integers equal, the entropy
-     within ENT_TOL), the outside-ids children step of each shard (K9c) and
-     the gather of 2 and 5 blocks of GATHER_ROWS rows (K10);
+     peak memory). The kernels of the sharded level and drain: the
+     partial rows (K9a) of one shard on the stats step's three levels
+     (nodes of 1..5, 1..64 and 1..273 pairs: integers and the kept lanes
+     equal, the fixed-point entropy sums within one unit a pair); on
+     SEG_NODES nodes over S = 5 samples split into 5 shards and into shards
+     of 2 and 3, each shard's rows (K9a) and the gates, global child ids,
+     every shard's pair gates and the level's values from them (K9b: one
+     launch; integers equal, the entropy and its range within ENT_TOL);
+     the outside-ids children step of each of the 2 shards (K9c) and the
+     gather of 2 and 5 blocks of GATHER_ROWS rows (K10);
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
@@ -81,7 +84,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gnu run once more inside a one-rank NCCL process group, so that the
      level's all-reduce and the drain's all-gathers run on the card between
      the kernels.  Every kernel of the sharded path must have been
-     launched by the plain 2-shard gnu run;
+     launched by the plain 2-shard gnu run, and every run must launch K9a
+     once a shard a level and K9b once a level;
   9. distance path: the gnu mine's 485 lines through
      `DistanceAccumulator(smpls=5, maxents=entropy_steps(0.05))`, exact on
      the host and exact=False on the card: count and noutput equal, the
@@ -128,7 +132,12 @@ SEG_WIDTHS = ("1..5", "1..64", "1..273")   # K2's node widths, in pairs
 # (source in dsm_tpu_torch/csrc, constant, its value in the variant)
 VARIANTS = (("decode.cu", "kRows", 1), ("decode.cu", "kRows", 4),
             ("segstats.cu", "kMaxTile", 256), ("segstats.cu", "kWide", 32),
-            ("segstats.cu", "kLut", 1))
+            ("segstats.cu", "kLut", 1),
+            # K9a's block-tile shape at every width, its warp shape at every
+            # width, and K9b with one node a thread a tile
+            ("shardstats.cu", "kWarpLevel", 0),
+            ("shardstats.cu", "kWarpLevel", 1 << 20),
+            ("shardstats.cu", "kNodes", 1))
 DEC_LEVELS = 48         # levels each decoded row walks (K6)
 RESUME_RESERVE = 100    # gnu order: saves at depths 10-12, 33, 59
 HALT_RESERVE = 500      # ascending: the first halt poll at depth 10
@@ -884,103 +893,272 @@ def outside_ids_check(torch, gen, label, nb, pairs, olo, ohi, keep) -> None:
         f"{cuda_ms(torch, lambda: children_ids_plain(*cargs)):.4f} ms")
 
 
-def phase_sharded_kernels(torch, device) -> list[dict]:
-    """K9a, K9b, K9c and K10 against their plain versions: a level of
-    SEG_NODES nodes over 5 samples (each node holds 1..5 of them), split
-    into shards of samples [0, 2) and [2, 5), made on the card from a seed;
-    K10 on blocks of GATHER_ROWS rows."""
-    from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
-    from dsm_tpu_torch.ops.gatherpack import gather_pack, gather_pack_plain
-    from dsm_tpu_torch.ops.segstats import Gates
-    from dsm_tpu_torch.ops.shardstats import (PART_COLS, node_gates,
-                                              node_gates_plain,
-                                              shard_partials,
-                                              shard_partials_plain)
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(2029)
+def sharded_level(torch, gen, device):
+    """A level of SEG_NODES nodes over S = 5 samples (each node holds 1..5
+    of them, one sample at least), made on the card from `gen`: (nid,
+    sid, freq, cbits) of its pairs in (node, sample) order, freq in
+    0..2999 (10% 0)."""
     i32 = dict(dtype=torch.int32, device=device, generator=gen)
-    U, S, bounds = SEG_NODES, 5, (0, 2, 5)
+    U, S = SEG_NODES, 5
     member = torch.rand((U, S), generator=gen, device=device) < 0.5
     member[torch.arange(U, device=device),
            torch.randint(0, S, (U,), device=device, generator=gen)] = True
-    g = Gates(depth=7, s_total=S, mindepth=0, pmin=2, pmax=0,
-              use_egate=True, sym_mask=0b1111, emin_lo=-0.01, emax_hi=1.21)
-    parts = torch.empty((2, U, PART_COLS), dtype=torch.int64, device=device)
-    shards, results = [], []
-    for k in range(2):
-        own = member[:, bounds[k]:bounds[k + 1]]
-        nid, sid = torch.nonzero(own, as_tuple=True)
-        nb = torch.zeros(U + 1, dtype=torch.int32, device=device)
-        nb[1:] = torch.cumsum(own.sum(1), 0)
-        p = nid.shape[0]
-        freq = torch.randint(0, 3000, (p,), **i32)
-        freq[torch.rand(p, generator=gen, device=device) < 0.1] = 0
-        cbits = (torch.randint(0, 16, (p,), **i32)
-                 * (freq > 0)).to(torch.uint8)
-        shard_partials(nb, freq, cbits, parts[k])
-        want = shard_partials_plain(nb, freq, cbits)
-        torch.cuda.synchronize()
-        # the fixed-point term truncates a log: the card's two libraries may
-        # round it apart by one unit a pair
-        off = (parts[k][:, 1] - want[:, 1]).abs()
-        if not torch.equal(parts[k][:, [0, 2]], want[:, [0, 2]]) \
-                or bool((off > (nb[1:] - nb[:-1])).any()):
-            raise SystemExit(f"shard_partials disagrees with its plain "
-                             f"version (shard {k})")
-        shards.append((nb, nid, sid, freq, cbits))
-        empty = int((nb[1:] == nb[:-1]).sum())
-        log(f"kernel shard_partials: shard {k} U={U:,} P={p:,} ({empty:,} "
-            f"nodes without a local pair) equal (fixed-point sums off by at "
-            f"most {int(off.max())} units)")
-    nb, nid, _sid, freq, cbits = shards[1]          # the larger shard
+    nid, sid = torch.nonzero(member, as_tuple=True)
     p = nid.shape[0]
-    out = torch.empty((U, PART_COLS), dtype=torch.int64, device=device)
+    freq = torch.randint(0, 3000, (p,), **i32)
+    freq[torch.rand(p, generator=gen, device=device) < 0.1] = 0
+    cbits = (torch.randint(0, 16, (p,), **i32) * (freq > 0)).to(torch.uint8)
+    return nid, sid, freq, cbits
+
+
+def split_level(torch, level, bounds):
+    """`sharded_level`'s level cut into the sample shards [bounds[k],
+    bounds[k+1]): per shard (nb, nid, sid, freq, cbits), its pairs in
+    (node, sample) order."""
+    nid, sid, freq, cbits = level
+    shards = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        own = (sid >= lo) & (sid < hi)
+        nb = torch.zeros(SEG_NODES + 1, dtype=torch.int32, device=nid.device)
+        nb[1:] = torch.cumsum(torch.bincount(nid[own], minlength=SEG_NODES),
+                              0)
+        shards.append((nb, nid[own], sid[own], freq[own], cbits[own]))
+    return shards
+
+
+def shardstats_calls(torch, shards, g, ocounts):
+    """The package's K9a and K9b on a split level, whichever of their two
+    signatures it has: (one K9a launch a shard, writing the rows that the
+    K9b call reads; one K9b call, with the torch glue of the sharded level
+    that a level runs between it and its readback where the package's K9b
+    leaves that to torch: the per-shard gather of the pair gates, the kept
+    and gated sums, the staged maximum and the entropy range).  Timing
+    only: `level_times` runs it in another tree of the repo too."""
+    import inspect
+
+    from dsm_tpu_torch.ops import shardstats as ss
+
+    device, n = shards[0][0].device, len(shards)
+    U = shards[0][0].shape[0] - 1
+    parts = torch.empty((n, U, ss.PART_COLS), dtype=torch.int64,
+                        device=device)
+    hist = torch.empty(4 * U, dtype=torch.int32, device=device)
+    if "shards" in inspect.signature(ss.node_gates).parameters:
+        vals = ss.level_values(n, device)
+        table = [(nb, nid.shape[0], oc)
+                 for (nb, nid, _s, _f, _c), oc in zip(shards, ocounts)]
+
+        def k9a():
+            for k, (nb, _nid, _sid, freq, cbits) in enumerate(shards):
+                ss.shard_partials(nb, freq, cbits, g.sym_mask, parts[k],
+                                  ss.kept_slot(vals, k))
+
+        return k9a, lambda: ss.node_gates(parts, g, hist, table, vals)
+
+    # the other signature: the level's glue as its engine ran it
+    sym = torch.arange(4, device=device, dtype=torch.int32)[:, None]
+    glue = []
+    for nb, nid, _sid, _freq, cbits in shards:
+        pairs = torch.zeros((nid.shape[0], 6), dtype=torch.int32,
+                            device=device)
+        pairs[:, 5] = nid.to(torch.int32)
+        keepc = ((cbits.to(torch.int32)[None, :] >> sym) & 1
+                 & ((g.sym_mask >> sym) & 1)) > 0
+        glue.append((pairs, keepc))
+    emin0 = torch.tensor(np.inf, dtype=torch.float64, device=device)
+    emax0 = torch.tensor(-np.inf, dtype=torch.float64, device=device)
+
+    def k9a():
+        for k, (nb, _nid, _sid, freq, cbits) in enumerate(shards):
+            ss.shard_partials(nb, freq, cbits, parts[k])
+
+    def k9b():
+        flags, ent, _kid0, counts = ss.node_gates(parts, g, hist)
+        gated = (flags & 4) != 0
+        sums = []
+        for pairs, keepc in glue:
+            po = gated[pairs[:, 5].to(torch.int64)]
+            sums += [keepc.sum(), po.sum()]
+        sums = torch.stack(sums)
+        staged = (sums[1::2] + torch.tensor(ocounts, device=device)).max()
+        vals = torch.cat([counts, staged.reshape(1), sums])
+        stat = (flags & 2) != 0
+        return (vals, torch.minimum(emin0, torch.where(stat, ent, np.inf)
+                                    .min()),
+                torch.maximum(emax0, torch.where(stat, ent, -np.inf).max()))
+
+    return k9a, k9b
+
+
+def k9a_case(torch, label: str, device) -> dict:
+    """K9a against its plain version on one shard of `segstats_level`'s
+    level (nodes of `label` pairs a shard): one launch; the rows equal but
+    the fixed-point column, within one unit a pair; the kept lanes equal;
+    timed; -> its entry of the kernels line."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, shard_partials,
+                                              shard_partials_plain)
+
+    nb, freq, cbits, g = segstats_level(torch, label, device)
+    u, p = nb.shape[0] - 1, freq.shape[0]
+    out = torch.empty((u, PART_COLS), dtype=torch.int64, device=device)
+    kept = torch.empty(1, dtype=torch.float64, device=device)
+    before = _build.LAUNCHES["shard_partials"]
+    shard_partials(nb, freq, cbits, g.sym_mask, out, kept)
+    launched = _build.LAUNCHES["shard_partials"] - before
+    want, want_kept = shard_partials_plain(nb, freq, cbits, g.sym_mask)
+    torch.cuda.synchronize()
+    # the fixed-point term truncates a log: the card's two libraries may
+    # round it apart by one unit a pair
+    off = (out[:, 1] - want[:, 1]).abs()
+    if launched != 1 or not torch.equal(out[:, [0, 2]], want[:, [0, 2]]) \
+            or bool((off > (nb[1:] - nb[:-1])).any()) \
+            or not torch.equal(kept, want_kept):
+        raise SystemExit(f"shard_partials disagrees with its plain version "
+                         f"({label} pairs a node: {launched} launches, kept "
+                         f"{kept.tolist()} vs {want_kept.tolist()})")
+    nid = torch.repeat_interleave(torch.arange(u, device=device),
+                                  (nb[1:] - nb[:-1]).to(torch.int64),
+                                  output_size=p)
     freq64 = freq.to(torch.int64)
-    results.append(dict(
+    entry = dict(
         name="shard_partials", route="cuda",
         source="dsm_tpu_torch/csrc/shardstats.cu",
         replaces="dsm_tpu/mining/engine_device.py:421",
         max_abs_err=float(off.max()),
-        ms=cuda_ms(torch, lambda: shard_partials(nb, freq, cbits, out)),
-        plain_ms=cuda_ms(torch,
-                         lambda: shard_partials_plain(nb, freq, cbits)),
-        # nb, freq, cbits in, a 24-byte row a node out; ~6 f64 operations a
-        # pair (one a log)
-        **bound(4 * (U + 1) + 5 * p + 24 * U, 6 * p, F64_TOPS),
+        ms=cuda_ms(torch, lambda: shard_partials(nb, freq, cbits, g.sym_mask,
+                                                 out, kept)),
+        plain_ms=cuda_ms(torch, lambda: shard_partials_plain(
+            nb, freq, cbits, g.sym_mask)),
+        # nb, freq, cbits in, a 24-byte row a node and the kept lanes out;
+        # ~6 f64 operations a pair (one a log)
+        **bound(4 * (u + 1) + 5 * p + 24 * u + 8, 6 * p, F64_TOPS),
         # one of the row's three columns by index_add_
         library_ms=cuda_ms(torch, lambda: torch.zeros(
-            U, dtype=torch.int64, device=device).index_add_(0, nid, freq64))))
-    log(f"kernel shard_partials: {results[-1]['ms']:.4f} ms vs plain "
-        f"{results[-1]['plain_ms']:.4f} ms (index_add_ of one column "
-        f"{results[-1]['library_ms']:.4f} ms)")
+            u, dtype=torch.int64, device=device).index_add_(0, nid, freq64)))
+    log(f"kernel shard_partials: {label} pairs a node, U={u:,} P={p:,}: one "
+        f"launch, equal (fixed-point sums off by at most {int(off.max())} "
+        f"units; kept lanes {int(kept)}); {entry['ms']:.4f} ms vs plain "
+        f"{entry['plain_ms']:.4f} ms (bound {entry['bound_ms']:.4f} ms, "
+        f"without the kept lanes' 8 bytes "
+        f"{bound(4 * (u + 1) + 5 * p + 24 * u, 0)['bound_ms']:.4f} ms; "
+        f"index_add_ of one column {entry['library_ms']:.4f} ms); device "
+        + fmt_ms(device_ms(torch, lambda: shard_partials(
+            nb, freq, cbits, g.sym_mask, out, kept))))
+    return entry
 
+
+def k9b_case(torch, shards, g, device) -> dict:
+    """K9a on each shard of a split level, then K9b on their rows, against
+    the plain versions: one launch each; rows, kept lanes, flags, kid0,
+    history, every shard's pair_out and the level's values equal, the
+    entropy and its range within ENT_TOL; K9b timed -> its entry of the
+    kernels line, K9b's flags and kid0 (for K9c) and the children."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, V_ENT_MAX,
+                                              V_ENT_MIN, kept_slot,
+                                              level_values, node_gates,
+                                              node_gates_plain,
+                                              shard_partials,
+                                              shard_partials_plain)
+
+    n, U = len(shards), SEG_NODES
+    parts = torch.empty((n, U, PART_COLS), dtype=torch.int64, device=device)
+    vals = level_values(n, device)
+    launched = {"shard_partials": 0}
+    for k, (nb, _nid, _sid, freq, cbits) in enumerate(shards):
+        before = _build.LAUNCHES["shard_partials"]
+        shard_partials(nb, freq, cbits, g.sym_mask, parts[k],
+                       kept_slot(vals, k))
+        launched["shard_partials"] += _build.LAUNCHES["shard_partials"] - before
+        want, kept = shard_partials_plain(nb, freq, cbits, g.sym_mask)
+        torch.cuda.synchronize()
+        off = (parts[k][:, 1] - want[:, 1]).abs()
+        if not torch.equal(parts[k][:, [0, 2]], want[:, [0, 2]]) \
+                or bool((off > (nb[1:] - nb[:-1])).any()) \
+                or not torch.equal(kept_slot(vals, k), kept):
+            raise SystemExit(f"shard_partials disagrees with its plain "
+                             f"version (shard {k} of {n})")
+        ms = cuda_ms(torch, lambda: shard_partials(
+            nb, freq, cbits, g.sym_mask, parts[k], kept_slot(vals, k)))
+        log(f"kernel shard_partials: shard {k} of {n}, U={U:,} "
+            f"P={freq.shape[0]:,}: equal; {ms:.4f} ms")
+    ocounts = [1000 * k for k in range(n)]
+    table = [(nb, nid.shape[0], oc)
+             for (nb, nid, _s, _f, _c), oc in zip(shards, ocounts)]
+    wvals = vals.clone()
     hk = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
     hp = hk.clone()
-    (fk, ek, kk, ck), (fp, ep, kp, cp) = (node_gates(parts, g, hk),
-                                          node_gates_plain(parts, g, hp))
+    before = _build.LAUNCHES["node_gates"]
+    fk, ek, kk, pk = node_gates(parts, g, hk, table, vals)
+    launched["node_gates"] = _build.LAUNCHES["node_gates"] - before
+    fp, ep, kp, pp = node_gates_plain(parts, g, hp, table, wvals)
     torch.cuda.synchronize()
     eerr = float((ek - ep).abs().max())
-    if not (torch.equal(fk, fp) and torch.equal(kk, kp)
-            and torch.equal(ck, cp) and torch.equal(hk, hp)) \
-            or eerr > ENT_TOL:
-        raise SystemExit(f"node_gates disagrees with its plain version "
-                         f"(entropy max abs err {eerr})")
-    child_total = int(ck[0])
-    results.append(dict(
+    got, want = vals.tolist(), wvals.tolist()
+    rerr = max(abs(got[i] - want[i]) if got[i] != want[i] else 0.0
+               for i in (V_ENT_MIN, V_ENT_MAX))
+    same = [a == b for i, (a, b) in enumerate(zip(got, want))
+            if i not in (V_ENT_MIN, V_ENT_MAX)]
+    if launched != {"shard_partials": n, "node_gates": 1} \
+            or not (torch.equal(fk, fp) and torch.equal(kk, kp)
+                    and torch.equal(hk, hp) and all(same)
+                    and all(torch.equal(a, b) for a, b in zip(pk, pp))) \
+            or max(eerr, rerr) > ENT_TOL:
+        raise SystemExit(f"node_gates disagrees with its plain version ({n} "
+                         f"shards: launches {launched}, entropy max abs err "
+                         f"{eerr}, values {got} vs {want})")
+    children = int(got[0])
+    pairs = sum(nid.shape[0] for _nb, nid, _s, _f, _c in shards)
+    entry = dict(
         name="node_gates", route="cuda",
         source="dsm_tpu_torch/csrc/shardstats.cu",
-        replaces="dsm_tpu/mining/engine_device.py:440", max_abs_err=eerr,
-        ms=cuda_ms(torch, lambda: node_gates(parts, g, hk)),
-        plain_ms=cuda_ms(torch, lambda: node_gates_plain(parts, g, hp)),
-        # two shards' rows in; flags, entropy and first child id a node and
-        # an entry a child out; ~12 f64 operations a node (one a log)
-        **bound(2 * 24 * U + 16 * U + 4 * child_total, 12 * U, F64_TOPS),
-        library_ms=None))
-    log(f"kernel node_gates: 2 x U={U:,} rows -> {child_total:,} children, "
-        f"{int(ck[1]):,} present nodes, equal (entropy err {eerr:.3g}); "
-        f"{results[-1]['ms']:.4f} ms vs plain "
-        f"{results[-1]['plain_ms']:.4f} ms")
+        replaces="dsm_tpu/mining/engine_device.py:438",
+        max_abs_err=max(eerr, rerr),
+        ms=cuda_ms(torch, lambda: node_gates(parts, g, hk, table, vals)),
+        plain_ms=cuda_ms(torch, lambda: node_gates_plain(parts, g, hp, table,
+                                                         wvals)),
+        # n shards' rows and nb in; flags, entropy and first child id a
+        # node, an entry a child, a gate a pair and the values out; ~12 f64
+        # operations a node (one a log)
+        **bound(n * 24 * U + n * 4 * (U + 1) + 16 * U + 4 * children + pairs
+                + 8 * len(got), 12 * U, F64_TOPS),
+        library_ms=None)
+    old = bound(n * 24 * U + 16 * U + 4 * children, 0)["bound_ms"]
+    log(f"kernel node_gates: {n} x U={U:,} rows, {pairs:,} pairs -> "
+        f"{children:,} children, {int(got[1]):,} present nodes, staged "
+        f"maximum {int(got[4]):,}: one launch, equal (entropy err {eerr:.3g}, "
+        f"its range {rerr:.3g}); {entry['ms']:.4f} ms vs plain "
+        f"{entry['plain_ms']:.4f} ms (bound {entry['bound_ms']:.4f} ms; by "
+        f"the bytes of the three-launch version's outputs {old:.4f} ms); "
+        "device " + fmt_ms(device_ms(
+            torch, lambda: node_gates(parts, g, hk, table, vals))))
+    return entry, fk, kk, children
+
+
+def phase_sharded_kernels(torch, device) -> list[dict]:
+    """K9a, K9b, K9c and K10 against their plain versions: K9a on one
+    shard of `segstats_level`'s levels (nodes of 1..5, 1..64 and 1..273
+    pairs); K9b on `sharded_level`'s SEG_NODES nodes over 5 samples split
+    into 2 shards ([0, 2) and [2, 5)) and into 5; K9c on the 2-shard split,
+    with K9b's ids; K10 on blocks of GATHER_ROWS rows.  The kernels line
+    has K9a at 1..5 and K9b at 2 shards."""
+    from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
+    from dsm_tpu_torch.ops.gatherpack import gather_pack, gather_pack_plain
+    from dsm_tpu_torch.ops.segstats import Gates
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2029)
+    i32 = dict(dtype=torch.int32, device=device, generator=gen)
+    U = SEG_NODES
+    results = [k9a_case(torch, label, device) for label in SEG_WIDTHS][:1]
+    g = Gates(depth=7, s_total=5, mindepth=0, pmin=2, pmax=0,
+              use_egate=True, sym_mask=0b1111, emin_lo=-0.01, emax_hi=1.21)
+    level = sharded_level(torch, gen, device)
+    for bounds in ((0, 1, 2, 3, 4, 5), (0, 2, 5)):
+        shards = split_level(torch, level, bounds)
+        entry, fk, kk, child_total = k9b_case(torch, shards, g, device)
+    results.append(entry)
 
     # K9c: every active child lane kept (the full symbol mask), the ids
     # from K9b; rank outputs with ohi >= olo
@@ -1611,6 +1789,14 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str) -> dict:
                 {k: _build.LAUNCHES[k] for k in _build.PATHS["mine_sharded"]})
             + f"; peak device memory "
               f"{torch.cuda.max_memory_allocated(device):,} bytes")
+        # a level: K9a once a shard, K9b once (one launch, not three)
+        want = {"shard_partials": mesh.shards_per_rank * prof["levels"],
+                "node_gates": prof["levels"]}
+        if {k: _build.LAUNCHES[k] for k in want} != want:
+            raise SystemExit(f"sharded mine {label}: K9a/K9b launches "
+                             f"{[_build.LAUNCHES[k] for k in want]}, not "
+                             f"{list(want.values())} for {prof['levels']} "
+                             f"levels")
         return out
 
     launches = None
@@ -1734,18 +1920,25 @@ def level_times(torch, device) -> None:
     decodes of the scale-100 gnu mine at RESUME_RESERVE (the widest, and
     the one of the most rows x levels; its snapshot writes skipped), the
     warm ascending mine (five walls and level_s, then one run under
-    torch.profiler: device time and activities) and the gnu mine's walls
-    and level_s with 2 and 5 sample shards on the one card (three runs
-    each).  A copy of this file in the root of another tree of the repo
-    times that tree, so that two commits are compared in turns with the
-    same code."""
+    torch.profiler: device time and activities), the gnu mine's walls and
+    level_s with 2 and 5 sample shards on the one card (three runs each,
+    then one under torch.profiler: device time, activities and launches),
+    K9a on one shard of `segstats_level`'s three levels and K9b, with the
+    sharded level's torch glue where the tree's K9b leaves that to torch
+    (`shardstats_calls`), on `sharded_level`'s level split into 2 and 5
+    shards; and each real level's (nodes, pairs, widest node) of the warm
+    ascending mine and the 2-shard gnu mine (a shard's pairs and widest
+    node each).  A copy of this file in the root of another tree of the
+    repo times that tree, so that two commits are compared in turns with
+    the same code."""
     from dsm_tpu_torch.mining import checkpoint as ckpt
     from dsm_tpu_torch.mining import engine_device as ed
     from dsm_tpu_torch.mining.engine import (DeviceIndexes, MiningConfig,
                                              mine_torch)
     from dsm_tpu_torch.ops import _build
     from dsm_tpu_torch.ops.decode import decode
-    from dsm_tpu_torch.ops.segstats import segstats
+    from dsm_tpu_torch.ops.segstats import Gates, segstats
+    from dsm_tpu_torch.parallel import engine_episode as tee
     from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
     from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
     from dsm_tpu_torch.parallel.multihost import global_samples_mesh
@@ -1759,7 +1952,29 @@ def level_times(torch, device) -> None:
         res[f"k2_{label}_device_ms"] = device_ms(
             torch, lambda: segstats(*args), 10)
         res[f"k2_{label}_shape"] = [args[0].shape[0] - 1, args[1].shape[0]]
-    del args
+        nb, freq, cbits, g = args
+        nid = torch.repeat_interleave(
+            torch.arange(nb.shape[0] - 1, device=device),
+            (nb[1:] - nb[:-1]).to(torch.int64), output_size=freq.shape[0])
+        k9a, _k9b = shardstats_calls(torch, [(nb, nid, nid, freq, cbits)], g,
+                                     [0])
+        res[f"k9a_{label}_ms"] = [cuda_ms(torch, k9a, 20) for _ in range(3)]
+        res[f"k9a_{label}_device_ms"] = device_ms(torch, k9a, 10)
+    del args, nb, freq, cbits, nid
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2029)
+    level = sharded_level(torch, gen, device)
+    g = Gates(depth=7, s_total=5, mindepth=0, pmin=2, pmax=0,
+              use_egate=True, sym_mask=0b1111, emin_lo=-0.01, emax_hi=1.21)
+    for nsh, bounds in ((2, (0, 2, 5)), (5, (0, 1, 2, 3, 4, 5))):
+        shards = split_level(torch, level, bounds)
+        k9a, k9b = shardstats_calls(torch, shards, g,
+                                    [1000 * k for k in range(nsh)])
+        k9a()
+        res[f"k9b_{nsh}_ms"] = [cuda_ms(torch, k9b, 20) for _ in range(3)]
+        res[f"k9b_{nsh}_device_ms"] = device_ms(torch, k9b, 10)
+        res[f"k9b_{nsh}_activities"] = device_profile(torch, k9b)[1]
+    del level, shards, k9a, k9b
 
     cfg = MiningConfig(fmin=FMIN, emax=EMAX)
     with tempfile.TemporaryDirectory(prefix="dsm_times_") as td:
@@ -1806,7 +2021,19 @@ def level_times(torch, device) -> None:
     res.update(warm_device_ms=ms, warm_activities=acts,
                warm_levels=prof["levels"], warm_top=top,
                warm_activities_a_level=acts / prof["levels"],
-               warm_launches=dict(_build.LAUNCHES))
+               warm_launches=dict(_build.LAUNCHES), widths_single=[])
+    level = ed._level
+
+    def recording(dev_, sc, st, eskip=0):
+        res["widths_single"].append([st.nnodes, st.npairs,
+                                     int((st.nb[1:] - st.nb[:-1]).max())])
+        return level(dev_, sc, st, eskip)
+
+    ed._level = recording
+    try:
+        mine_torch(idxs, cfg, dev=dev, device=device)
+    finally:
+        ed._level = level
     del dev
     for nsh in (2, 5):
         mesh = global_samples_mesh(nsh, device)
@@ -1822,31 +2049,88 @@ def level_times(torch, device) -> None:
             walls.append(time.perf_counter() - t0)
             lvl.append(prof["level_s"])
         res[f"sharded{nsh}_wall_s"], res[f"sharded{nsh}_level_s"] = walls, lvl
+        prof = {}
+        _build.reset_launches()
+        ms, acts, top = device_profile(torch, lambda: mine_device_sharded(
+            idxs, cfg, mesh=mesh, dev=tables, reader_order="gnu",
+            profile=prof))
+        res.update({f"sharded{nsh}_device_ms": ms,
+                    f"sharded{nsh}_activities": acts,
+                    f"sharded{nsh}_levels": prof["levels"],
+                    f"sharded{nsh}_activities_a_level": acts / prof["levels"],
+                    f"sharded{nsh}_top": top,
+                    f"sharded{nsh}_launches": {
+                        k: _build.LAUNCHES[k]
+                        for k in _build.PATHS["mine_sharded"]}})
+        if nsh == 2:
+            res["widths_sharded2"] = []
+            level_sharded = tee._level_sharded
+
+            def recording(dev_, sc, st, mesh_, eskip=0):
+                res["widths_sharded2"].append([
+                    st.nnodes, [sh.pairs.shape[0] for sh in st.shards],
+                    [int((sh.nb[1:] - sh.nb[:-1]).max())
+                     for sh in st.shards]])
+                return level_sharded(dev_, sc, st, mesh_, eskip)
+
+            tee._level_sharded = recording
+            try:
+                mine_device_sharded(idxs, cfg, mesh=mesh, dev=tables,
+                                    reader_order="gnu")
+            finally:
+                tee._level_sharded = level_sharded
         del tables
     print(json.dumps(res), flush=True)
 
 
 def variant_times(torch, device) -> None:
-    """The decode (K6) on `decode_inputs`' histories and the stats step
-    (K2) on `segstats_level`'s levels, each held against its plain version
-    and timed (CUDA events: three timings of 10 calls) through the
-    package's wrappers, first as built and then with each of VARIANTS: its
-    source with one constant changed, built with the other sources into its
-    own library under build/variants/; prints one JSON line."""
+    """The decode (K6) on `decode_inputs`' histories, the stats step (K2)
+    and the partial rows (K9a) on `segstats_level`'s levels (K9a also on
+    the 3-sample and a 1-sample shard of `sharded_level`'s level), each
+    held against its plain version and timed (CUDA events: three timings
+    of 10 calls) through the package's wrappers, and K9b on that level in
+    2 shards (`k9b_case`'s checks, then three timings), first as built and
+    then with each of VARIANTS: its source with one constant changed, built
+    with the other sources into its own library under build/variants/;
+    prints one JSON line."""
     import re
     import shutil
 
     from dsm_tpu_torch.ops import _build
     from dsm_tpu_torch.ops.decode import decode, decode_plain
-    from dsm_tpu_torch.ops.segstats import S_ENT_MIN, segstats, segstats_plain
+    from dsm_tpu_torch.ops.segstats import (S_ENT_MIN, Gates, segstats,
+                                            segstats_plain)
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, shard_partials,
+                                              shard_partials_plain)
+
+    def k9a(nb, freq, cbits, g):
+        out = torch.empty((nb.shape[0] - 1, PART_COLS), dtype=torch.int64,
+                          device=device)
+        kept = torch.empty(1, dtype=torch.float64, device=device)
+        shard_partials(nb, freq, cbits, g.sym_mask, out, kept)
+        return out, kept
+
+    def k9a_plain(nb, freq, cbits, g):
+        return shard_partials_plain(nb, freq, cbits, g.sym_mask)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(2027)
+    g9 = Gates(depth=7, s_total=5, mindepth=0, pmin=2, pmax=0,
+               use_egate=True, sym_mask=0b1111, emin_lo=-0.01, emax_hi=1.21)
+    level = sharded_level(torch, gen, device)
+    shards2 = split_level(torch, level, (0, 2, 5))
+    k9a_in = {label: segstats_level(torch, label, device)
+              for label in SEG_WIDTHS}
+    for label, bounds in (("shard of 3 samples", (0, 2, 5)),
+                          ("shard of 1 sample", (0, 4, 5))):
+        nb, _nid, _sid, freq, cbits = split_level(torch, level, bounds)[1]
+        k9a_in[label] = (nb, freq, cbits, g9)
     cases = {"decode.cu": (decode, decode_plain,
                            dict(decode_inputs(torch, gen, device))),
              "segstats.cu": (segstats, segstats_plain, {
                  label: segstats_level(torch, label, device)
-                 for label in SEG_WIDTHS})}
+                 for label in SEG_WIDTHS}),
+             "shardstats.cu": (k9a, k9a_plain, k9a_in)}
     want = {src: {label: plain(*args) for label, args in inputs.items()}
             for src, (_fn, plain, inputs) in cases.items()}
     res = {"smi": smi_line()}
@@ -1861,6 +2145,12 @@ def variant_times(torch, device) -> None:
                          and got[3][:S_ENT_MIN].tolist()
                          == exp[3][:S_ENT_MIN].tolist()
                          and float((got[1] - exp[1]).abs().max()) <= ENT_TOL)
+            elif src == "shardstats.cu":   # the log's unit a pair, as k9a_case
+                nb = args[0]
+                equal = (torch.equal(got[0][:, [0, 2]], exp[0][:, [0, 2]])
+                         and bool(((got[0][:, 1] - exp[0][:, 1]).abs()
+                                   <= (nb[1:] - nb[:-1])).all())
+                         and torch.equal(got[1], exp[1]))
             else:
                 equal = all(torch.equal(a, b) for a, b in zip(got, exp))
             if not equal:
@@ -1868,6 +2158,12 @@ def variant_times(torch, device) -> None:
                                  f"plain version on {label}")
             res[f"{tag} {label}"] = [cuda_ms(torch, lambda: fn(*args), 10)
                                      for _ in range(3)]
+        if src == "shardstats.cu":
+            k9b_case(torch, shards2, g9, device)   # its checks
+            k9a2, k9b2 = shardstats_calls(torch, shards2, g9, [0, 1000])
+            k9a2()
+            res[f"{tag} K9b 2 shards"] = [cuda_ms(torch, k9b2, 10)
+                                          for _ in range(3)]
 
     phase_build()
     for src in cases:

@@ -1,6 +1,6 @@
 // Decoupled look-back: how the one-pass kernels (sa.cu's onesweep passes,
-// compact.cu, children.cu) chain their tiles' running totals without a
-// second launch.  Tiles are handed out in order by an atomic counter, so
+// compact.cu, children.cu, shardstats.cu's node_gates) chain their tiles'
+// running totals without a second launch.  Tiles are handed out in order by an atomic counter, so
 // every tile before a running one is itself running or done.  A tile
 // publishes its own total (an AGGREGATE) in its status word as soon as it
 // knows it, walks back over its predecessors' words adding aggregates

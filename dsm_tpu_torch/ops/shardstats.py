@@ -4,22 +4,32 @@ K9a and K9b, csrc/shardstats.cu).
 Counterpart of the stats, merge and numbering blocks of
 dsm_tpu/mining/engine_device.py `_level_sharded` (:421-489).  A shard
 holds only its samples' pairs, so a node's statistics are summed over the
-shards before anything is derived from them:
+shards before anything is derived from them.  What a level reads back
+once, after both kernels, is its values `vals` ((V_SHARDS + 2n,)
+float64, `level_values`; counts far below 2^53 are exact in float64):
+the children, the present nodes, the entropy range, the staged maximum,
+and for each shard k of the process its kept lanes (V_SHARDS + 2k) and
+its gated pairs (V_SHARDS + 2k + 1).
 
-`shard_partials(nb, freq, cbits)` -> (U, 3) int64, one partial row a node
-from this shard's pairs [nb[u], nb[u+1]) (zeros where it has none):
+`shard_partials(nb, freq, cbits, sym_mask, out, kept)` writes `out`, (U,
+3) int64, one partial row a node from this shard's pairs [nb[u], nb[u+1])
+(zeros where it has none):
   * [0] the sum of the active pairs' frequencies;
   * [1] the sum of trunc((f+1)*log2(f+1) * 2^NLN_FP): fixed point, so that
     the sum over shards and processes is the same integer in any order (a
     term is under 2^53, and MAX_SAMPLES = 512 of them fit an int64);
   * [2] five FIELD_BITS-wide fields: the active readers, then the pairs
     with an active child under A, C, G, T (a node owns at most 512 pairs
-    over all shards, so summed fields do not carry).
+    over all shards, so summed fields do not carry);
+and `kept` ((1,) float64, the shard's slot of `vals`): the shard's kept
+lanes, popcount(cbits & sym_mask) over its pairs.
 
-`node_gates(parts, gates, hist)`: parts (n, U, 3) int64, the n rows of a
-node added here (the shards of this process; where there are several
-processes `torch.distributed.all_reduce` has summed them before).  ->
-(flags (U,) int32, ent (U,) float64, kid0 (U,) int32, counts (2,) int64):
+`node_gates(parts, gates, hist, shards, vals)`: parts (n, U, 3) int64,
+the n rows of a node added here (the shards of this process; where there
+are several processes `torch.distributed.all_reduce` has summed them
+before); shards: each shard's (nb, pair count, staged row count).  ->
+(flags (U,) int32, ent (U,) float64, kid0 (U,) int32, pair_outs: a (P_k,)
+bool a shard), and hist and vals written:
   * flags: as ops/segstats (bit 0 present, bit 1 stat, bit 2 gated, bits
     4-7 the existing child symbols), with the GLOBAL sample count as
     `gates.s_total`, and the node's active readers from bit NACT_SHIFT up;
@@ -31,11 +41,18 @@ processes `torch.distributed.all_reduce` has summed them before).  ->
   * hist[:children] gets the history entries node*4 + symbol in child
     order (entries past len(hist) are dropped: the level is then redone
     after the history is pulled);
-  * counts: the number of children, the number of present nodes.
+  * pair_outs[k]: the gate of each pair of shard k (its node's bit 2);
+  * vals: the children, the present nodes, the least and largest entropy
+    of the nodes with F_STAT (+inf and -inf where there is none), each
+    shard's gated pairs and the staged maximum, max over k of the shard's
+    staged rows (its ocount) + its gated pairs.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from . import _build
@@ -47,7 +64,43 @@ FIELD_BITS = 12    # kFieldBits
 PART_COLS = 3
 NACT_SHIFT = 8     # flags: the active readers from this bit up
 FLAG_BITS = (1 << NACT_SHIFT) - 1   # the bits ops/segstats also writes
-THREADS = 256      # csrc/scan.cuh kScanThreads: nodes per block
+MAX_SHARDS = 128   # kMaxShards: the shards of a process node_gates takes
+# the level's values (`vals`): then V_SHARDS + 2k, shard k's kept lanes, and
+# V_SHARDS + 2k + 1, its gated pairs
+V_CHILDREN, V_PRESENT, V_ENT_MIN, V_ENT_MAX, V_STAGED, V_SHARDS = range(6)
+# the kernels' running state, a (device, stream): 2 words of K9a, 6 + one a
+# shard of K9b (csrc/shardstats.cu), and K9b's look-back words, one a tile.
+# Made zero; the last block of each launch zeroes what it used for the
+# next launch on that stream, which spares a memset a launch; launches on
+# two streams never share one
+_STATE_WORDS = 2 + 6 + MAX_SHARDS
+_STATES: dict = {}
+
+
+def level_values(n: int, device) -> torch.Tensor:
+    """An uninitialised `vals` for a level of n shards a process."""
+    return torch.empty(V_SHARDS + 2 * n, dtype=torch.float64, device=device)
+
+
+def kept_slot(vals: torch.Tensor, k: int) -> torch.Tensor:
+    """Shard k's kept-lanes slot of `vals`, the `kept` of shard_partials."""
+    return vals[V_SHARDS + 2 * k:V_SHARDS + 2 * k + 1]
+
+
+def _running_state(device, tiles: int):
+    """(state, look-back words) of the current stream of `device`, with
+    room for `tiles` look-back words."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream(device).cuda_stream)
+    state, status = _STATES.get(key, (None, None))
+    if state is None:
+        state = torch.zeros(_STATE_WORDS, dtype=torch.int64, device=device)
+    if status is None or status.shape[0] < tiles:
+        status = torch.zeros(1 << max(tiles - 1, 1).bit_length(),
+                             dtype=torch.int64, device=device)
+    _STATES[key] = state, status
+    return state, status
 
 
 def _node_of_pair(nb: torch.Tensor, P: int) -> torch.Tensor:
@@ -58,8 +111,9 @@ def _node_of_pair(nb: torch.Tensor, P: int) -> torch.Tensor:
 
 
 def shard_partials_plain(nb: torch.Tensor, freq: torch.Tensor,
-                         cbits: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the partials kernel (any device)."""
+                         cbits: torch.Tensor, sym_mask: int):
+    """Plain PyTorch version of the partials kernel (any device) -> (the
+    (U, 3) int64 rows, the kept lanes as a (1,) float64)."""
     dev = freq.device
     U = nb.shape[0] - 1
     node = _node_of_pair(nb, freq.shape[0])
@@ -68,45 +122,57 @@ def shard_partials_plain(nb: torch.Tensor, freq: torch.Tensor,
     term = (((f1 * torch.log(f1)) / LOG2) * float(1 << NLN_FP)).to(
         torch.int64)
     sym = torch.arange(4, device=dev)
-    fields = pa.to(torch.int64) + (
-        ((cbits.to(torch.int64)[:, None] >> sym) & 1)
-        << (FIELD_BITS * (sym + 1))).sum(1)
+    bits = (cbits.to(torch.int64)[:, None] >> sym) & 1             # (P, 4)
+    fields = pa.to(torch.int64) + (bits << (FIELD_BITS * (sym + 1))).sum(1)
     cols = torch.stack([torch.where(pa, freq, 0).to(torch.int64),
                         torch.where(pa, term, 0), fields], dim=1)
-    return torch.zeros((U, PART_COLS), dtype=torch.int64,
+    part = torch.zeros((U, PART_COLS), dtype=torch.int64,
                        device=dev).index_add_(0, node, cols)
+    kept = (bits & ((sym_mask >> sym) & 1)).sum().to(torch.float64)
+    return part, kept.reshape(1)
 
 
 def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
-                   cbits: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+                   cbits: torch.Tensor, sym_mask: int, out: torch.Tensor,
+                   kept: torch.Tensor) -> torch.Tensor:
     """Write this shard's partial rows into `out` ((U, 3) int64, e.g. one
-    slice of the (n, U, 3) tensor node_gates reads) and return it.  nb:
-    (U+1,) int32; freq: (P,) int32, 0 for inactive pairs; cbits: (P,)
+    slice of the (n, U, 3) tensor node_gates reads) and its kept lanes into
+    `kept` ((1,) float64, `kept_slot` of the level's values); return `out`.
+    nb: (U+1,) int32; freq: (P,) int32, 0 for inactive pairs; cbits: (P,)
     uint8, bit c set if child symbol c is active for the pair.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    U = nb.shape[0] - 1
+    tensors take the plain version; CUDA tensors launch the kernel, once."""
+    U, P = nb.shape[0] - 1, freq.shape[0]
     if freq.device.type == "cpu":
-        out.copy_(shard_partials_plain(nb, freq, cbits))
+        part, k = shard_partials_plain(nb, freq, cbits, sym_mask)
+        out.copy_(part)
+        kept.copy_(k)
         return out
-    if freq.device.type != "cuda":
-        raise ValueError(f"shard_partials: unsupported device {freq.device}")
+    device = freq.device
+    if device.type != "cuda":
+        raise ValueError(f"shard_partials: unsupported device {device}")
     for name, t, dt, shape in (
             ("nb", nb, torch.int32, (U + 1,)),
-            ("freq", freq, torch.int32, freq.shape[:1]),
-            ("cbits", cbits, torch.uint8, freq.shape[:1]),
-            ("out", out, torch.int64, (U, PART_COLS))):
+            ("freq", freq, torch.int32, (P,)),
+            ("cbits", cbits, torch.uint8, (P,)),
+            ("out", out, torch.int64, (U, PART_COLS)),
+            ("kept", kept, torch.float64, (1,))):
         if (t.dtype != dt or t.shape != shape or not t.is_contiguous()
-                or t.device != freq.device):
+                or t.device != device):
             raise ValueError(f"shard_partials: {name} must be contiguous "
-                             f"{dt} of shape {tuple(shape)} on {freq.device}")
-    if U > 0:
-        _build.launch("dsm_shard_partials", "shard_partials", freq.device,
-                      nb.data_ptr(), freq.data_ptr(), cbits.data_ptr(), U,
-                      out.data_ptr())
+                             f"{dt} of shape {tuple(shape)} on {device}")
+    if U <= 0:
+        kept.zero_()
+        return out
+    state, _ = _running_state(device, 0)
+    _build.launch("dsm_shard_partials", "shard_partials", device,
+                  nb.data_ptr(), freq.data_ptr(), cbits.data_ptr(), U, P,
+                  sym_mask, out.data_ptr(), state.data_ptr(),
+                  kept.data_ptr())
     return out
 
 
-def node_gates_plain(parts: torch.Tensor, g: Gates, hist: torch.Tensor):
+def node_gates_plain(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
+                     shards: list, vals: torch.Tensor):
     """Plain PyTorch version of the gates kernel (any device)."""
     dev = parts.device
     tot = parts.sum(dim=0)                                   # (U, 3)
@@ -137,41 +203,71 @@ def node_gates_plain(parts: torch.Tensor, g: Gates, hist: torch.Tensor):
     entries = torch.nonzero(ex.reshape(-1), as_tuple=True)[0]
     room = min(entries.shape[0], hist.shape[0])
     hist[:room] = entries[:room].to(torch.int32)
-    counts = torch.stack([nchild.sum(), present.sum()]).to(torch.int64)
-    return flags.to(torch.int32), ent, kid0.to(torch.int32), counts
+    pair_outs = [gated[_node_of_pair(nb, P)] for nb, P, _oc in shards]
+    gp = torch.stack([po.sum() for po in pair_outs]).to(torch.float64)
+    inf = torch.full((1,), np.inf, dtype=torch.float64, device=dev)
+    vals[V_CHILDREN] = nchild.sum()
+    vals[V_PRESENT] = present.sum()
+    vals[V_ENT_MIN] = torch.cat([torch.where(stat, ent, np.inf), inf]).min()
+    vals[V_ENT_MAX] = torch.cat([torch.where(stat, ent, -np.inf), -inf]).max()
+    vals[V_SHARDS + 1::2] = gp
+    vals[V_STAGED] = (gp + torch.tensor([oc for _nb, _P, oc in shards],
+                                        dtype=torch.float64,
+                                        device=dev)).max()
+    return flags.to(torch.int32), ent, kid0.to(torch.int32), pair_outs
 
 
-def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor):
+def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
+               shards: list, vals: torch.Tensor):
     """parts: (n, U, 3) int64 contiguous partial rows; hist: 1-D int32, the
-    free tail of the history buffer.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    free tail of the history buffer; shards: n tuples (nb, P, ocount), a
+    shard's (U+1,) int32 node starts, its pair count (nb[U]) and its staged
+    rows; vals: the level's values (its kept slots already written).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, once,
+    for any 1 <= n <= MAX_SHARDS (more raise)."""
     if parts.device.type == "cpu":
-        return node_gates_plain(parts, g, hist)
+        return node_gates_plain(parts, g, hist, shards, vals)
     device = parts.device
     if device.type != "cuda":
         raise ValueError(f"node_gates: unsupported device {device}")
     if (parts.dtype != torch.int64 or parts.dim() != 3
-            or parts.shape[0] < 1 or parts.shape[2] != PART_COLS
-            or not parts.is_contiguous()):
+            or parts.shape[2] != PART_COLS or not parts.is_contiguous()):
         raise ValueError("node_gates: parts must be contiguous (n, U, 3) "
-                         "int64 with n >= 1")
-    if (hist.dtype != torch.int32 or hist.dim() != 1
-            or not hist.is_contiguous() or hist.device != device):
-        raise ValueError(f"node_gates: hist must be contiguous 1-D int32 on "
-                         f"{device}")
+                         "int64")
     n, U, _ = parts.shape
+    if not 1 <= n <= MAX_SHARDS or len(shards) != n:
+        raise ValueError(f"node_gates: takes 1 to {MAX_SHARDS} shards, "
+                         f"one (nb, P, ocount) each (got {n} rows and "
+                         f"{len(shards)} shards)")
+    for name, t, dt, shape in (
+            [("hist", hist, torch.int32, hist.shape[:1]),
+             ("vals", vals, torch.float64, (V_SHARDS + 2 * n,))]
+            + [("nb", nb, torch.int32, (U + 1,)) for nb, _P, _oc in shards]):
+        if (t.dtype != dt or t.shape != shape or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"node_gates: {name} must be contiguous {dt} "
+                             f"of shape {tuple(shape)} on {device}")
     flags = torch.empty(U, dtype=torch.int32, device=device)
     ent = torch.empty(U, dtype=torch.float64, device=device)
     kid0 = torch.empty(U, dtype=torch.int32, device=device)
-    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    pair_outs = [torch.empty(P, dtype=torch.bool, device=device)
+                 for _nb, P, _oc in shards]
     if U <= 0:
-        return flags, ent, kid0, counts
-    scratch = torch.empty(2 * -(-U // THREADS), dtype=torch.int64,
-                          device=device)
+        vals[:V_SHARDS] = torch.tensor(
+            [0, 0, np.inf, -np.inf, max(oc for _nb, _P, oc in shards)],
+            dtype=torch.float64)
+        vals[V_SHARDS + 1::2] = 0
+        return flags, ent, kid0, pair_outs
+    table = (ctypes.c_longlong * (3 * n))(*[
+        v for (nb, _P, oc), po in zip(shards, pair_outs)
+        for v in (nb.data_ptr(), po.data_ptr(), int(oc))])
+    state, status = _running_state(
+        device, _build.lib().dsm_node_gates_workspace(U))
     _build.launch("dsm_node_gates", "node_gates", device, parts.data_ptr(),
                   n, U, g.depth, g.s_total, g.mindepth, g.pmin, g.pmax,
                   int(g.use_egate), g.sym_mask, g.emin_lo, g.emax_hi,
                   flags.data_ptr(), ent.data_ptr(), kid0.data_ptr(),
-                  scratch.data_ptr(), hist.data_ptr(), hist.shape[0],
-                  counts.data_ptr())
-    return flags, ent, kid0, counts
+                  hist.data_ptr(), hist.shape[0], ctypes.addressof(table),
+                  state.data_ptr(), status.data_ptr(), status.shape[0],
+                  vals.data_ptr())
+    return flags, ent, kid0, pair_outs

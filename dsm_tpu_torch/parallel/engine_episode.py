@@ -22,18 +22,22 @@ A level (`_level_sharded`, dsm_tpu mining/engine_device.py:350-597):
      interval ends, freq, active children (engine_device._expand, as the
      single-device level);
   2. a shard: the partials kernel (ops/shardstats.shard_partials), one
-     integer row a node;
+     integer row a node, and the shard's kept lanes into the level's
+     values;
   3. the trie merge: where the mesh has a process group, ONE
      `all_reduce` of the rows a level (the library's collective, as
      `lax.psum` was XLA's); the sum over this process's shards is taken by
-  4. the gates kernel (ops/shardstats.node_gates), once a process: gates,
-     existing children, global child ids, history entries;
-  5. a shard: the outside-ids children kernel (ops/children.children_ids)
-     and the emit through the compaction kernel;
-  6. the exit: HISTFULL, DONE and TAIL follow from reduced values; DRAIN
+  4. the gates kernel (ops/shardstats.node_gates), one launch a process:
+     gates, existing children, global child ids, history entries, each
+     shard's pair gates, and the level's values (children, present nodes,
+     entropy range, each shard's gated pairs, the staged maximum);
+  5. in a group, a scalar max-reduce of the staged maximum, then the ONE
+     readback of the level's values;
+  6. a shard: the emit through the compaction kernel and the outside-ids
+     children kernel (ops/children.children_ids);
+  7. the exit: HISTFULL, DONE and TAIL follow from reduced values; DRAIN
      when any shard of any process has more than `out_reserve` rows
-     staged (a scalar max-reduce over the processes).  One count readback
-     a level a process.
+     staged.
 Everything derived from the reduced rows is a function of integer sums, so
 every shard and process gates, numbers and exits alike.
 
@@ -74,8 +78,10 @@ from ..mining.engine_np import MinedOutput
 from ..ops.children import (PAIR_COLS, PC_HI, PC_NID, PC_SID, PC_SOFF,
                             children_ids)
 from ..ops.gatherpack import gather_pack
-from ..ops.segstats import F_GATED, F_STAT
-from ..ops.shardstats import (NACT_SHIFT, PART_COLS, node_gates,
+from ..ops.segstats import F_GATED
+from ..ops.shardstats import (NACT_SHIFT, PART_COLS, V_CHILDREN, V_ENT_MAX,
+                              V_ENT_MIN, V_PRESENT, V_SHARDS, V_STAGED,
+                              kept_slot, level_values, node_gates,
                               shard_partials)
 from .engine_sharded import ShardedIndexes
 from .mesh import SamplesMesh
@@ -107,19 +113,18 @@ class ShardedEpisodeState:
     hist_len: int = 0
     lvl_off: list = field(default_factory=list)
     total_paths: int = 0
-    ent_min: torch.Tensor | None = None
-    ent_max: torch.Tensor | None = None
+    ent_min: float = np.inf
+    ent_max: float = -np.inf
 
 
 def _fresh_state(shards: list, nnodes: int, depth: int, hist_cap: int,
                  device, total_paths: int = 0, ent_min: float = np.inf,
                  ent_max: float = -np.inf) -> ShardedEpisodeState:
-    f64 = dict(dtype=torch.float64, device=device)
     return ShardedEpisodeState(
         shards=shards, nnodes=nnodes, depth=depth,
         hist=torch.zeros(hist_cap, dtype=torch.int32, device=device),
-        total_paths=total_paths, ent_min=torch.tensor(ent_min, **f64),
-        ent_max=torch.tensor(ent_max, **f64))
+        total_paths=total_paths, ent_min=float(ent_min),
+        ent_max=float(ent_max))
 
 
 def _seed_sharded_episode(dev: ShardedIndexes,
@@ -155,36 +160,39 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
     g = sc.gates(depth, dev.S)
     grouped = mesh.group is not None
 
-    # ---- a shard: expand, partial rows --------------------------------
+    # ---- a shard: expand, partial rows and kept lanes ------------------
     parts = torch.empty((len(st.shards), U, PART_COLS), dtype=torch.int64,
                         device=device)
+    vals = level_values(len(st.shards), device)
     expanded = []
     for k, sh in enumerate(st.shards):
         olo, ohi, freq, keepc, cbits = _expand(dev.shards[k].frows, sh.pairs,
                                                sc.fmin, g.sym_mask)
-        shard_partials(sh.nb, freq, cbits, parts[k])
+        shard_partials(sh.nb, freq, cbits, g.sym_mask, parts[k],
+                       kept_slot(vals, k))
         expanded.append((olo, ohi, keepc))
 
-    # ---- the trie merge, then gates and child ids once a process ------
+    # ---- the trie merge, then one gates launch a process ----------------
     if grouped:
         dist.all_reduce(parts, group=mesh.group)
-    flags, ent, kid0, counts = node_gates(parts, g, st.hist[st.hist_len:])
-    gated = (flags & F_GATED) != 0
+    flags, _ent, kid0, pair_outs = node_gates(
+        parts, g, st.hist[st.hist_len:],
+        [(sh.nb, sh.pairs.shape[0], sh.ocount) for sh in st.shards], vals)
     if eskip:
+        gated = (flags & F_GATED) != 0
         gp = torch.where(gated, flags >> NACT_SHIFT, 0)
         gated = gated & (torch.cumsum(gp, 0) > eskip)
-    pair_outs, sums = [], []
-    for k, sh in enumerate(st.shards):
-        po = gated[sh.pairs[:, PC_NID].to(torch.int64)]
-        pair_outs.append(po)
-        sums += [expanded[k][2].sum(), po.sum()]
-    sums = torch.stack(sums)
-    ocounts = torch.tensor([sh.ocount for sh in st.shards], device=device)
-    staged = (sums[1::2] + ocounts).max().reshape(1)
+        for k, sh in enumerate(st.shards):
+            pair_outs[k] = gated[sh.pairs[:, PC_NID].to(torch.int64)]
+            vals[V_SHARDS + 2 * k + 1] = pair_outs[k].sum()
+        vals[V_STAGED] = (vals[V_SHARDS + 1::2] + torch.tensor(
+            [sh.ocount for sh in st.shards], dtype=torch.float64,
+            device=device)).max()
     if grouped:
-        dist.all_reduce(staged, op=dist.ReduceOp.MAX, group=mesh.group)
-    child_total, n_present, staged, *sums = torch.cat(
-        [counts, staged, sums]).tolist()
+        dist.all_reduce(vals[V_STAGED:V_STAGED + 1], op=dist.ReduceOp.MAX,
+                        group=mesh.group)
+    vals = vals.tolist()
+    child_total, n_present = int(vals[V_CHILDREN]), int(vals[V_PRESENT])
 
     room = st.hist.shape[0] - st.hist_len
     if child_total > room:
@@ -195,15 +203,13 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
         return FLAG_HISTFULL
 
     st.total_paths += n_present
-    stat = (flags & F_STAT) != 0
-    st.ent_min = torch.minimum(st.ent_min,
-                               torch.where(stat, ent, np.inf).min())
-    st.ent_max = torch.maximum(st.ent_max,
-                               torch.where(stat, ent, -np.inf).max())
+    st.ent_min = min(st.ent_min, vals[V_ENT_MIN])
+    st.ent_max = max(st.ent_max, vals[V_ENT_MAX])
 
     # ---- a shard: emit, children --------------------------------------
     for k, sh in enumerate(st.shards):
-        pair_count, n_gated = sums[2 * k], sums[2 * k + 1]
+        pair_count = int(vals[V_SHARDS + 2 * k])
+        n_gated = int(vals[V_SHARDS + 2 * k + 1])
         if n_gated:
             sh.out.append(_stage(sh.pairs, pair_outs[k], n_gated, depth))
             sh.ocount += n_gated
@@ -219,7 +225,7 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
         return FLAG_DONE
     if child_total <= sc.tail_width and depth + 1 >= TAIL_MIN_DEPTH:
         return FLAG_TAIL
-    if staged > sc.out_reserve:
+    if vals[V_STAGED] > sc.out_reserve:
         return FLAG_DRAIN
     return FLAG_RUN
 

@@ -503,44 +503,126 @@ def _sharded_level(rng, S, U, n):
     return nid.astype(np.int32), sid.astype(np.int32), shards
 
 
-@pytest.mark.parametrize("S,U,n", [(5, 1, 1), (5, 257, 2), (5, 5000, 7),
-                                   (64, 3000, 5), (512, 300, 3),
-                                   (5, 300_001, 2)])
-def test_shardstats_kernels(cuda, S, U, n):
-    from dsm_tpu_torch.ops.segstats import Gates
-    from dsm_tpu_torch.ops.shardstats import (PART_COLS, node_gates,
-                                              node_gates_plain,
-                                              shard_partials,
+def _shardstats_inputs(rng, S, U, n, device):
+    """A level of `_sharded_level` on the card: per shard (nb, freq,
+    cbits), and node_gates' shard table with random staged row counts."""
+    _nid, _sid, shards = _sharded_level(rng, S, U, n)
+    args = [[torch.as_tensor(a, device=device) for a in sh[:3]]
+            for sh in shards]
+    table = [(nb, freq.shape[0], int(oc)) for (nb, freq, _cb), oc in
+             zip(args, rng.integers(0, 1000, size=n))]
+    return args, table
+
+
+def _partials_checked(args, sym_mask, device):
+    """K9a on every shard against its plain version: the rows (the
+    fixed-point column within one unit a pair) and the kept lanes, equal.
+    -> (parts, vals with the kept slots written)."""
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, V_SHARDS, kept_slot,
+                                              level_values, shard_partials,
                                               shard_partials_plain)
 
-    rng = np.random.default_rng(S * U + n)
-    _nid, _sid, shards = _sharded_level(rng, S, U, n)
-    parts = torch.empty((n, U, PART_COLS), dtype=torch.int64, device=cuda)
-    before = dict(_build.LAUNCHES)
-    for k, (nb, freq, cbits, _own) in enumerate(shards):
-        args = [torch.as_tensor(a, device=cuda) for a in (nb, freq, cbits)]
-        shard_partials(*args, parts[k])
-        want = shard_partials_plain(*args)
+    n, U = len(args), args[0][0].shape[0] - 1
+    parts = torch.empty((n, U, PART_COLS), dtype=torch.int64, device=device)
+    vals, want_vals = level_values(n, device), level_values(n, device)
+    before = _build.LAUNCHES["shard_partials"]
+    for k, (nb, freq, cbits) in enumerate(args):
+        shard_partials(nb, freq, cbits, sym_mask, parts[k],
+                       kept_slot(vals, k))
+        want, kept = shard_partials_plain(nb, freq, cbits, sym_mask)
+        kept_slot(want_vals, k).copy_(kept)
         torch.cuda.synchronize()
         assert torch.equal(parts[k][:, [0, 2]], want[:, [0, 2]])
-        width = torch.as_tensor(np.diff(nb), device=cuda)
+        width = (nb[1:] - nb[:-1]).to(torch.int64)
         assert bool(((parts[k][:, 1] - want[:, 1]).abs() <= width).all())
-    assert _build.LAUNCHES["shard_partials"] == before["shard_partials"] + n
+    assert _build.LAUNCHES["shard_partials"] == before + n
+    assert torch.equal(vals[V_SHARDS::2], want_vals[V_SHARDS::2])
+    return parts, vals
+
+
+def _gates_equal(got, want, got_vals, want_vals, got_hist, want_hist):
+    """node_gates against its plain version: every output equal but the
+    entropy and its range (within 1e-9: the card's log and torch's)."""
+    from dsm_tpu_torch.ops.shardstats import V_ENT_MAX, V_ENT_MIN
+
+    assert torch.equal(got[0], want[0])
+    assert float((got[1] - want[1]).abs().max()) < 1e-9
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got_hist, want_hist)
+    assert len(got[3]) == len(want[3])
+    for a, b in zip(got[3], want[3]):
+        assert torch.equal(a, b)
+    gv, wv = got_vals.tolist(), want_vals.tolist()
+    for i, (a, b) in enumerate(zip(gv, wv)):
+        if i in (V_ENT_MIN, V_ENT_MAX) and a != b:
+            assert abs(a - b) < 1e-9, (i, a, b)
+        else:
+            assert a == b, (i, a, b)
+
+
+@pytest.mark.parametrize("S,U,n", [(5, 1, 1), (5, 257, 2), (5, 5000, 7),
+                                   (64, 3000, 5), (512, 300, 3),
+                                   (5, 300_001, 2), (64, 20_000, 2),
+                                   (273, 5000, 2)])
+def test_shardstats_kernels(cuda, S, U, n):
+    """K9a and K9b against their plain versions in every output: rows,
+    kept lanes, flags, entropy, kid0, history (also with a room below the
+    children), each shard's pair_out and the level's values; one launch a
+    call.  U = 257, 5000 and 300,001 are no multiple of a tile; nodes of
+    S = 273 and 512 samples are wider than a warp's threshold."""
+    from dsm_tpu_torch.ops.segstats import Gates
+    from dsm_tpu_torch.ops.shardstats import node_gates, node_gates_plain
+
+    rng = np.random.default_rng(S * U + n)
+    args, table = _shardstats_inputs(rng, S, U, n, cuda)
     for depth, sym_mask, room in ((0, 0b1111, 4 * U), (6, 0b1111, 4 * U),
                                   (6, 0b0100, 4 * U), (6, 0b1111, U // 3)):
+        parts, vals = _partials_checked(args, sym_mask, cuda)
+        want_vals = vals.clone()
         g = Gates(depth=depth, s_total=S, mindepth=2, pmin=2, pmax=0,
                   use_egate=True, sym_mask=sym_mask, emin_lo=0.2,
                   emax_hi=1.6)
         got_hist = torch.full((room,), -7, dtype=torch.int32, device=cuda)
         want_hist = got_hist.clone()
-        got = node_gates(parts, g, got_hist)
-        want = node_gates_plain(parts, g, want_hist)
+        before = _build.LAUNCHES["node_gates"]
+        got = node_gates(parts, g, got_hist, table, vals)
+        assert _build.LAUNCHES["node_gates"] == before + 1
+        want = node_gates_plain(parts, g, want_hist, table, want_vals)
         torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0])
-        assert float((got[1] - want[1]).abs().max()) < 1e-9
-        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
-        assert torch.equal(got_hist, want_hist)
-    assert _build.LAUNCHES["node_gates"] == before["node_gates"] + 4
+        _gates_equal(got, want, vals, want_vals, got_hist, want_hist)
+
+
+def test_node_gates_on_two_streams(cuda):
+    """Two K9b launches on two streams of one device, twice over (the
+    second round on the state the first left): each its own values."""
+    from dsm_tpu_torch.ops.segstats import Gates
+    from dsm_tpu_torch.ops.shardstats import node_gates, node_gates_plain
+
+    rng = np.random.default_rng(77)
+    g = Gates(depth=6, s_total=5, mindepth=2, pmin=2, pmax=0,
+              use_egate=True, sym_mask=0b1111, emin_lo=0.2, emax_hi=1.6)
+    cases = []
+    for U, n in ((300_001, 2), (70_000, 3)):
+        args, table = _shardstats_inputs(rng, 5, U, n, cuda)
+        parts, vals = _partials_checked(args, g.sym_mask, cuda)
+        want_hist = torch.full((4 * U,), -7, dtype=torch.int32, device=cuda)
+        want_vals = vals.clone()
+        want = node_gates_plain(parts, g, want_hist, table, want_vals)
+        cases.append((parts, vals, table, want, want_vals, want_hist))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    for _round in range(2):
+        got = []
+        for st, (parts, vals, table, *_w) in zip(streams, cases):
+            with torch.cuda.stream(st):
+                hist = torch.full((parts.shape[1] * 4,), -7,
+                                  dtype=torch.int32, device=cuda)
+                v = vals.clone()
+                got.append((node_gates(parts, g, hist, table, v), v, hist))
+        torch.cuda.synchronize()
+        for (out, v, hist), (_p, _v, _t, want, want_vals, want_hist) in \
+                zip(got, cases):
+            _gates_equal(out, want, v, want_vals, hist, want_hist)
 
 
 @pytest.mark.parametrize("S,U,n", [(5, 1, 1), (5, 257, 2), (5, 5000, 7),

@@ -116,8 +116,13 @@ from dsm_tpu_torch.ops.children import (PC_HI, PC_LO, PC_NID, PC_RLO,  # noqa: E
                                         PC_SID, children_ids_plain,
                                         children_plain)
 from dsm_tpu_torch.ops.gatherpack import gather_pack_plain  # noqa: E402
-from dsm_tpu_torch.ops.segstats import Gates, segstats_plain  # noqa: E402
+from dsm_tpu_torch.ops.segstats import (S_CHILDREN, S_ENT_MAX,  # noqa: E402
+                                        S_ENT_MIN, S_GATED, S_KEPT,
+                                        S_PRESENT, Gates, segstats_plain)
 from dsm_tpu_torch.ops.shardstats import (FLAG_BITS, NACT_SHIFT,  # noqa: E402
+                                          V_CHILDREN, V_ENT_MAX, V_ENT_MIN,
+                                          V_PRESENT, V_SHARDS, V_STAGED,
+                                          kept_slot, level_values,
                                           node_gates_plain,
                                           shard_partials_plain)
 from dsm_tpu_torch.parallel import engine_episode as tee  # noqa: E402
@@ -345,28 +350,38 @@ SPLITS = [(5, 1), (5, 2), (5, 4), (5, 5), (5, 7), (3, 2), (12, 5)]
 @pytest.mark.parametrize("S,n", SPLITS)
 def test_partials_and_gates_match_segstats(S, n):
     """Summed over the shards, the partial rows gate as segstats gates the
-    unsharded list.  (5, 4) has one-sample shards, (5, 7) empty ones."""
+    unsharded list, and the level's values match segstats' sums: the kept
+    lanes, children, present nodes and gated pairs summed over the shards,
+    the entropy range within ENT_FP_TOL, each shard's pair gates those of
+    segstats on its pairs, and the staged maximum.  (5, 4) has one-sample
+    shards, (5, 7) empty ones."""
     rng = np.random.default_rng(100 * S + n)
     t = torch.from_numpy
     for trial in range(6):
         U = int(rng.integers(1, 300))
         nid, sid, freq, cbits = _random_level(rng, S, U)
         bounds = _bounds(S, n)
-        parts = []
-        for k in range(n):
-            own = (sid >= bounds[k]) & (sid < bounds[k + 1])
-            parts.append(shard_partials_plain(
-                t(_nb(nid[own], U)), t(freq[own]), t(cbits[own])))
-        parts = torch.stack(parts)
+        owns = [(sid >= bounds[k]) & (sid < bounds[k + 1]) for k in range(n)]
+        ocounts = [int(v) for v in rng.integers(0, 1000, size=n)]
+        shards = [(t(_nb(nid[own], U)), int(own.sum()), oc)
+                  for own, oc in zip(owns, ocounts)]
         for depth, sym_mask, pmin in ((0, 0b1111, 2), (4, 0b1111, 2),
                                       (9, 0b0100, 1), (9, 0, 2)):
+            parts, vals = [], level_values(n, "cpu")
+            for k, own in enumerate(owns):
+                part, kept = shard_partials_plain(
+                    shards[k][0], t(freq[own]), t(cbits[own]), sym_mask)
+                parts.append(part)
+                kept_slot(vals, k).copy_(kept)
+            parts = torch.stack(parts)
             g = Gates(depth=depth, s_total=S, mindepth=3, pmin=pmin, pmax=4,
                       use_egate=True, sym_mask=sym_mask, emin_lo=0.2,
                       emax_hi=1.6)
-            want_flags, want_ent, _, _ = segstats_plain(
+            want_flags, want_ent, want_po, sums = segstats_plain(
                 t(_nb(nid, U)), t(freq), t(cbits), g)
             hist = torch.full((4 * U,), -1, dtype=torch.int32)
-            flags, ent, kid0, counts = node_gates_plain(parts, g, hist)
+            flags, ent, kid0, pair_outs = node_gates_plain(parts, g, hist,
+                                                           shards, vals)
             # a gate within ENT_FP_TOL of its threshold may fall either way
             near = ((want_ent - g.emin_lo).abs() < ENT_FP_TOL) | \
                 ((want_ent - g.emax_hi).abs() < ENT_FP_TOL)
@@ -378,17 +393,33 @@ def test_partials_and_gates_match_segstats(S, n):
             np.testing.assert_array_equal((flags >> NACT_SHIFT).numpy(), nact)
             ex = ((want_flags.numpy()[:, None] >> (4 + np.arange(4))) & 1)
             entries = np.flatnonzero(ex.reshape(-1))
-            assert counts.tolist() == [entries.size,
-                                       int((want_flags & 1).sum())]
             np.testing.assert_array_equal(hist[:entries.size].numpy(),
                                           entries)
             assert (hist[entries.size:] == -1).all()
             np.testing.assert_array_equal(
                 kid0.numpy(), np.cumsum(ex.sum(1)) - ex.sum(1))
+            # the level's values against segstats' sums of the whole list
+            got, want = vals.tolist(), sums.tolist()
+            gated = [int(po.sum()) for po in pair_outs]
+            assert sum(got[V_SHARDS::2]) == want[S_KEPT]
+            assert got[V_CHILDREN] == want[S_CHILDREN] == entries.size
+            assert got[V_PRESENT] == want[S_PRESENT]
+            assert got[V_SHARDS + 1::2] == gated
+            assert sum(gated) == want[S_GATED]
+            for key, skey in ((V_ENT_MIN, S_ENT_MIN), (V_ENT_MAX, S_ENT_MAX)):
+                if np.isfinite(want[skey]):
+                    assert abs(got[key] - want[skey]) < ENT_FP_TOL
+                else:
+                    assert got[key] == want[skey]
+            for own, po in zip(owns, pair_outs):
+                np.testing.assert_array_equal(po.numpy(),
+                                              want_po.numpy()[own])
+            assert got[V_STAGED] == max(oc + gp
+                                        for oc, gp in zip(ocounts, gated))
             # a short history drops the entries past its room
             short = torch.full((entries.size // 2,), -1, dtype=torch.int32)
-            assert node_gates_plain(parts, g, short)[3].tolist() == \
-                counts.tolist()
+            node_gates_plain(parts, g, short, shards, vals)
+            assert vals[V_CHILDREN] == entries.size
             np.testing.assert_array_equal(short.numpy(),
                                           entries[:entries.size // 2])
 
