@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-and, for timings alone (see `level_times` and `variant_times`),
+and, for timings alone (see `level_times`, `variant_times` and
+`drain_times`),
 
     python3 -c 'import torch, chip_smoke as c; c.level_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.variant_times(torch, torch.device("cuda", 0))'
+    python3 -c 'import torch, chip_smoke as c; c.drain_times(torch, torch.device("cuda", 0))'
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. environment: the card, torch/CUDA versions, nvcc, triton;
@@ -17,10 +19,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   4. kernels: each CUDA kernel against its plain PyTorch version on the
      card at main-path shapes (equal integers; the f64 entropy within
      ENT_TOL), with both times. The rank kernel runs by all three of its
-     entries: one end at RANK_Q queries, both ends on strided columns, and
-     the level's expand step at the widest level of the scale-100 mine
-     (made by the port's own level loop) and on a synthetic level of ~4.2M
-     pairs with as many pairs whose two ends share a table row. The suffix
+     entries: one end at RANK_Q queries, the level's expand step at the
+     widest level of the scale-100 mine (made by the port's own level loop)
+     and on a synthetic level of ~4.2M pairs with as many pairs whose two
+     ends share a table row, and the leftChar (below). The suffix
      array of toy0, forward and reverse, must also equal the host
      `suffix_array_np`; it is timed there and at n = 2^24. The sort's
      k = 16 round of toy0 is checked from the previous round's order and
@@ -28,6 +30,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and TB/s are printed (toy0 and 2^24). P2-P4 are timed by events and by
      the profiler's device time, also at N = 2^24 beside the PyTorch call
      with the same result (P4's entry in the kernels line is at 2^24). The
+     drain's leftChar (the rank kernel's leftChar entry, K5) runs on the
+     staged rows of every drain of the scale-100 mine (ascending and gnu;
+     the kernels line has the largest ascending drain), on every pair of its
+     widest level staged as output rows, and over 2 and 5 shard tables of
+     the same samples (codes equal to one table's). The
      compaction (P1) also runs with width below the count, an unaligned
      mask and a tail to zero, and its emit entry (`stage_rows`) on the
      children case's pairs with 0.1% and 30% of them marked. The stats
@@ -57,7 +64,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      every shard's pair gates and the level's values from them (K9b: one
      launch; integers equal, the entropy and its range within ENT_TOL);
      the outside-ids children step of each of the 2 shards (K9c) and the
-     gather of 2 and 5 blocks of GATHER_ROWS rows (K10);
+     gather of 2 and 5 blocks of GATHER_ROWS rows (K10, by events around
+     the wrapper and by the profiler's device time, its inputs cold in the
+     L2);
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
@@ -83,9 +92,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      SINGLE-DEVICE `mine_torch` to the frozen reference; and the 2-shard
      gnu run once more inside a one-rank NCCL process group, so that the
      level's all-reduce and the drain's all-gathers run on the card between
-     the kernels.  Every kernel of the sharded path must have been
-     launched by the plain 2-shard gnu run, and every run must launch K9a
-     once a shard a level and K9b once a level;
+     the kernels (K10 is also held against its plain version and timed
+     on the 1-, 2- and 5-shard drains' blocks, one a shard: the kernels
+     line has the 5-shard drain's).  Every kernel of
+     the sharded path must have been launched by the plain 2-shard gnu
+     run, every run must launch K9a
+     once a shard a level and K9b once a level, and every drain the gather
+     (K10) once and the rank kernel once (its leftChar entry; in the
+     process group the all-gather's gather adds one), whatever the shard
+     count;
   9. distance path: the gnu mine's 485 lines through
      `DistanceAccumulator(smpls=5, maxents=entropy_steps(0.05))`, exact on
      the host and exact=False on the card: count and noutput equal, the
@@ -145,6 +160,7 @@ SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
 REPRO_BIG = 1 << 24     # P2-P4 where bytes count (128 MB moved a call)
 GATHER_ROWS = 100_000   # rows a block of the gather kernel's check (K10)
+GATHER_SETS = 6         # its sets of inputs: 6 x 10.7 MB > the 50 MB L2
 DIST_R, DIST_D, DIST_BINS = 1 << 20, 64, 21   # K11: rows, samples, bins
 # K11's f64 sums against the plain version's: up to 2^20 same-signed terms
 # a matrix entry, added in another order (the kernel's row slices meet in
@@ -155,7 +171,8 @@ F32_TOPS = 67.0         # H100 SXM peak outside the tensor cores, T op/s:
 #                         taken for f32 and, generously, for integer work
 F64_TOPS = 33.5         # f64 outside the tensor cores: half the f32 rate
 # the kernels of each path, by the name in the kernels line
-LAUNCH_KEY = {"occ_cum8": "rank", "expand": "rank", "compact_rows": "compact",
+LAUNCH_KEY = {"occ_cum8": "rank", "expand": "rank", "leftchar": "rank",
+              "compact_rows": "compact",
               "segstats": "segstats", "decode": "decode",
               "children": "children", "stage_rows": "compact",
               "sa_sort": "sa_sort",
@@ -347,10 +364,22 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
+def host_ms(torch, fn, reps: int = 200) -> float:
+    """Host time of a call of fn (its Python and its launches) in ms, by
+    the host's clock over reps calls that the device keeps up with."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
 def phase_kernels(torch, dev, device) -> list[dict]:
     from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
-    from dsm_tpu_torch.ops.rank import (occ_cum8, occ_cum8_pair,
-                                        occ_cum8_pair_plain, occ_cum8_plain)
+    from dsm_tpu_torch.ops.rank import occ_cum8, occ_cum8_plain
 
     rng = np.random.default_rng(2024)
     results = []
@@ -383,22 +412,6 @@ def phase_kernels(torch, dev, device) -> list[dict]:
     log(f"kernel rank: Q={q} equal; {results[-1]['ms']:.4f} ms vs plain "
         f"{results[-1]['plain_ms']:.4f} ms (bound "
         f"{results[-1]['bound_ms']:.4f} ms)")
-    # the two-ended entry (the drain's leftChar) on strided pair-row columns
-    pr = torch.zeros((q // 2, 6), dtype=torch.int32, device=device)
-    pr[:, 0], pr[:, 1], pr[:, 4] = pos_t[0::2], pos_t[1::2], soff_t[0::2]
-    pr[:, 1] = torch.where(soff_t[1::2] == soff_t[0::2], pr[:, 1], pr[:, 0])
-    cols = (pr[:, 0], pr[:, 1], pr[:, 4])
-    got, want = occ_cum8_pair(dev.rrows, *cols), \
-        occ_cum8_pair_plain(dev.rrows, *cols)
-    torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise SystemExit("occ_cum8_pair disagrees with its plain version")
-    log(f"kernel rank, two-ended entry: Q={q // 2} pairs on strided columns "
-        f"equal; {cuda_ms(torch, lambda: occ_cum8_pair(dev.rrows, *cols)):.4f}"
-        f" ms vs plain "
-        f"{cuda_ms(torch, lambda: occ_cum8_pair_plain(dev.rrows, *cols)):.4f}"
-        f" ms")
-    del pr, cols, got, want
     results.append(phase_expand(torch, dev, device))
 
     # compact: N = 2^23 rows, C in (2, 5, 6, 8), masks 0%, ~30%, 100%
@@ -607,6 +620,121 @@ def phase_expand(torch, dev, device) -> dict:
     sizes = torch.randint(1, 6, (SEG_NODES,), device=device, generator=gen)
     synth = synthetic_pairs(torch, dev, gen, int(sizes.sum()), share)
     return expand_case(torch, dev, synth, "synthetic level")[0]
+
+
+def real_drain_rows(torch, idxs, dev, device) -> dict:
+    """The staged output rows that each drain of the scale-100 mine hands
+    its leftChar (`engine_device.leftchar_rows` wrapped to keep a copy),
+    ascending and gnu -> {order: [rows, ...]}."""
+    from dsm_tpu_torch.mining import engine_device as ed
+    from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
+
+    kept = {}
+    orig = ed.leftchar_rows
+
+    def keeping(tables, orows, out=None):
+        kept[order].append(orows.clone())
+        return orig(tables, orows, out)
+
+    ed.leftchar_rows = keeping
+    try:
+        for order in ("ascending", "gnu"):
+            kept[order] = []
+            mine_torch(idxs, MiningConfig(fmin=FMIN, emax=EMAX), dev=dev,
+                       device=device, reader_order=order)
+    finally:
+        ed.leftchar_rows = orig
+    return kept
+
+
+def leftchar_case(torch, tables, orows, label: str, plain=True):
+    """The leftChar entry against its plain version on `orows` over
+    `tables`, timed by events and by the profiler's device time; -> (its
+    entry of the kernels line, the codes)."""
+    from dsm_tpu_torch.mining.engine import leftchar_rows, leftchar_rows_plain
+
+    got = leftchar_rows(tables, orows)
+    want = leftchar_rows_plain(tables, orows)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if orows.shape[0] else 0
+    if err or not torch.equal(got, want):
+        raise SystemExit(f"leftchar disagrees with its plain version "
+                         f"({label}: max abs err {err})")
+    n = orows.shape[0]
+    # the reverse-table rows both ends touch, shard by shard
+    touched = 0
+    bases = torch.tensor([int(b) for _r, _s, b in tables], device=orows.device,
+                         dtype=torch.int32)
+    shard = torch.searchsorted(bases, orows[:, 2].contiguous(),
+                               right=True) - 1
+    for k, (_rrows, soff, base) in enumerate(tables):
+        mine = orows[shard == k]
+        so = soff[(mine[:, 2] - int(base)).to(torch.int64)].to(torch.int64)
+        lo = mine[:, 1].to(torch.int64)
+        hi = lo + mine[:, 0].to(torch.int64)
+        touched += int(torch.unique(torch.cat([(lo >> 7) + so,
+                                               (hi >> 7) + so])).numel())
+    soffs = sum(int(t[1].numel()) for t in tables)
+    entry = dict(
+        name="leftchar", route="cuda", source="dsm_tpu_torch/csrc/rank.cu",
+        replaces="dsm_tpu/mining/engine_device.py:1077", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: leftchar_rows(tables, orows), 20),
+        device_ms=device_ms(torch, lambda: leftchar_rows(tables, orows)),
+        plain_ms=(cuda_ms(torch, lambda: leftchar_rows_plain(tables, orows))
+                  if plain else None),
+        # the 12 needed bytes of a 20-byte row (freq, rlo, sid), each
+        # reverse-table row both ends touch once, the soff entries, one
+        # byte out; ~140 integer operations a row (two ends and the select)
+        **bound(12 * n + 128 * touched + 4 * soffs + n, 140 * n),
+        library_ms=None)
+    log(f"kernel leftchar: {label}: n={n:,} rows over {len(tables)} "
+        f"table(s), {touched:,} reverse-table rows touched; equal; "
+        f"{entry['ms']:.4f} ms (device {fmt_ms(entry['device_ms'])}) vs "
+        f"plain {fmt_ms(entry['plain_ms'])} (bound {entry['bound_ms']:.4f} "
+        f"ms by {entry['bound_by']})")
+    return entry, got
+
+
+def phase_leftchar(torch, idxs, dev, device) -> dict:
+    """The drain's leftChar (the rank kernel's leftChar entry, K5) on the
+    real drains' rows of the scale-100 mine (ascending and gnu), on every
+    pair of its widest level staged as output rows, and over 2 and 5 shard
+    tables of the same samples (codes equal to one table's); -> the entry
+    of the largest ascending drain."""
+    from dsm_tpu_torch.ops.compact import stage_rows
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    one = [(dev.rrows, dev.soff, 0)]
+    drains = real_drain_rows(torch, idxs, dev, device)
+    log("leftchar: the real drains' rows, ascending "
+        f"{[r.shape[0] for r in drains['ascending']]}, gnu "
+        f"{[r.shape[0] for r in drains['gnu']]}")
+    entry = None
+    for order, rows_list in drains.items():
+        orows = max(rows_list, key=lambda r: r.shape[0])
+        e, _codes = leftchar_case(torch, one, orows, f"the {order} drain")
+        entry = entry or e
+    pairs, depth = widest_level(torch, dev)
+    p = pairs.shape[0]
+    wide = stage_rows(torch.ones(p, dtype=torch.bool, device=device), pairs,
+                      depth, p)[0]
+    _e, want = leftchar_case(torch, one, wide,
+                             f"every pair of the widest level (depth "
+                             f"{depth}) staged")
+    for n in (2, 5):
+        sh = ShardedIndexes.build(idxs, global_samples_mesh(n, device))
+        tables = [(sd.rrows, sd.soff, sh.base(j))
+                  for j, sd in enumerate(sh.shards)]
+        _e, got = leftchar_case(torch, tables, wide,
+                                f"the widest level over {n} shard tables",
+                                plain=False)
+        if not torch.equal(got, want):
+            raise SystemExit(f"leftchar over {n} shard tables disagrees "
+                             "with one table's codes")
+        del sh, tables
+    return entry
 
 
 def compact_edges(torch, mask, vals, k: int) -> None:
@@ -1141,8 +1269,10 @@ def phase_sharded_kernels(torch, device) -> list[dict]:
     shard of `segstats_level`'s levels (nodes of 1..5, 1..64 and 1..273
     pairs); K9b on `sharded_level`'s SEG_NODES nodes over 5 samples split
     into 2 shards ([0, 2) and [2, 5)) and into 5; K9c on the 2-shard split,
-    with K9b's ids; K10 on blocks of GATHER_ROWS rows.  The kernels line
-    has K9a at 1..5 and K9b at 2 shards."""
+    with K9b's ids; K10 on 2 and 5 blocks of ~GATHER_ROWS rows with codes,
+    timed with GATHER_SETS sets of inputs taken in turn, so that none is in
+    the L2 when it is read again.  The kernels line has K9a at 1..5 and K9b
+    at 2 shards (and K10 at the real drain's blocks: `phase_sharded`)."""
     from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
     from dsm_tpu_torch.ops.gatherpack import gather_pack, gather_pack_plain
     from dsm_tpu_torch.ops.segstats import Gates
@@ -1194,30 +1324,33 @@ def phase_sharded_kernels(torch, device) -> list[dict]:
 
     for nblk in (2, 5):
         sizes = [GATHER_ROWS + 1000 * b for b in range(nblk)]
-        blocks = [torch.randint(-2**31, 2**31 - 1000, (m, 5), **i32)
-                  for m in sizes]
-        lcs = [torch.randint(0, 6, (m,), **i32).to(torch.int8)
-               for m in sizes]
         bases = [7 * b for b in range(nblk)]
-        gargs = (blocks, bases, 2, lcs)
-        (kr, kl), (pr_, pl) = gather_pack(*gargs), gather_pack_plain(*gargs)
-        torch.cuda.synchronize()
-        if not (torch.equal(kr, pr_) and torch.equal(kl, pl)):
-            raise SystemExit(f"gather_pack disagrees with its plain version "
-                             f"({nblk} blocks)")
-        ms = cuda_ms(torch, lambda: gather_pack(*gargs))
-        plain_ms = cuda_ms(torch, lambda: gather_pack_plain(*gargs))
+        sets = [([torch.randint(-2**31, 2**31 - 1000, (m, 5), **i32)
+                  for m in sizes],
+                 [torch.randint(0, 6, (m,), **i32).to(torch.int8)
+                  for m in sizes]) for _ in range(GATHER_SETS)]
+        for blocks, lcs in sets:
+            gargs = (blocks, bases, 2, lcs)
+            (kr, kl), (pr_, pl) = gather_pack(*gargs), \
+                gather_pack_plain(*gargs)
+            torch.cuda.synchronize()
+            if not (torch.equal(kr, pr_) and torch.equal(kl, pl)):
+                raise SystemExit(f"gather_pack disagrees with its plain "
+                                 f"version ({nblk} blocks)")
+        turn = iter(range(1 << 30))
+
+        def cold():
+            blocks, lcs = sets[next(turn) % GATHER_SETS]
+            gather_pack(blocks, bases, 2, lcs)
+
+        ms, dev_ms = cuda_ms(torch, cold, 24), device_ms(torch, cold, 24)
+        b = bound(2 * 21 * sum(sizes), 2 * 5 * sum(sizes))
         log(f"kernel gather_pack: {nblk} blocks, {sum(sizes):,} rows of 5 "
-            f"with codes, equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    results.append(dict(
-        name="gather_pack", route="cuda",
-        source="dsm_tpu_torch/csrc/gatherpack.cu",
-        replaces="dsm_tpu/parallel/engine_episode.py:226", max_abs_err=0,
-        ms=ms, plain_ms=plain_ms,
-        # 21 bytes a row in and out, the 32-byte table rows; a bisection and
-        # an add a row
-        **bound(2 * 21 * sum(sizes) + 32 * nblk, 8 * sum(sizes)),
-        library_ms=None))
+            f"with codes, equal; inputs cold in the L2: {ms:.4f} ms by "
+            f"events around the wrapper, device {fmt_ms(dev_ms)}, vs plain "
+            f"{cuda_ms(torch, lambda: gather_pack_plain(*gargs)):.4f} ms "
+            f"(bound {b['bound_ms']:.4f} ms by {b['bound_by']})")
+        del sets, gargs, kr, kl, pr_, pl
     return results
 
 
@@ -1756,14 +1889,16 @@ def phase_resume(torch, idxs, dev, device, td: str) -> None:
     check_reference(gnu, "resume parity")
 
 
-def phase_sharded(torch, idxs, dev, device, warm, td: str) -> dict:
-    """The sharded episode on the one card; -> the launches of the plain
-    2-shard gnu run."""
+def phase_sharded(torch, idxs, dev, device, warm, td: str):
+    """The sharded episode on the one card; -> (the launches of the plain
+    2-shard gnu run, K10's entry of the kernels line: the 5-shard drain's
+    blocks)."""
     import torch.distributed as dist
 
     from dsm_tpu_torch.mining import checkpoint as ckpt
     from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
     from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.parallel import engine_episode as tee
     from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
     from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
     from dsm_tpu_torch.parallel.multihost import (global_samples_mesh,
@@ -1771,15 +1906,41 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str) -> dict:
 
     cfg = MiningConfig(fmin=FMIN, emax=EMAX)
 
+    drain = tee._drain_sharded
+
     def run(label: str, mesh, tables, order: str = "gnu", **kw):
         prof = {}
+        drains = []     # (rows, emits since the last drain, launches)
+        emits = [0]     # the emit's launches at the last drain
+
+        def counted(*a, **k):
+            st = a[3]
+            rows = sum(sh.ocount for sh in st.shards)
+            if rows > staged_blocks.get(label, (0,))[0]:
+                # a copy: the shards' buffers take the next levels' rows
+                staged_blocks[label] = (rows, [
+                    (sh.out[:sh.ocount].clone(), a[6].base(j))
+                    for j, sh in enumerate(st.shards) if sh.ocount])
+            before = dict(_build.LAUNCHES)
+            staged = drain(*a, **k)
+            if staged:
+                drains.append((rows, before["compact"] - emits[0], {
+                    key: _build.LAUNCHES[key] - before[key]
+                    for key in ("gather_pack", "rank")}))
+            emits[0] = _build.LAUNCHES["compact"]
+            return staged
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         _build.reset_launches()
+        tee._drain_sharded = counted
         t0 = time.perf_counter()
-        out = mine_device_sharded(idxs, cfg, mesh=mesh, dev=tables,
-                                  reader_order=order, profile=prof, **kw)
-        torch.cuda.synchronize()
+        try:
+            out = mine_device_sharded(idxs, cfg, mesh=mesh, dev=tables,
+                                      reader_order=order, profile=prof, **kw)
+            torch.cuda.synchronize()
+        finally:
+            tee._drain_sharded = drain
         wall = time.perf_counter() - t0
         log(f"sharded mine {label}: {out.total_paths} paths, "
             f"{out.total_output} lines in {wall:.4f} s; host phases "
@@ -1797,9 +1958,19 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str) -> dict:
                              f"{[_build.LAUNCHES[k] for k in want]}, not "
                              f"{list(want.values())} for {prof['levels']} "
                              f"levels")
+        # a drain: one gather and one leftChar launch at any shard count
+        # (in a process group the all-gather's gather adds one)
+        want = {"gather_pack": 1 + (mesh.group is not None), "rank": 1}
+        log(f"sharded mine {label}: {len(drains)} drain(s) of (rows, emits "
+            f"staged) {[d[:2] for d in drains]}, launches a drain "
+            f"{[d[2] for d in drains]}")
+        if not drains or any(d[2] != want for d in drains):
+            raise SystemExit(f"sharded mine {label}: a drain did not launch "
+                             f"{want}")
         return out
 
     launches = None
+    staged_blocks = {}   # a run's largest drain's blocks (one a shard)
     for n in (1, 2, 5):
         mesh = global_samples_mesh(n, device)
         tables = ShardedIndexes.build(idxs, mesh)
@@ -1808,6 +1979,8 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str) -> dict:
             launches = path_launches("mine_sharded")
             mesh2, tables2 = mesh, tables
         check_reference(gnu, f"sharded parity, {n} shard(s)")
+        k10 = gather_case(torch, staged_blocks[f"{n} shard(s), gnu"][1],
+                          f"the {n}-shard drain's blocks")
     asc = run("2 shards, ascending", mesh2, tables2, order="ascending")
     if asc.format_lines() != warm.format_lines():
         raise SystemExit("the 2-shard ascending run's lines differ from the "
@@ -1870,7 +2043,44 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str) -> dict:
         check_reference(gnu, "sharded parity inside the NCCL group")
     finally:
         dist.destroy_process_group()
-    return launches
+    return launches, k10
+
+
+def gather_case(torch, blocks, label: str) -> dict:
+    """K10 against its plain version on a real drain's blocks (one a shard
+    that staged rows, each with its shard's base), as `_drain_sharded`
+    hands them over, timed by events around the wrapper, by the
+    profiler's device time and by the host's clock (the wrapper's Python
+    and the launch); -> its entry of the kernels line."""
+    from dsm_tpu_torch.ops.gatherpack import gather_pack, gather_pack_plain
+
+    rows_ = [c for c, _b in blocks]
+    bases = [b for _c, b in blocks]
+    got = gather_pack(rows_, bases, 2)[0]
+    want = gather_pack_plain(rows_, bases, 2)[0]
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err or not torch.equal(got, want):
+        raise SystemExit(f"gather_pack disagrees with its plain version "
+                         f"({label}: max abs err {err})")
+    rows = got.shape[0]
+    entry = dict(
+        name="gather_pack", route="cuda",
+        source="dsm_tpu_torch/csrc/gatherpack.cu",
+        replaces="dsm_tpu/parallel/engine_episode.py:226", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: gather_pack(rows_, bases, 2), 20),
+        device_ms=device_ms(torch, lambda: gather_pack(rows_, bases, 2)),
+        host_ms=host_ms(torch, lambda: gather_pack(rows_, bases, 2)),
+        plain_ms=cuda_ms(torch, lambda: gather_pack_plain(rows_, bases, 2)),
+        # 20 bytes a row in and out (the table rides in the launch's
+        # parameters); a test and an add a word
+        **bound(2 * 20 * rows, 2 * 5 * rows), library_ms=None)
+    log(f"kernel gather_pack: {label}: {len(rows_)} block(s), {rows:,} rows, "
+        f"equal; {entry['ms']:.4f} ms by events around the wrapper, device "
+        f"{fmt_ms(entry['device_ms'])}, host {entry['host_ms']:.4f} ms a "
+        f"call, vs plain {entry['plain_ms']:.4f} ms (bound "
+        f"{entry['bound_ms']:.6f} ms by {entry['bound_by']})")
+    return entry
 
 
 def phase_halt(torch, idxs, dev, device, warm) -> None:
@@ -2083,6 +2293,136 @@ def level_times(torch, device) -> None:
     print(json.dumps(res), flush=True)
 
 
+def drain_times(torch, device) -> None:
+    """Times, without checks, the drains of the package beside this file and
+    its gather kernel (K10), and prints one JSON line: every drain's (rows,
+    emits staged since the drain before) of the scale-100 mine on one device
+    (ascending and gnu) and with 1, 2 and 5 shards on the one card (gnu);
+    the largest drain of each replayed from a copy of what it found staged,
+    its host half skipped, so that what is timed is its device part and the
+    readbacks (CUDA events around 20 replays, three times, then one replay
+    under torch.profiler: device time, activities and the kernels with the
+    most time); K10 on the blocks that the largest 2- and 5-shard drains
+    hand it, and on 5 blocks of ~GATHER_ROWS rows with codes in
+    GATHER_SETS sets taken in turn (inputs cold in the L2).  It calls only
+    what every tree of the repo has had since the sharded episode (the
+    drains, their host half, the gather's contract), so a copy of this file
+    in the root of another tree times that tree, and two commits are
+    compared in turns with the same code (parent, change, change,
+    parent)."""
+    import copy
+
+    from dsm_tpu_torch.mining import engine_device as ed
+    from dsm_tpu_torch.mining.engine import (DeviceIndexes, MiningConfig,
+                                             mine_torch)
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.parallel import engine_episode as tee
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    res = {"tree": HERE, "smi": smi_line()}
+    phase_build()
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    with tempfile.TemporaryDirectory(prefix="dsm_drain_") as td:
+        idxs, _toy0, _ = phase_data(torch, load_make_toydata(), td, device)
+    dev = DeviceIndexes.build(idxs, device)
+
+    def timed(label: str, fn) -> None:
+        res[f"{label}_ms"] = [cuda_ms(torch, fn, 20) for _ in range(3)]
+        ms, acts, top = device_profile(torch, fn)
+        res[f"{label}_device_ms"], res[f"{label}_activities"] = ms, acts
+        res[f"{label}_top"] = top
+
+    def parts(st):
+        return st.shards if hasattr(st, "shards") else [st]
+
+    res["drains"], largest, gathers = {}, {}, {}
+    gather = tee.gather_pack
+
+    def recorder(label: str, drain):
+        emits = [_build.LAUNCHES["compact"]]
+
+        def recording(*a, **k):
+            shards = parts(a[3])
+            rows = sum(x.ocount for x in shards)
+            staged = [(copy.deepcopy(x.out), x.ocount) for x in shards]
+
+            def keeping(*ga, **gk):
+                got = gather(*ga, **gk)
+                gathers[label] = copy.deepcopy((ga, gk))
+                return got
+
+            tee.gather_pack = keeping
+            try:
+                done = drain(*a, **k)
+            finally:
+                tee.gather_pack = gather
+            if done:
+                res["drains"].setdefault(label, []).append(
+                    [rows, _build.LAUNCHES["compact"] - emits[0]])
+                if rows > largest.get(label, (0,))[0]:
+                    largest[label] = (rows, a, k, staged)
+            emits[0] = _build.LAUNCHES["compact"]
+            return done
+        return recording
+
+    d0, s0, e0 = ed._drain, tee._drain_sharded, tee._emit_drained
+    try:
+        for order in ("ascending", "gnu"):
+            ed._drain = recorder(f"single_{order}", d0)
+            mine_torch(idxs, cfg, dev=dev, device=device, reader_order=order)
+        for n in (1, 2, 5):
+            mesh = global_samples_mesh(n, device)
+            tee._drain_sharded = recorder(f"sharded{n}_gnu", s0)
+            tee.mine_device_sharded(idxs, cfg, mesh=mesh,
+                                    dev=ShardedIndexes.build(idxs, mesh),
+                                    reader_order="gnu")
+        # the replays: what the drain found staged put back each time (the
+        # drains leave the staged tensors as they were), the host half
+        # (_emit_drained) skipped
+        ed._drain, tee._drain_sharded = d0, s0
+        ed._emit_drained = tee._emit_drained = lambda *a, **k: None
+        for label, (rows, a, k, staged) in largest.items():
+            drain = d0 if label.startswith("single") else s0
+
+            def replay():
+                for x, (out, oc) in zip(parts(a[3]), staged):
+                    x.out, x.ocount = out, oc
+                drain(*a, **k)
+
+            res[f"drain_{label}_rows"] = rows
+            timed(f"drain_{label}", replay)
+    finally:
+        ed._drain, tee._drain_sharded = d0, s0
+        ed._emit_drained = tee._emit_drained = e0
+
+    for n in (2, 5):
+        ga, gk = gathers[f"sharded{n}_gnu"]
+        res[f"k10_sharded{n}_rows"] = sum(b.shape[0] for b in ga[0])
+        res[f"k10_sharded{n}_blocks"] = len(ga[0])
+        timed(f"k10_sharded{n}", lambda: gather(*ga, **gk))
+        res[f"k10_sharded{n}_host_ms"] = host_ms(
+            torch, lambda: gather(*ga, **gk))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2031)
+    i32 = dict(dtype=torch.int32, device=device, generator=gen)
+    sizes = [GATHER_ROWS + 1000 * b for b in range(5)]
+    sets = [([torch.randint(-2**31, 2**31 - 1000, (m, 5), **i32)
+              for m in sizes],
+             [torch.randint(0, 6, (m,), **i32).to(torch.int8)
+              for m in sizes]) for _ in range(GATHER_SETS)]
+    bases = [7 * b for b in range(5)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        blocks, lcs = sets[next(turn) % GATHER_SETS]
+        gather(blocks, bases, 2, lcs)
+
+    res["k10_5blocks_rows"] = sum(sizes)
+    timed("k10_5blocks_cold", cold)
+    print(json.dumps(res), flush=True)
+
+
 def variant_times(torch, device) -> None:
     """The decode (K6) on `decode_inputs`' histories, the stats step (K2)
     and the partial rows (K9a) on `segstats_level`'s levels (K9a also on
@@ -2207,14 +2547,16 @@ def main() -> int:
         idxs, toy0, launches["build"] = phase_data(torch, toy, td, device)
         dev = DeviceIndexes.build(idxs, device)
         kernels = (phase_kernels(torch, dev, device)
+                   + [phase_leftchar(torch, idxs, dev, device)]
                    + phase_sharded_kernels(torch, device)
                    + phase_sa_kernels(torch, toy0, device)
                    + phase_repro_kernels(torch, device))
         launches["mine"], warm, gnu = phase_main(torch, idxs, dev, device)
         phase_resume(torch, idxs, dev, device, td)
         phase_halt(torch, idxs, dev, device, warm)
-        launches["mine_sharded"] = phase_sharded(torch, idxs, dev, device,
-                                                 warm, td)
+        launches["mine_sharded"], k10 = phase_sharded(torch, idxs, dev,
+                                                      device, warm, td)
+        kernels.append(k10)
     # after the mine's peak memory is read: the plain version's f64 einsums
     # leave the matrix library's 32 MiB workspace allocated for the process
     kernels += phase_distance_kernel(torch, device)

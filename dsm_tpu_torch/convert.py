@@ -215,7 +215,7 @@ def sharded_state_from_numpy(state: dict, s_loc: int, dev: ShardedIndexes
         own = out[shard_of == dev.first + k].copy()
         own[:, ted.OC_SID] -= dev.base(k)
         if own.shape[0]:
-            sh.out, sh.ocount = [torch.tensor(own, device=dev.device)], \
+            sh.out, sh.ocount = torch.tensor(own, device=dev.device), \
                 own.shape[0]
     return st
 
@@ -229,8 +229,8 @@ def sharded_state_to_numpy(st: "tee.ShardedEpisodeState",
         pr = sh.pairs.cpu().numpy().copy()
         pr[:, ted.PC_SID] += dev.base(k)
         prs.append(pr)
-        for o in sh.out:
-            o = o.cpu().numpy().copy()
+        if sh.ocount:
+            o = sh.out[:sh.ocount].cpu().numpy().copy()
             o[:, ted.OC_SID] += dev.base(k)
             outs.append(o)
     outs.append(np.zeros((0, ted.OUT_COLS), dtype=np.int32))

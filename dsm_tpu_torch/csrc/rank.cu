@@ -1,15 +1,22 @@
-// Fused rank over the baked-C4 occ tables (K1), and the level's expand step
-// built on it: the per-pair, per-level hot primitive of the mining episode.
+// Fused rank over the baked-C4 occ tables (K1), the level's expand step
+// built on it (the per-pair, per-level hot primitive of the mining episode)
+// and the drain's leftChar codes (K5).
 //
 // Replaces dsm_tpu/ops/rank.py occ_cumT / occ_cum8T (the XLA column gather
-// over the transposed (32, R) table) and, with the `expand` entry, the
-// expand step of dsm_tpu/mining/engine_device.py _level_single (714-724)
-// and _level_sharded (409-419): both interval ends of every pair and the
-// gate inputs (freq, the active and kept child lanes, the child bits) in
-// one launch.  Here the table stays row-major (R, 32) uint32: one 128-byte
-// row per 128-symbol block holds the 8 cum words (C4 baked in, wrapping mod
-// 2^32) and five thermometer bit planes of 4 words each (ops/rank.py
-// fused_rows); words 28..31 are padding.
+// over the transposed (32, R) table); with the `expand` entry, the expand
+// step of dsm_tpu/mining/engine_device.py _level_single (714-724) and
+// _level_sharded (409-419): both interval ends of every pair and the gate
+// inputs (freq, the active and kept child lanes, the child bits) in one
+// launch; with the `leftchar` entry, _jitted_lc_pairs
+// (engine_device.py:1077, leftchar_codes_pairsT, dsm_tpu/mining/engine.py
+// :239-260) and the shard_lc body of dsm_tpu/parallel/engine_episode.py
+// _jitted_lc_sharded (:242-267): the soff lookup by sample id, both ends'
+// ranks in the reverse table, the four right-extension counts and the code
+// select in one launch, over the staged output rows of one device or of
+// every shard of a process.  Here the table stays row-major (R, 32)
+// uint32: one 128-byte row per 128-symbol block holds the 8 cum words (C4
+// baked in, wrapping mod 2^32) and five thermometer bit planes of 4 words
+// each (ops/rank.py fused_rows); words 28..31 are padding.
 //
 // What bounds it on an H100: one dependent row gather per interval end.
 // At scale 100 the forward table (~8 MB) sits in the 50 MB L2, so the
@@ -46,10 +53,20 @@
 // All arithmetic is uint32, reinterpreted as int32, as lax.bitcast_convert
 // does in the JAX version; the baked-C4 wrap-around stays bit-exact.
 //
-// Entries (one kernel body, a mode each; ops/rank.py counts all of them as
-// launches of `rank`): dsm_occ_cum8 (one end, (8, Q)), dsm_occ_cum8_pair
-// (both ends of strided lo/hi/soff, the drain's leftChar), dsm_expand (the
-// (P, 6) pair rows -> olo, ohi, freq, keepc, cbits).
+// The leftChar entry stages a tile's 20-byte output rows with 16-byte loads
+// (the tile starts 5120 bytes apart, so one aligned list keeps every tile
+// aligned), finds each row's shard by bisecting the launch's parameter
+// table (the last shard whose first sample id is <= the row's), reads its
+// soff there, and puts (rlo, rlo + freq, soff, shard) in pair-row layout;
+// the group path then gathers both ends' rows from that shard's table, and
+// the epilogue turns the two ends' four counts into the code: nothing but
+// the rows, the soff entries, the table rows and one byte a row move.
+//
+// Entries (one kernel body, a mode each; ops/rank.py and mining/engine.py
+// count all of them as launches of `rank`): dsm_occ_cum8 (one end,
+// (8, Q)), dsm_expand (the (P, 6) pair rows -> olo, ohi, freq, keepc,
+// cbits), dsm_leftchar (the (n, 5) output rows and a shard table -> (n,)
+// int8 codes).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,27 +80,55 @@ constexpr int kTile = 256;              // queries (pairs) a block
 static_assert(kTile == kThreads, "one thread a query at both ends");
 constexpr int kPairCols = 6;            // ops/children.py PAIR_COLS
 constexpr int kLo = 0, kHi = 1, kSoff = 4;   // PC_LO, PC_HI, PC_SOFF
+// kLeftChar: the row's shard, in the column the pair rows keep PC_SID in
+constexpr int kShard = 3;
+// kLeftChar: the staged output rows (mining/engine.py OC_*, OUT_COLS)
+constexpr int kOutCols = 5;
+constexpr int kOcFreq = 0, kOcRlo = 1, kOcSid = 2;
+constexpr int kMaxShards = 128;  // ops/shardstats.py MAX_SHARDS
+constexpr int kLcN = 1, kLcZero = 0;  // mining/engine_np.py LC_N, LC_ZERO
 // a staged output row: + 8 words puts the four writing lanes of a group
 // (rows 0..3, or 4..7, at one column) and the warp's four groups
 // (neighbouring columns) in 16 distinct banks
 constexpr int kOutStride = kTile + 8;
 
-enum Mode { kSingle = 0, kPair = 1, kExpand = 2 };
+enum Mode { kSingle = 0, kExpand = 1, kLeftChar = 2 };
 
 struct Args {
   const uint4* rows;
   const int32_t* pairs;                  // kExpand: (n, 6) rows
-  const int32_t* lo;                     // kSingle (pos), kPair
-  const int32_t* hi;                     // kPair
-  const int32_t* soff;                   // kSingle, kPair
-  long long lo_stride, hi_stride, soff_stride;
-  int32_t* olo;                          // (8, n)
-  int32_t* ohi;                          // (8, n), kPair and kExpand
+  const int32_t* lo;                     // kSingle (pos)
+  const int32_t* soff;                   // kSingle
+  long long lo_stride, soff_stride;
+  int32_t* olo;                          // (8, n), kSingle and kExpand
+  int32_t* ohi;                          // (8, n), kExpand
   int32_t* freq;                         // (n,), kExpand
   uint8_t* keepc;                        // (4, n) bool, kExpand
   uint8_t* cbits;                        // (n,), kExpand
+  const int32_t* orows;                  // kLeftChar: (n, 5) rows
+  int8_t* codes;                         // kLeftChar: (n,)
   long long n;
   int fmin, sym_mask;
+};
+
+// kLeftChar's shards, in the launch's parameters: shard k's reverse table,
+// its soff (by local sample id) and its first global sample id, the bases
+// in ascending order.
+struct LcShard {
+  const uint4* rows;
+  const int32_t* soff;
+  long long base;
+};
+
+template <int kMode>
+struct Shards {
+  int n;
+};
+
+template <>
+struct Shards<kLeftChar> {
+  int n;
+  LcShard s[kMaxShards];
 };
 
 // The row of `blk`'s word-group `lane` (lane 7's is padding).
@@ -136,13 +181,22 @@ __device__ __forceinline__ void rank_end(uint4 v, uint32_t cum, uint32_t pos,
   }
 }
 
+// The table that a query of the tile reads its rows from.
+template <int kMode>
+__device__ __forceinline__ const uint4* rows_of(const Args& a,
+                                                const Shards<kMode>& tab,
+                                                const int32_t* p) {
+  if constexpr (kMode == kLeftChar) return tab.s[p[kShard]].rows;
+  return a.rows;
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-    rank_kernel(const Args a) {
+    rank_kernel(const Args a, const __grid_constant__ Shards<kMode> tab) {
   constexpr bool kTwo = kMode != kSingle;
   __shared__ __align__(16) int32_t pw[kTile * kPairCols];
   __shared__ int32_t s_lo[8 * kOutStride];
-  __shared__ int32_t s_hi[kTwo ? 8 * kOutStride : 1];
+  __shared__ __align__(16) int32_t s_hi[kTwo ? 8 * kOutStride : 1];
 
   const long long base = (long long)blockIdx.x * kTile;
   const int cnt = a.n - base < kTile ? (int)(a.n - base) : kTile;
@@ -157,11 +211,40 @@ __global__ void __launch_bounds__(kThreads)
       reinterpret_cast<int4*>(pw)[i] =
           __ldg(reinterpret_cast<const int4*>(src) + i);
     for (int i = 4 * vec + t; i < words; i += kThreads) pw[i] = src[i];
+  } else if constexpr (kMode == kLeftChar) {
+    // the tile's rows into s_hi (rewritten only after the barrier below)
+    int32_t* raw = s_hi;
+    const int32_t* src = a.orows + base * kOutCols;
+    const int words = cnt * kOutCols;
+    int done = 0;                        // words loaded 16 bytes at once
+    if ((reinterpret_cast<uintptr_t>(a.orows) & 15) == 0) {
+      const int vec = words >> 2;
+      for (int i = t; i < vec; i += kThreads)
+        reinterpret_cast<int4*>(raw)[i] =
+            __ldg(reinterpret_cast<const int4*>(src) + i);
+      done = 4 * vec;
+    }
+    for (int i = done + t; i < words; i += kThreads) raw[i] = src[i];
+    __syncthreads();
+    if (t < cnt) {
+      const int32_t* r = raw + t * kOutCols;
+      const uint32_t rlo = (uint32_t)r[kOcRlo];
+      const long long sid = r[kOcSid];
+      int lo = 0, hi = tab.n - 1;        // the last shard whose base <= sid
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (tab.s[mid].base <= sid) lo = mid; else hi = mid - 1;
+      }
+      int32_t* p = pw + t * kPairCols;
+      p[kLo] = (int32_t)rlo;
+      p[kHi] = (int32_t)(rlo + (uint32_t)r[kOcFreq]);
+      p[kSoff] = __ldg(tab.s[lo].soff + (sid - tab.s[lo].base));
+      p[kShard] = lo;
+    }
   } else if (t < cnt) {
     const long long q = base + t;
     pw[t * kPairCols + kLo] = a.lo[q * a.lo_stride];
     pw[t * kPairCols + kSoff] = a.soff[q * a.soff_stride];
-    if constexpr (kTwo) pw[t * kPairCols + kHi] = a.hi[q * a.hi_stride];
   }
   __syncthreads();
 
@@ -176,11 +259,13 @@ __global__ void __launch_bounds__(kThreads)
     const bool has1 = i1 < cnt;
     const int32_t* p0 = pw + i0 * kPairCols;
     const int32_t* p1 = pw + (has1 ? i1 : i0) * kPairCols;
+    const uint4* rows0 = rows_of<kMode>(a, tab, p0);
+    const uint4* rows1 = rows_of<kMode>(a, tab, p1);
     const uint32_t lo0 = (uint32_t)p0[kLo], lo1 = (uint32_t)p1[kLo];
     const long long b_lo0 = (long long)(lo0 >> 7) + p0[kSoff];
     const long long b_lo1 = (long long)(lo1 >> 7) + p1[kSoff];
-    const uint4 v_lo0 = load_row(a.rows, b_lo0, lane);
-    const uint4 v_lo1 = has1 ? load_row(a.rows, b_lo1, lane) : v_lo0;
+    const uint4 v_lo0 = load_row(rows0, b_lo0, lane);
+    const uint4 v_lo1 = has1 ? load_row(rows1, b_lo1, lane) : v_lo0;
     if constexpr (!kTwo) {
       rank_end(v_lo0, cum_word(v_lo0, lane, mask), lo0, lane, mask, s_lo, i0);
       if (has1)
@@ -193,9 +278,9 @@ __global__ void __launch_bounds__(kThreads)
     const long long b_hi1 = (long long)(hi1 >> 7) + p1[kSoff];
     // group-uniform: every lane of a group reads the same pair
     const bool same0 = b_hi0 == b_lo0, same1 = b_hi1 == b_lo1;
-    const uint4 v_hi0 = same0 ? v_lo0 : load_row(a.rows, b_hi0, lane);
+    const uint4 v_hi0 = same0 ? v_lo0 : load_row(rows0, b_hi0, lane);
     const uint4 v_hi1 = (same1 || !has1) ? v_lo1
-                                         : load_row(a.rows, b_hi1, lane);
+                                         : load_row(rows1, b_hi1, lane);
     uint32_t cum = cum_word(v_lo0, lane, mask);
     rank_end(v_lo0, cum, lo0, lane, mask, s_lo, i0);
     if (!same0) cum = cum_word(v_hi0, lane, mask);
@@ -213,13 +298,29 @@ __global__ void __launch_bounds__(kThreads)
   if (t >= cnt) return;
   const long long q = base + t;
   const long long n = a.n;
+  if constexpr (kMode == kLeftChar) {
+    // the four right-extension counts at (rlo, rlo + freq): the first base
+    // that every occurrence extends with, else N if any extends, else 0
+    const int32_t freq =
+        (int32_t)((uint32_t)pw[t * kPairCols + kHi] -
+                  (uint32_t)pw[t * kPairCols + kLo]);
+    int code = kLcZero;
+    bool any = false;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) a.olo[k * n + q] = s_lo[k * kOutStride + t];
-  if constexpr (kTwo) {
+    for (int c = 3; c >= 0; --c) {
+      const int32_t cf = (int32_t)((uint32_t)s_hi[c * kOutStride + t] -
+                                   (uint32_t)s_lo[c * kOutStride + t]);
+      if (freq > 0 && cf == freq) code = c + 2;
+      any |= cf > 0;
+    }
+    a.codes[q] = (int8_t)(code >= 2 ? code : (any ? kLcN : kLcZero));
+  } else {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) a.ohi[k * n + q] = s_hi[k * kOutStride + t];
+    for (int k = 0; k < 8; ++k) a.olo[k * n + q] = s_lo[k * kOutStride + t];
   }
   if constexpr (kMode == kExpand) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a.ohi[k * n + q] = s_hi[k * kOutStride + t];
     const int32_t lo = pw[t * kPairCols + kLo], hi = pw[t * kPairCols + kHi];
     const bool pa = hi > lo;
     a.freq[q] = pa ? (int32_t)((uint32_t)hi - (uint32_t)lo) : 0;
@@ -237,11 +338,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int kMode>
-int launch(const Args& a, void* stream) {
+int launch(const Args& a, const Shards<kMode>& tab, void* stream) {
   const long long blocks = (a.n + kTile - 1) / kTile;
   rank_kernel<kMode><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      a);
+      a, tab);
   return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch(const Args& a, void* stream) {
+  return launch<kMode>(a, Shards<kMode>{0}, stream);
 }
 
 }  // namespace
@@ -262,26 +368,6 @@ extern "C" int dsm_occ_cum8(const void* rows, const void* pos,
   return launch<kSingle>(a, stream);
 }
 
-// Both ends: lo, hi, soff (q,) int32 at any stride; olo, ohi (8, q).
-extern "C" int dsm_occ_cum8_pair(const void* rows, const void* lo,
-                                 long long lo_stride, const void* hi,
-                                 long long hi_stride, const void* soff,
-                                 long long soff_stride, void* olo, void* ohi,
-                                 long long q_total, void* stream) {
-  Args a{};
-  a.rows = (const uint4*)rows;
-  a.lo = (const int32_t*)lo;
-  a.lo_stride = lo_stride;
-  a.hi = (const int32_t*)hi;
-  a.hi_stride = hi_stride;
-  a.soff = (const int32_t*)soff;
-  a.soff_stride = soff_stride;
-  a.olo = (int32_t*)olo;
-  a.ohi = (int32_t*)ohi;
-  a.n = q_total;
-  return launch<kPair>(a, stream);
-}
-
 // The expand step: pairs (p, 6) int32 contiguous and 16-byte aligned;
 // olo, ohi (8, p) int32, freq (p,) int32, keepc (4, p) bool, cbits (p,)
 // uint8.
@@ -300,4 +386,26 @@ extern "C" int dsm_expand(const void* rows, const void* pairs, void* olo,
   a.fmin = fmin;
   a.sym_mask = sym_mask;
   return launch<kExpand>(a, stream);
+}
+
+// leftChar codes of the staged output rows: orows (n, 5) int32 contiguous
+// (16-byte aligned for the vector loads; any 4-byte alignment works);
+// shards: nshards x (reverse rows pointer, soff pointer, first global
+// sample id) int64 in HOST memory, copied into the launch's parameters,
+// the ids ascending, every row's OC_SID at or above the first; codes (n,)
+// int8.  1 <= nshards <= kMaxShards.
+extern "C" int dsm_leftchar(const void* orows, long long n, const void* shards,
+                            int nshards, void* codes, void* stream) {
+  if (nshards < 1 || nshards > kMaxShards) return (int)cudaErrorInvalidValue;
+  Shards<kLeftChar> tab;
+  tab.n = nshards;
+  const long long* h = (const long long*)shards;
+  for (int k = 0; k < nshards; ++k)
+    tab.s[k] = LcShard{(const uint4*)h[3 * k], (const int32_t*)h[3 * k + 1],
+                       h[3 * k + 2]};
+  Args a{};
+  a.orows = (const int32_t*)orows;
+  a.codes = (int8_t*)codes;
+  a.n = n;
+  return launch<kLeftChar>(a, tab, stream);
 }

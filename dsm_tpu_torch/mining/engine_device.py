@@ -62,8 +62,11 @@ from ..ops.segstats import (S_ENT_MAX, S_ENT_MIN, S_GATED, Gates,
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
 from .config import MiningConfig
-from .engine import (MAX_SAMPLES, OUT_RESERVE, TAIL_WIDTH, DeviceIndexes,
-                     leftchar_codes_pairs)
+# the output-row columns OC_* and OUT_COLS live in engine.py, beside the
+# leftChar entry that reads them, and are imported from here too
+from .engine import (MAX_SAMPLES, OC_DEPTH, OC_FREQ, OC_RLO,  # noqa: F401
+                     OC_ROW, OC_SID, OUT_COLS, OUT_RESERVE, TAIL_WIDTH,
+                     DeviceIndexes, leftchar_rows)
 from .engine_np import (MinedOutput, _Level, mine_from_level,
                         node_entropy)
 from .gnulazy import LazyGnuOrder
@@ -80,9 +83,6 @@ ENT_MARGIN = 1e-2
 # PC_LO, PC_HI, PC_RLO, PC_SID, PC_SOFF, PC_NID (dsm_tpu's rows hold the
 # node id in column 4 and the table offset in column 5)
 JAX_PAIR_COLS = [0, 1, 2, 3, 5, 4]
-# output-row columns ((k, 5) int32), as in dsm_tpu
-OC_FREQ, OC_RLO, OC_SID, OC_ROW, OC_DEPTH = range(5)
-OUT_COLS = 5
 # EXT_CHARS byte -> symbol code; 255 for a byte outside EXT_CHARS
 _CODE = np.full(256, 255, dtype=np.uint8)
 _CODE[np.frombuffer(EXT_CHARS, dtype=np.uint8)] = np.arange(len(EXT_CHARS))
@@ -470,9 +470,7 @@ def _drain(out: MinedOutput, cfg: MiningConfig, d: int, st: EpisodeState,
         return False
     orows = torch.cat(st.out)
     st.out, st.ocount = [], 0
-    lc_dev = leftchar_codes_pairs(
-        dev.rrows, dev.soff[orows[:, OC_SID].to(torch.int64)],
-        orows[:, OC_RLO], orows[:, OC_FREQ])
+    lc_dev = leftchar_rows([(dev.rrows, dev.soff, 0)], orows)
     _emit_drained(out, cfg, d, st, ph, seg_depth0, orows.cpu().numpy(),
                   lc_dev.cpu().numpy(), tracker)
     return True

@@ -14,8 +14,8 @@ passes the device's current stream, raises on a non-zero code and adds
 one to the kernel's count in `LAUNCHES`: the counts are of wrapper calls
 that launched the kernel, and nothing else adds to them.  The key `rank`
 counts launches of the rank kernel by any of its three entries,
-`occ_cum8`, `occ_cum8_pair` (the drain's leftChar) and `expand` (a
-level's expand step).  The key
+`occ_cum8`, `expand` (a level's expand step) and `leftchar` (a drain's
+leftChar codes, mining/engine.leftchar_rows).  The key
 `compact` counts launches of the compaction kernel by either of its
 entries, `compact_rows` and the emit's `stage_rows`: the mine and sharded
 paths reach it through the emit.  `PATHS` names
@@ -58,9 +58,6 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # rows, pos, pos_stride, soff, soff_stride, out, q, stream
     "dsm_occ_cum8": [_P, _P, _I64, _P, _I64, _P, _I64, _P],
-    # rows, lo, lo_stride, hi, hi_stride, soff, soff_stride, olo, ohi, q,
-    # stream
-    "dsm_occ_cum8_pair": [_P, _P, _I64, _P, _I64, _P, _I64, _P, _P, _I64, _P],
     # rows, pairs, olo, ohi, freq, keepc, cbits, p, fmin, sym_mask, stream
     "dsm_expand": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     # mask, values, n, c, out, width, scratch, count, stream
@@ -89,8 +86,10 @@ _SIGNATURES = {
                        _P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P],
     # U -> look-back words
     "dsm_node_gates_workspace": [_I64],
-    # table, nblk, n_tot, C, sid_col, out, lc_out, stream
-    "dsm_gather_pack": [_P, _I, _I64, _I, _I, _P, _P, _P],
+    # table (a host table), nblk, C, sid_col, out, lc_out, stream
+    "dsm_gather_pack": [_P, _I, _I, _I, _P, _P, _P],
+    # orows, n, shards (a host table), nshards, codes, stream
+    "dsm_leftchar": [_P, _I64, _P, _I, _P, _P],
     # hist, lvl_off, rows, jrel, m, maxj, base, syms, stream
     "dsm_decode": [_P, _P, _P, _P, _I64, _I, _P, _P, _P],
     # F, f_is64, bins, nfactor, R, d, nbins, slices, counts, order, count,

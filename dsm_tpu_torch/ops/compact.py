@@ -41,15 +41,19 @@ def compact_rows_plain(mask: torch.Tensor, values: torch.Tensor,
 
 
 def stage_rows_plain(pair_out: torch.Tensor, pairs: torch.Tensor,
-                     depth: int, width: int):
+                     depth: int, width: int, out: torch.Tensor | None = None):
     """Plain PyTorch version of the emit entry (any device): the (P, 5)
-    rows stacked, then compacted."""
+    rows stacked, then compacted (into `out` where it is given)."""
     orows = torch.stack(
         [pairs[:, _PC_HI] - pairs[:, _PC_LO], pairs[:, _PC_RLO],
          pairs[:, _PC_SID], pairs[:, _PC_NID],
          torch.full((pairs.shape[0],), depth, dtype=torch.int32,
                     device=pairs.device)], dim=1)
-    return compact_rows_plain(pair_out, orows, width)
+    rows, count = compact_rows_plain(pair_out, orows, width)
+    if out is None:
+        return rows, count
+    out.copy_(rows)
+    return out, count
 
 
 def _check(name: str, mask: torch.Tensor, rows: torch.Tensor) -> None:
@@ -65,15 +69,23 @@ def _check(name: str, mask: torch.Tensor, rows: torch.Tensor) -> None:
 
 
 def _launch(entry: str, mask: torch.Tensor, rows: torch.Tensor, arg: int,
-            cols: int, width: int):
+            cols: int, width: int, out: torch.Tensor | None = None):
     """One launch of the compaction kernel through `entry`; `arg` is the
     entry's own scalar (the row width, or the depth).  The mask may start
-    at any byte (a slice): the kernel then reads it byte by byte."""
+    at any byte (a slice): the kernel then reads it byte by byte.  `out`,
+    where it is given, is a contiguous (width, cols) int32 tensor on the
+    rows' device at any 4-byte alignment (a run of rows of a larger
+    buffer)."""
     device, n = rows.device, rows.shape[0]
+    if out is None:
+        out = torch.empty((width, cols), dtype=torch.int32, device=device)
+    elif (out.dtype != torch.int32 or out.shape != (width, cols)
+          or not out.is_contiguous() or out.device != device):
+        raise ValueError(f"{entry}: out must be contiguous ({width}, {cols}) "
+                         f"int32 on {device}")
     if n == 0:
-        return (torch.zeros((width, cols), dtype=torch.int32, device=device),
+        return (out.zero_(),
                 torch.zeros((), dtype=torch.int64, device=device))
-    out = torch.empty((width, cols), dtype=torch.int32, device=device)
     count = torch.empty((), dtype=torch.int64, device=device)
     scratch = torch.empty(-(-n // TILE_ROWS) + 1, dtype=torch.int64,
                           device=device)
@@ -95,15 +107,17 @@ def compact_rows(mask: torch.Tensor, values: torch.Tensor, width: int):
 
 
 def stage_rows(pair_out: torch.Tensor, pairs: torch.Tensor, depth: int,
-               width: int):
+               width: int, out: torch.Tensor | None = None):
     """-> (out (width, 5) int32, count): the (hi - lo, rlo, sid, nid,
     depth) rows of the pairs that `pair_out` marks, in order.  pair_out:
-    (P,) bool; pairs: (P, 6) int32 contiguous pair rows.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    (P,) bool; pairs: (P, 6) int32 contiguous pair rows; out: where the
+    rows go (a contiguous (width, 5) int32 run of rows of a staging
+    buffer), or None for a new tensor.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if pairs.device.type == "cpu":
-        return stage_rows_plain(pair_out, pairs, depth, width)
+        return stage_rows_plain(pair_out, pairs, depth, width, out)
     _check("stage_rows", pair_out, pairs)
     if pairs.shape[1] != 6:
         raise ValueError("stage_rows: pairs must be (P, 6) pair rows")
     return _launch("dsm_stage_rows", pair_out, pairs, depth, STAGE_COLS,
-                   width)
+                   width, out)

@@ -26,7 +26,9 @@ expand step built on them (dsm_tpu/mining/engine_device.py:714-724).  Its
 table is the ROW-major (R, ROWW) `fused_rows` table (stored as int32 bit
 patterns: torch has no general uint32 arithmetic); dsm_tpu's transposed
 (32, R) layout is not carried over.  One kernel body (csrc/rank.cu) has
-three entries, all counted as launches of `rank`:
+three entries, all counted as launches of `rank` (the third, the drain's
+leftChar codes, has its wrapper beside the output rows it reads:
+mining/engine.leftchar_rows):
 
   * `occ_cum8(rows, pos, soff)` -> (8, Q) int32 with rows
     [C4A+occA, C4C+occC, C4G+occG, pos-c5(+C4T), c1, c2, c3, c5] at the
@@ -34,8 +36,6 @@ three entries, all counted as launches of `rank`:
     rows 0:4 are the four child interval bounds, rows 4:8 the
     lexicographic prefix sums.  The JAX form takes (blk, rem, pos) with
     blk = (pos >> 7) + soff and rem = pos & 127; the kernel derives both;
-  * `occ_cum8_pair(rows, lo, hi, soff)` -> (occ_cum8 at lo, at hi) in one
-    launch (the drain's leftChar);
   * `expand(frows, pairs, fmin, sym_mask)`: the level's expand step on the
     (P, 6) pair rows -> (olo, ohi, freq, keepc, cbits), both ends' ranks
     and the gate inputs in one launch.
@@ -198,7 +198,7 @@ def occ_cum8_plain(rows: torch.Tensor, pos: torch.Tensor,
 
 def occ_cum8_pair_plain(rows: torch.Tensor, lo: torch.Tensor,
                         hi: torch.Tensor, soff: torch.Tensor):
-    """Plain PyTorch version of the two-ended entry: (at lo, at hi)."""
+    """The plain rank at both ends of each query: (at lo, at hi)."""
     return occ_cum8_plain(rows, lo, soff), occ_cum8_plain(rows, hi, soff)
 
 
@@ -257,25 +257,6 @@ def occ_cum8(rows: torch.Tensor, pos: torch.Tensor,
                   pos.data_ptr(), pos.stride(0), soff.data_ptr(),
                   soff.stride(0), out.data_ptr(), q)
     return out
-
-
-def occ_cum8_pair(rows: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                  soff: torch.Tensor):
-    """(occ_cum8 at lo, occ_cum8 at hi), each (8, Q) int32, in one launch.
-    lo, hi, soff: (Q,) int32, any stride."""
-    if rows.device.type == "cpu":
-        return occ_cum8_pair_plain(rows, lo, hi, soff)
-    _check_rows(rows, "occ_cum8_pair")
-    q = _check_queries(rows, "occ_cum8_pair", lo=lo, hi=hi, soff=soff)
-    olo = torch.empty((8, q), dtype=torch.int32, device=rows.device)
-    ohi = torch.empty_like(olo)
-    if q == 0:
-        return olo, ohi
-    _build.launch("dsm_occ_cum8_pair", "rank", rows.device, rows.data_ptr(),
-                  lo.data_ptr(), lo.stride(0), hi.data_ptr(), hi.stride(0),
-                  soff.data_ptr(), soff.stride(0), olo.data_ptr(),
-                  ohi.data_ptr(), q)
-    return olo, ohi
 
 
 def expand(frows: torch.Tensor, pairs: torch.Tensor, fmin: int,

@@ -12,7 +12,7 @@ Layout (parallel/mesh.SamplesMesh: world x shards_per_rank shards):
   * a shard: its samples' occ tables (parallel/engine_sharded), its pair
     list with LOCAL sample ids, `nb` (node -> first local pair; a node may
     own no pair here, so nb has nnodes + 1 entries on every shard) and its
-    staged output rows;
+    staged output rows, in one buffer that each level's emit appends to;
   * a process, once: the parent-pointer history, the level offsets, the
     depth, the node count, total_paths and the entropy range.  dsm_tpu
     keeps a replicated copy a shard; the shards of one device share one.
@@ -33,22 +33,26 @@ A level (`_level_sharded`, dsm_tpu mining/engine_device.py:350-597):
      entropy range, each shard's gated pairs, the staged maximum);
   5. in a group, a scalar max-reduce of the staged maximum, then the ONE
      readback of the level's values;
-  6. a shard: the emit through the compaction kernel and the outside-ids
-     children kernel (ops/children.children_ids);
+  6. a shard: the emit through the compaction kernel, onto the end of the
+     shard's staged rows, and the outside-ids children kernel
+     (ops/children.children_ids);
   7. the exit: HISTFULL, DONE and TAIL follow from reduced values; DRAIN
      when any shard of any process has more than `out_reserve` rows
      staged.
 Everything derived from the reduced rows is a function of integer sums, so
 every shard and process gates, numbers and exits alike.
 
-A drain (`_drain_sharded`, dsm_tpu :311-410) takes each shard's leftChar
-codes from its own reverse table, packs all shards' rows into one list
-with global sample ids (ops/gatherpack, after an all-gather of the padded
-lists where there are several processes: every process ends with the same
-rows and emits the full output), and hands it to the single-device drain's
-host half.  Snapshots hold global sample ids in (node, sample) order, so
-they resume in the single-device engine, at another shard count and in
-dsm_tpu, and theirs here.
+A drain (`_drain_sharded`, dsm_tpu :311-410) packs the staged rows of
+every shard (one block a shard) into one list with global sample ids
+(ops/gatherpack, one launch), takes the packed rows' leftChar codes, each
+from its shard's own reverse table (the rank kernel's leftChar entry, one
+launch), all-gathers rows and codes where there are several processes
+(every process ends with the same rows and emits the full output), and
+hands them to the single-device drain's host half.  A process holds at
+most MAX_SHARDS (ops/shardstats) shards: both kernels carry its shards in
+one launch's parameters.  Snapshots hold global sample ids in (node,
+sample) order, so they resume in the single-device engine, at another
+shard count and in dsm_tpu, and theirs here.
 
 No counterpart, because the port allocates every level to its size:
 `_resize_sharded`, `_auto_cap_sharded`, the bucket ladder, FLAG_GROW,
@@ -66,37 +70,42 @@ import torch.distributed as dist
 
 from ..index.fmindex import FMIndex
 from ..mining.config import MiningConfig
-from ..mining.engine import OUT_RESERVE, TAIL_WIDTH, leftchar_codes_pairs
+from ..mining.engine import OUT_RESERVE, TAIL_WIDTH, leftchar_rows
 from ..mining.engine_device import (FLAG_DONE, FLAG_DRAIN, FLAG_HISTFULL,
-                                    FLAG_RUN, FLAG_TAIL, OC_FREQ, OC_RLO,
-                                    OC_SID, OUT_COLS, TAIL_MIN_DEPTH,
+                                    FLAG_RUN, FLAG_TAIL, OC_SID, OUT_COLS,
+                                    TAIL_MIN_DEPTH,
                                     PathHistory, _emit_drained,
                                     _episode_setup, _expand, _hist_cap,
                                     _load_snapshot, _node_starts,
-                                    _run_episode, _Scalars, _stage)
+                                    _run_episode, _Scalars)
 from ..mining.engine_np import MinedOutput
 from ..ops.children import (PAIR_COLS, PC_HI, PC_NID, PC_SID, PC_SOFF,
                             children_ids)
+from ..ops.compact import stage_rows
 from ..ops.gatherpack import gather_pack
 from ..ops.segstats import F_GATED
-from ..ops.shardstats import (NACT_SHIFT, PART_COLS, V_CHILDREN, V_ENT_MAX,
-                              V_ENT_MIN, V_PRESENT, V_SHARDS, V_STAGED,
-                              kept_slot, level_values, node_gates,
-                              shard_partials)
+from ..ops.shardstats import (MAX_SHARDS, NACT_SHIFT, PART_COLS,
+                              V_CHILDREN, V_ENT_MAX, V_ENT_MIN, V_PRESENT,
+                              V_SHARDS, V_STAGED, kept_slot, level_values,
+                              node_gates, shard_partials)
 from .engine_sharded import ShardedIndexes
 from .mesh import SamplesMesh
 from .multihost import global_samples_mesh, shards_from_env
+
+STAGE_ROWS = 4096   # the least rows of a shard's staging buffer
 
 
 @dataclass
 class ShardState:
     """One shard's part of the episode: pairs (P, 6) int32 with LOCAL
-    sample ids, sorted by node; nb (nnodes + 1,) int32; out: the staged
-    (k, 5) output rows (local sample ids) awaiting a drain."""
+    sample ids, sorted by node; nb (nnodes + 1,) int32; out[:ocount]: the
+    staged (k, 5) output rows (local sample ids) awaiting a drain, rows of
+    one int32 buffer (None until the shard stages a row), so that a drain
+    hands the gather one block a shard."""
 
     pairs: torch.Tensor
     nb: torch.Tensor
-    out: list = field(default_factory=list)
+    out: torch.Tensor | None = None
     ocount: int = 0
 
 
@@ -211,8 +220,7 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
         pair_count = int(vals[V_SHARDS + 2 * k])
         n_gated = int(vals[V_SHARDS + 2 * k + 1])
         if n_gated:
-            sh.out.append(_stage(sh.pairs, pair_outs[k], n_gated, depth))
-            sh.ocount += n_gated
+            _stage_shard(sh, pair_outs[k], n_gated, depth)
         olo, ohi, keepc = expanded[k]
         sh.pairs, sh.nb = children_ids(sh.nb, sh.pairs, olo, ohi, keepc,
                                        flags, kid0, pair_count, child_total)
@@ -258,29 +266,47 @@ def _all_gather(t: torch.Tensor, mesh: SamplesMesh) -> torch.Tensor:
     return torch.stack(parts)
 
 
+def _stage_shard(sh: ShardState, pair_out: torch.Tensor, n_gated: int,
+                 depth: int) -> None:
+    """The emit step of a shard: the (freq, rlo, sid, nid, depth) output
+    rows of the `n_gated` pairs that `pair_out` marks, compacted in order
+    onto the end of its staged rows.  The buffer doubles (one copy of the
+    staged rows) when they do not fit."""
+    need = sh.ocount + n_gated
+    if sh.out is None or sh.out.shape[0] < need:
+        buf = torch.empty((max(2 * need, STAGE_ROWS), OUT_COLS),
+                          dtype=torch.int32, device=sh.pairs.device)
+        if sh.ocount:
+            buf[:sh.ocount] = sh.out[:sh.ocount]
+        sh.out = buf
+    stage_rows(pair_out, sh.pairs, depth, n_gated,
+               sh.out[sh.ocount:need])
+    sh.ocount = need
+
+
 def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
                    st: ShardedEpisodeState, ph: PathHistory, seg_depth0: int,
                    dev: ShardedIndexes, mesh: SamplesMesh,
                    tracker=None) -> bool:
-    """Every shard's staged rows with their leftChar codes (each from the
-    shard's own reverse table) packed into one list under global sample
-    ids, the same on every process; then the host half of the
-    single-device drain (engine_device._emit_drained).  -> whether a
-    shard of this process had rows staged."""
-    blocks, lcs, bases = [], [], []
+    """Every shard's staged rows packed into one list under global sample
+    ids and their leftChar codes (each from its shard's own reverse table),
+    the same on every process; then the host half of the single-device
+    drain (engine_device._emit_drained).  On the device that is two
+    launches, whatever the shard count: the gather kernel packs every
+    shard's staged rows (a block a shard), and the rank kernel's leftChar
+    entry codes the packed rows with the process's shards in its table.
+    The shards keep their buffers for the next levels.  -> whether a shard
+    of this process had rows staged."""
+    blocks, bases = [], []
     for k, sh in enumerate(st.shards):
-        if not sh.ocount:
-            continue
-        orows = sh.out[0] if len(sh.out) == 1 else torch.cat(sh.out)
-        sh.out, sh.ocount = [], 0
-        sd = dev.shards[k]
-        lcs.append(leftchar_codes_pairs(
-            sd.rrows, sd.soff[orows[:, OC_SID].to(torch.int64)],
-            orows[:, OC_RLO], orows[:, OC_FREQ]))
-        blocks.append(orows)
-        bases.append(dev.base(k))
+        if sh.ocount:
+            blocks.append(sh.out[:sh.ocount])
+            bases.append(dev.base(k))
+            sh.ocount = 0
     if blocks:
-        rows, lc = gather_pack(blocks, bases, OC_SID, lcs)
+        rows = gather_pack(blocks, bases, OC_SID)[0]
+        lc = leftchar_rows([(sd.rrows, sd.soff, dev.base(k))
+                            for k, sd in enumerate(dev.shards)], rows)
     else:
         rows = torch.empty((0, OUT_COLS), dtype=torch.int32,
                            device=dev.device)
@@ -377,6 +403,13 @@ def mine_device_sharded(
     count and in dsm_tpu, and theirs resume here."""
     if mesh is None:
         mesh = global_samples_mesh(shards_from_env(), device)
+    if mesh.shards_per_rank > MAX_SHARDS:
+        raise ValueError(
+            f"{mesh.shards_per_rank} shards a process: the sharded episode "
+            f"takes at most {MAX_SHARDS} (the level's gates kernel and the "
+            "drain's leftChar carry the process's shards in one launch's "
+            "parameters); use fewer shards a process (DSM_SHARDS) or more "
+            "processes")
     tracker, sc, prof = _episode_setup(indexes, cfg, prefix, tail_width,
                                        out_reserve, reader_order, profile)
     if dev is None:

@@ -11,9 +11,12 @@ edge shapes; the suffix array also against the host numpy one; the
 mining run (plain, killed and resumed from its snapshot, and halted) and
 the index build on the card against the port's CPU path.
 The kernels of the sharded level and drain (the partial rows, the gates
-from their sums, the outside-ids children step, the gather) are held
-against their plain versions at ragged sizes with empty segments, and a
-sharded mine (2 and 7 shards on the card) against the single-device one.
+from their sums, the outside-ids children step, the gather, the leftChar
+entry over 1, 2 and 7 shard tables) are held against their plain versions
+at ragged sizes with empty segments (the gather also with more blocks than
+one launch takes, at unaligned slices), a sharded drain must be two
+launches at 2 and 7 shards, and a sharded mine (2 and 7 shards on the
+card) is held against the single-device one.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
 version sums with index_add_, whose order on the card may differ), the
 fixed-point entropy sums of the partial rows (each term truncated from a
@@ -122,23 +125,100 @@ def test_expand_kernel(cuda, toy_indexes, p, share):
         expand(dev.frows, pairs[:, :5], 2, 15)
 
 
-def test_occ_cum8_pair_kernel(cuda, toy_indexes):
-    """The two-ended entry on strided pair-row columns, and the drain's
-    leftChar on it, against their plain versions."""
-    from dsm_tpu_torch.mining.engine import DeviceIndexes
-    from dsm_tpu_torch.ops.rank import occ_cum8_pair, occ_cum8_pair_plain
+def _staged_rows(dev, k, rng, cuda):
+    """(k, 5) int32 staged output rows over the card's samples (global
+    ids, sorted as a packed drain holds them): rlo and rlo + freq inside
+    the sample's text, every 9th freq 0."""
+    sid = np.sort(rng.integers(0, dev.S, size=k))
+    n = dev.ns[sid]
+    rlo = (rng.random(k) * (n + 1)).astype(np.int64)
+    width = np.where(rng.random(k) < 0.5, 40, n - rlo + 1)
+    freq = (rng.random(k) * np.minimum(width, n - rlo + 1)).astype(np.int64)
+    freq[::9] = 0
+    rows = np.zeros((k, 5), dtype=np.int32)
+    rows[:, 0], rows[:, 1], rows[:, 2] = freq, rlo, sid
+    rows[:, 3] = rng.integers(0, 1 << 20, size=k)
+    rows[:, 4] = rng.integers(0, 80, size=k)
+    return torch.as_tensor(rows, device=cuda)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 7])
+@pytest.mark.parametrize("k", [1, 255, 257, 300_007])
+def test_leftchar_kernel(cuda, toy_indexes, shards, k):
+    """The rank kernel's leftChar entry on staged rows with one table (the
+    single-device drain) and with 2 and 7 shard tables (7 of 5 samples:
+    two are empty) against its plain version: one launch, counted as
+    `rank`; also from rows at a 4-byte offset and into a slice of a larger
+    code vector; the shard tables' codes equal the one table's."""
+    from dsm_tpu_torch.mining.engine import (DeviceIndexes, leftchar_rows,
+                                             leftchar_rows_plain)
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
 
     dev = DeviceIndexes.build(toy_indexes, cuda)
-    pairs = _card_pairs(dev, 300_007, 0.5, np.random.default_rng(3), cuda)
-    cols = (pairs[:, 0], pairs[:, 1], pairs[:, 4])
+    if shards == 1:
+        tables = [(dev.rrows, dev.soff, 0)]
+    else:
+        sh = ShardedIndexes.build(toy_indexes,
+                                  global_samples_mesh(shards, cuda))
+        tables = [(sd.rrows, sd.soff, sh.base(j))
+                  for j, sd in enumerate(sh.shards)]
+    rows = _staged_rows(dev, k, np.random.default_rng(k + shards), cuda)
     before = _build.LAUNCHES["rank"]
-    got = occ_cum8_pair(dev.rrows, *cols)
+    got = leftchar_rows(tables, rows)
     assert _build.LAUNCHES["rank"] == before + 1
-    want = occ_cum8_pair_plain(dev.rrows, *cols)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
-    assert [t.shape for t in occ_cum8_pair(dev.rrows, empty, empty, empty)] \
-        == [(8, 0), (8, 0)]
+    want = leftchar_rows_plain(tables, rows)
+    one = leftchar_rows_plain([(dev.rrows, dev.soff, 0)], rows)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert torch.equal(want, one)
+    # rows 4 bytes off 16-byte alignment, codes into a slice at an odd byte
+    flat = torch.zeros(rows.numel() + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = rows.reshape(-1)
+    off = flat[1:].view(k, 5)
+    big = torch.full((k + 3,), -9, dtype=torch.int8, device=cuda)
+    leftchar_rows(tables, off, out=big[1:k + 1])
+    torch.cuda.synchronize()
+    assert torch.equal(big[1:k + 1], want)
+    assert int(big[0]) == -9 and (big[k + 1:] == -9).all()
+    empty = torch.zeros((0, 5), dtype=torch.int32, device=cuda)
+    assert leftchar_rows(tables, empty).shape == (0,)
+    with pytest.raises(ValueError):
+        leftchar_rows(tables, rows[:, :4])
+
+
+@pytest.mark.parametrize("shards", [2, 7])
+def test_sharded_drain_is_two_launches(cuda, toy_indexes, shards,
+                                       monkeypatch):
+    """Each drain of a sharded mine (small drains: many levels staged a
+    shard, each emit onto the shard's one buffer) launches the gather
+    kernel once and the rank kernel once (its leftChar entry), whatever
+    the shard count."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.parallel import engine_episode as tee
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    drains = []
+    drain = tee._drain_sharded
+    emits = [_build.LAUNCHES["compact"]]   # at the last drain
+
+    def counted(*a, **k):
+        chunks = _build.LAUNCHES["compact"] - emits[0]
+        before = dict(_build.LAUNCHES)
+        staged = drain(*a, **k)
+        drains.append((staged, chunks, {
+            key: _build.LAUNCHES[key] - before[key]
+            for key in ("gather_pack", "rank")}))
+        emits[0] = _build.LAUNCHES["compact"]
+        return staged
+
+    monkeypatch.setattr(tee, "_drain_sharded", counted)
+    tee.mine_device_sharded(toy_indexes, MiningConfig(fmin=2, emax=1.2),
+                            mesh=global_samples_mesh(shards, cuda),
+                            reader_order="gnu", out_reserve=64)
+    staged = [d for d in drains if d[0]]
+    assert len(staged) > 2 and max(c for _s, c, _l in staged) > shards
+    assert all(lc == {"gather_pack": 1, "rank": 1} for _s, _c, lc in staged)
 
 
 @pytest.mark.parametrize("exits", ["default", "drain+histfull"])
@@ -252,6 +332,34 @@ def test_stage_rows_kernel(cuda, p, frac):
         torch.cuda.synchronize()
         assert int(gc) == int(wc) == k
         assert torch.equal(got, want), width
+
+
+@pytest.mark.parametrize("row0", [0, 1, 2, 3, 4097])
+def test_stage_rows_kernel_into_a_buffer(cuda, row0):
+    """The emit entry into a run of rows of a larger buffer that held
+    garbage (a shard's staging buffer: 20-byte rows, so any 4-byte
+    alignment): the run equals the plain version and the rest of the
+    buffer is left as it was."""
+    from dsm_tpu_torch.ops.compact import stage_rows, stage_rows_plain
+
+    rng = np.random.default_rng(row0)
+    p = 70_001
+    pairs = torch.as_tensor(rng.integers(-2**31, 2**31, size=(p, 6),
+                                         dtype=np.int64).astype(np.int32),
+                            device=cuda)
+    mask = torch.as_tensor(rng.random(p) < 0.3, device=cuda)
+    k = int(mask.sum())
+    buf = torch.as_tensor(rng.integers(-2**31, 2**31, size=(row0 + k + 5, 5),
+                                       dtype=np.int64).astype(np.int32),
+                          device=cuda)
+    keep = buf.clone()
+    got, gc = stage_rows(mask, pairs, 9, k, buf[row0:row0 + k])
+    want, _wc = stage_rows_plain(mask, pairs, 9, k)
+    torch.cuda.synchronize()
+    assert int(gc) == k and got.data_ptr() == buf[row0:].data_ptr()
+    assert torch.equal(buf[row0:row0 + k], want)
+    assert torch.equal(buf[:row0], keep[:row0])
+    assert torch.equal(buf[row0 + k:], keep[row0 + k:])
 
 
 def test_segstats_kernel(cuda):
@@ -688,6 +796,45 @@ def test_gather_pack_kernel(cuda, sizes):
         assert torch.equal(got[0], want[0])
         assert (got[1] is None and want[1] is None) \
             or torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("C,sid_col,with_lc", [(5, 2, True), (6, 3, False)])
+def test_gather_pack_kernel_many_blocks_at_offsets(cuda, C, sid_col, with_lc):
+    """More blocks than one launch's table holds (so a launch a group of
+    MAX_BLOCKS), a third of them empty, each a slice of one tensor at any
+    4-byte offset and its codes at any byte, some past one tile of rows:
+    equal to the plain version, and the source left as it was."""
+    from dsm_tpu_torch.ops.gatherpack import (MAX_BLOCKS, gather_pack,
+                                              gather_pack_plain)
+
+    rng = np.random.default_rng(77 + C)
+    nblk = 2 * MAX_BLOCKS + 37
+    sizes = rng.integers(0, 40, size=nblk) * (rng.random(nblk) > 1 / 3)
+    sizes[::97] = rng.integers(1000, 5000, size=sizes[::97].shape[0])
+    flat = torch.as_tensor(rng.integers(
+        -2**31, 2**31, size=int(sizes.sum()) * C + 4 * nblk,
+        dtype=np.int64).astype(np.int32), device=cuda)
+    flat_lc = torch.as_tensor(rng.integers(0, 6, size=flat.shape[0])
+                              .astype(np.int8), device=cuda)
+    keep = flat.clone()
+    blocks, lcs, w = [], [], 0
+    for m in sizes.tolist():
+        w += int(rng.integers(0, 4))
+        blocks.append(flat[w:w + m * C].view(m, C))
+        lcs.append(flat_lc[w + 1:w + 1 + m])
+        w += m * C
+    bases = [int(b) for b in rng.integers(0, 2**20, size=nblk)]
+    args = (blocks, bases, sid_col, lcs if with_lc else None)
+    before = _build.LAUNCHES["gather_pack"]
+    got = gather_pack(*args)
+    groups = -(-int((sizes > 0).sum()) // MAX_BLOCKS)
+    assert groups >= 2 and _build.LAUNCHES["gather_pack"] == before + groups
+    want = gather_pack_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None and want[1] is None) \
+        or torch.equal(got[1], want[1])
+    assert torch.equal(flat, keep)
 
 
 @pytest.mark.parametrize("shards", [2, 7])

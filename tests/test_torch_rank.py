@@ -2,9 +2,12 @@
 
 The same numpy-made tables, queries and pair rows go through JAX
 `occ_cum8T` / `leftchar_codes_pairsT` / the level's expand step (on the
-CPU backend) and through the port's `occ_cum8` / `occ_cum8_pair` /
+CPU backend) and through the port's `occ_cum8` / `occ_cum8_pair_plain` /
 `expand` / `leftchar_codes_pairs` on CPU tensors, which take the plain
-PyTorch versions.  Tolerance: none, equal int32 and bool.
+PyTorch versions.  The drain's `leftchar_rows` on staged (n, 5) output rows
+is held against dsm_tpu's `_jitted_lc_pairs`, and with the rows' samples
+split over several shard tables against its one-table codes.  Tolerance:
+none, equal int32, int8 and bool.
 """
 
 import jax.numpy as jnp
@@ -15,10 +18,13 @@ import torch
 from dsm_tpu.index.alphabet import transform
 from dsm_tpu.index.fmindex import FMIndex
 from dsm_tpu.mining.engine import EXT4, leftchar_codes_pairsT
+from dsm_tpu.mining.engine_device import _jitted_lc_pairs
 from dsm_tpu.ops.rank import BLOCK, LOG2_BLOCK, OccTable, fused_rows, occ_cum8T
 from dsm_tpu_torch.convert import fmindex_from_jax
-from dsm_tpu_torch.mining.engine import DeviceIndexes, leftchar_codes_pairs
-from dsm_tpu_torch.ops.rank import (expand, occ_cum8, occ_cum8_pair,
+from dsm_tpu_torch.mining.engine import (OC_DEPTH, OC_FREQ, OC_RLO, OC_ROW,
+                                         OC_SID, OUT_COLS, DeviceIndexes,
+                                         leftchar_codes_pairs, leftchar_rows)
+from dsm_tpu_torch.ops.rank import (expand, occ_cum8, occ_cum8_pair_plain,
                                     occ_cum8_plain)
 
 
@@ -187,8 +193,8 @@ def test_expand_matches_jax(fmin, sym_mask, share):
 
 
 def test_occ_cum8_pair_matches_jax():
-    """The two-ended entry on strided columns against two occ_cum8T
-    calls."""
+    """The plain rank at both ends (the leftChar's and the expand step's
+    reference) on strided columns against two occ_cum8T calls."""
     lengths = (700, 300, 1025)
     rng = np.random.default_rng(8)
     tables = [OccTable.build(rng.integers(0, 7, size=n).astype(np.int8))
@@ -197,7 +203,76 @@ def test_occ_cum8_pair_matches_jax():
     pr = _pair_rows(lengths, soff, rng, 0.5)
     olo_w, ohi_w = _jax_ranks(rows, pr[:, 0], pr[:, 1], pr[:, 4])
     pt = torch.from_numpy(pr)
-    olo, ohi = occ_cum8_pair(torch.from_numpy(rows.view(np.int32)),
-                             pt[:, 0], pt[:, 1], pt[:, 4])
+    olo, ohi = occ_cum8_pair_plain(torch.from_numpy(rows.view(np.int32)),
+                                   pt[:, 0], pt[:, 1], pt[:, 4])
     np.testing.assert_array_equal(olo.numpy(), olo_w)
     np.testing.assert_array_equal(ohi.numpy(), ohi_w)
+
+
+def _random_indexes(rng, samples: int):
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return [fmindex_from_jax(FMIndex.from_texts([transform(
+        bases[rng.integers(0, 4, size=int(rng.integers(50, 400)))].tobytes())
+        for _ in range(int(rng.integers(1, 5)))])) for _ in range(samples)]
+
+
+def _staged_rows(rng, ns, k: int) -> np.ndarray:
+    """(k, 5) int32 staged output rows over samples of lengths `ns`: rlo
+    and rlo + freq inside the sample's text, every 7th freq 0, node rows
+    and depths at random."""
+    rows = np.zeros((k, OUT_COLS), dtype=np.int32)
+    sid = rng.integers(0, len(ns), size=k)
+    n = np.asarray(ns)[sid]
+    rlo = (rng.random(k) * (n + 1)).astype(np.int64)
+    freq = (rng.random(k) * (n - rlo + 1)).astype(np.int64)
+    freq[::7] = 0
+    rows[:, OC_FREQ], rows[:, OC_RLO], rows[:, OC_SID] = freq, rlo, sid
+    rows[:, OC_ROW] = rng.integers(0, 1 << 20, size=k)
+    rows[:, OC_DEPTH] = rng.integers(0, 60, size=k)
+    return rows
+
+
+@pytest.mark.parametrize("samples,k", [(1, 1), (3, 4000), (6, 2500)])
+def test_leftchar_rows_matches_jax(samples, k):
+    """The drain's leftChar on staged rows (one table, base 0) against
+    dsm_tpu's `_jitted_lc_pairs` on the same rows."""
+    rng = np.random.default_rng(100 + samples)
+    dev = DeviceIndexes.build(_random_indexes(rng, samples), "cpu")
+    rows = _staged_rows(rng, dev.ns, k)
+    want = np.asarray(_jitted_lc_pairs()(
+        jnp.asarray(np.ascontiguousarray(dev.rrows.numpy().view(np.uint32).T)),
+        jnp.asarray(dev.soff.numpy()), jnp.asarray(rows[:, OC_SID]),
+        jnp.asarray(rows[:, OC_RLO]), jnp.asarray(rows[:, OC_FREQ])))
+    got = leftchar_rows([(dev.rrows, dev.soff, 0)], torch.from_numpy(rows))
+    assert got.dtype == torch.int8 and got.shape == (k,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if k > 100:
+        assert set(np.unique(want)) >= {0, 1}
+
+
+@pytest.mark.parametrize("bounds", [(0, 6), (0, 2, 6), (0, 1, 3, 5, 6),
+                                    (0, 0, 2, 2, 3, 6, 6)])
+def test_leftchar_rows_over_shards_matches_one_table(bounds):
+    """The rows' samples split into consecutive shards, each with its own
+    tables (local sample ids and row offsets) and its first global sample
+    id, empty shards among them: the codes equal the one-table codes of
+    the same rows, also when written into a slice of a larger vector."""
+    rng = np.random.default_rng(sum(bounds))
+    idxs = _random_indexes(rng, 6)
+    dev = DeviceIndexes.build(idxs, "cpu")
+    empty = np.zeros((0, 32), dtype=np.uint32)
+    tables = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        sd = (DeviceIndexes.build(idxs[a:b], "cpu") if b > a else
+              DeviceIndexes.from_host([], empty, empty, [], "cpu"))
+        tables.append((sd.rrows, sd.soff, a))
+    rows = torch.from_numpy(_staged_rows(rng, dev.ns, 3000))
+    want = leftchar_rows([(dev.rrows, dev.soff, 0)], rows)
+    np.testing.assert_array_equal(leftchar_rows(tables, rows).numpy(),
+                                  want.numpy())
+    big = torch.full((rows.shape[0] + 9,), -7, dtype=torch.int8)
+    out = leftchar_rows(tables, rows, out=big[5:5 + rows.shape[0]])
+    assert out.data_ptr() == big[5:].data_ptr()
+    np.testing.assert_array_equal(big[5:5 + rows.shape[0]].numpy(),
+                                  want.numpy())
+    assert (big[:5] == -7).all() and (big[5 + rows.shape[0]:] == -7).all()

@@ -23,8 +23,12 @@ Everything runs on the CPU with the kernels' plain versions.
     the sum is divided by s_total + sum f, which exceeds the pairs'
     number, so the error stays under 2^-17 = 7.6e-6),
     the outside-ids children against a numpy statement, the gather
-    against numpy; with empty segments, an empty shard and a one-sample
-    shard, over seeded random cases.
+    against numpy (also with more blocks than one launch of its kernel
+    takes and with slices at 4-byte offsets), and the drain's leftChar
+    over a process's shard tables against the single-device codes of the
+    same rows; with empty segments, an empty shard and a one-sample
+    shard, over seeded random cases.  More than MAX_SHARDS shards a
+    process are refused before any table is built.
 (c) The slice: `mine_device_sharded` against `mine_np` and dsm_tpu's
     `mine_device_sharded` (lines, total_paths, total_output, total_occs,
     freq_histogram exactly; the entropy diagnostics within 1e-5), at full
@@ -115,11 +119,14 @@ from dsm_tpu_torch.mining.engine import DeviceIndexes  # noqa: E402
 from dsm_tpu_torch.ops.children import (PC_HI, PC_LO, PC_NID, PC_RLO,  # noqa: E402
                                         PC_SID, children_ids_plain,
                                         children_plain)
-from dsm_tpu_torch.ops.gatherpack import gather_pack_plain  # noqa: E402
+from dsm_tpu_torch.mining.engine import leftchar_rows  # noqa: E402
+from dsm_tpu_torch.ops.gatherpack import (MAX_BLOCKS,  # noqa: E402
+                                          gather_pack_plain)
 from dsm_tpu_torch.ops.segstats import (S_CHILDREN, S_ENT_MAX,  # noqa: E402
                                         S_ENT_MIN, S_GATED, S_KEPT,
                                         S_PRESENT, Gates, segstats_plain)
-from dsm_tpu_torch.ops.shardstats import (FLAG_BITS, NACT_SHIFT,  # noqa: E402
+from dsm_tpu_torch.ops.shardstats import (FLAG_BITS, MAX_SHARDS,  # noqa: E402
+                                          NACT_SHIFT,
                                           V_CHILDREN, V_ENT_MAX, V_ENT_MIN,
                                           V_PRESENT, V_SHARDS, V_STAGED,
                                           kept_slot, level_values,
@@ -127,6 +134,7 @@ from dsm_tpu_torch.ops.shardstats import (FLAG_BITS, NACT_SHIFT,  # noqa: E402
                                           shard_partials_plain)
 from dsm_tpu_torch.parallel import engine_episode as tee  # noqa: E402
 from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes  # noqa: E402
+from dsm_tpu_torch.parallel.mesh import SamplesMesh  # noqa: E402
 from dsm_tpu_torch.parallel.multihost import global_samples_mesh  # noqa: E402
 
 EXT = np.frombuffer(b"\0NACGTN", dtype=np.uint8)   # alphabet.EXT_CHARS
@@ -499,6 +507,119 @@ def test_gather_pack_matches_numpy():
                                               np.concatenate(lcs))
             else:
                 assert lc is None
+
+
+@pytest.mark.parametrize("C,sid_col,with_lc", [(5, 2, True), (6, 3, False)])
+def test_gather_pack_many_blocks_at_offsets_matches_numpy(C, sid_col,
+                                                         with_lc):
+    """More blocks than one launch's table holds (a third of them empty),
+    each a slice of one larger tensor at an offset of a few words, and
+    codes sliced at any byte."""
+    rng = np.random.default_rng(301 + C)
+    nblk = 2 * MAX_BLOCKS + 37
+    sizes = rng.integers(0, 9, size=nblk) * (rng.random(nblk) > 1 / 3)
+    big = rng.integers(-2**31, 2**31, size=int(sizes.sum()) * C + 4 * nblk,
+                       dtype=np.int64).astype(np.int32)
+    big_lc = rng.integers(0, 6, size=big.shape[0]).astype(np.int8)
+    big_t, big_lc_t = torch.from_numpy(big), torch.from_numpy(big_lc)
+    blocks, lcs, want, want_lc, w = [], [], [], [], 0
+    for m in sizes.tolist():
+        w += int(rng.integers(0, 4))         # a gap of 0-3 words
+        blocks.append(big_t[w:w + m * C].view(m, C))
+        lcs.append(big_lc_t[w:w + m])
+        want.append(big[w:w + m * C].reshape(m, C))
+        want_lc.append(big_lc[w:w + m])
+        w += m * C
+    offsets = {(b.data_ptr() // 4) % 4 for b, m in zip(blocks, sizes) if m}
+    assert len(offsets) == 4                # every 4-byte offset mod 16
+    bases = [int(b) for b in rng.integers(0, 2**20, size=nblk)]
+    rows, lc = gather_pack_plain(blocks, bases, sid_col,
+                                 lcs if with_lc else None)
+    want = np.concatenate(want)
+    want[:, sid_col] += np.repeat(bases, sizes).astype(np.int32)
+    np.testing.assert_array_equal(rows.numpy(), want)
+    if with_lc:
+        np.testing.assert_array_equal(lc.numpy(), np.concatenate(want_lc))
+    else:
+        assert lc is None
+    np.testing.assert_array_equal(big_t.numpy(), big)   # left as it was
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 5, 7])
+def test_drain_leftchar_over_shards_matches_single_device(pidx, shards):
+    """The sharded drain's leftChar: rows with global sample ids, packed in
+    shard order, coded over the process's shard tables (slices of the same
+    indexes; 7 shards of 5 samples leave two empty) equal the codes of the
+    single-device tables."""
+    rng = np.random.default_rng(410 + shards)
+    dev = DeviceIndexes.build(pidx, "cpu")
+    sh = ShardedIndexes.build(pidx, cpu_mesh(shards))
+    k = 5000
+    rows = np.zeros((k, ted.OUT_COLS), dtype=np.int32)
+    sid = np.sort(rng.integers(0, dev.S, size=k))
+    n = dev.ns[sid]
+    rlo = (rng.random(k) * (n + 1)).astype(np.int64)
+    freq = (rng.random(k) * np.minimum(n - rlo + 1, 50)).astype(np.int64)
+    freq[::9] = 0
+    rows[:, ted.OC_FREQ], rows[:, ted.OC_RLO], rows[:, ted.OC_SID] = \
+        freq, rlo, sid
+    rows_t = torch.from_numpy(rows)
+    want = leftchar_rows([(dev.rrows, dev.soff, 0)], rows_t)
+    got = leftchar_rows([(sd.rrows, sd.soff, sh.base(j))
+                         for j, sd in enumerate(sh.shards)], rows_t)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert set(np.unique(want.numpy())) >= {0, 1}
+
+
+@pytest.mark.parametrize("gated", [[1], [3000, 3000, 3001], [5, 9000, 7]])
+def test_stage_shard_appends_to_one_buffer(gated):
+    """A shard's emits land in one staging buffer, level after level: it
+    doubles when a level's rows do not fit (from STAGE_ROWS on), and its
+    live rows equal the levels' emitted rows one after another."""
+    from dsm_tpu_torch.ops.compact import stage_rows_plain
+
+    rng = np.random.default_rng(len(gated) + sum(gated))
+    sh = tee.ShardState(pairs=torch.zeros((0, 6), dtype=torch.int32),
+                        nb=torch.zeros(1, dtype=torch.int32))
+    want = []
+    for depth, n in enumerate(gated):
+        p = 2 * n + 3
+        sh.pairs = torch.from_numpy(rng.integers(
+            -2**31, 2**31, size=(p, 6), dtype=np.int64).astype(np.int32))
+        mark = np.zeros(p, dtype=bool)
+        mark[rng.choice(p, size=n, replace=False)] = True
+        pair_out = torch.from_numpy(mark)
+        want.append(stage_rows_plain(pair_out, sh.pairs, depth, n)[0])
+        tee._stage_shard(sh, pair_out, n, depth)
+        assert sh.ocount == sum(gated[:depth + 1])
+        assert sh.out.shape[0] >= max(sh.ocount, tee.STAGE_ROWS)
+    assert torch.equal(sh.out[:sh.ocount], torch.cat(want))
+
+
+@pytest.mark.parametrize("how", ["mesh", "DSM_SHARDS"])
+def test_too_many_shards_refused_before_any_table(pidx, monkeypatch, how):
+    """More than MAX_SHARDS shards a process: refused with the reason
+    before a table is built or uploaded (on a CUDA mesh too, which needs no
+    card to be named)."""
+    def build(*_a, **_k):
+        raise AssertionError("tables built before the shard count was "
+                             "checked")
+
+    monkeypatch.setattr(tee.ShardedIndexes, "build", build)
+    monkeypatch.setattr(DeviceIndexes, "from_host", build)  # every upload
+    if how == "mesh":
+        kw = dict(mesh=SamplesMesh(None, 0, 1, MAX_SHARDS + 1,
+                                   torch.device("cuda")))
+    else:
+        monkeypatch.setenv("DSM_SHARDS", str(MAX_SHARDS + 1))
+        kw = dict(device="cpu")
+    with pytest.raises(ValueError, match=f"at most {MAX_SHARDS}"):
+        tee.mine_device_sharded(pidx, convert.config_from_jax(CFG), **kw)
+    # the limit itself passes the check and goes on to build the tables
+    monkeypatch.setenv("DSM_SHARDS", str(MAX_SHARDS))
+    with pytest.raises(AssertionError, match="tables built"):
+        tee.mine_device_sharded(pidx, convert.config_from_jax(CFG),
+                                device="cpu")
 
 
 # ------------------------------------------------------- (c) the slice --
