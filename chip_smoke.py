@@ -53,7 +53,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      long-tailed), against the plain version run in chunks on the card
      (count equal, the f64 sums within DIST_TOL) and against NumPy
      `pairwise_matrices` on the first 4,096 rows; also d = 5 and d = 273 at
-     fewer rows, and with the normalising factors (this one after phase 7,
+     fewer rows, and with the normalising factors (this one after phase 12,
      so that the plain version's library workspace is not in the mine's
      peak memory). The kernels of the sharded level and drain: the
      partial rows (K9a) of one shard on the stats step's three levels
@@ -101,14 +101,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (K10) once and the rank kernel once (its leftChar entry; in the
      process group the all-gather's gather adds one), whatever the shard
      count;
-  9. distance path: the gnu mine's 485 lines through
+  9. owned: `mine_owned` (prefix ownership) on the card at 2 hosts x hash
+     depth 1 (4 prefixes) and 3 hosts x hash depth 2 (16 prefixes, split
+     5/5/6): each set's `merge_outputs` equals the warm ascending run's
+     bytes, with the reference's total_paths (47,025,699 at depth 1; at
+     depth 2 each depth-1 node is counted by the four runs under it, as
+     dsm_tpu counts it); every prefix's run launches the rank kernel once a
+     level and once a drain; each prefix's wall and levels, and their sum
+     against one full run;
+ 10. cli: the card-built indexes saved as .dsmi; two `python -m
+     dsm_tpu_torch mine --num-hosts 2 --host-id {0,1}` processes on the
+     card, their stdouts in post-order equal to the warm ascending bytes;
+     `mine --engine auto -v` names device mode and prints the same bytes;
+ 11. capacity: `plan` with the card's budget gives device mode;
+     `table_bytes + episode_bytes` is at or above the peak device memory
+     (`max_memory_allocated` after a reset) of an ascending, a gnu and a
+     2-shard run, each with its own tables alone on the card; a budget 1
+     byte short does not give device mode; `DeviceIndexes.build` under
+     DSM_HBM_BYTES=1024 raises the sizing error;
+ 12. fleet: `launch --mode local -E 1.2 -f 2` (4 servers and 5 clients of
+     the port, host code) on the port's indexes of tests/data/toydata, its
+     four outputs equal to tests/golden/server-output.default.{A,C,G,T};
+     its wall and the codec that ran;
+ 13. distance path: the gnu mine's 485 lines through
      `DistanceAccumulator(smpls=5, maxents=entropy_steps(0.05))`, exact on
      the host and exact=False on the card: count and noutput equal, the
      f64 matrices within DIST_TOL, and the kernel launched;
- 10. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
+ 14. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
      each launching its kernel.
 Launches are counted per path: set to 0 just before it, read just after
-(the mining kernels also for the resume and halt phases).
+(the mining kernels also for the resume, halt, owned and capacity
+phases).
 Then one JSON line of kernels (each with its launches on its path, its
 error and time against the plain version, the least time the card could
 take for the same bytes and operations, and the time of the one PyTorch
@@ -2046,6 +2069,304 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str):
     return launches, k10
 
 
+# ------------------------------------------------ phases 9-12: the rest of
+# `dsm`: prefix ownership, the CLI's multi-host and planned mines, capacity
+# planning against measured peaks, the wire-protocol fleet
+
+def expected_owned_paths(depth: int, present1: int) -> int:
+    """The reference's total_paths summed over the 4**depth prefix runs of
+    hash depth `depth` (1 or 2): each run also counts its prefix's depth-1
+    node, so each of the `present1` depth-1 nodes is counted by the
+    4**(depth - 1) runs under it, as dsm_tpu's mine_owned counts them."""
+    with open(os.path.join(HERE, "BENCH_BASELINE.json")) as f:
+        full = json.load(f)["reference"]["total_paths"]
+    return full + present1 * (4 ** (depth - 1) - 1)
+
+
+def phase_owned(torch, idxs, device, warm) -> dict:
+    """`mine_owned` on the card at 2 hosts x hash depth 1 and 3 hosts x
+    hash depth 2: every set's merge equals the warm ascending run's bytes,
+    with the reference's total_paths; each prefix's run launches the rank
+    kernel once a level and once a drain.  Prints each prefix's wall and
+    levels, and their sum against one full run that, like each of them,
+    uploads its own tables.  -> the launches of the 3-host set."""
+    from dsm_tpu_torch.mining import engine as eng
+    from dsm_tpu_torch.mining.engine import MiningConfig
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.parallel.multihost import merge_outputs, mine_owned
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    orig = eng.mine_torch
+    runs = []
+
+    def timed(indexes, cfg, prefix=b"", **kw):
+        prof = {}
+        rank0 = _build.LAUNCHES["rank"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(indexes, cfg, prefix=prefix, profile=prof, **kw)
+        torch.cuda.synchronize()
+        runs.append(dict(prefix=prefix.decode(),
+                         wall=round(time.perf_counter() - t0, 4),
+                         levels=prof["levels"], drains=prof["drains"],
+                         ranks=_build.LAUNCHES["rank"] - rank0,
+                         paths=out.total_paths, lines=out.total_output))
+        return out
+
+    full = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    orig(idxs, cfg, device=device, profile=full)
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    present1 = None
+    launches = None
+    eng.mine_torch = timed
+    try:
+        for hosts, depth in ((2, 1), (3, 2)):
+            runs.clear()
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            parts = [mine_owned(idxs, cfg, hosts, h, depth, device=device)
+                     for h in range(hosts)]
+            merged = merge_outputs(parts, len(idxs))
+            wall = time.perf_counter() - t0
+            label = f"{hosts} hosts x hash depth {depth}"
+            launches = path_launches("mine", f"the owned phase, {label}")
+            log(f"owned {label}: {len(runs)} prefix runs (prefix, wall s, "
+                "levels, drains, rank launches, paths, lines): "
+                + json.dumps([list(r.values()) for r in runs]))
+            log(f"owned {label}: {wall:.4f} s in all, the prefixes' walls "
+                f"sum to {sum(r['wall'] for r in runs):.4f} s against "
+                f"{full_wall:.4f} s for one full run with its own tables "
+                f"({sum(r['levels'] for r in runs)} levels against the "
+                f"full run's {full['levels']})")
+            bad = [r["prefix"] for r in runs
+                   if r["ranks"] != r["levels"] + r["drains"]]
+            if bad:
+                raise SystemExit(f"owned {label}: the rank kernel was not "
+                                 f"launched once a level and once a drain "
+                                 f"in the runs of {bad}")
+            if depth == 1:
+                present1 = sum(r["paths"] > 0 for r in runs)
+            want = expected_owned_paths(depth, present1)
+            if merged.format_lines() != warm.format_lines() \
+                    or merged.total_paths != want:
+                raise SystemExit(
+                    f"owned {label}: the merge differs from the warm "
+                    f"ascending run (paths {merged.total_paths}, want {want})")
+            log(f"owned {label}: the merge equals the warm ascending run's "
+                f"bytes, {merged.total_paths:,} paths")
+    finally:
+        eng.mine_torch = orig
+    return launches
+
+
+def port_cli(args) -> subprocess.Popen:
+    """`python -m dsm_tpu_torch <args>` from this checkout, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "dsm_tpu_torch", *args], cwd=HERE,
+        env={**os.environ, "PYTHONPATH": HERE}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+
+
+def finish(procs, label: str, timeout: int = 600) -> list:
+    """The (stdout, stderr) of started processes; fails unless each exits
+    0 within `timeout` s, and stops them all."""
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, (_o, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise SystemExit(f"{label}: exit {p.returncode}:\n"
+                             f"{err.decode()[-3000:]}")
+    return outs
+
+
+def postorder(blob: bytes) -> bytes:
+    """Lines in the reference server's post-order (by path + 0xFF)."""
+    return b"".join(sorted(blob.splitlines(keepends=True),
+                           key=lambda ln: ln.split(b" ", 1)[0] + b"\xff"))
+
+
+def phase_cli(idxs, td: str, warm) -> None:
+    """The CLI on the card (its default --device): two `mine --num-hosts 2`
+    processes, and `mine --engine auto -v`, on the card-built indexes saved
+    as .dsmi."""
+    d = os.path.join(td, "cli")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    paths = []
+    for i, idx in enumerate(idxs):
+        paths.append(os.path.join(d, f"toy{i}.dsmi"))
+        idx.save(paths[-1])
+    log(f"cli: {len(paths)} indexes saved as .dsmi in "
+        f"{time.perf_counter() - t0:.4f} s")
+    mine = ["mine", "-f", str(FMIN), "-E", str(EMAX)]
+    t0 = time.perf_counter()
+    outs = finish([port_cli([*mine, "--num-hosts", "2", "--host-id", str(h),
+                             *paths]) for h in range(2)],
+                  "cli: mine --num-hosts 2")
+    log(f"cli: two `mine --num-hosts 2` processes on the card in "
+        f"{time.perf_counter() - t0:.4f} s")
+    if postorder(outs[0][0] + outs[1][0]) != warm.format_lines():
+        raise SystemExit("cli: the two hosts' stdouts in post-order differ "
+                         "from the warm ascending run's bytes")
+    t0 = time.perf_counter()
+    (out, err), = finish([port_cli([*mine, "--engine", "auto", "-v",
+                                    *paths])], "cli: mine --engine auto")
+    line = next((ln for ln in err.decode().splitlines()
+                 if ln.startswith("mine_big: ")), "")
+    log(f"cli: `mine --engine auto -v` in {time.perf_counter() - t0:.4f} s: "
+        f"{line}")
+    if not line.startswith("mine_big: device — ") \
+            or out != warm.format_lines():
+        raise SystemExit("cli: `mine --engine auto` did not plan device mode "
+                         "or its stdout differs from the warm ascending run")
+    log("cli: both hosts' stdouts and `--engine auto`'s equal the warm "
+        "ascending run's bytes")
+
+
+def phase_capacity(torch, idxs, device) -> dict:
+    """`plan` with the card's budget, `table_bytes + episode_bytes` against
+    the peak device memory of the ascending, gnu and 2-shard runs, a
+    budget 1 byte short, and the sizing error of DeviceIndexes.build under
+    DSM_HBM_BYTES=1024.  -> the launches of the 2-shard run."""
+    from dsm_tpu_torch.mining import bigindex as big
+    from dsm_tpu_torch.mining.engine import (DeviceIndexes, MiningConfig,
+                                             hbm_budget, mine_torch)
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    tb = big.table_bytes(idxs)
+    eb = big.episode_bytes(idxs, FMIN)
+    p = big.plan(idxs, fmin=FMIN, device=device)
+    log(f"capacity: table_bytes {tb:,}, episode_bytes {eb:,} (fmin "
+        f"{FMIN}), the card's budget {hbm_budget(device):,}: plan "
+        f"{p.mode} ({p.reason})")
+    if p.mode != "device":
+        raise SystemExit("capacity: the card's own budget does not plan "
+                         "device mode")
+    short = big.plan(idxs, budget=tb + eb - 1, devices_available=1,
+                     fmin=FMIN)
+    log(f"capacity: budget {tb + eb - 1:,} (1 byte short), 1 device: plan "
+        f"{short.mode}")
+    if short.mode == "device":
+        raise SystemExit("capacity: a budget 1 byte short plans device mode")
+
+    def peak(label: str, planned: int, run) -> None:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        run()
+        torch.cuda.synchronize()
+        got = torch.cuda.max_memory_allocated(device)
+        log(f"capacity: {label}: planned {planned:,} bytes, peak "
+            f"max_memory_allocated {got:,} ({before:,} allocated before the "
+            f"run), planned / peak {planned / got:.3f}")
+        if planned < got:
+            raise SystemExit(f"capacity: {label}: the planned bytes are "
+                             "below the measured peak")
+
+    dev = DeviceIndexes.build(idxs, device)
+    for order in ("ascending", "gnu"):
+        peak(f"{order} run", tb + eb, lambda: mine_torch(
+            idxs, cfg, dev=dev, device=device, reader_order=order))
+    del dev
+    _build.reset_launches()
+    peak("2-shard gnu run (its tables built in the run)", tb + eb,
+         lambda: mine_device_sharded(idxs, cfg,
+                                     mesh=global_samples_mesh(2, device),
+                                     reader_order="gnu"))
+    launches = path_launches("mine_sharded", "the capacity phase's 2-shard run")
+    old = os.environ.get("DSM_HBM_BYTES")
+    os.environ["DSM_HBM_BYTES"] = "1024"
+    try:
+        DeviceIndexes.build(idxs, device)
+        raise SystemExit("capacity: DeviceIndexes.build under "
+                         "DSM_HBM_BYTES=1024 did not raise")
+    except ValueError as e:
+        if "mine_big" not in str(e):
+            raise SystemExit(f"capacity: the sizing error names no way out: "
+                             f"{e}")
+        log(f"capacity: under DSM_HBM_BYTES=1024: {e}")
+    finally:
+        if old is None:
+            del os.environ["DSM_HBM_BYTES"]
+        else:
+            os.environ["DSM_HBM_BYTES"] = old
+    return launches
+
+
+def free_base_port(n: int) -> int:
+    """A port p with p .. p + n - 1 all free now."""
+    import random
+    import socket
+
+    for _ in range(200):
+        base = random.randrange(20000, 60000 - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                socks.append(socket.socket())
+                socks[-1].bind(("", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise SystemExit(f"fleet: no {n} consecutive free ports")
+
+
+def phase_fleet(td: str, device) -> None:
+    """`launch --mode local -E 1.2 -f 2` (4 servers, 5 clients of the port)
+    on the port's indexes of tests/data/toydata, built on the card: the
+    four outputs against the frozen goldens."""
+    import glob
+    import gzip
+
+    from dsm_tpu_torch.index import indexes_from_fasta
+    from dsm_tpu_torch.net.native import codec_name
+
+    d = os.path.join(td, "fleet")
+    os.makedirs(d)
+    fastas = sorted(glob.glob(os.path.join(HERE, "tests", "data", "toydata",
+                                           "toy*.fasta.gz")))
+    paths = []
+    for path, idx in zip(fastas, indexes_from_fasta(fastas, device)):
+        paths.append(os.path.join(d, os.path.basename(path).split(".")[0]
+                                  + ".dsmi"))
+        idx.save(paths[-1])
+    codec = codec_name()    # builds the codec the fleet's processes load
+    t0 = time.perf_counter()
+    (out, _err), = finish([port_cli(
+        ["launch", "--mode", "local", "--tmpdir", os.path.join(d, "tmp"),
+         "--outdir", os.path.join(d, "out"), "--base-port",
+         str(free_base_port(4)), "-E", "1.2", "-f", "2", *paths])],
+        "fleet: launch --mode local")
+    wall = time.perf_counter() - t0
+    for prefix in "ACGT":
+        with gzip.open(os.path.join(HERE, "tests", "golden",
+                                    f"server-output.default.{prefix}"
+                                    ".txt.gz")) as f:
+            want = f.read()
+        with open(os.path.join(d, "out", f"server-output.{prefix}.txt"),
+                  "rb") as f:
+            if f.read() != want:
+                raise SystemExit(f"fleet: server-output.{prefix} differs "
+                                 "from the golden")
+    log(f"fleet: `launch --mode local` (4 servers, {len(paths)} clients) in "
+        f"{wall:.4f} s, codec {codec}; the four outputs equal "
+        "tests/golden/server-output.default.{A,C,G,T}")
+
+
 def gather_case(torch, blocks, label: str) -> dict:
     """K10 against its plain version on a real drain's blocks (one a shard
     that staged rows, each with its shard's base), as `_drain_sharded`
@@ -2557,6 +2878,13 @@ def main() -> int:
         launches["mine_sharded"], k10 = phase_sharded(torch, idxs, dev,
                                                       device, warm, td)
         kernels.append(k10)
+        launches["owned"] = phase_owned(torch, idxs, device, warm)
+        phase_cli(idxs, td, warm)
+        # the capacity phase reads the peak memory of runs that hold their
+        # own tables alone
+        del dev
+        launches["capacity"] = phase_capacity(torch, idxs, device)
+        phase_fleet(td, device)
     # after the mine's peak memory is read: the plain version's f64 einsums
     # leave the matrix library's 32 MiB workspace allocated for the process
     kernels += phase_distance_kernel(torch, device)

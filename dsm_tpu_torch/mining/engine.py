@@ -95,7 +95,11 @@ class DeviceIndexes:
         if resident > budget:
             raise ValueError(
                 f"resident occ tables need {resident:,} bytes but the "
-                f"device budget is {budget:,} (DSM_HBM_BYTES overrides)")
+                f"device budget is {budget:,} (DSM_HBM_BYTES overrides): "
+                "shard the sample axis over more devices "
+                "(parallel/engine_episode.py) or use `mine --engine auto` "
+                "(mining.bigindex.mine_big), which plans sharding and "
+                "falls back to the bounded-memory host engine")
 
         def up(a):
             a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)

@@ -369,6 +369,21 @@ def _resume_sharded(path: str, cfg: MiningConfig, prefix: bytes,
             int(host.get("eskip", 0)))
 
 
+def _agree_on_snapshot(exists: bool, path: str | None,
+                       mesh: SamplesMesh) -> None:
+    """Raise on every process of the group unless all of them find the
+    snapshot file `path` or none does: a process that resumed while
+    another seeded a fresh episode would enter other collectives."""
+    found = torch.tensor([int(exists)], dtype=torch.int64,
+                         device=mesh.device)
+    dist.all_reduce(found, group=mesh.group)
+    n = int(found.item())
+    if 0 < n < mesh.world:
+        raise ValueError(
+            f"the snapshot {path!r} exists on {n} of {mesh.world} processes: "
+            "a group's snapshot must be on a path that every process sees")
+
+
 def mine_device_sharded(
     indexes: list[FMIndex],
     cfg: MiningConfig,
@@ -400,9 +415,14 @@ def mine_device_sharded(
     resume, so the path is one all of them see), resumed from when it
     exists and removed when the run ends.  It holds global sample ids in
     (node, sample) order: it resumes in mine_device, at another shard
-    count and in dsm_tpu, and theirs resume here."""
+    count and in dsm_tpu, and theirs resume here.  In a group the
+    processes first agree whether it exists, and every one of them raises
+    when they do not."""
     if mesh is None:
         mesh = global_samples_mesh(shards_from_env(), device)
+    resume = checkpoint is not None and os.path.exists(checkpoint)
+    if mesh.group is not None:
+        _agree_on_snapshot(resume, checkpoint, mesh)
     if mesh.shards_per_rank > MAX_SHARDS:
         raise ValueError(
             f"{mesh.shards_per_rank} shards a process: the sharded episode "
@@ -421,7 +441,7 @@ def mine_device_sharded(
     d = dev.S
     hist_cap = _hist_cap(dev)
     eskip = 0
-    if checkpoint is not None and os.path.exists(checkpoint):
+    if resume:
         st, out, ph, eskip = _resume_sharded(checkpoint, cfg, prefix, dev,
                                              hist_cap)
     else:

@@ -6,8 +6,9 @@ Counterpart of dsm_tpu/parallel/mesh.py `SAMPLES_AXIS` and of the JAX
 process of a run without a group) has one device and holds
 `shards_per_rank` consecutive shards of the samples on it; the axis has
 world x shards_per_rank shards in all, rank r holding shards
-[r * shards_per_rank, (r + 1) * shards_per_rank).  The prefix axis of
-dsm_tpu's mesh is not ported yet.
+[r * shards_per_rank, (r + 1) * shards_per_rank).  `prefix_depth` sizes
+the DNA-prefix shards of prefix ownership (parallel/multihost); the prefix
+axis of dsm_tpu's per-level mesh is not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,14 @@ from dataclasses import dataclass
 import torch
 
 SAMPLES_AXIS = "samples"
+
+
+def prefix_depth(n_prefix: int) -> int:
+    """Smallest k with 4**k >= n_prefix (enforced-prefix length)."""
+    k = 0
+    while 4 ** k < n_prefix:
+        k += 1
+    return k
 
 
 @dataclass(frozen=True)

@@ -16,7 +16,10 @@ entry over 1, 2 and 7 shard tables) are held against their plain versions
 at ragged sizes with empty segments (the gather also with more blocks than
 one launch takes, at unaligned slices), a sharded drain must be two
 launches at 2 and 7 shards, and a sharded mine (2 and 7 shards on the
-card) is held against the single-device one.
+card) is held against the single-device one.  Prefix ownership
+(`mine_owned`) and the capacity-planned `mine_big` in each of its three
+modes mine on the card as the host engine and the single-device episode
+do.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
 version sums with index_add_, whose order on the card may differ), the
 fixed-point entropy sums of the partial rows (each term truncated from a
@@ -864,6 +867,63 @@ def test_sharded_mine_on_card_equals_single_device(cuda, toy_indexes, shards,
     assert (got.total_paths, got.total_output, got.total_occs) == \
         (want.total_paths, want.total_output, want.total_occs)
     assert abs(got.smallest_entropy - want.smallest_entropy) < 1e-5
+
+
+@pytest.mark.parametrize("hosts,depth", [(2, None), (3, 2)])
+def test_mine_owned_on_card_equals_cpu(cuda, toy_indexes, hosts, depth):
+    """Prefix ownership on the card: every host's merged runs against the
+    host engine's, lines and counters; the hosts' merge is the full mine
+    (its paths counted once more for each run under a prefix's depth-1
+    node, as dsm_tpu counts them)."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+    from dsm_tpu_torch.parallel.multihost import merge_outputs, mine_owned
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    parts = []
+    for host in range(hosts):
+        _build.reset_launches()
+        got = mine_owned(toy_indexes, cfg, hosts, host, depth, device=cuda)
+        assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["mine"])
+        want = mine_owned(toy_indexes, cfg, hosts, host, depth,
+                          engine="numpy")
+        assert got.format_lines() == want.format_lines()
+        assert (got.total_paths, got.total_output, got.total_occs) == \
+            (want.total_paths, want.total_output, want.total_occs)
+        parts.append(got)
+    merged = merge_outputs(parts, len(toy_indexes))
+    full = mine_torch(toy_indexes, cfg, device=cuda)
+    assert merged.format_lines() == full.format_lines()
+    assert merged.total_paths == full.total_paths + (12 if depth else 0)
+
+
+@pytest.mark.parametrize("mode", ["device", "shard", "host"])
+def test_mine_big_on_card(cuda, toy_indexes, mode):
+    """`mine_big` routed to each mode by its budget: the lines of the
+    single-device episode on the card, the card's launches where the plan
+    put the mine there, none where it put it on the host."""
+    from dsm_tpu_torch.mining import bigindex as big
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    eb, tb = big.episode_bytes(toy_indexes, 2), big.table_bytes(toy_indexes)
+    budget = {"device": None, "shard": tb // 2 + eb + 4096,
+              "host": eb + 1024}[mode]
+    p = big.plan(toy_indexes, budget, devices_available=4, fmin=2,
+                 device=cuda)
+    assert p.mode == mode
+    _build.reset_launches()
+    got = big.mine_big(toy_indexes, cfg, budget=budget, devices_available=4,
+                       device=cuda)
+    path = {"device": "mine", "shard": "mine_sharded", "host": None}[mode]
+    if path:
+        assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS[path])
+    else:
+        assert sum(_build.LAUNCHES.values()) == 0
+    want = mine_torch(toy_indexes, cfg, device=cuda)
+    assert got.format_lines() == want.format_lines()
+    assert got.total_paths == want.total_paths
 
 
 def test_checkpoint_resume_on_card_equals_cpu(cuda, toy_indexes, tmp_path,

@@ -220,17 +220,27 @@ def test_cli_enumerate_check_matches_dsm(dsmi_files, tmp_path):
         assert want.returncode == got.returncode == rc, got.stderr.decode()
         assert got.stderr.decode().splitlines()[-1] == \
             want.stderr.decode().splitlines()[-1]
-    p = _run("dsm_tpu_torch", "enumerate", dsmi_files[0])
-    assert p.returncode == 1 and b"not ported" in p.stderr
+    # without --check the client reads `host port prefix` triplets on
+    # stdin, and refuses none as dsm's does
+    want = _run("dsm_tpu", "enumerate", dsmi_files[0])
+    got = _run("dsm_tpu_torch", "enumerate", dsmi_files[0])
+    assert want.returncode == got.returncode == 1
+    assert got.stderr.decode().splitlines()[-1] == \
+        want.stderr.decode().splitlines()[-1] == "error: empty host info"
 
 
 @pytest.mark.parametrize("flags", [["--engine", "auto"],
                                    ["--num-hosts", "2", "--host-id", "0"]])
 def test_cli_unported_mine_flags_exit_1(dsmi_files, flags):
-    p = _run("dsm_tpu_torch", "mine", "-f", "2", "-E", "1.2", "--device",
-             "cpu", *flags, *dsmi_files)
-    assert p.returncode == 1 and not p.stdout
-    assert b"next slice" in p.stderr
+    """These flags exited 1 until the port took capacity planning and
+    prefix ownership; now they mine, and print what `dsm mine --engine
+    numpy` prints with the same share of the prefixes."""
+    args = ["mine", "-f", "2", "-E", "1.2", "-M", "8", *dsmi_files]
+    got = _run("dsm_tpu_torch", *args, "--device", "cpu", *flags)
+    dsm_flags = [f for f in flags if f not in ("--engine", "auto")]
+    want = _run("dsm_tpu", *args, "--engine", "numpy", *dsm_flags)
+    assert got.returncode == want.returncode == 0, got.stderr.decode()
+    assert got.stdout == want.stdout and got.stdout
 
 
 def test_port_never_imports_jax(dsmi_files):

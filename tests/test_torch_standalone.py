@@ -95,7 +95,11 @@ def test_the_walk_finds_the_package():
                  "dsm_tpu_torch.parallel.engine_sharded",
                  "dsm_tpu_torch.parallel.engine_episode",
                  "dsm_tpu_torch.ops.shardstats",
-                 "dsm_tpu_torch.ops.gatherpack", "chip_smoke"):
+                 "dsm_tpu_torch.ops.gatherpack",
+                 "dsm_tpu_torch.mining.bigindex", "dsm_tpu_torch.net.wire",
+                 "dsm_tpu_torch.net.native", "dsm_tpu_torch.net.client",
+                 "dsm_tpu_torch.net.server", "dsm_tpu_torch.cli.launch",
+                 "chip_smoke"):
         assert name in MODULES
 
 
