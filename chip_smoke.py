@@ -128,10 +128,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the host and exact=False on the card: count and noutput equal, the
      f64 matrices within DIST_TOL, and the kernel launched;
  14. repro path: `dsm_tpu_torch.tools.pallas_repro`'s cases must PASS,
-     each launching its kernel.
+     each launching its kernel;
+ 15. scale 1000, the JAX package's largest size (bench.py:240-281): the
+     toydata at scale 1000 (81,131,072 symbols) built on the card (10
+     suffix arrays of ~16.2M symbols through K8; the build's kernels
+     launched; toy0's both arrays against `suffix_array_plain` and its
+     round k = 16 against the plain sort and rank), uploaded once; then
+     `mine_torch(prefix=p)` for p in A, C, G, T over that one upload,
+     ascending and gnu, each against the frozen S1000 entry of its prefix
+     and concatenated against the whole; the whole trie in one episode,
+     ascending and gnu, against the frozen concatenation (paths, lines,
+     sha256, occurrences, entropy range), with at least one HISTFULL exit
+     under the default history cap; the
+     2-shard episode on the one card, gnu, against the same bytes.  Each
+     run's launches are counted from 0 (every kernel of its path
+     launched; the rank kernel once a level and once a drain), with its
+     levels, `level_s`, `drain_s`, `tail_s`, tail depth, drains, HISTFULL
+     exits, pulled levels and peak memory, and the capacity plan's bytes
+     against the peaks.  K1 (`occ_cum8` at RANK_Q queries, `expand`), K2,
+     K3, P1 and its `stage_rows` entry, K9a, K9b and K9c run at the widest
+     real level (made by the port's own level loop), K5 and K6 on the
+     whole-trie run's largest drain and path decode, K10 on the 2-shard
+     run's largest drain, each against its plain version, with the table
+     rows that the widest level's pairs touch against the 50 MB L2.
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume, halt, owned and capacity
 phases).
+Phase 15 logs its own kernels' entries (the same keys, at scale 1000) on a
+line that starts "scale 1000 kernels:", and its runs on "scale 1000
+summary:".
 Then one JSON line of kernels (each with its launches on its path, its
 error and time against the plain version, the least time the card could
 take for the same bytes and operations, and the time of the one PyTorch
@@ -179,6 +204,34 @@ VARIANTS = (("decode.cu", "kRows", 1), ("decode.cu", "kRows", 4),
 DEC_LEVELS = 48         # levels each decoded row walks (K6)
 RESUME_RESERVE = 100    # gnu order: saves at depths 10-12, 33, 59
 HALT_RESERVE = 500      # ascending: the first halt poll at depth 10
+# Phase 15's reference: tests/make_toydata.py at scale 1000 with GOLDEN_SEED,
+# fmin 2, emax 1.2, mined by dsm_tpu on the host (FMIndex.from_texts, then
+# dsm_tpu.mining.engine_np.mine_np once a prefix and reader order), as
+# `python tests/freeze_scale_reference.py DIR` prints it.  The whole trie's
+# bytes in either order are the four prefixes' concatenated, and its counts
+# their sums.  S1000_PREFIXES: (prefix, paths, lines, gnu sha256, ascending
+# sha256) of each prefix run.
+S1000_PREFIXES = (
+    ("A", 115_877_243, 826,
+     "f39d2630153d5a8f7693ae5616d858ef053ea17be389377c4bea2c58fb4b8fb1",
+     "471ddc13829e912da651a2e6c33b95c3fe6a4fc795caf2f63b0f950be75ba611"),
+    ("C", 115_825_559, 751,
+     "aad7e3e78e763d3f90eaea6a757052f6c0590bfe139397f0cb7ce70b42af4e4c",
+     "38d1db1e2aae71a16650abc3cc000df1b86b3093d60b0c05c30ea18dde947ccf"),
+    ("G", 115_818_292, 831,
+     "2cfa6874882b3a6010f0645f299db0bb5b04e8ee0bb9add133d2b28b1ae8570f",
+     "988c24dd59be87a8ea20745e5410c1e806875be47fbd11306c79f094915d78b6"),
+    ("T", 115_990_105, 750,
+     "c85722adedc068723aedb987c5dc3be412dad0e36e291310b62cd743151a596a",
+     "a6eff0f7f772263d2ad425dc304edaca5ca85de7faf62b8246329ca6aa13407e"))
+S1000 = dict(
+    scale=1000, symbols=81_131_072, paths=463_511_199, lines=3_158,
+    occs=6_411, entropy=(0.8787124922704876, 2.3219280948873626),
+    gnu="c2825a4d6ab757cf15a0da8ce17fdbda26ea94cfabb3c2f3254cf787720ec9bf",
+    ascending=(
+        "ee006466a30a27a9e5ab51b200f611f18cccdd3d0c5a5ad19729ad2dfa528095"),
+    prefixes={p: dict(paths=n, lines=m, gnu=g, ascending=a)
+              for p, n, m, g, a in S1000_PREFIXES})
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
 REPRO_BIG = 1 << 24     # P2-P4 where bytes count (128 MB moved a call)
@@ -402,40 +455,11 @@ def host_ms(torch, fn, reps: int = 200) -> float:
 
 def phase_kernels(torch, dev, device) -> list[dict]:
     from dsm_tpu_torch.ops.compact import compact_rows, compact_rows_plain
-    from dsm_tpu_torch.ops.rank import occ_cum8, occ_cum8_plain
 
     rng = np.random.default_rng(2024)
-    results = []
-
     # rank: ~4M queries on the forward table, positions over [0, n_s]
-    q = RANK_Q
-    s = rng.integers(0, dev.S, size=q)
-    pos = (rng.random(q) * (dev.ns[s] + 1)).astype(np.int64)
-    s[:dev.S] = np.arange(dev.S)            # the end of every text
-    pos[:dev.S] = dev.ns
-    pos_t = torch.as_tensor(pos.astype(np.int32), device=device)
-    soff_t = dev.soff[torch.as_tensor(s, device=device)]
-    got = occ_cum8(dev.frows, pos_t, soff_t)
-    want = occ_cum8_plain(dev.frows, pos_t, soff_t)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if err:
-        raise SystemExit(f"rank kernel disagrees with its plain version "
-                         f"(max abs err {err})")
-    results.append(dict(
-        name="occ_cum8", route="cuda", source="dsm_tpu_torch/csrc/rank.cu",
-        replaces="dsm_tpu/ops/rank.py:241", max_abs_err=err,
-        ms=cuda_ms(torch, lambda: occ_cum8(dev.frows, pos_t, soff_t)),
-        plain_ms=cuda_ms(torch,
-                         lambda: occ_cum8_plain(dev.frows, pos_t, soff_t)),
-        # the table rows these queries touch (128 B each) once, 8 B in and
-        # 32 B out a query; ~60 integer operations a query
-        **bound(128 * int(torch.unique((pos_t >> 7) + soff_t).numel())
-                + q * (8 + 32), 60 * q), library_ms=None))
-    log(f"kernel rank: Q={q} equal; {results[-1]['ms']:.4f} ms vs plain "
-        f"{results[-1]['plain_ms']:.4f} ms (bound "
-        f"{results[-1]['bound_ms']:.4f} ms)")
-    results.append(phase_expand(torch, dev, device))
+    results = [occ_cum8_case(torch, dev, device, rng),
+               phase_expand(torch, dev, device)]
 
     # compact: N = 2^23 rows, C in (2, 5, 6, 8), masks 0%, ~30%, 100%
     n = COMPACT_N
@@ -479,6 +503,46 @@ def phase_kernels(torch, dev, device) -> list[dict]:
     # 1..273 pairs (the d = 64 and d = 273 collections)
     seg = [segstats_case(torch, label, device) for label in SEG_WIDTHS]
     return results + seg[:1] + phase_level_kernels(torch, device)
+
+
+def occ_cum8_case(torch, dev, device, rng, device_time=False) -> dict:
+    """The rank kernel's one-end entry (occ_cum8) against its plain version
+    at RANK_Q queries on `dev`'s forward tables, their samples and
+    positions drawn from `rng` (the end of every text among them), timed
+    (also by the profiler's device time with `device_time`); -> its entry
+    of the kernels line."""
+    from dsm_tpu_torch.ops.rank import occ_cum8, occ_cum8_plain
+
+    q = RANK_Q
+    s = rng.integers(0, dev.S, size=q)
+    pos = (rng.random(q) * (dev.ns[s] + 1)).astype(np.int64)
+    s[:dev.S] = np.arange(dev.S)            # the end of every text
+    pos[:dev.S] = dev.ns
+    pos_t = torch.as_tensor(pos.astype(np.int32), device=device)
+    soff_t = dev.soff[torch.as_tensor(s, device=device)]
+    got = occ_cum8(dev.frows, pos_t, soff_t)
+    want = occ_cum8_plain(dev.frows, pos_t, soff_t)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        raise SystemExit(f"rank kernel disagrees with its plain version "
+                         f"(max abs err {err})")
+    entry = dict(
+        name="occ_cum8", route="cuda", source="dsm_tpu_torch/csrc/rank.cu",
+        replaces="dsm_tpu/ops/rank.py:241", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: occ_cum8(dev.frows, pos_t, soff_t)),
+        plain_ms=cuda_ms(torch,
+                         lambda: occ_cum8_plain(dev.frows, pos_t, soff_t)),
+        # the table rows these queries touch (128 B each) once, 8 B in and
+        # 32 B out a query; ~60 integer operations a query
+        **bound(128 * int(torch.unique((pos_t >> 7) + soff_t).numel())
+                + q * (8 + 32), 60 * q), library_ms=None)
+    if device_time:
+        entry["device_ms"] = device_ms(
+            torch, lambda: occ_cum8(dev.frows, pos_t, soff_t))
+    log(f"kernel rank: Q={q} equal; {entry['ms']:.4f} ms vs plain "
+        f"{entry['plain_ms']:.4f} ms (bound {entry['bound_ms']:.4f} ms)")
+    return entry
 
 
 def segstats_level(torch, label: str, device):
@@ -549,10 +613,11 @@ def segstats_case(torch, label: str, device) -> dict:
     return entry
 
 
-def widest_level(torch, dev):
-    """The pair rows that enter the widest level of the scale-100 mine,
-    made on the card by the port's own level loop (`_seed_episode`,
-    `_level`; the staged rows are dropped, not drained) -> (pairs, depth)."""
+def widest_state(dev):
+    """The widest level of a mine over `dev`'s tables, made on the card by
+    the port's own level loop (`_seed_episode`, `_level`; the staged rows
+    are dropped, not drained) -> (its pair rows, its node starts nb, its
+    depth)."""
     from dsm_tpu_torch.mining.config import MiningConfig
     from dsm_tpu_torch.mining.engine_device import (FLAG_DONE, FLAG_HISTFULL,
                                                     FLAG_TAIL, _hist_cap,
@@ -561,17 +626,17 @@ def widest_level(torch, dev):
 
     sc = _Scalars.build(MiningConfig(fmin=FMIN, emax=EMAX))
     st = _seed_episode(dev, _hist_cap(dev))
-    best, depth = st.pairs, 0
+    best = (st.pairs, st.nb, 0)
     while True:
         flag = _level(dev, sc, st)
         if flag == FLAG_HISTFULL:
             st.hist_len, st.lvl_off = 0, []
             continue
         st.out, st.ocount = [], 0
-        if st.npairs > best.shape[0]:
-            best, depth = st.pairs, st.depth
+        if st.npairs > best[0].shape[0]:
+            best = (st.pairs, st.nb, st.depth)
         if flag in (FLAG_DONE, FLAG_TAIL):
-            return best, depth
+            return best
 
 
 def synthetic_pairs(torch, dev, gen, p: int, share: float):
@@ -635,7 +700,7 @@ def phase_expand(torch, dev, device) -> dict:
     the real scale-100 mine and on a synthetic level of SEG_NODES nodes of
     1..5 pairs (~4.2M) whose share of pairs with both ends in one table row
     is the real level's; -> the synthetic level's entry."""
-    pairs, depth = widest_level(torch, dev)
+    pairs, _nb, depth = widest_state(dev)
     _entry, share = expand_case(
         torch, dev, pairs, f"the widest level of the mine (depth {depth})")
     gen = torch.Generator(device=device)
@@ -739,7 +804,7 @@ def phase_leftchar(torch, idxs, dev, device) -> dict:
         orows = max(rows_list, key=lambda r: r.shape[0])
         e, _codes = leftchar_case(torch, one, orows, f"the {order} drain")
         entry = entry or e
-    pairs, depth = widest_level(torch, dev)
+    pairs, _nb, depth = widest_state(dev)
     p = pairs.shape[0]
     wide = stage_rows(torch.ones(p, dtype=torch.bool, device=device), pairs,
                       depth, p)[0]
@@ -1062,17 +1127,16 @@ def sharded_level(torch, gen, device):
     return nid, sid, freq, cbits
 
 
-def split_level(torch, level, bounds):
-    """`sharded_level`'s level cut into the sample shards [bounds[k],
-    bounds[k+1]): per shard (nb, nid, sid, freq, cbits), its pairs in
-    (node, sample) order."""
+def split_level(torch, level, bounds, nodes: int = SEG_NODES):
+    """A level of `nodes` nodes (`sharded_level`'s) cut into the sample
+    shards [bounds[k], bounds[k+1]): per shard (nb, nid, sid, freq, cbits),
+    its pairs in (node, sample) order."""
     nid, sid, freq, cbits = level
     shards = []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         own = (sid >= lo) & (sid < hi)
-        nb = torch.zeros(SEG_NODES + 1, dtype=torch.int32, device=nid.device)
-        nb[1:] = torch.cumsum(torch.bincount(nid[own], minlength=SEG_NODES),
-                              0)
+        nb = torch.zeros(nodes + 1, dtype=torch.int32, device=nid.device)
+        nb[1:] = torch.cumsum(torch.bincount(nid[own], minlength=nodes), 0)
         shards.append((nb, nid[own], sid[own], freq[own], cbits[own]))
     return shards
 
@@ -1213,7 +1277,7 @@ def k9b_case(torch, shards, g, device) -> dict:
                                               shard_partials,
                                               shard_partials_plain)
 
-    n, U = len(shards), SEG_NODES
+    n, U = len(shards), shards[0][0].shape[0] - 1
     parts = torch.empty((n, U, PART_COLS), dtype=torch.int64, device=device)
     vals = level_values(n, device)
     launched = {"shard_partials": 0}
@@ -2853,6 +2917,602 @@ def variant_times(torch, device) -> None:
     print(json.dumps(res), flush=True)
 
 
+# ------------------------------------------------ phase 15: scale 1000, the
+# JAX package's largest size (bench.py:240-281), against a reference frozen
+# from dsm_tpu
+
+def s1000_build(torch, toy, td: str, device):
+    """The scale-1000 toydata and its indexes built on the card per sample
+    (10 suffix arrays of ~16.2M symbols through K8); -> (indexes, toy0's
+    forward and reverse codes, the build's launches, seconds a sample)."""
+    from dsm_tpu_torch.index import indexes_from_fasta
+    from dsm_tpu_torch.index.alphabet import transform
+    from dsm_tpu_torch.index.fasta import read_fasta
+    from dsm_tpu_torch.index.fmindex import collection_codes
+    from dsm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    fastas = toy.make_toydata(os.path.join(td, "s1000"), scale=S1000["scale"],
+                              seed=toy.GOLDEN_SEED)
+    log(f"scale 1000: toydata made on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    idxs, secs = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for path in fastas:
+        t0 = time.perf_counter()
+        idxs += indexes_from_fasta([path], device)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = path_launches("build", "the scale-1000 build")
+    n = sum(i.n for i in idxs)
+    log(f"scale 1000: {n:,} indexed symbols in {len(idxs)} samples, built on "
+        f"the card in {sum(secs):.4f} s (per sample: "
+        f"{', '.join(f'{t:.4f}' for t in secs)} s)")
+    if n != S1000["symbols"]:
+        raise SystemExit(f"scale 1000: {n} indexed symbols, the reference "
+                         f"has {S1000['symbols']}")
+    codes, rcodes, _lengths, _max = collection_codes(
+        [transform(rec.seq) for rec in read_fasta(fastas[0])])
+    return idxs, (codes, rcodes), launches, secs
+
+
+def s1000_sa(torch, toy0, device) -> list[dict]:
+    """K8 on toy0 at scale 1000: both directions' whole suffix arrays
+    against suffix_array_plain on the card, timed, and the sort's round k =
+    16 (`sa_round`) with the rank update; -> the sort's and the rank's
+    entries."""
+    from dsm_tpu_torch.ops.sa import (rank_round, rank_round_plain,
+                                      sort_round, suffix_array,
+                                      suffix_array_plain)
+
+    for label, codes in zip(("forward", "reverse"), toy0):
+        c = torch.as_tensor(codes, device=device)
+        got, want = suffix_array(c), suffix_array_plain(c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"scale 1000: the SA kernels disagree with the "
+                             f"plain version on toy0 {label}")
+        log(f"kernel suffix_array: scale 1000 toy0 {label} n={c.numel():,} "
+            f"equal; {cuda_ms(torch, lambda: suffix_array(c), 3):.3f} ms vs "
+            f"plain {cuda_ms(torch, lambda: suffix_array_plain(c), 2):.3f} "
+            f"ms")
+        del got, want
+    c = torch.as_tensor(toy0[0], device=device)
+    rank, k, top, (keys, order), ms, plain_ms, lib_ms = sa_round(
+        torch, c, "scale 1000 toy0 forward")
+    r1, r2 = rank.clone(), rank.clone()
+    if rank_round(keys, order, r1) != rank_round_plain(keys, order, r2) \
+            or not torch.equal(r1, r2):
+        raise SystemExit("scale 1000: sa_rank disagrees with its plain "
+                         "version")
+    n = rank.shape[0]
+    return [
+        dict(name="sa_sort", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
+             replaces="dsm_tpu/ops/sa.py:109", max_abs_err=0, ms=ms,
+             # from scratch: sa_round keeps the previous order to itself
+             device_ms=device_ms(torch, lambda: sort_round(rank, k, top)),
+             plain_ms=plain_ms,
+             **bound(n * (4 + 4 + 8 + 4),
+                     2 * n * sort_bytes_per_key(n, k, top, True)[1]),
+             library_ms=lib_ms),
+        dict(name="sa_rank", route="cuda", source="dsm_tpu_torch/csrc/sa.cu",
+             replaces="dsm_tpu/ops/sa.py:110", max_abs_err=0,
+             ms=cuda_ms(torch, lambda: rank_round(keys, order, r1)),
+             device_ms=device_ms(torch, lambda: rank_round(keys, order, r1)),
+             plain_ms=cuda_ms(torch,
+                              lambda: rank_round_plain(keys, order, r2)),
+             **bound(n * (8 + 4 + 4), 3 * n), library_ms=None)]
+
+
+def s1000_check(out, want: dict, label: str, order: str) -> str:
+    """A scale-1000 output against the frozen entry `want` (paths, lines
+    and the sha256 of its bytes in `order`); -> that sha256."""
+    sha = hashlib.sha256(out.format_lines()).hexdigest()
+    got = (out.total_paths, out.total_output, sha)
+    exp = (want["paths"], want["lines"], want[order])
+    if got != exp:
+        raise SystemExit(f"scale 1000 {label} ({order}) FAILED: got paths, "
+                         f"lines, sha256 {got}, want {exp}")
+    log(f"scale 1000 {label} ({order}): {out.total_paths:,} paths, "
+        f"{out.total_output:,} lines, sha256 {sha}: the frozen reference's")
+    return sha
+
+
+def s1000_run(torch, label: str, run, mine_path: str = "mine") -> tuple:
+    """One scale-1000 run: the launch counts set to 0 just before it and
+    read just after (every kernel of `mine_path` launched), its wall, its
+    profile, the host seconds of its walks down pulled history segments
+    (`walk_s`: engine_device._history_codes timed) and its peak device
+    memory; -> (output, the record)."""
+    from dsm_tpu_torch.mining import engine_device as ed
+    from dsm_tpu_torch.ops import _build
+
+    prof, walk = {}, [0.0]
+    history_codes = ed._history_codes
+
+    def timed(*a):
+        t = time.perf_counter()
+        codes = history_codes(*a)
+        walk[0] += time.perf_counter() - t
+        return codes
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    ed._history_codes = timed
+    t0 = time.perf_counter()
+    try:
+        out = run(prof)
+        torch.cuda.synchronize()
+    finally:
+        ed._history_codes = history_codes
+    wall = time.perf_counter() - t0
+    prof["walk_s"] = walk[0]
+    launches = {k: _build.LAUNCHES[k] for k in _build.PATHS[mine_path]}
+    rec = dict(
+        wall_s=wall, paths=out.total_paths, lines=out.total_output,
+        paths_per_s=out.total_paths / wall,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        allocated_before=before, launches=launches,
+        **{k: (round(v, 4) if isinstance(v, float) else v)
+           for k, v in prof.items()})
+    log(f"scale 1000 {label}: {json.dumps(rec)}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"scale 1000 {label}: kernels never launched: "
+                         f"{missing}")
+    if mine_path == "mine" and launches["rank"] != prof["levels"] \
+            + prof["drains"]:
+        raise SystemExit(f"scale 1000 {label}: the rank kernel was not "
+                         "launched once a level and once a drain")
+    return out, rec
+
+
+def s1000_prefixes(torch, idxs, dev, device) -> dict:
+    """The JAX package's topology at scale 1000 (bench.py:240-281): one
+    run an enforced prefix A, C, G, T over the one upload `dev`, ascending
+    and gnu, each against the frozen prefix; their concatenation against
+    the frozen whole; -> the records."""
+    from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    # one run first pays the process's one-time costs at this size (the
+    # host indexes' lazy dense tables, which the tail reads)
+    t0 = time.perf_counter()
+    mine_torch(idxs, cfg, prefix=b"A", dev=dev, device=device)
+    torch.cuda.synchronize()
+    log(f"scale 1000: a first prefix run (A, ascending, not checked) in "
+        f"{time.perf_counter() - t0:.4f} s")
+    recs, blobs, paths = {}, {"ascending": [], "gnu": []}, 0
+    for p in "ACGT":
+        for order in ("ascending", "gnu"):
+            out, recs[f"{p} {order}"] = s1000_run(
+                torch, f"prefix {p} {order}",
+                lambda prof: mine_torch(idxs, cfg, prefix=p.encode(),
+                                        dev=dev, device=device,
+                                        reader_order=order, profile=prof))
+            s1000_check(out, S1000["prefixes"][p], f"prefix {p}", order)
+            blobs[order].append(out.format_lines())
+        paths += out.total_paths
+    for order, parts in blobs.items():
+        sha = hashlib.sha256(b"".join(parts)).hexdigest()
+        if sha != S1000[order]:
+            raise SystemExit(f"scale 1000: the four prefixes' {order} bytes "
+                             f"concatenated: sha256 {sha}, want "
+                             f"{S1000[order]}")
+    if paths != S1000["paths"]:
+        raise SystemExit(f"scale 1000: the prefixes' paths sum to {paths}, "
+                         f"want {S1000['paths']}")
+    log(f"scale 1000: the four prefix runs over one upload equal the frozen "
+        f"reference, each and concatenated ({paths:,} paths; walls "
+        f"{sum(r['wall_s'] for r in recs.values()):.2f} s in all)")
+    return recs
+
+
+def s1000_keeper(torch, store: dict, entry: str, key):
+    """A stand-in for engine_device's `entry` (leftchar_rows or decode)
+    that keeps a copy of the inputs of its largest call by key(args) in
+    `store`, then calls the original; -> (the original, the stand-in)."""
+    from dsm_tpu_torch.mining import engine_device as ed
+
+    orig = getattr(ed, entry)
+
+    def keeping(*args):
+        k = key(*args)
+        if k > store.get("key", -1):
+            store.update(key=k, args=tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))
+        return orig(*args)
+
+    return orig, keeping
+
+
+def s1000_whole(torch, idxs, dev, device) -> tuple:
+    """The whole trie in one episode, ascending (keeping its largest
+    drain's rows and path decode for the kernel checks) and gnu, each
+    against the frozen concatenation, pulling its history to the host at
+    least once under the default cap (2^28 entries for ~463M nodes), then
+    ascending once more under torch.profiler; -> (records, the kept
+    inputs)."""
+    from dsm_tpu_torch.mining import engine_device as ed
+    from dsm_tpu_torch.mining.engine import MiningConfig, mine_torch
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    kept = {"leftchar": {}, "decode": {}}
+    lc_orig, lc_keep = s1000_keeper(torch, kept["leftchar"], "leftchar_rows",
+                                    lambda tables, orows: orows.shape[0])
+    dec_orig, dec_keep = s1000_keeper(
+        torch, kept["decode"], "decode",
+        lambda hist, lvl_off, rows, jrel, maxj: rows.shape[0] * maxj)
+
+    def whole(order):
+        return lambda prof: mine_torch(idxs, cfg, dev=dev, device=device,
+                                       reader_order=order, profile=prof)
+
+    recs, outs = {}, {}
+    ed.leftchar_rows, ed.decode = lc_keep, dec_keep
+    try:
+        outs["ascending"], recs["ascending"] = s1000_run(
+            torch, "whole trie ascending (the drains' inputs kept)",
+            whole("ascending"))
+    finally:
+        ed.leftchar_rows, ed.decode = lc_orig, dec_orig
+    outs["gnu"], recs["gnu"] = s1000_run(torch, "whole trie gnu",
+                                         whole("gnu"))
+    prof = {}
+    ms, acts, top = device_profile(torch, lambda: mine_torch(
+        idxs, cfg, dev=dev, device=device, profile=prof))
+    recs["ascending"].update(device_ms=ms, device_activities=acts,
+                             device_top=top)
+    log(f"scale 1000 whole trie ascending under torch.profiler: device time "
+        f"{fmt_ms(ms)} in {acts:,} device activities over {prof['levels']} "
+        f"levels ({prof['levels'] + prof['drains']} rank launches); the "
+        f"largest: {json.dumps(top)}")
+    for order, out in outs.items():
+        s1000_check(out, S1000, "whole trie", order)
+        if out.total_occs != S1000["occs"] or abs(
+                out.smallest_entropy - S1000["entropy"][0]) > ENT_TOL \
+                or abs(out.largest_entropy - S1000["entropy"][1]) > ENT_TOL:
+            raise SystemExit(
+                f"scale 1000 whole trie ({order}): occs {out.total_occs}, "
+                f"entropy range ({out.smallest_entropy}, "
+                f"{out.largest_entropy}), want {S1000['occs']}, "
+                f"{S1000['entropy']}")
+    exits = recs["ascending"]["histfull"] + recs["gnu"]["histfull"]
+    if exits < 1:
+        raise SystemExit("scale 1000: the whole-trie runs took no HISTFULL "
+                         "exit under the default history cap")
+    log(f"scale 1000: the whole trie in one episode equals the frozen "
+        f"concatenation, ascending and gnu, with {exits} HISTFULL exit(s) "
+        f"in the two runs")
+    return recs, kept
+
+
+def s1000_sharded(torch, idxs, device) -> tuple:
+    """`mine --engine sharded-episode` at 2 shards on the one card, gnu,
+    against the frozen concatenation; -> (its record, its largest drain's
+    blocks)."""
+    from dsm_tpu_torch.mining.engine import MiningConfig
+    from dsm_tpu_torch.parallel import engine_episode as tee
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    mesh = global_samples_mesh(2, device)
+    tables = ShardedIndexes.build(idxs, mesh)
+    drain, blocks = tee._drain_sharded, {}
+
+    def keeping(*a, **k):
+        st = a[3]
+        rows = sum(sh.ocount for sh in st.shards)
+        if rows > blocks.get("rows", 0):
+            blocks.update(rows=rows, blocks=[
+                (sh.out[:sh.ocount].clone(), a[6].base(j))
+                for j, sh in enumerate(st.shards) if sh.ocount])
+        return drain(*a, **k)
+
+    tee._drain_sharded = keeping
+    try:
+        out, rec = s1000_run(
+            torch, "2 shards gnu", lambda prof: mine_device_sharded(
+                idxs, cfg, mesh=mesh, dev=tables, reader_order="gnu",
+                profile=prof), "mine_sharded")
+    finally:
+        tee._drain_sharded = drain
+    s1000_check(out, S1000, "2 shards", "gnu")
+    want = {"shard_partials": 2 * rec["levels"], "node_gates": rec["levels"]}
+    if {k: rec["launches"][k] for k in want} != want:
+        raise SystemExit(f"scale 1000 2 shards: K9a/K9b launches "
+                         f"{rec['launches']}, not {want}")
+    return rec, blocks["blocks"]
+
+
+def s1000_level(torch, dev, device) -> list[dict]:
+    """K1 (occ_cum8 and expand), K2, K3, P1 with its stage_rows entry, and
+    K9a/K9b/K9c on the widest real level of the scale-1000 mine (made by
+    the port's own level loop), each against its plain version; the table
+    rows the level's pairs touch against the 50 MB L2; -> the entries."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine_device import _Scalars
+    from dsm_tpu_torch.ops.children import (children, children_ids,
+                                            children_ids_plain,
+                                            children_plain)
+    from dsm_tpu_torch.ops.compact import (compact_rows, compact_rows_plain,
+                                           stage_rows, stage_rows_plain)
+    from dsm_tpu_torch.ops.rank import expand
+    from dsm_tpu_torch.ops.segstats import (S_CHILDREN, S_ENT_MIN, S_GATED,
+                                            S_KEPT, segstats, segstats_plain)
+
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, shard_partials,
+                                              shard_partials_plain)
+
+    entries = [occ_cum8_case(torch, dev, device, np.random.default_rng(2031),
+                             device_time=True)]
+    timed = []   # (entry, a call of its kernel) for the device times
+    pairs, nb, depth = widest_state(dev)
+    p, u = pairs.shape[0], nb.shape[0] - 1
+    blo = (pairs[:, 0] >> 7) + pairs[:, 4]
+    bhi = (pairs[:, 1] >> 7) + pairs[:, 4]
+    rows = int(torch.unique(torch.cat([blo, bhi])).numel())
+    log(f"scale 1000: the widest level, depth {depth}: {u:,} nodes, {p:,} "
+        f"pairs; its pairs touch {rows:,} forward-table rows = "
+        f"{128 * rows / 1e6:.1f} MB of the {dev.frows.numel() * 4 / 1e6:.1f} "
+        f"MB table (the L2 holds 50 MB): each touched row is read once from "
+        f"HBM at best, and the bound charges 128 B a touched row")
+    entries.append(expand_case(torch, dev, pairs,
+                               f"scale 1000, the widest level (depth "
+                               f"{depth})")[0])
+    timed.append((entries[-1], lambda: expand(dev.frows, pairs, FMIN,
+                                              0b1111)))
+
+    g = _Scalars.build(MiningConfig(fmin=FMIN, emax=EMAX)).gates(depth, dev.S)
+    olo, ohi, freq, keepc, cbits = expand(dev.frows, pairs, FMIN, g.sym_mask)
+    fk, ek, pk, sk = segstats(nb, freq, cbits, g)
+    fp, ep, pp, sp = segstats_plain(nb, freq, cbits, g)
+    torch.cuda.synchronize()
+    got, want = sk.tolist(), sp.tolist()
+    eerr = float((ek - ep).abs().max())
+    rerr = max(abs(a - b) for a, b in zip(got[S_ENT_MIN:], want[S_ENT_MIN:]))
+    if not (torch.equal(fk, fp) and torch.equal(pk, pp)) \
+            or got[:S_ENT_MIN] != want[:S_ENT_MIN] \
+            or max(eerr, rerr) > ENT_TOL:
+        raise SystemExit(f"scale 1000: segstats disagrees with its plain "
+                         f"version at the widest level ({got} vs {want})")
+    entries.append(dict(
+        name="segstats", route="cuda",
+        source="dsm_tpu_torch/csrc/segstats.cu",
+        replaces="dsm_tpu/mining/engine_device.py:726",
+        max_abs_err=max(eerr, rerr),
+        ms=cuda_ms(torch, lambda: segstats(nb, freq, cbits, g)),
+        plain_ms=cuda_ms(torch, lambda: segstats_plain(nb, freq, cbits, g)),
+        **bound(4 * (u + 1) + 5 * p + 12 * u + p + 48, 6 * p + 6 * u,
+                F64_TOPS), library_ms=None))
+    timed.append((entries[-1], lambda: segstats(nb, freq, cbits, g)))
+    log(f"kernel segstats: scale 1000 widest level: equal (sums "
+        f"{json.dumps(got)}); {entries[-1]['ms']:.4f} ms vs plain "
+        f"{entries[-1]['plain_ms']:.4f} ms (bound "
+        f"{entries[-1]['bound_ms']:.4f} ms)")
+
+    pair_count, child_total = int(got[S_KEPT]), int(got[S_CHILDREN])
+    hk = torch.full((child_total,), -1, dtype=torch.int32, device=device)
+    hp = hk.clone()
+    kargs = (nb, pairs, olo, ohi, keepc, pair_count, child_total)
+    (kr, kn), (pr_, pn) = children(*kargs, hk), children_plain(*kargs, hp)
+    torch.cuda.synchronize()
+    if not (torch.equal(kr, pr_) and torch.equal(kn, pn)
+            and torch.equal(hk, hp)):
+        raise SystemExit("scale 1000: children disagrees with its plain "
+                         "version at the widest level")
+    del kr, kn, pr_, pn
+    entries.append(dict(
+        name="children", route="cuda",
+        source="dsm_tpu_torch/csrc/children.cu",
+        replaces="dsm_tpu/mining/engine_device.py:789", max_abs_err=0,
+        ms=cuda_ms(torch, lambda: children(*kargs, hk)),
+        plain_ms=cuda_ms(torch, lambda: children_plain(*kargs, hp), 3),
+        **bound(4 * (u + 1) + lane_bytes(keepc) + 8 * child_total + 4,
+                16 * p), library_ms=None))
+    timed.append((entries[-1], lambda: children(*kargs, hk)))
+    log(f"kernel children: scale 1000 widest level: {pair_count:,} lanes "
+        f"kept into {child_total:,} children, equal; "
+        f"{entries[-1]['ms']:.4f} ms vs plain {entries[-1]['plain_ms']:.4f} "
+        f"ms (bound {entries[-1]['bound_ms']:.4f} ms)")
+
+    n_gated = int(got[S_GATED])
+    for width in (n_gated, n_gated // 2):
+        (a, ac), (b, bc) = (stage_rows(pk, pairs, depth, width),
+                            stage_rows_plain(pk, pairs, depth, width))
+        if not torch.equal(a, b) or int(ac) != int(bc):
+            raise SystemExit("scale 1000: stage_rows disagrees with its "
+                             "plain version at the widest level")
+    entries.append(dict(
+        name="stage_rows", route="cuda",
+        source="dsm_tpu_torch/csrc/compact.cu",
+        replaces="dsm_tpu/mining/engine_device.py:858", max_abs_err=0,
+        ms=cuda_ms(torch, lambda: stage_rows(pk, pairs, depth, n_gated)),
+        plain_ms=cuda_ms(torch, lambda: stage_rows_plain(pk, pairs, depth,
+                                                         n_gated)),
+        **bound(p + n_gated * (24 + 20) + 8, 2 * p), library_ms=None))
+    live = keepc.any(0)
+    k = int(live.sum())
+    got_c, want_c = compact_rows(live, pairs, k), compact_rows_plain(
+        live, pairs, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got_c[0], want_c[0]) \
+            or int(got_c[1]) != int(want_c[1]):
+        raise SystemExit("scale 1000: compact_rows disagrees with its plain "
+                         "version at the widest level")
+    timed.append((entries[-1],
+                  lambda: stage_rows(pk, pairs, depth, n_gated)))
+    entries.append(dict(
+        name="compact_rows", route="cuda",
+        source="dsm_tpu_torch/csrc/compact.cu",
+        replaces="dsm_tpu/ops/pallas_compact.py:162", max_abs_err=0,
+        ms=cuda_ms(torch, lambda: compact_rows(live, pairs, k)),
+        plain_ms=cuda_ms(torch, lambda: compact_rows_plain(live, pairs, k)),
+        **bound(p + 2 * k * 24 + 8, 2 * p),
+        library_ms=cuda_ms(torch, lambda: pairs[live])))
+    timed.append((entries[-1], lambda: compact_rows(live, pairs, k)))
+    log(f"kernel stage_rows / compact_rows: scale 1000 widest level, "
+        f"{n_gated:,} gated pairs staged, {k:,} of {p:,} pair rows that keep "
+        f"a lane compacted: equal; {entries[-2]['ms']:.4f} / "
+        f"{entries[-1]['ms']:.4f} ms vs plain {entries[-2]['plain_ms']:.4f} "
+        f"/ {entries[-1]['plain_ms']:.4f} ms (pairs[mask] "
+        f"{entries[-1]['library_ms']:.4f} ms)")
+
+    # the sharded level's kernels on the same level cut into the 2-shard
+    # mesh's sample shards ([0, 3) and [3, 5)); K9c with K9b's ids and the
+    # level's own rank outputs; the entries have shard 0's K9a and K9c
+    level = (pairs[:, 5].to(torch.int64), pairs[:, 3].to(torch.int64), freq,
+             cbits)
+    shards = split_level(torch, level, (0, 3, dev.S), nodes=u)
+    nb0, _nid0, _sid0, freq0, cbits0 = shards[0]
+    p0 = freq0.shape[0]
+    part = torch.empty((u, PART_COLS), dtype=torch.int64, device=device)
+    kept = torch.empty(1, dtype=torch.float64, device=device)
+    shard_partials(nb0, freq0, cbits0, g.sym_mask, part, kept)
+    # the fixed-point column, in units (k9b_case holds every column)
+    off = int((part[:, 1] - shard_partials_plain(
+        nb0, freq0, cbits0, g.sym_mask)[0][:, 1]).abs().max())
+    entries.append(dict(
+        name="shard_partials", route="cuda",
+        source="dsm_tpu_torch/csrc/shardstats.cu",
+        replaces="dsm_tpu/mining/engine_device.py:421", max_abs_err=off,
+        ms=cuda_ms(torch, lambda: shard_partials(nb0, freq0, cbits0,
+                                                 g.sym_mask, part, kept)),
+        plain_ms=cuda_ms(torch, lambda: shard_partials_plain(
+            nb0, freq0, cbits0, g.sym_mask)),
+        **bound(4 * (u + 1) + 5 * p0 + 24 * u + 8, 6 * p0, F64_TOPS),
+        library_ms=None))
+    timed.append((entries[-1], lambda: shard_partials(
+        nb0, freq0, cbits0, g.sym_mask, part, kept)))
+    entry, fk9, kk9, child_total9 = k9b_case(torch, shards, g, device)
+    entries.append(entry)
+    for j, (lo, hi) in enumerate(((0, 3), (3, dev.S))):
+        own = (pairs[:, 3] >= lo) & (pairs[:, 3] < hi)
+        sp_ = pairs[own].contiguous()
+        so, sh = olo[:, own].contiguous(), ohi[:, own].contiguous()
+        skeep = keepc[:, own].contiguous()
+        cargs = (shards[j][0], sp_, so, sh, skeep, fk9, kk9,
+                 int(skeep.sum()), child_total9)
+        (kr, kn), (pr_, pn) = children_ids(*cargs), children_ids_plain(*cargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(kr, pr_) and torch.equal(kn, pn)):
+            raise SystemExit(f"scale 1000: children_ids disagrees with its "
+                             f"plain version (shard {j})")
+        del kr, kn, pr_, pn
+        if j == 0:
+            entries.append(dict(
+                name="children_ids", route="cuda",
+                source="dsm_tpu_torch/csrc/children.cu",
+                replaces="dsm_tpu/mining/engine_device.py:490",
+                max_abs_err=0,
+                ms=cuda_ms(torch, lambda: children_ids(*cargs)),
+                plain_ms=cuda_ms(torch, lambda: children_ids_plain(*cargs),
+                                 3),
+                **bound(12 * u + 4 + lane_bytes(skeep)
+                        + 4 * (child_total9 + 1), 16 * sp_.shape[0]),
+                library_ms=None))
+            c0 = cargs
+            timed.append((entries[-1], lambda: children_ids(*c0)))
+        log(f"kernel children_ids: scale 1000 widest level, shard {j}: "
+            f"{sp_.shape[0]:,} pairs, {cargs[7]:,} lanes kept, equal; "
+            f"{cuda_ms(torch, lambda: children_ids(*cargs)):.4f} ms")
+    for e, fn in timed:
+        e["device_ms"] = device_ms(torch, fn)
+    return entries
+
+
+def s1000_drain_kernels(torch, kept: dict, blocks) -> list[dict]:
+    """K5 (leftChar) on the whole-trie run's largest drain, K6 (decode) on
+    its largest path decode and K10 on the 2-shard run's largest drain's
+    blocks, each against its plain version; -> their entries."""
+    from dsm_tpu_torch.ops.decode import decode
+
+    entries = []
+    tables, orows = kept["leftchar"]["args"]
+    entries.append(leftchar_case(torch, tables, orows,
+                                 "scale 1000, the largest drain")[0])
+    args = kept["decode"]["args"]
+    entries.append(decode_case(torch, "scale 1000, the largest path decode",
+                               args))
+    entries[-1]["device_ms"] = device_ms(torch, lambda: decode(*args))
+    if blocks:
+        entries.append(gather_case(torch, blocks,
+                                   "scale 1000, the 2-shard run's largest "
+                                   "drain"))
+    return entries
+
+
+def s1000_plan(torch, idxs, recs: dict) -> dict:
+    """The capacity plan's bytes (tables + episode, fmin FMIN) against the
+    whole-trie and 2-shard runs' peaks."""
+    from dsm_tpu_torch.mining import bigindex as big
+
+    tb, eb = big.table_bytes(idxs), big.episode_bytes(idxs, FMIN)
+    plan = {"table_bytes": tb, "episode_bytes": eb,
+            "level_pairs_bound": big.level_pairs(idxs, FMIN)}
+    for label in ("ascending", "gnu", "2 shards"):
+        if label in recs:
+            peak = recs[label]["peak_bytes"]
+            plan[f"planned/peak {label}"] = (tb + eb) / peak
+            if tb + eb < peak:
+                raise SystemExit(f"scale 1000: the plan's {tb + eb:,} bytes "
+                                 f"are below the {label} run's peak {peak:,}")
+    log(f"scale 1000 capacity: {json.dumps(plan)}")
+    return plan
+
+
+def phase_scale1000(torch, toy, td: str, device) -> tuple:
+    """Phase 15: the main path at scale 1000 (see the module's docstring);
+    -> (the build's launches, the single-device mine's launches, the
+    kernels at this size)."""
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+
+    t_phase = time.perf_counter()
+    idxs, toy0, build_launches, build_s = s1000_build(torch, toy, td, device)
+    kernels = s1000_sa(torch, toy0, device)
+    del toy0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = DeviceIndexes.build(idxs, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    table = 2 * dev.frows.numel() * 4
+    log(f"scale 1000: one upload of the tables, {table:,} bytes (both "
+        f"directions), in {upload_s:.4f} s")
+    recs = s1000_prefixes(torch, idxs, dev, device)
+    whole, kept = s1000_whole(torch, idxs, dev, device)
+    recs.update(whole)
+    mine_launches = whole["gnu"]["launches"]
+    kernels += s1000_level(torch, dev, device)
+    del dev
+    sharded, blocks = s1000_sharded(torch, idxs, device)
+    recs["2 shards"] = sharded
+    kernels += s1000_drain_kernels(torch, kept, blocks)
+    del kept, blocks
+    plan = s1000_plan(torch, idxs, recs)
+    # each kernel's launches in the scale-1000 run of its path: the build,
+    # the whole-trie gnu mine, the 2-shard mine
+    counts = {**sharded["launches"], **mine_launches, **build_launches}
+    for k in kernels:
+        k["launches"] = counts[LAUNCH_KEY[k["name"]]]
+    log("scale 1000 kernels: " + json.dumps(kernels))
+    log("scale 1000 summary: " + json.dumps(dict(
+        build_s=sum(build_s), build_s_per_sample=build_s, upload_s=upload_s,
+        table_bytes=table, phase_s=time.perf_counter() - t_phase,
+        runs={k: {f: r[f] for f in ("wall_s", "levels", "level_s",
+                                    "drain_s", "tail_s", "tail_depth",
+                                    "drains", "histfull", "pulled_levels",
+                                    "pull_s", "walk_s", "peak_bytes")}
+              for k, r in recs.items()}, plan=plan)))
+    return build_launches, mine_launches, kernels
+
+
 def main() -> int:
     import torch
 
@@ -2892,6 +3552,9 @@ def main() -> int:
         f"{torch.cuda.memory_allocated(device):,} bytes")
     launches["distance"] = phase_distance(torch, device, gnu)
     launches["repro"] = phase_repro(torch, device)
+    with tempfile.TemporaryDirectory(prefix="dsm_smoke1000_") as td:
+        launches["s1000_build"], launches["s1000_mine"], _k = \
+            phase_scale1000(torch, toy, td, device)
     # a kernel of two paths (rank, compact, decode) keeps the count of the
     # first, the single-device mine
     counts = {}

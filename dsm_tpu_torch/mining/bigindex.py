@@ -72,17 +72,32 @@ def table_bytes(indexes) -> int:
     return 2 * table_rows(indexes) * ROWW * 4
 
 
-def episode_bytes(indexes, fmin: int = 1) -> int:
-    """Device bytes that an episode over `indexes` mined at `fmin` may hold
-    beside its tables, on one device or as one shard of the sharded
-    episode: the largest level's pairs and nodes (at most max(S,
-    sum(n_s) // fmin) of each), the staged output rows (up to out_reserve
+def level_pairs(indexes, fmin: int = 1, prefix: bytes = b"") -> int:
+    """The most (node, sample) pairs a level of an episode under `prefix`
+    mined at `fmin` can hold: max(S, occ // fmin), occ the occurrences of
+    the prefix's path summed over the samples (its node's interval widths,
+    each sample's n for the root).  A depth's intervals are disjoint within
+    each sample's, and a pair holds at least fmin occurrences; the levels
+    above the prefix hold one node."""
+    ns = np.array([idx.n for idx in indexes], dtype=np.int64)
+    # the episode extends a path by LF, so its node's interval is the
+    # backward search of the path reversed
+    occ = (int(ns.sum()) if not prefix
+           else sum(idx.count(prefix[::-1]) for idx in indexes))
+    return max(len(indexes), occ // fmin)
+
+
+def episode_bytes(indexes, fmin: int = 1, prefix: bytes = b"") -> int:
+    """Device bytes that an episode over `indexes` under `prefix` mined at
+    `fmin` may hold beside its tables, on one device or as one shard of
+    the sharded episode: the largest level's pairs and nodes (at most
+    `level_pairs` of each), the staged output rows (up to out_reserve
     plus one level's gated pairs, three times over: a shard's doubling
     buffer and its old copy, the drain's packed copy), the history buffer
     (engine_device._hist_cap) and the kernels' scratch.  Shards that
     share a device add their node rows and staged rows each."""
     ns = np.array([idx.n for idx in indexes], dtype=np.int64)
-    pairs = max(len(indexes), int(ns.sum()) // fmin)
+    pairs = level_pairs(indexes, fmin, prefix)
     level = (PAIR_BYTES + NODE_BYTES) * pairs
     staged = 3 * OUT_COLS * 4 * (OUT_RESERVE + pairs)
     hist = 4 * _hist_cap(SimpleNamespace(ns=ns))

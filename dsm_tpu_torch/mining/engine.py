@@ -51,7 +51,8 @@ MAX_SAMPLES = 512
 
 def hbm_budget(device: torch.device) -> int:
     """Device memory budget in bytes: 90% of what `torch.cuda.mem_get_info`
-    reports free (env DSM_HBM_BYTES overrides).  The CPU's budget is
+    reports free and of what this process's caching allocator holds
+    unallocated (env DSM_HBM_BYTES overrides).  The CPU's budget is
     unbounded (host RAM is the limit)."""
     env = os.environ.get("DSM_HBM_BYTES")
     if env:
@@ -59,7 +60,9 @@ def hbm_budget(device: torch.device) -> int:
     if device.type == "cpu":
         return 1 << 62
     free, _total = torch.cuda.mem_get_info(device)
-    return int(free * 0.9)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return int((free + cached) * 0.9)
 
 
 @dataclass

@@ -45,7 +45,7 @@ from __future__ import annotations
 import os
 import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -56,6 +56,7 @@ from ..ops.children import (PAIR_COLS, PC_HI, PC_LO, PC_NID, PC_RLO,
                             PC_SID, PC_SOFF, children)
 from ..ops.compact import stage_rows
 from ..ops.decode import decode
+from ..ops.limits import INT32_MAX
 from ..ops.rank import expand
 from ..ops.segstats import (S_ENT_MAX, S_ENT_MIN, S_GATED, Gates,
                             segstats)
@@ -66,7 +67,7 @@ from .config import MiningConfig
 # leftChar entry that reads them, and are imported from here too
 from .engine import (MAX_SAMPLES, OC_DEPTH, OC_FREQ, OC_RLO,  # noqa: F401
                      OC_ROW, OC_SID, OUT_COLS, OUT_RESERVE, TAIL_WIDTH,
-                     DeviceIndexes, leftchar_rows)
+                     DeviceIndexes, hbm_budget, leftchar_rows)
 from .engine_np import (MinedOutput, _Level, mine_from_level,
                         node_entropy)
 from .gnulazy import LazyGnuOrder
@@ -388,28 +389,45 @@ def _apply_halt(st: EpisodeState, ph: PathHistory, seg_depth0: int,
     return int(kill.sum())
 
 
-def _snapshot_state(st, live: np.ndarray) -> dict:
+def _snapshot_state(st, out: MinedOutput,
+                    live: np.ndarray) -> tuple[dict, MinedOutput]:
     """The drained episode in dsm_tpu's snapshot layout (checkpoint
     _STATE_KEYS): its int32 and float32 scalars, and the live pair rows
     `live` ((m, 6), the port's columns, global sample ids, in (node,
     sample) order) as (m, 8) int32 in its column order with the two pad
-    columns zero.  Snapshots of the port never stop inside a level: eskip
-    is 0."""
+    columns zero; -> (those arrays, the MinedOutput to write beside them).
+    Snapshots of the port never stop inside a level: eskip is 0.
+
+    The format keeps total_paths as int32 (dsm_tpu counts in int32 on the
+    device).  A count past INT32_MAX keeps INT32_MAX there and the rest in
+    the output's total_paths (an int64 counter), which is 0 in every
+    snapshot of either package: both fold the device's count into the
+    output only when the episode ends.  `_load_snapshot` adds the two, so
+    the port resumes the exact count; below INT32_MAX the file is what it
+    was, and dsm_tpu reads it as its own."""
     pairs = np.zeros((live.shape[0], 8), dtype=np.int32)
     pairs[:, JAX_PAIR_COLS] = live
+    held = min(st.total_paths, INT32_MAX)
+    if held != st.total_paths:
+        out = replace(out,
+                      total_paths=out.total_paths + st.total_paths - held)
     return dict(pairs=pairs, nvalid=np.int32(st.nnodes),
-                depth=np.int32(st.depth),
-                total_paths=np.int32(st.total_paths),
+                depth=np.int32(st.depth), total_paths=np.int32(held),
                 ent_min=np.float32(float(st.ent_min)),
-                ent_max=np.float32(float(st.ent_max)), eskip=np.int32(0))
+                ent_max=np.float32(float(st.ent_max)),
+                eskip=np.int32(0)), out
 
 
 def _load_snapshot(path: str, cfg: MiningConfig, prefix: bytes, ns):
     """A snapshot of either package -> (its state arrays, the live pair
     rows as (m, 6) int32 in the port's columns with global sample ids, in
-    (node, sample) order, MinedOutput, the frontier's paths).  Raises
-    ValueError when it was written for another config, prefix or input."""
+    (node, sample) order, MinedOutput, the frontier's paths).  The state's
+    total_paths is the episode's whole count (an int), the output's is 0
+    (`_snapshot_state`).  Raises ValueError when it was written for
+    another config, prefix or input."""
     host, out, base_paths = ckpt.load_checkpoint(path, cfg, prefix, ns)
+    host["total_paths"] = int(host["total_paths"]) + out.total_paths
+    out.total_paths = 0
     pairs = np.ascontiguousarray(
         np.asarray(host["pairs"], dtype=np.int32)[:, JAX_PAIR_COLS])
     return host, pairs, out, base_paths
@@ -577,9 +595,10 @@ def mine_device(
     fixes the device.  The history buffer takes dsm_tpu's sizing rule
     (_hist_cap; env DSM_HIST_CAP overrides).  A dict passed as
     `profile` receives host wall seconds per phase (levels, drain, tail,
-    halt polls, saves), the counts of levels run on the device (a level
-    redone after HISTFULL counts again), of drains that found staged rows
-    and of saves, and the tail's start depth.
+    halt polls, saves, HISTFULL pulls), the counts of levels run on the
+    device (a level redone after HISTFULL counts again), of drains that
+    found staged rows, of saves, of HISTFULL exits and of the levels they
+    pulled to the host, and the tail's start depth.
 
     `checkpoint`: a snapshot file in dsm_tpu's format (mining/checkpoint.py),
     written at every DRAIN and HISTFULL exit, resumed from when it exists
@@ -599,6 +618,7 @@ def mine_device(
         raise ValueError(f"tables live on {dev.device}, not on {device}")
     tracker, sc, prof = _episode_setup(indexes, cfg, prefix, tail_width,
                                        out_reserve, reader_order, profile)
+    _check_episode_fits(indexes, cfg, prefix, device)
     d = dev.S
     hist_cap = _hist_cap(dev)
     eskip = 0
@@ -615,6 +635,28 @@ def mine_device(
         drain=lambda seg_depth0: _drain(out, cfg, d, st, ph, seg_depth0, dev,
                                         tracker),
         live_pairs=lambda: st.pairs.cpu().numpy())
+
+
+def _check_episode_fits(indexes, cfg: MiningConfig, prefix: bytes,
+                        device) -> None:
+    """Refuse, before the first level, an episode that the device cannot
+    hold beside its resident tables: `bigindex.episode_bytes` (the bound
+    `mine --engine auto` plans with) over `hbm_budget`, which the tables
+    already take from."""
+    from .bigindex import episode_bytes
+
+    need = episode_bytes(indexes, cfg.fmin, prefix)
+    budget = hbm_budget(device)
+    if need > budget:
+        raise ValueError(
+            f"an episode over these {len(indexes)} samples"
+            f"{f' under prefix {prefix!r}' if prefix else ''} may hold "
+            f"{need:,} device bytes beside its tables, more than the "
+            f"budget of {budget:,} (DSM_HBM_BYTES overrides): partition the "
+            "trie by prefix (one mine_torch(prefix=...) run an enforced "
+            "prefix, their outputs concatenated in prefix order; mine "
+            "--num-hosts), shard the samples (mine --engine "
+            "sharded-episode), or let `mine --engine auto` plan it")
 
 
 def _episode_setup(indexes, cfg: MiningConfig, prefix: bytes,
@@ -642,9 +684,10 @@ def _episode_setup(indexes, cfg: MiningConfig, prefix: bytes,
                         prefix_codes=tuple(EXT_CHARS.index(b)
                                            for b in prefix))
     prof = profile if profile is not None else {}
-    for k in ("level_s", "drain_s", "tail_s", "halt_s", "save_s"):
+    for k in ("level_s", "drain_s", "tail_s", "halt_s", "save_s", "pull_s"):
         prof[k] = 0.0
-    prof.update(levels=0, drains=0, saves=0, tail_depth=None)
+    prof.update(levels=0, drains=0, saves=0, histfull=0, pulled_levels=0,
+                tail_depth=None)
     return tracker, sc, prof
 
 
@@ -685,8 +728,8 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
         t = time.perf_counter()
         live = live_pairs()
         if writes:
-            ckpt.save_checkpoint(checkpoint, _snapshot_state(st, live), out,
-                                 cfg, prefix, ns,
+            state, held = _snapshot_state(st, out, live)
+            ckpt.save_checkpoint(checkpoint, state, held, cfg, prefix, ns,
                                  _frontier_codes(st, ph, seg_depth0))
         prof["save_s"] += time.perf_counter() - t
         prof["saves"] += 1
@@ -731,7 +774,11 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
         if flag == FLAG_HISTFULL:
             # outputs reference the current segment: they were decoded by
             # the drain; now pull the finished levels and reset the segment
+            t = time.perf_counter()
+            prof["histfull"] += 1
+            prof["pulled_levels"] += len(st.lvl_off)
             _pull_segment(ph, seg_depth0, st)
+            prof["pull_s"] += time.perf_counter() - t
             seg_depth0 = st.depth
         save()
 

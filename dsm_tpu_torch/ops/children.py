@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .limits import MAX_NODES, MAX_PAIRS, refuse_past
 from .compact import compact_rows_plain
 from .segstats import EXISTS_SHIFT
 
@@ -132,6 +133,13 @@ def children_ids_plain(nb: torch.Tensor, pairs: torch.Tensor,
     return newp, nb_next
 
 
+def _refuse_counts(who: str, pair_count: int, child_total: int) -> None:
+    """The next level's sizes that its int32 formats hold (ops/limits.py)."""
+    refuse_past(who, "kept lanes", pair_count, MAX_PAIRS,
+                "int32 node starts")
+    refuse_past(who, "children", child_total, MAX_PAIRS, "int32 child ids")
+
+
 def _scratch(P: int, device) -> torch.Tensor:
     """The kernel's look-back words: two a tile of TILE_PAIRS pairs and the
     tile counter (the kernel clears them)."""
@@ -148,6 +156,9 @@ def children(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
     bool; hist: 1-D int32 with room for child_total entries; all
     contiguous on one device.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
+    refuse_past("children", "nodes", nb.shape[0] - 1, MAX_NODES,
+                "int32 history entries parent * 4 + symbol")
+    _refuse_counts("children", pair_count, child_total)
     if pairs.device.type == "cpu":
         return children_plain(nb, pairs, olo, ohi, keep, pair_count,
                               child_total, hist)
@@ -194,6 +205,7 @@ def children_ids(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
     `children`.  Every lane of `keep` must lie on an existing symbol of
     its node.  CPU tensors take the plain version; CUDA tensors launch
     the kernel."""
+    _refuse_counts("children_ids", pair_count, child_total)
     if pairs.device.type == "cpu":
         return children_ids_plain(nb, pairs, olo, ohi, keep, flags, kid0,
                                   pair_count, child_total)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .limits import MAX_COMPACT_COLS, MAX_COMPACT_ROWS, refuse_past
 
 TILE_ROWS = 4096   # csrc/compact.cu kTile
 # pair-row columns (ops/children.py PC_*) the emit rows are made of
@@ -54,6 +55,15 @@ def stage_rows_plain(pair_out: torch.Tensor, pairs: torch.Tensor,
         return rows, count
     out.copy_(rows)
     return out, count
+
+
+def _refuse(name: str, rows: torch.Tensor) -> None:
+    """The sizes the kernel's 32-bit counts hold (ops/limits.py)."""
+    refuse_past(name, "rows", rows.shape[0], MAX_COMPACT_ROWS,
+                "32-bit look-back totals")
+    if rows.dim() == 2:
+        refuse_past(name, "columns", rows.shape[1], MAX_COMPACT_COLS,
+                    "a tile's words counted in an int")
 
 
 def _check(name: str, mask: torch.Tensor, rows: torch.Tensor) -> None:
@@ -99,6 +109,7 @@ def compact_rows(mask: torch.Tensor, values: torch.Tensor, width: int):
     """-> (out (width, C) int32, count).  mask: (N,) bool; values:
     (N, C) int32 contiguous.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
+    _refuse("compact_rows", values)
     if values.device.type == "cpu":
         return compact_rows_plain(mask, values, width)
     _check("compact_rows", mask, values)
@@ -114,6 +125,7 @@ def stage_rows(pair_out: torch.Tensor, pairs: torch.Tensor, depth: int,
     rows go (a contiguous (width, 5) int32 run of rows of a staging
     buffer), or None for a new tensor.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
+    _refuse("stage_rows", pairs)
     if pairs.device.type == "cpu":
         return stage_rows_plain(pair_out, pairs, depth, width, out)
     _check("stage_rows", pair_out, pairs)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .limits import INT32_MAX, MAX_DECODE_LEVELS, refuse_past
 
 
 def decode_plain(hist: torch.Tensor, lvl_off: torch.Tensor,
@@ -41,6 +42,10 @@ def decode(hist: torch.Tensor, lvl_off: torch.Tensor, rows: torch.Tensor,
     """hist: (H,) int32; lvl_off: (>= maxj,) int32; rows, jrel: (m,) int32,
     all contiguous on one device.  CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
+    refuse_past("decode", "levels", maxj, MAX_DECODE_LEVELS,
+                "a tile's symbols counted in an int")
+    refuse_past("decode", "history entries", hist.shape[0], INT32_MAX,
+                "int32 level offsets")
     if rows.device.type == "cpu":
         return decode_plain(hist, lvl_off, rows, jrel, maxj)
     if rows.device.type != "cuda":

@@ -26,6 +26,7 @@ import array
 import torch
 
 from . import _build
+from .limits import MAX_GATHER_COLS, refuse_past
 
 MAX_BLOCKS = 128   # csrc/gatherpack.cu kMaxBlocks: the blocks of one launch
 
@@ -44,6 +45,8 @@ def gather_pack(blocks, bases, sid_col: int, lcs=None):
     """See the module's docstring.  At least one block.  CPU tensors take
     the plain version; CUDA tensors launch the kernel."""
     device = blocks[0].device
+    refuse_past("gather_pack", "columns", blocks[0].shape[1],
+                MAX_GATHER_COLS, "a tile's words counted in an int")
     if device.type == "cpu":
         return gather_pack_plain(blocks, bases, sid_col, lcs)
     if device.type != "cuda":

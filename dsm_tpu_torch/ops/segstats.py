@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .limits import MAX_PAIRS, refuse_past
 
 LOG2 = float(np.log(2.0))
 F_PRESENT, F_STAT, F_GATED = 1, 2, 4
@@ -117,6 +118,8 @@ def segstats(nb: torch.Tensor, freq: torch.Tensor, cact: torch.Tensor,
     0 for inactive pairs; cact: (P,) uint8, bit c set if child symbol c is
     active for the pair.  CPU tensors take the plain version; CUDA tensors
     launch the kernel, once."""
+    refuse_past("segstats", "pairs", freq.shape[0], MAX_PAIRS,
+                "int32 pair positions")
     if freq.device.type == "cpu":
         return segstats_plain(nb, freq, cact, g)
     if freq.device.type != "cuda":

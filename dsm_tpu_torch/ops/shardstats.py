@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .limits import MAX_NODES, MAX_PAIRS, refuse_past
 from .segstats import (EXISTS_SHIFT, F_GATED, F_PRESENT, F_STAT, LOG2,
                        Gates)
 
@@ -142,6 +143,8 @@ def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
     uint8, bit c set if child symbol c is active for the pair.  CPU
     tensors take the plain version; CUDA tensors launch the kernel, once."""
     U, P = nb.shape[0] - 1, freq.shape[0]
+    refuse_past("shard_partials", "pairs", P, MAX_PAIRS,
+                "int32 pair positions")
     if freq.device.type == "cpu":
         part, k = shard_partials_plain(nb, freq, cbits, sym_mask)
         out.copy_(part)
@@ -225,6 +228,8 @@ def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
     rows; vals: the level's values (its kept slots already written).  CPU
     tensors take the plain version; CUDA tensors launch the kernel, once,
     for any 1 <= n <= MAX_SHARDS (more raise)."""
+    refuse_past("node_gates", "nodes", parts.shape[1], MAX_NODES,
+                "int32 history entries parent * 4 + symbol")
     if parts.device.type == "cpu":
         return node_gates_plain(parts, g, hist, shards, vals)
     device = parts.device

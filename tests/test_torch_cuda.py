@@ -19,7 +19,8 @@ launches at 2 and 7 shards, and a sharded mine (2 and 7 shards on the
 card) is held against the single-device one.  Prefix ownership
 (`mine_owned`) and the capacity-planned `mine_big` in each of its three
 modes mine on the card as the host engine and the single-device episode
-do.
+do, and so do the four prefix runs over one shared upload (bench.py's
+topology for large tries) and a prefix run that pulls its history.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
 version sums with index_add_, whose order on the card may differ), the
 fixed-point entropy sums of the partial rows (each term truncated from a
@@ -993,6 +994,51 @@ def test_mine_on_card_equals_cpu(cuda, toy_indexes, exits, monkeypatch):
     assert (got.total_paths, got.total_output, got.total_occs) == \
         (want.total_paths, want.total_output, want.total_occs)
     assert abs(got.smallest_entropy - want.smallest_entropy) < 1e-9
+
+
+@pytest.mark.parametrize("order", ["ascending", "gnu"])
+def test_shared_upload_prefixes_on_card_equal_cpu(cuda, toy_indexes, order):
+    """The JAX package's topology for large tries on the card: one run an
+    enforced prefix over ONE upload, each equal to the CPU's run of the
+    prefix (lines and counters), A run again after the others equal to
+    its first run."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import DeviceIndexes, mine_torch
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    dev = DeviceIndexes.build(toy_indexes, cuda)
+    runs = []
+    for p in (b"A", b"C", b"G", b"T", b"A"):
+        _build.reset_launches()
+        got = mine_torch(toy_indexes, cfg, prefix=p, dev=dev, device=cuda,
+                         reader_order=order)
+        assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["mine"])
+        want = mine_torch(toy_indexes, cfg, prefix=p, device="cpu",
+                          reader_order=order)
+        assert got.format_lines() == want.format_lines()
+        assert (got.total_paths, got.total_output, got.total_occs) == \
+            (want.total_paths, want.total_output, want.total_occs)
+        runs.append(got.format_lines())
+    assert runs[4] == runs[0]
+
+
+def test_histfull_prefix_on_card_equals_cpu(cuda, toy_indexes, monkeypatch):
+    """A prefix run on the card that takes HISTFULL exits and decodes its
+    paths across the pulled segments, against the CPU's."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    monkeypatch.setenv("DSM_HIST_CAP", "20000")
+    prof = {}
+    got = mine_torch(toy_indexes, cfg, prefix=b"A", device=cuda,
+                     reader_order="gnu", profile=prof)
+    assert prof["histfull"] >= 2 and prof["pulled_levels"] > 0
+    want = mine_torch(toy_indexes, cfg, prefix=b"A", device="cpu",
+                      reader_order="gnu")
+    assert got.format_lines() == want.format_lines()
+    assert (got.total_paths, got.total_output, got.total_occs) == \
+        (want.total_paths, want.total_output, want.total_occs)
 
 
 def _sa_codes(case):

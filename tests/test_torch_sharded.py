@@ -142,6 +142,17 @@ CFG = MiningConfig(fmin=2, emax=1.2)
 CFG_ONE = MiningConfig(fmin=5, emax=10, pmin=1, pmax=1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's CPU episodes: the suite's
+    workers share the cores, and an episode's many small ops each wait on
+    every thread of the pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def indexes():
     return [FMIndex.from_texts([transform(r.seq) for r in read_fasta(p)])
