@@ -150,13 +150,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      real level (made by the port's own level loop), K5 and K6 on the
      whole-trie run's largest drain and path decode, K10 on the 2-shard
      run's largest drain, each against its plain version, with the table
-     rows that the widest level's pairs touch against the 50 MB L2.
+     rows that the widest level's pairs touch against the 50 MB L2;
+ 16. the sample axis, at the JAX package's sample widths: D64 (64
+     samples), D273 (273, the reference's MAX_READERS) and D512 (512,
+     maxdepth 6), tests/freeze_samples_reference.py's metagenome-shaped
+     data built on the card a sample at a time (the build's kernels
+     launched), uploaded once; the whole trie on one device, ascending
+     and gnu, then (its tables freed) the sharded episode at 2 and 128
+     shards (MAX_SHARDS; D512 at 128 alone) on the one card in both
+     orders, each against the frozen D64 / D273 / D512 (paths, lines,
+     occurrences, the frequency histogram's and both orders' sha256, the
+     entropy range within SAMPLES_ENT_TOL), every kernel of its path
+     launched, K9a once a shard a level and K9b once a level; D273's gnu
+     mine killed at its second save (out_reserve SAMPLES_RESERVE) and
+     resumed to the same bytes; the levels' widths by depth (nodes, pairs,
+     widest node, nodes past 64 pairs; D512 must hold a node of 512
+     pairs); `distance --fast` on each set's gnu lines against the exact
+     host path (DIST_TOL); the capacity plan (`mine --engine auto`'s
+     `plan`: device mode, its bytes at or above every run's peak).  At
+     D273's widest level and its level with the most nodes past 64 pairs
+     (each with its histogram of pairs a node) K1's expand, K2, K3, P1 and
+     its stage_rows entry, K9a, K9b (on the 128 shards' rows and on the
+     one row K9a adds them into, the episode's form) and K9c (every shard)
+     against their plain versions, and K10 and K5 on the largest drain of
+     its 128-shard gnu run, timed by events and device time.
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume, halt, owned and capacity
 phases).
 Phase 15 logs its own kernels' entries (the same keys, at scale 1000) on a
 line that starts "scale 1000 kernels:", and its runs on "scale 1000
-summary:".
+summary:"; phase 16 its sets' runs on "D64 summary:" and the like, and its
+kernels' entries on "samples kernels:", which also go into the kernels line,
+each with a "case" (its set and level) and the launches of its D273 path.
 Then one JSON line of kernels (each with its launches on its path, its
 error and time against the plain version, the least time the card could
 take for the same bytes and operations, and the time of the one PyTorch
@@ -232,6 +257,43 @@ S1000 = dict(
         "ee006466a30a27a9e5ab51b200f611f18cccdd3d0c5a5ad19729ad2dfa528095"),
     prefixes={p: dict(paths=n, lines=m, gnu=g, ascending=a)
               for p, n, m, g, a in S1000_PREFIXES})
+# Phase 16's references: tests/freeze_samples_reference.py's `make_samples`
+# data (`make`: its samples, the symbols asked for and the seed), fmin 2,
+# pmin 2, the emax given (the smallest that leaves ~1,000 lines: at these
+# widths the pseudo-count term d + sum f keeps every line above 1.2) and
+# maxdepth (None: unlimited), mined by dsm_tpu on the host CPU
+# (FMIndex.from_texts, then mine_device on the JAX CPU backend, the whole
+# trie in each reader order), as `python tests/freeze_samples_reference.py
+# DIR --samples D --symbols N --emax E [--maxdepth M]` prints it.  `hist`:
+# the sha256 of the frequency histogram as d int64 words; `entropy`:
+# dsm_tpu's float32 diagnostics, held within SAMPLES_ENT_TOL.
+D64 = dict(
+    make=(64, 35_200_000, 14), symbols=33_134_166, emax=1.2, maxdepth=None,
+    paths=78_235_886, lines=8_282, occs=17_576,
+    entropy=(1.0915398597717285, 5.94761323928833),
+    hist="248834a6ac626b3d34a377239617303458c5db5626a44c04e1ae6db1662ddaa1",
+    gnu="bd887b2f88b64f89a96ffd34ce7a1e651cafb97f0b82c3916c61302ede52ec16",
+    ascending=(
+        "f87cdf47c164375647a494b361eea6dea815492dd231c3ad7e47b83382c78790"))
+D273 = dict(
+    make=(273, 33_600_000, 14), symbols=33_465_996, emax=3.78,
+    maxdepth=None, paths=56_673_117, lines=1_014, occs=4_218,
+    entropy=(2.9631969928741455, 8.079411506652832),
+    hist="e9b48db3097df6f1e206f6ea2a34b387094aaa433692b3b80079913464cd666c",
+    gnu="903689416e563ed38813a6af6d3ae7e4999269458279a8b7b70428b84fb13ddb",
+    ascending=(
+        "525c0f5235561577ee91e9a4487a1aac60055e951983c1e2005f165c3c84b5c2"))
+D512 = dict(
+    make=(512, 2_000_000, 14), symbols=1_804_510, emax=8.6, maxdepth=6,
+    paths=5_460, lines=1_103, occs=205_340,
+    entropy=(8.194402694702148, 8.866853713989258),
+    hist="8cc5631e0c98346d4e95e37d4b1ffcaa0fc8d73227f66976b97b95d8ca72ee68",
+    gnu="954cb11af1e61fe42c0ce845e0bddb46855ee70d6a68dec426585595e5b90307",
+    ascending=(
+        "dc1465e15fa0220d12425597b169284045100a6be3cb433eaa301ecee185a517"))
+SAMPLES_ENT_TOL = 5e-6  # the port's f64 entropy range against dsm_tpu's f32
+SAMPLES_SHARDS = (2, 128)   # the sharded episode's shards on the one card
+SAMPLES_RESERVE = 400   # D273's killed gnu mine: a few drains, each a save
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
 REPRO_BIG = 1 << 24     # P2-P4 where bytes count (128 MB moved a call)
@@ -270,16 +332,20 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def load_make_toydata():
-    """tests/make_toydata.py by path: `tests` is no package, and another
+def load_tests_module(name: str):
+    """tests/<name>.py by path: `tests` is no package, and another
     installed `tests` package may shadow a namespace import."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "make_toydata", os.path.join(HERE, "tests", "make_toydata.py"))
+        name, os.path.join(HERE, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_make_toydata():
+    return load_tests_module("make_toydata")
 
 
 def phase_env(torch) -> str:
@@ -1142,13 +1208,14 @@ def split_level(torch, level, bounds, nodes: int = SEG_NODES):
 
 
 def shardstats_calls(torch, shards, g, ocounts):
-    """The package's K9a and K9b on a split level, whichever of their two
-    signatures it has: (one K9a launch a shard, writing the rows that the
-    K9b call reads; one K9b call, with the torch glue of the sharded level
-    that a level runs between it and its readback where the package's K9b
-    leaves that to torch: the per-shard gather of the pair gates, the kept
-    and gated sums, the staged maximum and the entropy range).  Timing
-    only: `level_times` runs it in another tree of the repo too."""
+    """The package's K9a and K9b on a split level, whichever of their
+    signatures it has: (one K9a launch a shard, writing, or adding into one
+    row a node, the rows that the K9b call reads; one K9b call, with the
+    torch glue of the sharded level that a level runs between it and its
+    readback where the package's K9b leaves that to torch: the per-shard
+    gather of the pair gates, the kept and gated sums, the staged maximum
+    and the entropy range).  Timing only: `level_times` runs it in another
+    tree of the repo too."""
     import inspect
 
     from dsm_tpu_torch.ops import shardstats as ss
@@ -1162,13 +1229,20 @@ def shardstats_calls(torch, shards, g, ocounts):
         vals = ss.level_values(n, device)
         table = [(nb, nid.shape[0], oc)
                  for (nb, nid, _s, _f, _c), oc in zip(shards, ocounts)]
+        # where K9a can add the shards' rows into one row a node, as the
+        # episode then does, K9b reads that one row
+        one = "accumulate" in inspect.signature(
+            ss.shard_partials).parameters
+        rows = parts[:1] if one else parts
 
         def k9a():
             for k, (nb, _nid, _sid, freq, cbits) in enumerate(shards):
-                ss.shard_partials(nb, freq, cbits, g.sym_mask, parts[k],
-                                  ss.kept_slot(vals, k))
+                kw = dict(accumulate=k > 0) if one else {}
+                ss.shard_partials(nb, freq, cbits, g.sym_mask,
+                                  rows[0] if one else parts[k],
+                                  ss.kept_slot(vals, k), **kw)
 
-        return k9a, lambda: ss.node_gates(parts, g, hist, table, vals)
+        return k9a, lambda: ss.node_gates(rows, g, hist, table, vals)
 
     # the other signature: the level's glue as its engine ran it
     sym = torch.arange(4, device=device, dtype=torch.int32)[:, None]
@@ -1265,7 +1339,9 @@ def k9a_case(torch, label: str, device) -> dict:
 
 def k9b_case(torch, shards, g, device) -> dict:
     """K9a on each shard of a split level, then K9b on their rows, against
-    the plain versions: one launch each; rows, kept lanes, flags, kid0,
+    the plain versions: one launch each; K9a again adding the shards' rows
+    into one row a node (the episode's form; equal to their sum) and K9b on
+    that row; rows, kept lanes, flags, kid0,
     history, every shard's pair_out and the level's values equal, the
     entropy and its range within ENT_TOL; K9b timed -> its entry of the
     kernels line, K9b's flags and kid0 (for K9c) and the children."""
@@ -1294,35 +1370,54 @@ def k9b_case(torch, shards, g, device) -> dict:
                 or not torch.equal(kept_slot(vals, k), kept):
             raise SystemExit(f"shard_partials disagrees with its plain "
                              f"version (shard {k} of {n})")
-        ms = cuda_ms(torch, lambda: shard_partials(
-            nb, freq, cbits, g.sym_mask, parts[k], kept_slot(vals, k)))
-        log(f"kernel shard_partials: shard {k} of {n}, U={U:,} "
-            f"P={freq.shape[0]:,}: equal; {ms:.4f} ms")
+        if n <= 8:
+            ms = cuda_ms(torch, lambda: shard_partials(
+                nb, freq, cbits, g.sym_mask, parts[k], kept_slot(vals, k)))
+            log(f"kernel shard_partials: shard {k} of {n}, U={U:,} "
+                f"P={freq.shape[0]:,}: equal; {ms:.4f} ms")
+    if n > 8:
+        log(f"kernel shard_partials: {n} shards of U={U:,} rows, each equal "
+            f"to the plain version")
     ocounts = [1000 * k for k in range(n)]
     table = [(nb, nid.shape[0], oc)
              for (nb, nid, _s, _f, _c), oc in zip(shards, ocounts)]
+    # the episode's form: each shard's rows added into one row a node
+    acc = torch.empty((1, U, PART_COLS), dtype=torch.int64, device=device)
+    before = _build.LAUNCHES["shard_partials"]
+    for k, (nb, _nid, _sid, freq, cbits) in enumerate(shards):
+        shard_partials(nb, freq, cbits, g.sym_mask, acc[0],
+                       kept_slot(vals, k), accumulate=k > 0)
+    launched["shard_partials"] += _build.LAUNCHES["shard_partials"] - before
+    if not torch.equal(acc[0], parts.sum(0)):
+        raise SystemExit(f"shard_partials with accumulate: the one row a "
+                         f"node is not the {n} shards' rows added")
     wvals = vals.clone()
-    hk = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
-    hp = hk.clone()
-    before = _build.LAUNCHES["node_gates"]
-    fk, ek, kk, pk = node_gates(parts, g, hk, table, vals)
-    launched["node_gates"] = _build.LAUNCHES["node_gates"] - before
+    hp = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
     fp, ep, kp, pp = node_gates_plain(parts, g, hp, table, wvals)
-    torch.cuda.synchronize()
-    eerr = float((ek - ep).abs().max())
-    got, want = vals.tolist(), wvals.tolist()
-    rerr = max(abs(got[i] - want[i]) if got[i] != want[i] else 0.0
-               for i in (V_ENT_MIN, V_ENT_MAX))
-    same = [a == b for i, (a, b) in enumerate(zip(got, want))
-            if i not in (V_ENT_MIN, V_ENT_MAX)]
-    if launched != {"shard_partials": n, "node_gates": 1} \
-            or not (torch.equal(fk, fp) and torch.equal(kk, kp)
-                    and torch.equal(hk, hp) and all(same)
-                    and all(torch.equal(a, b) for a, b in zip(pk, pp))) \
-            or max(eerr, rerr) > ENT_TOL:
-        raise SystemExit(f"node_gates disagrees with its plain version ({n} "
-                         f"shards: launches {launched}, entropy max abs err "
-                         f"{eerr}, values {got} vs {want})")
+    want = wvals.tolist()
+    launched["node_gates"] = 0
+    for rows in (parts, acc):
+        hk = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
+        before = _build.LAUNCHES["node_gates"]
+        fk, ek, kk, pk = node_gates(rows, g, hk, table, vals)
+        launched["node_gates"] += _build.LAUNCHES["node_gates"] - before
+        torch.cuda.synchronize()
+        eerr = float((ek - ep).abs().max())
+        got = vals.tolist()
+        rerr = max(abs(got[i] - want[i]) if got[i] != want[i] else 0.0
+                   for i in (V_ENT_MIN, V_ENT_MAX))
+        same = [a == b for i, (a, b) in enumerate(zip(got, want))
+                if i not in (V_ENT_MIN, V_ENT_MAX)]
+        if not (torch.equal(fk, fp) and torch.equal(kk, kp)
+                and torch.equal(hk, hp) and all(same)
+                and all(torch.equal(a, b) for a, b in zip(pk, pp))) \
+                or max(eerr, rerr) > ENT_TOL:
+            raise SystemExit(f"node_gates on {rows.shape[0]} row(s) a node "
+                             f"disagrees with its plain version ({n} "
+                             f"shards: entropy max abs err {eerr}, values "
+                             f"{got} vs {want})")
+    if launched != {"shard_partials": 2 * n, "node_gates": 2}:
+        raise SystemExit(f"K9a/K9b launches {launched}, not one a call")
     children = int(got[0])
     pairs = sum(nid.shape[0] for _nb, nid, _s, _f, _c in shards)
     entry = dict(
@@ -1330,24 +1425,28 @@ def k9b_case(torch, shards, g, device) -> dict:
         source="dsm_tpu_torch/csrc/shardstats.cu",
         replaces="dsm_tpu/mining/engine_device.py:438",
         max_abs_err=max(eerr, rerr),
-        ms=cuda_ms(torch, lambda: node_gates(parts, g, hk, table, vals)),
+        ms=cuda_ms(torch, lambda: node_gates(acc, g, hk, table, vals)),
         plain_ms=cuda_ms(torch, lambda: node_gates_plain(parts, g, hp, table,
                                                          wvals)),
-        # n shards' rows and nb in; flags, entropy and first child id a
-        # node, an entry a child, a gate a pair and the values out; ~12 f64
-        # operations a node (one a log)
-        **bound(n * 24 * U + n * 4 * (U + 1) + 16 * U + 4 * children + pairs
+        # the one summed row and the n shards' nb in; flags, entropy and
+        # first child id a node, an entry a child, a gate a pair and the
+        # values out; ~12 f64 operations a node (one a log)
+        **bound(24 * U + n * 4 * (U + 1) + 16 * U + 4 * children + pairs
                 + 8 * len(got), 12 * U, F64_TOPS),
-        library_ms=None)
-    old = bound(n * 24 * U + 16 * U + 4 * children, 0)["bound_ms"]
-    log(f"kernel node_gates: {n} x U={U:,} rows, {pairs:,} pairs -> "
+        library_ms=None,
+        device_ms=device_ms(torch, lambda: node_gates(acc, g, hk, table,
+                                                      vals)))
+    log(f"kernel node_gates: {n} shards of U={U:,} nodes, {pairs:,} pairs -> "
         f"{children:,} children, {int(got[1]):,} present nodes, staged "
-        f"maximum {int(got[4]):,}: one launch, equal (entropy err {eerr:.3g}, "
-        f"its range {rerr:.3g}); {entry['ms']:.4f} ms vs plain "
-        f"{entry['plain_ms']:.4f} ms (bound {entry['bound_ms']:.4f} ms; by "
-        f"the bytes of the three-launch version's outputs {old:.4f} ms); "
-        "device " + fmt_ms(device_ms(
-            torch, lambda: node_gates(parts, g, hk, table, vals))))
+        f"maximum {int(got[4]):,}: one launch on {n} rows a node and one on "
+        f"the row K9a added them into, each equal (entropy err {eerr:.3g}, "
+        f"its range {rerr:.3g}); {entry['ms']:.4f} ms on the one row (on "
+        f"{n} rows "
+        f"{cuda_ms(torch, lambda: node_gates(parts, g, hk, table, vals)):.4f}"
+        f" ms) "
+        f"vs plain {entry['plain_ms']:.4f} ms (bound "
+        f"{entry['bound_ms']:.4f} ms); device "
+        f"{fmt_ms(entry['device_ms'])}")
     return entry, fk, kk, children
 
 
@@ -3019,8 +3118,10 @@ def s1000_check(out, want: dict, label: str, order: str) -> str:
     return sha
 
 
-def s1000_run(torch, label: str, run, mine_path: str = "mine") -> tuple:
-    """One scale-1000 run: the launch counts set to 0 just before it and
+def s1000_run(torch, label: str, run, mine_path: str = "mine",
+              tag: str = "scale 1000") -> tuple:
+    """One run of phase 15 (or 16: `tag`): the launch counts set to 0 just
+    before it and
     read just after (every kernel of `mine_path` launched), its wall, its
     profile, the host seconds of its walks down pulled history segments
     (`walk_s`: engine_device._history_codes timed) and its peak device
@@ -3058,14 +3159,14 @@ def s1000_run(torch, label: str, run, mine_path: str = "mine") -> tuple:
         allocated_before=before, launches=launches,
         **{k: (round(v, 4) if isinstance(v, float) else v)
            for k, v in prof.items()})
-    log(f"scale 1000 {label}: {json.dumps(rec)}")
+    log(f"{tag} {label}: {json.dumps(rec)}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise SystemExit(f"scale 1000 {label}: kernels never launched: "
+        raise SystemExit(f"{tag} {label}: kernels never launched: "
                          f"{missing}")
     if mine_path == "mine" and launches["rank"] != prof["levels"] \
             + prof["drains"]:
-        raise SystemExit(f"scale 1000 {label}: the rank kernel was not "
+        raise SystemExit(f"{tag} {label}: the rank kernel was not "
                          "launched once a level and once a drain")
     return out, rec
 
@@ -3237,22 +3338,9 @@ def s1000_level(torch, dev, device) -> list[dict]:
     the port's own level loop), each against its plain version; the table
     rows the level's pairs touch against the 50 MB L2; -> the entries."""
     from dsm_tpu_torch.mining.config import MiningConfig
-    from dsm_tpu_torch.mining.engine_device import _Scalars
-    from dsm_tpu_torch.ops.children import (children, children_ids,
-                                            children_ids_plain,
-                                            children_plain)
-    from dsm_tpu_torch.ops.compact import (compact_rows, compact_rows_plain,
-                                           stage_rows, stage_rows_plain)
-    from dsm_tpu_torch.ops.rank import expand
-    from dsm_tpu_torch.ops.segstats import (S_CHILDREN, S_ENT_MIN, S_GATED,
-                                            S_KEPT, segstats, segstats_plain)
-
-    from dsm_tpu_torch.ops.shardstats import (PART_COLS, shard_partials,
-                                              shard_partials_plain)
 
     entries = [occ_cum8_case(torch, dev, device, np.random.default_rng(2031),
                              device_time=True)]
-    timed = []   # (entry, a call of its kernel) for the device times
     pairs, nb, depth = widest_state(dev)
     p, u = pairs.shape[0], nb.shape[0] - 1
     blo = (pairs[:, 0] >> 7) + pairs[:, 4]
@@ -3263,14 +3351,44 @@ def s1000_level(torch, dev, device) -> list[dict]:
         f"{128 * rows / 1e6:.1f} MB of the {dev.frows.numel() * 4 / 1e6:.1f} "
         f"MB table (the L2 holds 50 MB): each touched row is read once from "
         f"HBM at best, and the bound charges 128 B a touched row")
+    # the sharded level's kernels on the level cut into the 2-shard mesh's
+    # sample shards ([0, 3) and [3, 5))
+    return entries + level_kernels(
+        torch, dev, device, MiningConfig(fmin=FMIN, emax=EMAX),
+        (pairs, nb, depth), "scale 1000", (0, 3, dev.S))
+
+
+def level_kernels(torch, dev, device, cfg, level, tag: str,
+                  bounds) -> list[dict]:
+    """K1's expand, K2, K3, P1 with its stage_rows entry, and K9a/K9b/K9c
+    on a real level (pair rows, node starts, depth) of a mine over `dev`
+    at `cfg`, each against its plain version, timed by events and by the
+    profiler's device time; K9 on the level cut into the sample shards
+    [bounds[k], bounds[k + 1]), K9c with K9b's ids and the level's own rank
+    outputs on every shard; -> the entries (K9a's and K9c's of shard 0)."""
+    from dsm_tpu_torch.mining.engine_device import _Scalars
+    from dsm_tpu_torch.ops.children import (children, children_ids,
+                                            children_ids_plain,
+                                            children_plain)
+    from dsm_tpu_torch.ops.compact import (compact_rows, compact_rows_plain,
+                                           stage_rows, stage_rows_plain)
+    from dsm_tpu_torch.ops.rank import expand
+    from dsm_tpu_torch.ops.segstats import (S_CHILDREN, S_ENT_MIN, S_GATED,
+                                            S_KEPT, segstats, segstats_plain)
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, shard_partials,
+                                              shard_partials_plain)
+
+    pairs, nb, depth = level
+    p, u = pairs.shape[0], nb.shape[0] - 1
+    entries, timed = [], []   # (entry, a call of its kernel) for device times
     entries.append(expand_case(torch, dev, pairs,
-                               f"scale 1000, the widest level (depth "
-                               f"{depth})")[0])
+                               f"{tag} (depth {depth})")[0])
     timed.append((entries[-1], lambda: expand(dev.frows, pairs, FMIN,
                                               0b1111)))
 
-    g = _Scalars.build(MiningConfig(fmin=FMIN, emax=EMAX)).gates(depth, dev.S)
-    olo, ohi, freq, keepc, cbits = expand(dev.frows, pairs, FMIN, g.sym_mask)
+    g = _Scalars.build(cfg).gates(depth, dev.S)
+    olo, ohi, freq, keepc, cbits = expand(dev.frows, pairs, cfg.fmin,
+                                          g.sym_mask)
     fk, ek, pk, sk = segstats(nb, freq, cbits, g)
     fp, ep, pp, sp = segstats_plain(nb, freq, cbits, g)
     torch.cuda.synchronize()
@@ -3280,8 +3398,8 @@ def s1000_level(torch, dev, device) -> list[dict]:
     if not (torch.equal(fk, fp) and torch.equal(pk, pp)) \
             or got[:S_ENT_MIN] != want[:S_ENT_MIN] \
             or max(eerr, rerr) > ENT_TOL:
-        raise SystemExit(f"scale 1000: segstats disagrees with its plain "
-                         f"version at the widest level ({got} vs {want})")
+        raise SystemExit(f"{tag}: segstats disagrees with its plain version "
+                         f"({got} vs {want})")
     entries.append(dict(
         name="segstats", route="cuda",
         source="dsm_tpu_torch/csrc/segstats.cu",
@@ -3292,10 +3410,9 @@ def s1000_level(torch, dev, device) -> list[dict]:
         **bound(4 * (u + 1) + 5 * p + 12 * u + p + 48, 6 * p + 6 * u,
                 F64_TOPS), library_ms=None))
     timed.append((entries[-1], lambda: segstats(nb, freq, cbits, g)))
-    log(f"kernel segstats: scale 1000 widest level: equal (sums "
-        f"{json.dumps(got)}); {entries[-1]['ms']:.4f} ms vs plain "
-        f"{entries[-1]['plain_ms']:.4f} ms (bound "
-        f"{entries[-1]['bound_ms']:.4f} ms)")
+    log(f"kernel segstats: {tag}: equal (sums {json.dumps(got)}); "
+        f"{entries[-1]['ms']:.4f} ms vs plain {entries[-1]['plain_ms']:.4f} "
+        f"ms (bound {entries[-1]['bound_ms']:.4f} ms)")
 
     pair_count, child_total = int(got[S_KEPT]), int(got[S_CHILDREN])
     hk = torch.full((child_total,), -1, dtype=torch.int32, device=device)
@@ -3305,8 +3422,7 @@ def s1000_level(torch, dev, device) -> list[dict]:
     torch.cuda.synchronize()
     if not (torch.equal(kr, pr_) and torch.equal(kn, pn)
             and torch.equal(hk, hp)):
-        raise SystemExit("scale 1000: children disagrees with its plain "
-                         "version at the widest level")
+        raise SystemExit(f"{tag}: children disagrees with its plain version")
     del kr, kn, pr_, pn
     entries.append(dict(
         name="children", route="cuda",
@@ -3317,18 +3433,18 @@ def s1000_level(torch, dev, device) -> list[dict]:
         **bound(4 * (u + 1) + lane_bytes(keepc) + 8 * child_total + 4,
                 16 * p), library_ms=None))
     timed.append((entries[-1], lambda: children(*kargs, hk)))
-    log(f"kernel children: scale 1000 widest level: {pair_count:,} lanes "
-        f"kept into {child_total:,} children, equal; "
-        f"{entries[-1]['ms']:.4f} ms vs plain {entries[-1]['plain_ms']:.4f} "
-        f"ms (bound {entries[-1]['bound_ms']:.4f} ms)")
+    log(f"kernel children: {tag}: {pair_count:,} lanes kept into "
+        f"{child_total:,} children, equal; {entries[-1]['ms']:.4f} ms vs "
+        f"plain {entries[-1]['plain_ms']:.4f} ms (bound "
+        f"{entries[-1]['bound_ms']:.4f} ms)")
 
     n_gated = int(got[S_GATED])
     for width in (n_gated, n_gated // 2):
         (a, ac), (b, bc) = (stage_rows(pk, pairs, depth, width),
                             stage_rows_plain(pk, pairs, depth, width))
         if not torch.equal(a, b) or int(ac) != int(bc):
-            raise SystemExit("scale 1000: stage_rows disagrees with its "
-                             "plain version at the widest level")
+            raise SystemExit(f"{tag}: stage_rows disagrees with its plain "
+                             "version")
     entries.append(dict(
         name="stage_rows", route="cuda",
         source="dsm_tpu_torch/csrc/compact.cu",
@@ -3344,8 +3460,8 @@ def s1000_level(torch, dev, device) -> list[dict]:
     torch.cuda.synchronize()
     if not torch.equal(got_c[0], want_c[0]) \
             or int(got_c[1]) != int(want_c[1]):
-        raise SystemExit("scale 1000: compact_rows disagrees with its plain "
-                         "version at the widest level")
+        raise SystemExit(f"{tag}: compact_rows disagrees with its plain "
+                         "version")
     timed.append((entries[-1],
                   lambda: stage_rows(pk, pairs, depth, n_gated)))
     entries.append(dict(
@@ -3357,19 +3473,16 @@ def s1000_level(torch, dev, device) -> list[dict]:
         **bound(p + 2 * k * 24 + 8, 2 * p),
         library_ms=cuda_ms(torch, lambda: pairs[live])))
     timed.append((entries[-1], lambda: compact_rows(live, pairs, k)))
-    log(f"kernel stage_rows / compact_rows: scale 1000 widest level, "
-        f"{n_gated:,} gated pairs staged, {k:,} of {p:,} pair rows that keep "
-        f"a lane compacted: equal; {entries[-2]['ms']:.4f} / "
-        f"{entries[-1]['ms']:.4f} ms vs plain {entries[-2]['plain_ms']:.4f} "
-        f"/ {entries[-1]['plain_ms']:.4f} ms (pairs[mask] "
+    log(f"kernel stage_rows / compact_rows: {tag}: {n_gated:,} gated pairs "
+        f"staged, {k:,} of {p:,} pair rows that keep a lane compacted: "
+        f"equal; {entries[-2]['ms']:.4f} / {entries[-1]['ms']:.4f} ms vs "
+        f"plain {entries[-2]['plain_ms']:.4f} / "
+        f"{entries[-1]['plain_ms']:.4f} ms (pairs[mask] "
         f"{entries[-1]['library_ms']:.4f} ms)")
 
-    # the sharded level's kernels on the same level cut into the 2-shard
-    # mesh's sample shards ([0, 3) and [3, 5)); K9c with K9b's ids and the
-    # level's own rank outputs; the entries have shard 0's K9a and K9c
-    level = (pairs[:, 5].to(torch.int64), pairs[:, 3].to(torch.int64), freq,
-             cbits)
-    shards = split_level(torch, level, (0, 3, dev.S), nodes=u)
+    level4 = (pairs[:, 5].to(torch.int64), pairs[:, 3].to(torch.int64), freq,
+              cbits)
+    shards = split_level(torch, level4, bounds, nodes=u)
     nb0, _nid0, _sid0, freq0, cbits0 = shards[0]
     p0 = freq0.shape[0]
     part = torch.empty((u, PART_COLS), dtype=torch.int64, device=device)
@@ -3392,7 +3505,8 @@ def s1000_level(torch, dev, device) -> list[dict]:
         nb0, freq0, cbits0, g.sym_mask, part, kept)))
     entry, fk9, kk9, child_total9 = k9b_case(torch, shards, g, device)
     entries.append(entry)
-    for j, (lo, hi) in enumerate(((0, 3), (3, dev.S))):
+    lanes = []
+    for j, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
         own = (pairs[:, 3] >= lo) & (pairs[:, 3] < hi)
         sp_ = pairs[own].contiguous()
         so, sh = olo[:, own].contiguous(), ohi[:, own].contiguous()
@@ -3402,9 +3516,10 @@ def s1000_level(torch, dev, device) -> list[dict]:
         (kr, kn), (pr_, pn) = children_ids(*cargs), children_ids_plain(*cargs)
         torch.cuda.synchronize()
         if not (torch.equal(kr, pr_) and torch.equal(kn, pn)):
-            raise SystemExit(f"scale 1000: children_ids disagrees with its "
-                             f"plain version (shard {j})")
+            raise SystemExit(f"{tag}: children_ids disagrees with its plain "
+                             f"version (shard {j})")
         del kr, kn, pr_, pn
+        lanes.append(cargs[7])
         if j == 0:
             entries.append(dict(
                 name="children_ids", route="cuda",
@@ -3419,9 +3534,9 @@ def s1000_level(torch, dev, device) -> list[dict]:
                 library_ms=None))
             c0 = cargs
             timed.append((entries[-1], lambda: children_ids(*c0)))
-        log(f"kernel children_ids: scale 1000 widest level, shard {j}: "
-            f"{sp_.shape[0]:,} pairs, {cargs[7]:,} lanes kept, equal; "
-            f"{cuda_ms(torch, lambda: children_ids(*cargs)):.4f} ms")
+    log(f"kernel children_ids: {tag}: {len(lanes)} shard(s) of "
+        f"{min(lanes):,}-{max(lanes):,} kept lanes, each equal to the plain "
+        f"version; shard 0 {entries[-1]['ms']:.4f} ms")
     for e, fn in timed:
         e["device_ms"] = device_ms(torch, fn)
     return entries
@@ -3513,6 +3628,411 @@ def phase_scale1000(torch, toy, td: str, device) -> tuple:
     return build_launches, mine_launches, kernels
 
 
+# ------------------------------------------------ phase 16: the sample axis,
+# d = 64, 273 and 512 samples, against references frozen from dsm_tpu
+
+def samples_build(torch, fz, ref: dict, td: str, device) -> tuple:
+    """make_samples' data of `ref` built on the card a sample at a time (2d
+    suffix arrays through K8); -> (indexes, the build's launches, seconds a
+    sample)."""
+    from dsm_tpu_torch.index import indexes_from_fasta
+    from dsm_tpu_torch.ops import _build
+
+    d, asked, seed = ref["make"]
+    t0 = time.perf_counter()
+    fastas = fz.make_samples(os.path.join(td, f"d{d}"), d, asked, seed)
+    made = time.perf_counter() - t0
+    idxs, secs = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for path in fastas:
+        t0 = time.perf_counter()
+        idxs += indexes_from_fasta([path], device)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = path_launches("build", f"the D{d} build")
+    n = sum(i.n for i in idxs)
+    sizes = [i.n for i in idxs]
+    log(f"D{d}: data made on the host in {made:.2f} s; {n:,} indexed symbols "
+        f"in {d} samples ({min(sizes):,}-{max(sizes):,} a sample), built on "
+        f"the card in {sum(secs):.4f} s ({sum(secs) / d:.4f} s a sample, "
+        f"{min(secs):.4f}-{max(secs):.4f})")
+    if n != ref["symbols"]:
+        raise SystemExit(f"D{d}: {n} indexed symbols, the reference has "
+                         f"{ref['symbols']}")
+    return idxs, launches, secs
+
+
+def samples_check(out, ref: dict, label: str, order: str) -> None:
+    """An output against the frozen `ref`: paths, lines, occurrences, the
+    frequency histogram's sha256 (its d int64 words) and the sha256 of its
+    bytes in `order` equal, the
+    entropy range within SAMPLES_ENT_TOL (dsm_tpu's float32 diagnostics)."""
+    d = ref["make"][0]
+    sha = hashlib.sha256(out.format_lines()).hexdigest()
+    hist = hashlib.sha256(np.asarray(out.freq_histogram, dtype="<i8")
+                          .tobytes()).hexdigest()
+    got = (out.total_paths, out.total_output, out.total_occs, hist, sha)
+    exp = (ref["paths"], ref["lines"], ref["occs"], ref["hist"], ref[order])
+    ent = (out.smallest_entropy, out.largest_entropy)
+    if got != exp or max(abs(a - b) for a, b in zip(ent, ref["entropy"])) \
+            > SAMPLES_ENT_TOL:
+        raise SystemExit(f"D{d} {label} ({order}) FAILED: got paths, lines, "
+                         f"occs, histogram, sha256 {got}, entropy range "
+                         f"{ent}; want {exp}, {ref['entropy']}")
+    log(f"D{d} {label} ({order}): {out.total_paths:,} paths, "
+        f"{out.total_output:,} lines, sha256 {sha}: the frozen reference's")
+
+
+def samples_config(ref: dict):
+    from dsm_tpu_torch.mining.engine import MiningConfig
+
+    kw = {} if ref["maxdepth"] is None else dict(maxdepth=ref["maxdepth"])
+    return MiningConfig(fmin=FMIN, pmin=2, emax=ref["emax"], **kw)
+
+
+def pair_histogram(torch, nb) -> dict:
+    """Nodes by their pairs, in bins 1, 2, 3-4, 5-8, ... 257-512."""
+    sizes = (nb[1:] - nb[:-1]).to(torch.float64)
+    b = torch.ceil(torch.log2(sizes.clamp(min=1))).to(torch.int64)
+    counts = torch.bincount(b, minlength=10).tolist()
+    return {("1" if k == 0 else "2" if k == 1 else
+             f"{(1 << (k - 1)) + 1}-{1 << k}"): c
+            for k, c in enumerate(counts) if c}
+
+
+def level_widths(torch, dev, cfg) -> tuple:
+    """Every device level of a mine over `dev` at `cfg` (the port's own
+    level loop; staged rows dropped): per depth [nodes, pairs, widest node,
+    nodes past 64 pairs]; -> (those rows, {"widest": the level with the
+    most pairs, "past64": the one with the most nodes past 64 pairs,
+    "nodes": the one with the most nodes}, each as (pairs, nb, depth))."""
+    from dsm_tpu_torch.mining.engine_device import (FLAG_DONE, FLAG_HISTFULL,
+                                                    FLAG_TAIL, _hist_cap,
+                                                    _level, _Scalars,
+                                                    _seed_episode)
+
+    sc = _Scalars.build(cfg)
+    st = _seed_episode(dev, _hist_cap(dev))
+    rows, best = [], {}
+
+    def record():
+        sizes = st.nb[1:] - st.nb[:-1]
+        row = [st.depth, sizes.shape[0], st.npairs,
+               int(sizes.max()) if sizes.numel() else 0,
+               int((sizes > 64).sum())]
+        rows.append(row)
+        for key, v in (("widest", row[2]), ("past64", row[4]),
+                       ("nodes", row[1])):
+            if v > best.get(key, (-1,))[0]:
+                best[key] = (v, (st.pairs, st.nb, st.depth))
+
+    record()
+    while True:
+        flag = _level(dev, sc, st)
+        if flag == FLAG_HISTFULL:
+            st.hist_len, st.lvl_off = 0, []
+            continue
+        st.out, st.ocount = [], 0
+        record()
+        if flag in (FLAG_DONE, FLAG_TAIL):
+            return rows, {k: v[1] for k, v in best.items()}
+
+
+def samples_sharded(torch, idxs, ref: dict, n: int, device,
+                    keep: dict | None = None) -> dict:
+    """The sharded episode at n shards on the one card, ascending and gnu,
+    each against `ref`: K9a launched once a shard a level, K9b once a
+    level; `keep` gets the gnu run's largest drain's blocks and the shard
+    tables; -> the runs' records."""
+    from dsm_tpu_torch.parallel import engine_episode as tee
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    d, cfg = ref["make"][0], samples_config(ref)
+    mesh = global_samples_mesh(n, device)
+    tables = ShardedIndexes.build(idxs, mesh)
+    drain, recs = tee._drain_sharded, {}
+
+    def keeping(*a, **k):
+        st = a[3]
+        rows = sum(sh.ocount for sh in st.shards)
+        if rows > keep.get("rows", 0):
+            keep.update(rows=rows, tables=tables, blocks=[
+                (sh.out[:sh.ocount].clone(), a[6].base(j))
+                for j, sh in enumerate(st.shards) if sh.ocount])
+        return drain(*a, **k)
+
+    for order in ("ascending", "gnu"):
+        if keep is not None and order == "gnu":
+            tee._drain_sharded = keeping
+        try:
+            out, rec = s1000_run(
+                torch, f"{n} shards {order}",
+                lambda prof: mine_device_sharded(
+                    idxs, cfg, mesh=mesh, dev=tables, reader_order=order,
+                    profile=prof), "mine_sharded", tag=f"D{d}")
+        finally:
+            tee._drain_sharded = drain
+        samples_check(out, ref, f"{n} shards", order)
+        want = {"shard_partials": n * rec["levels"],
+                "node_gates": rec["levels"]}
+        if {k: rec["launches"][k] for k in want} != want:
+            raise SystemExit(f"D{d} {n} shards: K9a/K9b launches "
+                             f"{rec['launches']}, not {want}")
+        recs[f"{n} shards {order}"] = rec
+    return recs
+
+
+def samples_resume(torch, idxs, dev, ref: dict, td: str, device) -> dict:
+    """The gnu mine with a snapshot file (out_reserve SAMPLES_RESERVE),
+    killed at its second save and resumed from it, against `ref`; -> the
+    resumed run's record."""
+    from dsm_tpu_torch.mining import checkpoint as ckpt
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    d, cfg = ref["make"][0], samples_config(ref)
+    path = os.path.join(td, f"d{d}.ckpt")
+    save, saves = ckpt.save_checkpoint, []
+
+    def killing(p, state, *a, **k):
+        t0 = time.perf_counter()
+        save(p, state, *a, **k)
+        saves.append((int(state["depth"]), int(state["nvalid"]),
+                      round(time.perf_counter() - t0, 4),
+                      os.path.getsize(p)))
+        if len(saves) == 2:
+            raise Killed()
+
+    ckpt.save_checkpoint = killing
+    t0 = time.perf_counter()
+    try:
+        mine_torch(idxs, cfg, dev=dev, device=device, reader_order="gnu",
+                   out_reserve=SAMPLES_RESERVE, checkpoint=path)
+        raise SystemExit(f"D{d} resume: the run was not killed")
+    except Killed:
+        killed = time.perf_counter() - t0
+    finally:
+        ckpt.save_checkpoint = save
+    if not os.path.exists(path):
+        raise SystemExit(f"D{d} resume: the killed run left no snapshot")
+    prof = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = mine_torch(idxs, cfg, dev=dev, device=device, reader_order="gnu",
+                     out_reserve=SAMPLES_RESERVE, checkpoint=path,
+                     profile=prof)
+    torch.cuda.synchronize()
+    rec = dict(prof, wall_s=time.perf_counter() - t0, killed_s=killed,
+               peak_bytes=torch.cuda.max_memory_allocated(device),
+               saves_before=saves)
+    if os.path.exists(path):
+        raise SystemExit(f"D{d} resume: the snapshot file outlived the run")
+    samples_check(out, ref, "killed at its second save and resumed", "gnu")
+    log(f"D{d} resume: killed after save 2 at {killed:.4f} s; saves (depth, "
+        f"frontier nodes, write s, bytes) {json.dumps(saves)}; the resumed "
+        f"run {json.dumps(rec)}")
+    return rec
+
+
+def samples_distance(torch, gnu, d: int, device) -> dict:
+    """`distance --fast` on the mined rows: the accumulator exact on the
+    host and through K11 on the card (count and noutput equal, the f64
+    matrices within DIST_TOL); -> its launches and wall."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.post.distance import (DistanceAccumulator,
+                                             entropy_steps)
+
+    lines = gnu.format_lines().decode().splitlines()
+    kw = dict(smpls=d, maxents=entropy_steps(0.05))
+    exact = DistanceAccumulator(**kw)
+    exact.add_lines(lines)
+    want = exact.matrices()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fast = DistanceAccumulator(exact=False, device=device, **kw)
+    fast.add_lines(lines)
+    got = fast.matrices()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches("distance", f"the D{d} distance path")
+    if not np.array_equal(got["noutput"], want["noutput"]):
+        raise SystemExit(f"D{d} distance: noutput differs")
+    err = distance_err(got, want, f"D{d} distance path")
+    if not all(np.isfinite(got[k]).all() and got[k].shape == (21, d, d)
+               for k in ("log", "sqrt", "lgamma")):
+        raise SystemExit(f"D{d} distance: matrices of the wrong shape")
+    log(f"D{d} distance --fast: {fast.rows_read} lines -> "
+        f"{int(got['noutput'][-1])} rows in {wall:.4f} s; count and noutput "
+        f"equal the exact host path, f64 matrices within {DIST_TOL} (max "
+        f"abs err {err:.3g})")
+    return dict(wall_s=wall, launches=launches, max_abs_err=err)
+
+
+def samples_plan(torch, idxs, ref: dict, recs: dict, device) -> dict:
+    """`mine --engine auto`'s capacity plan on the card: device mode, and
+    table_bytes + episode_bytes at or above every run's peak."""
+    from dsm_tpu_torch.mining import bigindex as big
+
+    d = ref["make"][0]
+    p = big.plan(idxs, fmin=FMIN, device=device)
+    if p.mode != "device":
+        raise SystemExit(f"D{d} capacity: the card's budget plans {p.mode}, "
+                         f"not device mode ({p.reason})")
+    tb, eb = big.table_bytes(idxs), big.episode_bytes(idxs, FMIN)
+    plan = {"mode": p.mode, "table_bytes": tb, "episode_bytes": eb}
+    for label, rec in recs.items():
+        plan[f"planned/peak {label}"] = (tb + eb) / rec["peak_bytes"]
+        if tb + eb < rec["peak_bytes"]:
+            raise SystemExit(f"D{d} capacity: the plan's {tb + eb:,} bytes "
+                             f"are below the {label} run's peak "
+                             f"{rec['peak_bytes']:,}")
+    log(f"D{d} capacity: {json.dumps(plan)}")
+    return plan
+
+
+def samples_drain_kernels(torch, keep: dict, tag: str) -> list[dict]:
+    """K10 on the largest drain's blocks of a many-shard gnu run, and K5
+    on the rows it packs over that run's shard tables, each against its
+    plain version; -> their entries."""
+    from dsm_tpu_torch.mining.engine import OC_SID
+    from dsm_tpu_torch.ops.gatherpack import gather_pack
+
+    blocks, sh = keep["blocks"], keep["tables"]
+    entries = [gather_case(torch, blocks, f"{tag}, {len(blocks)} blocks")]
+    rows = gather_pack([c for c, _b in blocks], [b for _c, b in blocks],
+                       OC_SID)[0]
+    tables = [(sd.rrows, sd.soff, sh.base(j))
+              for j, sd in enumerate(sh.shards)]
+    entries.append(leftchar_case(torch, tables, rows,
+                                 f"{tag} over {len(tables)} shard tables")[0])
+    return entries
+
+
+def samples_set(torch, fz, ref: dict, td: str, device, kernels: list,
+                resume: bool = False, measure: bool = False,
+                shard_counts=SAMPLES_SHARDS) -> dict:
+    """One sample set of phase 16 (see the module's docstring): with
+    `measure`, the kernels at its widest level, at its level with the most
+    nodes past 64 pairs and at the largest drain of its run with the most
+    shards, their entries appended to `kernels`; -> its summary."""
+    from dsm_tpu_torch.mining.engine import DeviceIndexes, mine_torch
+
+    d, cfg = ref["make"][0], samples_config(ref)
+    tag = f"D{d}"
+    t_set = time.perf_counter()
+    idxs, build_launches, build_s = samples_build(torch, fz, ref, td, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = DeviceIndexes.build(idxs, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    log(f"{tag}: one upload of the tables, {2 * dev.frows.numel() * 4:,} "
+        f"bytes, in {upload_s:.4f} s")
+    recs, outs = {}, {}
+    for order in ("ascending", "gnu"):
+        outs[order], recs[order] = s1000_run(
+            torch, f"one device {order}", lambda prof: mine_torch(
+                idxs, cfg, dev=dev, device=device, reader_order=order,
+                profile=prof), tag=tag)
+        samples_check(outs[order], ref, "one device", order)
+    if resume:
+        recs["gnu resumed"] = samples_resume(torch, idxs, dev, ref, td,
+                                             device)
+    rows, chosen = level_widths(torch, dev, cfg)
+    log(f"{tag} levels (depth, nodes, pairs, widest node, nodes past 64 "
+        f"pairs): {json.dumps(rows)}")
+    levels = {}
+    for key, (pairs, nb, depth) in chosen.items():
+        levels[key] = dict(depth=depth, nodes=nb.shape[0] - 1,
+                           pairs=pairs.shape[0],
+                           histogram=pair_histogram(torch, nb))
+        log(f"{tag}: the level of the most {key} (depth {depth}): "
+            f"{json.dumps(levels[key])}")
+    if d == 512 and max(r[3] for r in rows) != 512:
+        raise SystemExit(f"{tag}: no level holds a node of 512 pairs")
+    measured = []
+    if measure:
+        n = max(shard_counts)
+        bounds = tuple(k * d // n for k in range(n + 1))
+        # the widest level, and the one with the most nodes past 64 pairs,
+        # or where that is the widest, the one with the most nodes
+        second = "past64" if chosen["past64"][2] != chosen["widest"][2] \
+            else "nodes"
+        for key in ("widest", second):
+            level = chosen[key]
+            for e in level_kernels(torch, dev, device, cfg, level,
+                                   f"{tag} {key} level", bounds):
+                e["case"] = f"{tag}, the level of the most {key} (depth " \
+                    f"{level[2]})"
+                measured.append(e)
+    del chosen, dev
+    launches = {"build": build_launches, "mine": recs["gnu"]["launches"]}
+    keep = {}
+    for n in shard_counts:
+        recs.update(samples_sharded(torch, idxs, ref, n, device,
+                                    keep if n == max(shard_counts) else None))
+    # the sharded kernels' entries are at the most shards: that run's counts
+    launches["mine_sharded"] = recs[f"{max(shard_counts)} shards gnu"][
+        "launches"]
+    if measure:
+        for e in samples_drain_kernels(
+                torch, keep, f"{tag}, the {max(shard_counts)}-shard gnu "
+                f"run's largest drain"):
+            e["case"] = f"{tag}, a {max(shard_counts)}-shard drain"
+            measured.append(e)
+    del keep
+    dist = samples_distance(torch, outs["gnu"], d, device)
+    plan = samples_plan(torch, idxs, ref, recs, device)
+    counts = {}
+    for path in launches.values():
+        for k, v in path.items():
+            counts.setdefault(k, v)
+    for e in measured:
+        e["launches"] = counts[LAUNCH_KEY[e["name"]]]
+    kernels += measured
+    summary = dict(
+        symbols=ref["symbols"], build_s=sum(build_s),
+        build_s_per_sample=sum(build_s) / d, upload_s=upload_s,
+        set_s=time.perf_counter() - t_set, levels=rows,
+        chosen_levels=levels, distance=dist, plan=plan,
+        runs={k: {f: r.get(f) for f in (
+            "wall_s", "paths_per_s", "levels", "level_s", "drain_s",
+            "tail_s", "tail_depth", "drains", "histfull", "pull_s",
+            "save_s", "saves", "peak_bytes")} for k, r in recs.items()})
+    log(f"{tag} summary: {json.dumps(summary)}")
+    return summary
+
+
+def phase_samples(torch, device) -> list[dict]:
+    """Phase 16: D64, D273 (also killed and resumed; the kernels at its
+    widest level, its level with the most nodes past 64 pairs and a
+    128-shard drain) and D512; -> the kernels' entries."""
+    fz = load_tests_module("freeze_samples_reference")
+    kernels = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dsm_smoke_samples_") as td:
+        for ref in (D64, D273, D512):
+            samples_set(torch, fz, ref, td, device, kernels,
+                        resume=ref is D273, measure=ref is D273,
+                        shard_counts=(128,) if ref is D512
+                        else SAMPLES_SHARDS)
+    log(f"samples kernels: {json.dumps(kernels)}")
+    log(f"samples: phase 16 in {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
+def samples_alone(torch, device) -> None:
+    """Phase 16 by itself, after the environment and the build (for a
+    quicker run while developing; no result line)."""
+    phase_env(torch)
+    phase_build()
+    phase_samples(torch, device)
+
+
 def main() -> int:
     import torch
 
@@ -3555,6 +4075,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="dsm_smoke1000_") as td:
         launches["s1000_build"], launches["s1000_mine"], _k = \
             phase_scale1000(torch, toy, td, device)
+    samples = phase_samples(torch, device)
     # a kernel of two paths (rank, compact, decode) keeps the count of the
     # first, the single-device mine
     counts = {}
@@ -3563,6 +4084,9 @@ def main() -> int:
             counts.setdefault(k, v)
     for k in kernels:
         k["launches"] = counts[LAUNCH_KEY[k["name"]]]
+    # phase 16's entries (each with its "case") keep the launches of their
+    # D273 run's path
+    kernels += samples
     if any(m == "jax" or m.split(".")[0] == "dsm_tpu" for m in sys.modules):
         raise SystemExit("chip_smoke: jax or the JAX package was imported")
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,12 @@
 //       512 pairs over all shards, so a field of the summed rows never
 //       carries into the next.
 //
-// partials (K9a), one launch a shard.  Each pair's fixed-point term is made
+// partials (K9a), one launch a shard, writing the shard's rows or adding
+// them to the rows an earlier shard's launch left (a row is one thread's,
+// and launches on a stream run in turn, so the add needs no atomic): the
+// episode keeps one (U, 3) buffer a level whatever its shards a process,
+// where a buffer a shard held 24 bytes a node a shard (1.7 GB at 128
+// shards of a 564k-node level).  Each pair's fixed-point term is made
 // by the thread that loads the pair (for f < kLut from a table of int64
 // terms made once a device with the same expression, so bit-equal to the
 // computed term); the row is integers, so the order of the sums does not
@@ -50,9 +55,10 @@
 // a thread, handed out in issue order by an atomic counter to a grid the
 // card holds at once.  At a tile's start the node starts of its first
 // kStage shards are copied into shared memory (cp.async) while a thread
-// adds its two nodes' n rows (the shards of this process, already summed
-// over the processes by the library's all-reduce where there are several;
-// the loads of kRowBatch shards in flight at once) in registers, applies
+// adds its two nodes' rows (the episode passes one, into which each shard's
+// K9a launch has added its own; already summed over the processes by the
+// library's all-reduce where there are several; the loads of kRowBatch
+// rows in flight at once) in registers, applies
 // the gates of segstats.cu with the GLOBAL counts and writes the nodes'
 // flags (present, stat, gated, the existing child symbols, the active
 // readers from bit 8 up) and entropy.  A block scan a round numbers the
@@ -202,7 +208,8 @@ __global__ void __launch_bounds__(kThreads)
 partials_kernel(const int32_t* __restrict__ nb,
                 const int32_t* __restrict__ freq,
                 const uint8_t* __restrict__ cbits, long long n_nodes,
-                int tile, unsigned sym_mask, long long* __restrict__ part,
+                int tile, unsigned sym_mask, int accumulate,
+                long long* __restrict__ part,
                 unsigned long long* __restrict__ state,
                 double* __restrict__ kept_out) {
   __shared__ int s_nb[2][kMaxTile + 1];  // this tile's and the next's
@@ -292,7 +299,8 @@ partials_kernel(const int32_t* __restrict__ nb,
     // the tile's rows, coalesced; the next tile writes s_row only after
     // its first barrier
     long long* dst = part + n0 * kPartCols;
-    for (int i = t; i < cnt * kPartCols; i += kThreads) dst[i] = s_row[i];
+    for (int i = t; i < cnt * kPartCols; i += kThreads)
+      dst[i] = (accumulate ? dst[i] : 0) + s_row[i];
   }
 
   // the block's kept lanes into the shard's: a 64-bit atomic, then the
@@ -323,7 +331,8 @@ __global__ void __launch_bounds__(kThreads)
 partials_warp_kernel(const int32_t* __restrict__ nb,
                      const int32_t* __restrict__ freq,
                      const uint8_t* __restrict__ cbits, long long n_nodes,
-                     unsigned sym_mask, long long* __restrict__ part,
+                     unsigned sym_mask, int accumulate,
+                     long long* __restrict__ part,
                      unsigned long long* __restrict__ state,
                      double* __restrict__ kept_out) {
   __shared__ long long s_term[kWarps][kWarpPairs];
@@ -388,9 +397,9 @@ partials_warp_kernel(const int32_t* __restrict__ nb,
     }
     if (lane < cnt) {
       long long* row = part + (n0 + lane) * kPartCols;
-      row[0] = r.sumf;
-      row[1] = r.nln;
-      row[2] = r.fields;
+      row[0] = (accumulate ? row[0] : 0) + r.sumf;
+      row[1] = (accumulate ? row[1] : 0) + r.nln;
+      row[2] = (accumulate ? row[2] : 0) + r.fields;
     }
   }
 
@@ -426,7 +435,8 @@ __device__ __forceinline__ void stage_nb(int (*s_nb)[kTile + 1],
 }
 
 __global__ void __launch_bounds__(kThreads)
-gates_kernel(const long long* __restrict__ parts, int n, long long U,
+gates_kernel(const long long* __restrict__ parts, int nparts, int n,
+             long long U,
              long long ntiles, Gates g, int32_t* __restrict__ flags,
              double* __restrict__ ent, int32_t* __restrict__ kid0,
              int32_t* __restrict__ hist, long long room,
@@ -464,7 +474,7 @@ gates_kernel(const long long* __restrict__ parts, int n, long long U,
     long long sumf[kNodes], nln[kNodes], fields[kNodes];
 #pragma unroll
     for (int j = 0; j < kNodes; ++j) sumf[j] = nln[j] = fields[j] = 0;
-    for (int k0 = 0; k0 < n; k0 += kRowBatch) {
+    for (int k0 = 0; k0 < nparts; k0 += kRowBatch) {
       long long r[kNodes][kRowBatch][kPartCols];
 #pragma unroll
       for (int j = 0; j < kNodes; ++j) {
@@ -472,10 +482,11 @@ gates_kernel(const long long* __restrict__ parts, int n, long long U,
 #pragma unroll
         for (int b = 0; b < kRowBatch; ++b) {
           const long long* row =
-              parts + ((long long)min(k0 + b, n - 1) * U + n0 + i) * kPartCols;
+              parts +
+              ((long long)min(k0 + b, nparts - 1) * U + n0 + i) * kPartCols;
 #pragma unroll
           for (int c = 0; c < kPartCols; ++c)
-            r[j][b][c] = k0 + b < n ? row[c] : 0;
+            r[j][b][c] = k0 + b < nparts ? row[c] : 0;
         }
       }
 #pragma unroll
@@ -716,15 +727,16 @@ int resident(cudaStream_t stream, Resident* out) {
 }  // namespace
 
 // nb: (U+1,) int32; freq: (P,) int32, 0 for an inactive pair; cbits: (P,)
-// uint8; part: (U, 3) int64; state: the running state of ops/shardstats.py
+// uint8; part: (U, 3) int64, the rows written, or with `accumulate` added
+// to the rows it holds; state: the running state of ops/shardstats.py
 // (0 at the launch and again when the kernel ends, used by one stream at a
 // time); kept: 1 f64, the shard's slot of the level's values.  U >= 1; a
 // node holds at most kChunk pairs (MAX_SAMPLES = 512), else the launch
 // stops with a fault.
 extern "C" int dsm_shard_partials(const void* nb, const void* freq,
                                   const void* cbits, long long U, long long P,
-                                  int sym_mask, void* part, void* state,
-                                  void* kept, void* stream) {
+                                  int sym_mask, int accumulate, void* part,
+                                  void* state, void* kept, void* stream) {
   if (U < 1 || P < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Resident r;
@@ -735,8 +747,8 @@ extern "C" int dsm_shard_partials(const void* nb, const void* freq,
     if (blocks > r.partials_warp) blocks = r.partials_warp;
     partials_warp_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
         (const int32_t*)nb, (const int32_t*)freq, (const uint8_t*)cbits, U,
-        (unsigned)sym_mask, (long long*)part, (unsigned long long*)state,
-        (double*)kept);
+        (unsigned)sym_mask, accumulate, (long long*)part,
+        (unsigned long long*)state, (double*)kept);
     return (int)cudaGetLastError();
   }
   // the tile: kMaxTile nodes, halved while a tile would hold more than 7/8
@@ -747,7 +759,7 @@ extern "C" int dsm_shard_partials(const void* nb, const void* freq,
   if (blocks > r.partials) blocks = r.partials;
   partials_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
       (const int32_t*)nb, (const int32_t*)freq, (const uint8_t*)cbits, U,
-      (int)tile, (unsigned)sym_mask, (long long*)part,
+      (int)tile, (unsigned)sym_mask, accumulate, (long long*)part,
       (unsigned long long*)state, (double*)kept);
   return (int)cudaGetLastError();
 }
@@ -757,15 +769,18 @@ extern "C" long long dsm_node_gates_workspace(long long U) {
   return (U + kTile - 1) / kTile;
 }
 
-// parts: (n, U, 3) int64; flags, kid0: (U,) int32; ent: (U,) f64; hist has
+// parts: (nparts, U, 3) int64, added up a node (the n shards' rows, or
+// fewer rows that K9a has already added them into); flags, kid0: (U,)
+// int32; ent: (U,) f64; hist has
 // `room` entries; shards: n x (nb pointer, pair_out pointer, ocount) int64
 // in HOST memory, copied into the launch's parameters; state and status:
 // the running state and `words` >= dsm_node_gates_workspace(U) look-back
 // words of ops/shardstats.py (0 at the launch and again when the kernel
 // ends, used by one stream at a time); vals: the level's values (5 + 2n
 // f64; the kept lanes' slots are not written).  U >= 1,
-// 1 <= n <= kMaxShards.
-extern "C" int dsm_node_gates(const void* parts, int n, long long U,
+// 1 <= nparts, 1 <= n <= kMaxShards.
+extern "C" int dsm_node_gates(const void* parts, int nparts, int n,
+                              long long U,
                               int depth, int s_total, int mindepth, int pmin,
                               int pmax, int use_egate, int sym_mask,
                               double emin_lo, double emax_hi, void* flags,
@@ -774,7 +789,7 @@ extern "C" int dsm_node_gates(const void* parts, int n, long long U,
                               void* status, long long words, void* vals,
                               void* stream) {
   const long long tiles = dsm_node_gates_workspace(U);
-  if (U < 1 || n < 1 || n > kMaxShards || words < tiles)
+  if (U < 1 || nparts < 1 || n < 1 || n > kMaxShards || words < tiles)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Resident r;
@@ -789,7 +804,8 @@ extern "C" int dsm_node_gates(const void* parts, int n, long long U,
                      h[3 * k + 2]};
   const long long blocks = tiles < r.gates ? tiles : r.gates;
   gates_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      (const long long*)parts, n, U, tiles, g, (int32_t*)flags, (double*)ent,
+      (const long long*)parts, nparts, n, U, tiles, g, (int32_t*)flags,
+      (double*)ent,
       (int32_t*)kid0, (int32_t*)hist, room, tab, (unsigned long long*)state,
       (unsigned long long*)status, (double*)vals);
   return (int)cudaGetLastError();

@@ -28,9 +28,19 @@ import math
 
 import numpy as np
 
+from ..index.alphabet import EXT_CHARS, EXT_CODES
 from ..index.fmindex import FMIndex
-from .engine_np import _occ_psum4
 from .gnuorder import LOG2, GnuHashSet, root_order, simulate_node
+
+
+def _occ_psum4_rows(cum: np.ndarray, pos: np.ndarray):
+    """engine_np._occ_psum4 on rows already read: cum (S, 5) = the dense
+    counts cum(1..5) at each sample's `pos` -> (occ4, psum4), each (4, S)
+    (occ(A) = cum2-cum1, occ(C) = cum3-cum2, occ(G) = cum4-cum3, occ(T) =
+    pos-cum5; psum = cum1, cum2, cum3, cum5)."""
+    c = cum.T
+    occ4 = np.stack([c[1] - c[0], c[2] - c[1], c[3] - c[2], pos - c[4]])
+    return occ4, np.stack([c[0], c[1], c[2], c[4]])
 
 
 class LazyGnuOrder:
@@ -54,6 +64,9 @@ class LazyGnuOrder:
         hi = np.array([idx.n for idx in indexes], dtype=np.int64)
         rlo = np.zeros(S, dtype=np.int64)
         self._iv: dict[bytes, tuple] = {b"": (lo, hi, rlo)}
+        # C[c] of each extension symbol c and sample: (4, S)
+        self._base = np.array([[int(idx.C[c]) for idx in indexes]
+                               for c in EXT_CODES], dtype=np.int64)
         self.orders: dict[bytes, list[int]] = {b"": root_order(d)}
 
     # -- tracker interface -------------------------------------------------
@@ -92,26 +105,25 @@ class LazyGnuOrder:
 
     def _expand_node(self, ppath: bytes) -> None:
         """One 4-way LF expansion of node `ppath`: caches every child's
-        intervals and set order."""
-        from ..index.alphabet import EXT_CHARS, EXT_CODES
-
+        intervals and set order.  A sample's two dense-count rows are read
+        in the loop; the rank arithmetic is done for all samples at once
+        (engine_np._occ_psum4's, column by column)."""
         lo, hi, rlo = self._iv[ppath]
         S = len(self.indexes)
-        clo = np.zeros((4, S), dtype=np.int64)
-        chi = np.zeros((4, S), dtype=np.int64)
-        crlo = np.zeros((4, S), dtype=np.int64)
-        for s, idx in enumerate(self.indexes):
-            if hi[s] <= lo[s]:
-                continue
-            occ_lo, psum_lo = _occ_psum4(idx.dcum, lo[s:s + 1])
-            occ_hi, psum_hi = _occ_psum4(idx.dcum, hi[s:s + 1])
-            for ci, c in enumerate(EXT_CODES):
-                base = int(idx.C[c])
-                clo[ci, s] = base + occ_lo[0, ci]
-                chi[ci, s] = base + occ_hi[0, ci]
-                crlo[ci, s] = rlo[s] + psum_hi[0, ci] - psum_lo[0, ci]
+        live = hi > lo
+        cum_lo = np.zeros((S, 5), dtype=np.int64)
+        cum_hi = np.zeros((S, 5), dtype=np.int64)
+        for s in np.flatnonzero(live).tolist():
+            dcum = self.indexes[s].dcum
+            cum_lo[s] = dcum[lo[s]]
+            cum_hi[s] = dcum[hi[s]]
+        occ_lo, psum_lo = _occ_psum4_rows(cum_lo, lo)
+        occ_hi, psum_hi = _occ_psum4_rows(cum_hi, hi)
+        clo = np.where(live, self._base + occ_lo, 0)
+        chi = np.where(live, self._base + occ_hi, 0)
+        crlo = np.where(live, rlo + psum_hi - psum_lo, 0)
         cfreq = np.maximum(chi - clo, 0)
-        cact = (hi > lo)[None, :] & (cfreq >= self.fmin)   # (4, S)
+        cact = live[None, :] & (cfreq >= self.fmin)   # (4, S)
 
         order = self.orders[ppath]
         depth = len(ppath)

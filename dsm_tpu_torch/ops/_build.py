@@ -77,13 +77,14 @@ _SIGNATURES = {
     # scratch, newp, nb_next, stream
     "dsm_children_ids": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I64,
                          _P, _P, _P, _P],
-    # nb, freq, cbits, U, P, sym_mask, part, state, kept, stream
-    "dsm_shard_partials": [_P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P],
-    # parts, n_parts, U, depth, s_total, mindepth, pmin, pmax, use_egate,
-    # sym_mask, emin_lo, emax_hi, flags, ent, kid0, hist, room, shards (a
-    # host table), state, status, status words, vals, stream
-    "dsm_node_gates": [_P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P,
-                       _P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P],
+    # nb, freq, cbits, U, P, sym_mask, accumulate, part, state, kept, stream
+    "dsm_shard_partials": [_P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
+    # parts, rows a node, shards, U, depth, s_total, mindepth, pmin, pmax,
+    # use_egate, sym_mask, emin_lo, emax_hi, flags, ent, kid0, hist, room,
+    # shards' table (a host table), state, status, status words, vals,
+    # stream
+    "dsm_node_gates": [_P, _I, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D,
+                       _P, _P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P],
     # U -> look-back words
     "dsm_node_gates_workspace": [_I64],
     # table (a host table), nblk, C, sid_col, out, lc_out, stream

@@ -11,9 +11,10 @@ the children, the present nodes, the entropy range, the staged maximum,
 and for each shard k of the process its kept lanes (V_SHARDS + 2k) and
 its gated pairs (V_SHARDS + 2k + 1).
 
-`shard_partials(nb, freq, cbits, sym_mask, out, kept)` writes `out`, (U,
-3) int64, one partial row a node from this shard's pairs [nb[u], nb[u+1])
-(zeros where it has none):
+`shard_partials(nb, freq, cbits, sym_mask, out, kept, accumulate)` writes
+`out`, (U, 3) int64, one partial row a node from this shard's pairs [nb[u],
+nb[u+1]) (zeros where it has none), or with `accumulate` adds them to the
+rows `out` holds (the episode sums its shards into one buffer this way):
   * [0] the sum of the active pairs' frequencies;
   * [1] the sum of trunc((f+1)*log2(f+1) * 2^NLN_FP): fixed point, so that
     the sum over shards and processes is the same integer in any order (a
@@ -24,10 +25,11 @@ its gated pairs (V_SHARDS + 2k + 1).
 and `kept` ((1,) float64, the shard's slot of `vals`): the shard's kept
 lanes, popcount(cbits & sym_mask) over its pairs.
 
-`node_gates(parts, gates, hist, shards, vals)`: parts (n, U, 3) int64,
-the n rows of a node added here (the shards of this process; where there
-are several processes `torch.distributed.all_reduce` has summed them
-before); shards: each shard's (nb, pair count, staged row count).  ->
+`node_gates(parts, gates, hist, shards, vals)`: parts (m, U, 3) int64,
+the m rows of a node added here (the shards of this process, or one row
+they were added into; where there are several processes
+`torch.distributed.all_reduce` has summed them before); shards: each
+shard's (nb, pair count, staged row count).  ->
 (flags (U,) int32, ent (U,) float64, kid0 (U,) int32, pair_outs: a (P_k,)
 bool a shard), and hist and vals written:
   * flags: as ops/segstats (bit 0 present, bit 1 stat, bit 2 gated, bits
@@ -135,10 +137,12 @@ def shard_partials_plain(nb: torch.Tensor, freq: torch.Tensor,
 
 def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
                    cbits: torch.Tensor, sym_mask: int, out: torch.Tensor,
-                   kept: torch.Tensor) -> torch.Tensor:
-    """Write this shard's partial rows into `out` ((U, 3) int64, e.g. one
-    slice of the (n, U, 3) tensor node_gates reads) and its kept lanes into
-    `kept` ((1,) float64, `kept_slot` of the level's values); return `out`.
+                   kept: torch.Tensor, accumulate: bool = False
+                   ) -> torch.Tensor:
+    """Write this shard's partial rows into `out` ((U, 3) int64, a row of
+    the (m, U, 3) tensor node_gates reads), or add them to its rows with
+    `accumulate`, and its kept lanes into `kept` ((1,) float64, `kept_slot`
+    of the level's values); return `out`.
     nb: (U+1,) int32; freq: (P,) int32, 0 for inactive pairs; cbits: (P,)
     uint8, bit c set if child symbol c is active for the pair.  CPU
     tensors take the plain version; CUDA tensors launch the kernel, once."""
@@ -147,7 +151,10 @@ def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
                 "int32 pair positions")
     if freq.device.type == "cpu":
         part, k = shard_partials_plain(nb, freq, cbits, sym_mask)
-        out.copy_(part)
+        if accumulate:
+            out.add_(part)
+        else:
+            out.copy_(part)
         kept.copy_(k)
         return out
     device = freq.device
@@ -169,8 +176,8 @@ def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
     state, _ = _running_state(device, 0)
     _build.launch("dsm_shard_partials", "shard_partials", device,
                   nb.data_ptr(), freq.data_ptr(), cbits.data_ptr(), U, P,
-                  sym_mask, out.data_ptr(), state.data_ptr(),
-                  kept.data_ptr())
+                  sym_mask, int(accumulate), out.data_ptr(),
+                  state.data_ptr(), kept.data_ptr())
     return out
 
 
@@ -222,8 +229,10 @@ def node_gates_plain(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
 
 def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
                shards: list, vals: torch.Tensor):
-    """parts: (n, U, 3) int64 contiguous partial rows; hist: 1-D int32, the
-    free tail of the history buffer; shards: n tuples (nb, P, ocount), a
+    """parts: (m, U, 3) int64 contiguous partial rows, added up a node (the
+    n shards' rows, or 1 <= m < n rows they were added into); hist: 1-D
+    int32, the free tail of the history buffer; shards: n tuples (nb, P,
+    ocount), a
     shard's (U+1,) int32 node starts, its pair count (nb[U]) and its staged
     rows; vals: the level's values (its kept slots already written).  CPU
     tensors take the plain version; CUDA tensors launch the kernel, once,
@@ -237,13 +246,14 @@ def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
         raise ValueError(f"node_gates: unsupported device {device}")
     if (parts.dtype != torch.int64 or parts.dim() != 3
             or parts.shape[2] != PART_COLS or not parts.is_contiguous()):
-        raise ValueError("node_gates: parts must be contiguous (n, U, 3) "
+        raise ValueError("node_gates: parts must be contiguous (m, U, 3) "
                          "int64")
-    n, U, _ = parts.shape
-    if not 1 <= n <= MAX_SHARDS or len(shards) != n:
+    m, U, _ = parts.shape
+    n = len(shards)
+    if not 1 <= n <= MAX_SHARDS or not 1 <= m <= n:
         raise ValueError(f"node_gates: takes 1 to {MAX_SHARDS} shards, "
-                         f"one (nb, P, ocount) each (got {n} rows and "
-                         f"{len(shards)} shards)")
+                         f"one (nb, P, ocount) each, and 1 to that many "
+                         f"rows a node (got {m} rows and {n} shards)")
     for name, t, dt, shape in (
             [("hist", hist, torch.int32, hist.shape[:1]),
              ("vals", vals, torch.float64, (V_SHARDS + 2 * n,))]
@@ -269,7 +279,7 @@ def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
     state, status = _running_state(
         device, _build.lib().dsm_node_gates_workspace(U))
     _build.launch("dsm_node_gates", "node_gates", device, parts.data_ptr(),
-                  n, U, g.depth, g.s_total, g.mindepth, g.pmin, g.pmax,
+                  m, n, U, g.depth, g.s_total, g.mindepth, g.pmin, g.pmax,
                   int(g.use_egate), g.sym_mask, g.emin_lo, g.emax_hi,
                   flags.data_ptr(), ent.data_ptr(), kid0.data_ptr(),
                   hist.data_ptr(), hist.shape[0], ctypes.addressof(table),

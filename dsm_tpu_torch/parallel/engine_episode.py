@@ -169,16 +169,16 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
     g = sc.gates(depth, dev.S)
     grouped = mesh.group is not None
 
-    # ---- a shard: expand, partial rows and kept lanes ------------------
-    parts = torch.empty((len(st.shards), U, PART_COLS), dtype=torch.int64,
-                        device=device)
+    # ---- a shard: expand, partial rows and kept lanes; the shards' rows
+    # added into one (U, 3) buffer, whatever the shards a process ---------
+    parts = torch.empty((1, U, PART_COLS), dtype=torch.int64, device=device)
     vals = level_values(len(st.shards), device)
     expanded = []
     for k, sh in enumerate(st.shards):
         olo, ohi, freq, keepc, cbits = _expand(dev.shards[k].frows, sh.pairs,
                                                sc.fmin, g.sym_mask)
-        shard_partials(sh.nb, freq, cbits, g.sym_mask, parts[k],
-                       kept_slot(vals, k))
+        shard_partials(sh.nb, freq, cbits, g.sym_mask, parts[0],
+                       kept_slot(vals, k), accumulate=k > 0)
         expanded.append((olo, ohi, keepc))
 
     # ---- the trie merge, then one gates launch a process ----------------

@@ -704,6 +704,43 @@ def test_shardstats_kernels(cuda, S, U, n):
         _gates_equal(got, want, vals, want_vals, got_hist, want_hist)
 
 
+@pytest.mark.parametrize("S,U,n", [(5, 257, 2), (64, 3000, 5),
+                                   (512, 300, 3), (273, 5000, 128),
+                                   (64, 20_000, 128)])
+def test_shardstats_one_row_a_node(cuda, S, U, n):
+    """The sharded episode's form: K9a adding each shard's rows into one
+    (U, 3) buffer (`accumulate`, one launch a shard) gives the shards'
+    rows added, at up to 128 shards (more shards than samples: empty
+    ones), on both of its shapes; K9b on that one row equals its plain
+    version on the n rows."""
+    from dsm_tpu_torch.ops.segstats import Gates
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, kept_slot,
+                                              level_values, node_gates,
+                                              node_gates_plain,
+                                              shard_partials)
+
+    rng = np.random.default_rng(S * U + n + 1)
+    args, table = _shardstats_inputs(rng, S, U, n, cuda)
+    g = Gates(depth=6, s_total=S, mindepth=2, pmin=2, pmax=0, use_egate=True,
+              sym_mask=0b1111, emin_lo=0.2, emax_hi=1.6)
+    parts, vals = _partials_checked(args, g.sym_mask, cuda)
+    acc = torch.full((1, U, PART_COLS), -5, dtype=torch.int64, device=cuda)
+    one_vals = level_values(n, cuda)
+    before = _build.LAUNCHES["shard_partials"]
+    for k, (nb, freq, cbits) in enumerate(args):
+        shard_partials(nb, freq, cbits, g.sym_mask, acc[0],
+                       kept_slot(one_vals, k), accumulate=k > 0)
+    assert _build.LAUNCHES["shard_partials"] == before + n
+    assert torch.equal(acc[0], parts.sum(0))
+    want_vals = vals.clone()
+    got_hist = torch.full((4 * U,), -7, dtype=torch.int32, device=cuda)
+    want_hist = got_hist.clone()
+    got = node_gates(acc, g, got_hist, table, one_vals)
+    want = node_gates_plain(parts, g, want_hist, table, want_vals)
+    torch.cuda.synchronize()
+    _gates_equal(got, want, one_vals, want_vals, got_hist, want_hist)
+
+
 def test_node_gates_on_two_streams(cuda):
     """Two K9b launches on two streams of one device, twice over (the
     second round on the state the first left): each its own values."""
@@ -1268,3 +1305,109 @@ def test_distance_accumulator_on_the_card(cuda, toy_indexes):
     for kind in ("log", "sqrt", "lgamma"):
         np.testing.assert_allclose(got[kind], want[kind], rtol=1e-9,
                                    atol=1e-9)
+
+
+# the sample axis: tests/test_torch_samples.py's tiny pools (d -> maxdepth,
+# the most shards) mined on the card against the port's CPU path
+POOLS = {64: (None, 64), 273: (8, 128), 512: (5, 128)}
+
+
+def _pool(d: int):
+    """d samples of 3 texts of 60 bases from one 400-base genome, the
+    port's FMIndex built on the CPU, and the mining config of width d."""
+    from dsm_tpu_torch.index.alphabet import transform
+    from dsm_tpu_torch.index.fmindex import FMIndex
+    from dsm_tpu_torch.mining.config import MiningConfig
+
+    rng = np.random.default_rng(d)
+    genome = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        rng.integers(0, 4, size=400)]
+    idxs = [FMIndex.from_texts([transform(
+        genome[int(rng.integers(0, 340)):][:60].tobytes()) for _ in range(3)],
+        device="cpu") for _ in range(d)]
+    maxdepth = POOLS[d][0]
+    kw = {} if maxdepth is None else dict(maxdepth=maxdepth)
+    return idxs, MiningConfig(fmin=2, emax=99, **kw)
+
+
+@pytest.mark.parametrize("order", ["ascending", "gnu"])
+@pytest.mark.parametrize("d", sorted(POOLS))
+def test_many_samples_on_card_equal_cpu(cuda, d, order):
+    """d = 64, 273 and 512 samples on one device and at 64 / 128 shards on
+    the card (nodes of up to 512 pairs in K2, K3, K9a-c), with small
+    drains: lines and counters equal the CPU path's, K9a launched once a
+    shard a level and K9b once a level."""
+    from dsm_tpu_torch.mining.engine import mine_torch
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    idxs, cfg = _pool(d)
+    want = mine_torch(idxs, cfg, device="cpu", reader_order=order)
+    assert want.total_output > 0
+    _build.reset_launches()
+    one = mine_torch(idxs, cfg, device=cuda, reader_order=order,
+                     out_reserve=64)
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["mine"])
+    shards, prof = POOLS[d][1], {}
+    _build.reset_launches()
+    many = mine_device_sharded(idxs, cfg, reader_order=order, out_reserve=64,
+                               mesh=global_samples_mesh(shards, cuda),
+                               profile=prof)
+    assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["mine_sharded"])
+    assert _build.LAUNCHES["shard_partials"] == shards * prof["levels"]
+    assert _build.LAUNCHES["node_gates"] == prof["levels"]
+    for got in (one, many):
+        assert got.format_lines() == want.format_lines()
+        assert (got.total_paths, got.total_output, got.total_occs) == \
+            (want.total_paths, want.total_output, want.total_occs)
+        assert np.array_equal(got.freq_histogram, want.freq_histogram)
+        assert abs(got.smallest_entropy - want.smallest_entropy) < 1e-5
+        assert abs(got.largest_entropy - want.largest_entropy) < 1e-5
+
+
+def test_128_shard_drain_is_two_launches(cuda, monkeypatch):
+    """A drain over 128 shards of 273 samples (K10's block table and K5's
+    shard table at MAX_SHARDS): one gather and one leftChar launch, the
+    packed rows and their codes equal the plain versions'."""
+    from dsm_tpu_torch.mining.engine import OC_SID, leftchar_rows_plain
+    from dsm_tpu_torch.ops.gatherpack import gather_pack_plain
+    from dsm_tpu_torch.parallel import engine_episode as tee
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    idxs, cfg = _pool(273)
+    drains, drain = [], tee._drain_sharded
+
+    def counted(*a, **k):
+        st, dev = a[3], a[6]
+        blocks = [(sh.out[:sh.ocount].clone(), dev.base(j))
+                  for j, sh in enumerate(st.shards) if sh.ocount]
+        before = dict(_build.LAUNCHES)
+        staged = drain(*a, **k)
+        if staged:
+            rows = gather_pack_plain([c for c, _b in blocks],
+                                     [b for _c, b in blocks], OC_SID)[0]
+            codes = leftchar_rows_plain(
+                [(sd.rrows, sd.soff, dev.base(j))
+                 for j, sd in enumerate(dev.shards)], rows)
+            drains.append((len(blocks), rows, codes, {
+                key: _build.LAUNCHES[key] - before[key]
+                for key in ("gather_pack", "rank")}))
+        return staged
+
+    kept = []
+    orig = tee.leftchar_rows
+
+    def keeping(tables, rows, out=None):
+        codes = orig(tables, rows, out)
+        kept.append((rows.clone(), codes.clone()))
+        return codes
+
+    monkeypatch.setattr(tee, "_drain_sharded", counted)
+    monkeypatch.setattr(tee, "leftchar_rows", keeping)
+    tee.mine_device_sharded(idxs, cfg, mesh=global_samples_mesh(128, cuda),
+                            reader_order="gnu", out_reserve=64)
+    assert drains and max(n for n, *_ in drains) > 100
+    assert all(lc == {"gather_pack": 1, "rank": 1} for *_, lc in drains)
+    for (_n, rows, codes, _lc), (got_rows, got_codes) in zip(drains, kept):
+        assert torch.equal(got_rows, rows)
+        assert torch.equal(got_codes, codes)
