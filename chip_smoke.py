@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-and, for timings alone (see `level_times`, `variant_times` and
-`drain_times`),
+and, for timings alone (see `level_times`, `variant_times`, `drain_times`
+and `expand_times`),
 
     python3 -c 'import torch, chip_smoke as c; c.level_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.variant_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.drain_times(torch, torch.device("cuda", 0))'
+    python3 -c 'import torch, chip_smoke as c; c.expand_times(torch, torch.device("cuda", 0))'
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. environment: the card, torch/CUDA versions, nvcc, triton;
@@ -18,11 +19,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernels; every build-path kernel must have been launched;
   4. kernels: each CUDA kernel against its plain PyTorch version on the
      card at main-path shapes (equal integers; the f64 entropy within
-     ENT_TOL), with both times. The rank kernel runs by all three of its
+     ENT_TOL), with both times. The rank kernel runs by all four of its
      entries: one end at RANK_Q queries, the level's expand step at the
-     widest level of the scale-100 mine (made by the port's own level loop)
-     and on a synthetic level of ~4.2M pairs with as many pairs whose two
-     ends share a table row, and the leftChar (below). The suffix
+     widest level of the scale-100 mine (made by the port's own level loop;
+     there also its expand_tables entry over 1 and 2 shard tables, equal to
+     the one-table outputs) and on a synthetic level of ~4.2M pairs with as
+     many pairs whose two ends share a table row, and the leftChar (below).
+     The suffix
      array of toy0, forward and reverse, must also equal the host
      `suffix_array_np`; it is timed there and at n = 2^24. The sort's
      k = 16 round of toy0 is checked from the previous round's order and
@@ -56,17 +59,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      fewer rows, and with the normalising factors (this one after phase 12,
      so that the plain version's library workspace is not in the mine's
      peak memory). The kernels of the sharded level and drain: the
-     partial rows (K9a) of one shard on the stats step's three levels
-     (nodes of 1..5, 1..64 and 1..273 pairs: integers and the kept lanes
-     equal, the fixed-point entropy sums within one unit a pair); on
-     SEG_NODES nodes over S = 5 samples split into 5 shards and into shards
-     of 2 and 3, each shard's rows (K9a) and the gates, global child ids,
-     every shard's pair gates and the level's values from them (K9b: one
-     launch; integers equal, the entropy and its range within ENT_TOL);
-     the outside-ids children step of each of the 2 shards (K9c) and the
-     gather of 2 and 5 blocks of GATHER_ROWS rows (K10, by events around
-     the wrapper and by the profiler's device time, its inputs cold in the
-     L2);
+     partial rows (K9a) of a list on the stats step's three levels (nodes
+     of 1..5, 1..64 and 1..273 pairs: integers and the kept lanes equal,
+     the fixed-point entropy sums within one unit a pair); on SEG_NODES
+     nodes over S = 5 samples split into 5 shards and into shards of 2 and
+     3, the shards' pairs as one process's list: its rows (K9a, one launch,
+     equal to the shards' rows added) and the gates, global child ids, the
+     pair gates and the level's values from them (K9b: one launch;
+     integers equal, the entropy and its range within ENT_TOL); the
+     outside-ids children step (K9c) on that list and on each of the 2
+     shards' pairs (one process's list of a group) and the gather of 2 and
+     5 blocks of GATHER_ROWS rows (K10, by events around the wrapper and by
+     the profiler's device time, its inputs cold in the L2);
   5. main path: `mine_torch` ascending and gnu order at fmin=2, emax=1.2
      on the card-built indexes; the counts and the gnu-order sha256 must
      equal the frozen reference (BENCH_BASELINE.json), so they also
@@ -93,14 +97,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gnu run once more inside a one-rank NCCL process group, so that the
      level's all-reduce and the drain's all-gathers run on the card between
      the kernels (K10 is also held against its plain version and timed
-     on the 1-, 2- and 5-shard drains' blocks, one a shard: the kernels
-     line has the 5-shard drain's).  Every kernel of
-     the sharded path must have been launched by the plain 2-shard gnu
-     run, every run must launch K9a
-     once a shard a level and K9b once a level, and every drain the gather
-     (K10) once and the rank kernel once (its leftChar entry; in the
-     process group the all-gather's gather adds one), whatever the shard
-     count;
+     on the 1-, 2- and 5-shard drains' one block: the kernels line has the
+     5-shard drain's).  Every kernel of the sharded path must have been
+     launched by the plain 2-shard gnu run, every run must launch the
+     expand (the rank kernel), K9a and K9b once a level and K9c once a
+     level that is not a HISTFULL exit, and every drain the gather (K10)
+     once and the rank kernel once (its leftChar entry; in the process
+     group the all-gather's gather adds one), whatever the shard count;
   9. owned: `mine_owned` (prefix ownership) on the card at 2 hosts x hash
      depth 1 (4 prefixes) and 3 hosts x hash depth 2 (16 prefixes, split
      5/5/6): each set's `merge_outputs` equals the warm ascending run's
@@ -142,12 +145,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      under the default history cap; the
      2-shard episode on the one card, gnu, against the same bytes.  Each
      run's launches are counted from 0 (every kernel of its path
-     launched; the rank kernel once a level and once a drain), with its
+     launched; the rank kernel once a level and once a drain; in the
+     2-shard run K9a, K9b and K9c once a level as in phase 8), with its
      levels, `level_s`, `drain_s`, `tail_s`, tail depth, drains, HISTFULL
      exits, pulled levels and peak memory, and the capacity plan's bytes
      against the peaks.  K1 (`occ_cum8` at RANK_Q queries, `expand`), K2,
-     K3, P1 and its `stage_rows` entry, K9a, K9b and K9c run at the widest
-     real level (made by the port's own level loop), K5 and K6 on the
+     K3, P1 and its `stage_rows` entry, and the sharded level's kernels
+     (K1's `expand_tables` and K9a, K9b and K9c on the level as the one
+     pair list of the 2-shard mesh's shards) run at the widest real level
+     (made by the port's own level loop), K5 and K6 on the
      whole-trie run's largest drain and path decode, K10 on the 2-shard
      run's largest drain, each against its plain version, with the table
      rows that the widest level's pairs touch against the 50 MB L2;
@@ -161,7 +167,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      orders, each against the frozen D64 / D273 / D512 (paths, lines,
      occurrences, the frequency histogram's and both orders' sha256, the
      entropy range within SAMPLES_ENT_TOL), every kernel of its path
-     launched, K9a once a shard a level and K9b once a level; D273's gnu
+     launched, the expand, K9a, K9b and K9c once a level as in phase 8;
+     each 128-shard ascending run once more under torch.profiler (its
+     `level_s`, peak, device time and activities a level on a line of its
+     own); D273's gnu
      mine killed at its second save (out_reserve SAMPLES_RESERVE) and
      resumed to the same bytes; the levels' widths by depth (nodes, pairs,
      widest node, nodes past 64 pairs; D512 must hold a node of 512
@@ -170,10 +179,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      `plan`: device mode, its bytes at or above every run's peak).  At
      D273's widest level and its level with the most nodes past 64 pairs
      (each with its histogram of pairs a node) K1's expand, K2, K3, P1 and
-     its stage_rows entry, K9a, K9b (on the 128 shards' rows and on the
-     one row K9a adds them into, the episode's form) and K9c (every shard)
-     against their plain versions, and K10 and K5 on the largest drain of
-     its 128-shard gnu run, timed by events and device time.
+     its stage_rows entry, and the sharded level's kernels on the level as
+     the one pair list of the 128 shards of one process (K1's
+     expand_tables over the 128 shard tables, K9a, K9b on its one row a
+     node, K9c), against their plain versions, and K10 and K5 on the
+     largest drain of its 128-shard gnu run, timed by events and device
+     time.
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume, halt, owned and capacity
 phases).
@@ -310,6 +321,7 @@ F32_TOPS = 67.0         # H100 SXM peak outside the tensor cores, T op/s:
 F64_TOPS = 33.5         # f64 outside the tensor cores: half the f32 rate
 # the kernels of each path, by the name in the kernels line
 LAUNCH_KEY = {"occ_cum8": "rank", "expand": "rank", "leftchar": "rank",
+              "expand_tables": "rank",
               "compact_rows": "compact",
               "segstats": "segstats", "decode": "decode",
               "children": "children", "stage_rows": "compact",
@@ -761,14 +773,74 @@ def expand_case(torch, dev, pairs, label: str):
     return entry, share
 
 
+def expand_tables_case(torch, dev, pairs, bounds, label: str) -> dict:
+    """The expand step over shard tables (ops/rank.expand_tables, the
+    sharded level's form) on `pairs` of the stacked tables `dev`: the
+    shards [bounds[k], bounds[k+1]) as row slices of its tables, each
+    pair's offset made one into its own shard's; against the plain version
+    and the one-table expand of the same pairs, all outputs equal; timed
+    (the one-table expand beside it) -> its entry of the kernels line."""
+    from dsm_tpu_torch.ops.rank import (expand, expand_tables,
+                                        expand_tables_plain)
+
+    rows_total = dev.frows.shape[0]
+    starts = [int(dev.soff[b]) if b < dev.S else rows_total for b in bounds]
+    tables = [(dev.frows[a:b], int(lo))
+              for a, b, lo in zip(starts[:-1], starts[1:], bounds[:-1])]
+    shard = torch.searchsorted(
+        torch.tensor(bounds[:-1], dtype=torch.int32, device=pairs.device),
+        pairs[:, 3].contiguous(), right=True) - 1
+    local = pairs.clone()
+    local[:, 4] -= torch.tensor(starts[:-1], dtype=torch.int32,
+                                device=pairs.device)[shard]
+    args = (tables, local, FMIN, 0b1111)
+    got, want = expand_tables(*args), expand_tables_plain(*args)
+    one = expand(dev.frows, pairs, FMIN, 0b1111)
+    torch.cuda.synchronize()
+    if not all(g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, o)
+               for g, w, o in zip(got, want, one)):
+        raise SystemExit(f"expand_tables disagrees with its plain version or "
+                         f"with the one-table expand ({label})")
+    p, n = pairs.shape[0], len(tables)
+    blo = (pairs[:, 0] >> 7) + pairs[:, 4]
+    bhi = (pairs[:, 1] >> 7) + pairs[:, 4]
+    rows = int(torch.unique(torch.cat([blo, bhi])).numel())
+    entry = dict(
+        name="expand_tables", route="cuda",
+        source="dsm_tpu_torch/csrc/rank.cu",
+        replaces="dsm_tpu/mining/engine_device.py:409", max_abs_err=0,
+        ms=cuda_ms(torch, lambda: expand_tables(*args)),
+        plain_ms=cuda_ms(torch, lambda: expand_tables_plain(*args), 3),
+        # expand's bytes and operations, and a bisection of the n bases a
+        # pair (a compare and a select a step)
+        **bound(24 * p + 128 * rows + (64 + 4 + 4 + 1) * p,
+                (120 + 2 * max(1, (n - 1).bit_length())) * p),
+        library_ms=None,
+        device_ms=device_ms(torch, lambda: expand_tables(*args)))
+    one_ms = cuda_ms(torch, lambda: expand(dev.frows, pairs, FMIN, 0b1111))
+    log(f"kernel expand_tables: {label}: P={p:,} over {n} shard tables, "
+        f"{rows:,} table rows touched; equal to the plain version and to "
+        f"the one-table expand; {entry['ms']:.4f} ms (device "
+        f"{fmt_ms(entry['device_ms'])}) vs the one-table expand "
+        f"{one_ms:.4f} ms, plain {entry['plain_ms']:.4f} ms (bound "
+        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']})")
+    return entry
+
+
 def phase_expand(torch, dev, device) -> dict:
     """The level's expand step (K1's expand entry) at the widest level of
-    the real scale-100 mine and on a synthetic level of SEG_NODES nodes of
-    1..5 pairs (~4.2M) whose share of pairs with both ends in one table row
-    is the real level's; -> the synthetic level's entry."""
+    the real scale-100 mine (and its expand_tables entry there over 1 and 2
+    shard tables) and on a synthetic level of SEG_NODES nodes of 1..5 pairs
+    (~4.2M) whose share of pairs with both ends in one table row is the
+    real level's; -> the synthetic level's entry."""
     pairs, _nb, depth = widest_state(dev)
     _entry, share = expand_case(
         torch, dev, pairs, f"the widest level of the mine (depth {depth})")
+    # the sharded level's expand over the tables of 1 and 2 shards (the
+    # 2-shard mesh's [0, 2) and [2, 5))
+    for bounds in ((0, dev.S), (0, 2 * dev.S // 5, dev.S)):
+        expand_tables_case(torch, dev, pairs, bounds,
+                           f"the widest level of the mine (depth {depth})")
     gen = torch.Generator(device=device)
     gen.manual_seed(2030)
     sizes = torch.randint(1, 6, (SEG_NODES,), device=device, generator=gen)
@@ -1207,15 +1279,28 @@ def split_level(torch, level, bounds, nodes: int = SEG_NODES):
     return shards
 
 
+def one_list(torch, shards):
+    """A split level's shards (`split_level`'s) as one process's pair list:
+    (nb, freq, cbits) in (node, sample) order, the nb of all its shards'
+    pairs."""
+    nb = sum(sh[0] for sh in shards)
+    nid = torch.cat([sh[1] for sh in shards])
+    sid = torch.cat([sh[2] for sh in shards])
+    order = torch.argsort(nid.to(torch.int64) * (1 << 20) + sid)
+    return (nb, torch.cat([sh[3] for sh in shards])[order].contiguous(),
+            torch.cat([sh[4] for sh in shards])[order].contiguous())
+
+
 def shardstats_calls(torch, shards, g, ocounts):
     """The package's K9a and K9b on a split level, whichever of their
-    signatures it has: (one K9a launch a shard, writing, or adding into one
-    row a node, the rows that the K9b call reads; one K9b call, with the
-    torch glue of the sharded level that a level runs between it and its
-    readback where the package's K9b leaves that to torch: the per-shard
-    gather of the pair gates, the kept and gated sums, the staged maximum
-    and the entropy range).  Timing only: `level_times` runs it in another
-    tree of the repo too."""
+    signatures it has: (its K9a launches, one over the process's one pair
+    list where K9b takes one list's (nb, P, ocount), else one a shard,
+    writing or adding into one row a node the rows that the K9b call
+    reads; one K9b call, with the torch glue of the sharded level that a
+    level runs between it and its readback where the package's K9b leaves
+    that to torch: the per-shard gather of the pair gates, the kept and
+    gated sums, the staged maximum and the entropy range).  Timing only:
+    `level_times` runs it in another tree of the repo too."""
     import inspect
 
     from dsm_tpu_torch.ops import shardstats as ss
@@ -1225,7 +1310,16 @@ def shardstats_calls(torch, shards, g, ocounts):
     parts = torch.empty((n, U, ss.PART_COLS), dtype=torch.int64,
                         device=device)
     hist = torch.empty(4 * U, dtype=torch.int32, device=device)
-    if "shards" in inspect.signature(ss.node_gates).parameters:
+    params = inspect.signature(ss.node_gates).parameters
+    if "nb" in params:
+        nb, freq, cbits = one_list(torch, shards)
+        vals = ss.level_values(device)
+        part = parts[0]
+        return (lambda: ss.shard_partials(nb, freq, cbits, g.sym_mask, part,
+                                          ss.kept_slot(vals)),
+                lambda: ss.node_gates(part, g, hist, nb, freq.shape[0],
+                                      max(ocounts), vals))
+    if "shards" in params:
         vals = ss.level_values(n, device)
         table = [(nb, nid.shape[0], oc)
                  for (nb, nid, _s, _f, _c), oc in zip(shards, ocounts)]
@@ -1338,127 +1432,104 @@ def k9a_case(torch, label: str, device) -> dict:
 
 
 def k9b_case(torch, shards, g, device) -> dict:
-    """K9a on each shard of a split level, then K9b on their rows, against
-    the plain versions: one launch each; K9a again adding the shards' rows
-    into one row a node (the episode's form; equal to their sum) and K9b on
-    that row; rows, kept lanes, flags, kid0,
-    history, every shard's pair_out and the level's values equal, the
+    """K9a on the one pair list of a split level's shards (the episode's
+    form: a process's shards in one list) and K9b on its rows, against the
+    plain versions: one launch each; K9a's rows equal to the shards' plain
+    rows added (the merge over processes adds them so); rows, kept lanes,
+    flags, kid0, history, pair_out and the level's values equal, the
     entropy and its range within ENT_TOL; K9b timed -> its entry of the
-    kernels line, K9b's flags and kid0 (for K9c) and the children."""
+    kernels line, the one list, K9b's flags and kid0 (for K9c) and the
+    children."""
     from dsm_tpu_torch.ops import _build
-    from dsm_tpu_torch.ops.shardstats import (PART_COLS, V_ENT_MAX,
-                                              V_ENT_MIN, kept_slot,
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, V_CHILDREN,
+                                              V_ENT_MAX, V_ENT_MIN,
+                                              V_PRESENT, V_STAGED, kept_slot,
                                               level_values, node_gates,
                                               node_gates_plain,
                                               shard_partials,
                                               shard_partials_plain)
 
-    n, U = len(shards), shards[0][0].shape[0] - 1
-    parts = torch.empty((n, U, PART_COLS), dtype=torch.int64, device=device)
-    vals = level_values(n, device)
-    launched = {"shard_partials": 0}
-    for k, (nb, _nid, _sid, freq, cbits) in enumerate(shards):
-        before = _build.LAUNCHES["shard_partials"]
-        shard_partials(nb, freq, cbits, g.sym_mask, parts[k],
-                       kept_slot(vals, k))
-        launched["shard_partials"] += _build.LAUNCHES["shard_partials"] - before
-        want, kept = shard_partials_plain(nb, freq, cbits, g.sym_mask)
-        torch.cuda.synchronize()
-        off = (parts[k][:, 1] - want[:, 1]).abs()
-        if not torch.equal(parts[k][:, [0, 2]], want[:, [0, 2]]) \
-                or bool((off > (nb[1:] - nb[:-1])).any()) \
-                or not torch.equal(kept_slot(vals, k), kept):
-            raise SystemExit(f"shard_partials disagrees with its plain "
-                             f"version (shard {k} of {n})")
-        if n <= 8:
-            ms = cuda_ms(torch, lambda: shard_partials(
-                nb, freq, cbits, g.sym_mask, parts[k], kept_slot(vals, k)))
-            log(f"kernel shard_partials: shard {k} of {n}, U={U:,} "
-                f"P={freq.shape[0]:,}: equal; {ms:.4f} ms")
-    if n > 8:
-        log(f"kernel shard_partials: {n} shards of U={U:,} rows, each equal "
-            f"to the plain version")
-    ocounts = [1000 * k for k in range(n)]
-    table = [(nb, nid.shape[0], oc)
-             for (nb, nid, _s, _f, _c), oc in zip(shards, ocounts)]
-    # the episode's form: each shard's rows added into one row a node
-    acc = torch.empty((1, U, PART_COLS), dtype=torch.int64, device=device)
+    n = len(shards)
+    nb, freq, cbits = one_list(torch, shards)
+    U, P = nb.shape[0] - 1, freq.shape[0]
+    part = torch.empty((U, PART_COLS), dtype=torch.int64, device=device)
+    vals = level_values(device)
     before = _build.LAUNCHES["shard_partials"]
-    for k, (nb, _nid, _sid, freq, cbits) in enumerate(shards):
-        shard_partials(nb, freq, cbits, g.sym_mask, acc[0],
-                       kept_slot(vals, k), accumulate=k > 0)
-    launched["shard_partials"] += _build.LAUNCHES["shard_partials"] - before
-    if not torch.equal(acc[0], parts.sum(0)):
-        raise SystemExit(f"shard_partials with accumulate: the one row a "
-                         f"node is not the {n} shards' rows added")
+    shard_partials(nb, freq, cbits, g.sym_mask, part, kept_slot(vals))
+    launched = {"shard_partials": _build.LAUNCHES["shard_partials"] - before}
+    want, kept = shard_partials_plain(nb, freq, cbits, g.sym_mask)
+    added = sum(shard_partials_plain(sh[0], sh[3], sh[4], g.sym_mask)[0]
+                for sh in shards)
+    torch.cuda.synchronize()
+    off = (part[:, 1] - want[:, 1]).abs()
+    if not torch.equal(part[:, [0, 2]], want[:, [0, 2]]) \
+            or bool((off > (nb[1:] - nb[:-1])).any()) \
+            or not torch.equal(kept_slot(vals), kept) \
+            or not torch.equal(want, added):
+        raise SystemExit(f"shard_partials disagrees with its plain version "
+                         f"(the one list of {n} shards)")
+    ocount = 1000 * n
     wvals = vals.clone()
     hp = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
-    fp, ep, kp, pp = node_gates_plain(parts, g, hp, table, wvals)
+    fp, ep, kp, pp = node_gates_plain(part, g, hp, nb, P, ocount, wvals)
     want = wvals.tolist()
-    launched["node_gates"] = 0
-    for rows in (parts, acc):
-        hk = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
-        before = _build.LAUNCHES["node_gates"]
-        fk, ek, kk, pk = node_gates(rows, g, hk, table, vals)
-        launched["node_gates"] += _build.LAUNCHES["node_gates"] - before
-        torch.cuda.synchronize()
-        eerr = float((ek - ep).abs().max())
-        got = vals.tolist()
-        rerr = max(abs(got[i] - want[i]) if got[i] != want[i] else 0.0
-                   for i in (V_ENT_MIN, V_ENT_MAX))
-        same = [a == b for i, (a, b) in enumerate(zip(got, want))
-                if i not in (V_ENT_MIN, V_ENT_MAX)]
-        if not (torch.equal(fk, fp) and torch.equal(kk, kp)
-                and torch.equal(hk, hp) and all(same)
-                and all(torch.equal(a, b) for a, b in zip(pk, pp))) \
-                or max(eerr, rerr) > ENT_TOL:
-            raise SystemExit(f"node_gates on {rows.shape[0]} row(s) a node "
-                             f"disagrees with its plain version ({n} "
-                             f"shards: entropy max abs err {eerr}, values "
-                             f"{got} vs {want})")
-    if launched != {"shard_partials": 2 * n, "node_gates": 2}:
+    hk = torch.full((4 * U,), -1, dtype=torch.int32, device=device)
+    before = _build.LAUNCHES["node_gates"]
+    fk, ek, kk, pk = node_gates(part, g, hk, nb, P, ocount, vals)
+    launched["node_gates"] = _build.LAUNCHES["node_gates"] - before
+    torch.cuda.synchronize()
+    eerr = float((ek - ep).abs().max())
+    got = vals.tolist()
+    rerr = max(abs(got[i] - want[i]) if got[i] != want[i] else 0.0
+               for i in (V_ENT_MIN, V_ENT_MAX))
+    same = [a == b for i, (a, b) in enumerate(zip(got, want))
+            if i not in (V_ENT_MIN, V_ENT_MAX)]
+    if not (torch.equal(fk, fp) and torch.equal(kk, kp)
+            and torch.equal(hk, hp) and all(same) and torch.equal(pk, pp)) \
+            or max(eerr, rerr) > ENT_TOL:
+        raise SystemExit(f"node_gates disagrees with its plain version ({n} "
+                         f"shards in one list: entropy max abs err {eerr}, "
+                         f"values {got} vs {want})")
+    if launched != {"shard_partials": 1, "node_gates": 1}:
         raise SystemExit(f"K9a/K9b launches {launched}, not one a call")
-    children = int(got[0])
-    pairs = sum(nid.shape[0] for _nb, nid, _s, _f, _c in shards)
+    children = int(got[V_CHILDREN])
     entry = dict(
         name="node_gates", route="cuda",
         source="dsm_tpu_torch/csrc/shardstats.cu",
         replaces="dsm_tpu/mining/engine_device.py:438",
         max_abs_err=max(eerr, rerr),
-        ms=cuda_ms(torch, lambda: node_gates(acc, g, hk, table, vals)),
-        plain_ms=cuda_ms(torch, lambda: node_gates_plain(parts, g, hp, table,
-                                                         wvals)),
-        # the one summed row and the n shards' nb in; flags, entropy and
-        # first child id a node, an entry a child, a gate a pair and the
-        # values out; ~12 f64 operations a node (one a log)
-        **bound(24 * U + n * 4 * (U + 1) + 16 * U + 4 * children + pairs
+        ms=cuda_ms(torch, lambda: node_gates(part, g, hk, nb, P, ocount,
+                                             vals)),
+        plain_ms=cuda_ms(torch, lambda: node_gates_plain(
+            part, g, hp, nb, P, ocount, wvals)),
+        # the summed row and nb in; flags, entropy and first child id a
+        # node, an entry a child, a gate a pair and the values out; ~12 f64
+        # operations a node (one a log)
+        **bound(24 * U + 4 * (U + 1) + 16 * U + 4 * children + P
                 + 8 * len(got), 12 * U, F64_TOPS),
         library_ms=None,
-        device_ms=device_ms(torch, lambda: node_gates(acc, g, hk, table,
-                                                      vals)))
-    log(f"kernel node_gates: {n} shards of U={U:,} nodes, {pairs:,} pairs -> "
-        f"{children:,} children, {int(got[1]):,} present nodes, staged "
-        f"maximum {int(got[4]):,}: one launch on {n} rows a node and one on "
-        f"the row K9a added them into, each equal (entropy err {eerr:.3g}, "
-        f"its range {rerr:.3g}); {entry['ms']:.4f} ms on the one row (on "
-        f"{n} rows "
-        f"{cuda_ms(torch, lambda: node_gates(parts, g, hk, table, vals)):.4f}"
-        f" ms) "
-        f"vs plain {entry['plain_ms']:.4f} ms (bound "
-        f"{entry['bound_ms']:.4f} ms); device "
-        f"{fmt_ms(entry['device_ms'])}")
-    return entry, fk, kk, children
+        device_ms=device_ms(torch, lambda: node_gates(part, g, hk, nb, P,
+                                                      ocount, vals)))
+    log(f"kernel node_gates: the one list of {n} shards, U={U:,} nodes, "
+        f"{P:,} pairs -> {children:,} children, {int(got[V_PRESENT]):,} "
+        f"present nodes, staged {int(got[V_STAGED]):,}: K9a once over the "
+        f"list (its rows the {n} shards' rows added) and K9b once, each "
+        f"equal (entropy err {eerr:.3g}, its range {rerr:.3g}); "
+        f"{entry['ms']:.4f} ms vs plain {entry['plain_ms']:.4f} ms (bound "
+        f"{entry['bound_ms']:.4f} ms); device {fmt_ms(entry['device_ms'])}")
+    return entry, (nb, freq, cbits), fk, kk, children
 
 
 def phase_sharded_kernels(torch, device) -> list[dict]:
-    """K9a, K9b, K9c and K10 against their plain versions: K9a on one
-    shard of `segstats_level`'s levels (nodes of 1..5, 1..64 and 1..273
-    pairs); K9b on `sharded_level`'s SEG_NODES nodes over 5 samples split
-    into 2 shards ([0, 2) and [2, 5)) and into 5; K9c on the 2-shard split,
-    with K9b's ids; K10 on 2 and 5 blocks of ~GATHER_ROWS rows with codes,
-    timed with GATHER_SETS sets of inputs taken in turn, so that none is in
-    the L2 when it is read again.  The kernels line has K9a at 1..5 and K9b
-    at 2 shards (and K10 at the real drain's blocks: `phase_sharded`)."""
+    """K9a, K9b, K9c and K10 against their plain versions: K9a on a list
+    of `segstats_level`'s levels (nodes of 1..5, 1..64 and 1..273 pairs);
+    K9a and K9b on the one list of `sharded_level`'s SEG_NODES nodes over 5
+    samples split into 5 shards and into 2 ([0, 2) and [2, 5)); K9c on that
+    list and on each of the 2 shards' pairs, with K9b's ids; K10 on 2 and 5
+    blocks of ~GATHER_ROWS rows with codes, timed with GATHER_SETS sets of
+    inputs taken in turn, so that none is in the L2 when it is read again.
+    The kernels line has K9a at 1..5, K9b and K9c on the 2 shards' one
+    list (and K10 at the real drain's blocks: `phase_sharded`)."""
     from dsm_tpu_torch.ops.children import children_ids, children_ids_plain
     from dsm_tpu_torch.ops.gatherpack import gather_pack, gather_pack_plain
     from dsm_tpu_torch.ops.segstats import Gates
@@ -1473,12 +1544,18 @@ def phase_sharded_kernels(torch, device) -> list[dict]:
     level = sharded_level(torch, gen, device)
     for bounds in ((0, 1, 2, 3, 4, 5), (0, 2, 5)):
         shards = split_level(torch, level, bounds)
-        entry, fk, kk, child_total = k9b_case(torch, shards, g, device)
+        entry, whole, fk, kk, child_total = k9b_case(torch, shards, g,
+                                                     device)
     results.append(entry)
 
-    # K9c: every active child lane kept (the full symbol mask), the ids
-    # from K9b; rank outputs with ohi >= olo
-    for k, (nb, nid, sid, freq, cbits) in enumerate(shards):
+    # K9c on the one list (the episode's form) and on one shard's pairs
+    # (one process's list of a group): every active child lane kept (the
+    # full symbol mask), the ids from K9b; rank outputs with ohi >= olo
+    nid, sid, _freq, _cbits = level
+    lists = [("the one list", whole[0], nid, sid, whole[2])] + [
+        (f"shard {k}", nb, nid_k, sid_k, cbits_k)
+        for k, (nb, nid_k, sid_k, _f, cbits_k) in enumerate(shards)]
+    for k, (what, nb, nid, sid, cbits) in enumerate(lists):
         p = nid.shape[0]
         pairs = torch.randint(-2**31, 2**31 - 1, (p, 6), **i32)
         pairs[:, 3], pairs[:, 5] = sid.to(torch.int32), nid.to(torch.int32)
@@ -1492,21 +1569,21 @@ def phase_sharded_kernels(torch, device) -> list[dict]:
         torch.cuda.synchronize()
         if not (torch.equal(kr, pr_) and torch.equal(kn, pn)):
             raise SystemExit(f"children_ids disagrees with its plain version "
-                             f"(shard {k})")
+                             f"({what})")
         ms = cuda_ms(torch, lambda: children_ids(*cargs))
         plain_ms = cuda_ms(torch, lambda: children_ids_plain(*cargs))
-        log(f"kernel children_ids: shard {k} U={U:,} P={p:,}: {pair_count:,} "
+        log(f"kernel children_ids: {what}, U={U:,} P={p:,}: {pair_count:,} "
             f"lanes kept into {child_total:,} children, equal; {ms:.4f} ms "
             f"vs plain {plain_ms:.4f} ms")
-    results.append(dict(
-        name="children_ids", route="cuda",
-        source="dsm_tpu_torch/csrc/children.cu",
-        replaces="dsm_tpu/mining/engine_device.py:490", max_abs_err=0,
-        ms=ms, plain_ms=plain_ms,
-        # nb, flags and kid0 in, the lanes' bytes (the last shard's), and
-        # nb_next out
-        **bound(12 * U + 4 + lane_bytes(keep) + 4 * (child_total + 1),
-                16 * p), library_ms=None))
+        if k == 0:
+            results.append(dict(
+                name="children_ids", route="cuda",
+                source="dsm_tpu_torch/csrc/children.cu",
+                replaces="dsm_tpu/mining/engine_device.py:490",
+                max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                # nb, flags and kid0 in, the lanes' bytes, and nb_next out
+                **bound(12 * U + 4 + lane_bytes(keep)
+                        + 4 * (child_total + 1), 16 * p), library_ms=None))
 
     for nblk in (2, 5):
         sizes = [GATHER_ROWS + 1000 * b for b in range(nblk)]
@@ -2075,10 +2152,26 @@ def phase_resume(torch, idxs, dev, device, td: str) -> None:
     check_reference(gnu, "resume parity")
 
 
+def level_launches_once(label: str, prof: dict) -> None:
+    """Fail unless a sharded run of `prof`'s levels and drains launched the
+    expand (the rank kernel, which a drain's leftChar launches once more),
+    K9a and K9b once a level and K9c once a level that did not end as
+    HISTFULL, whatever its shards a process."""
+    from dsm_tpu_torch.ops import _build
+
+    levels = prof["levels"]
+    want = {"rank": levels + prof["drains"], "shard_partials": levels,
+            "node_gates": levels, "children_ids": levels - prof["histfull"]}
+    got = {k: _build.LAUNCHES[k] for k in want}
+    if got != want:
+        raise SystemExit(f"{label}: launches {got}, not {want} for "
+                         f"{levels} levels and {prof['drains']} drains")
+
+
 def phase_sharded(torch, idxs, dev, device, warm, td: str):
     """The sharded episode on the one card; -> (the launches of the plain
     2-shard gnu run, K10's entry of the kernels line: the 5-shard drain's
-    blocks)."""
+    block)."""
     import torch.distributed as dist
 
     from dsm_tpu_torch.mining import checkpoint as ckpt
@@ -2101,12 +2194,11 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str):
 
         def counted(*a, **k):
             st = a[3]
-            rows = sum(sh.ocount for sh in st.shards)
+            rows = st.ocount
             if rows > staged_blocks.get(label, (0,))[0]:
-                # a copy: the shards' buffers take the next levels' rows
+                # a copy: the buffer takes the next levels' rows
                 staged_blocks[label] = (rows, [
-                    (sh.out[:sh.ocount].clone(), a[6].base(j))
-                    for j, sh in enumerate(st.shards) if sh.ocount])
+                    (st.out[:st.ocount].clone(), a[6].base(0))])
             before = dict(_build.LAUNCHES)
             staged = drain(*a, **k)
             if staged:
@@ -2136,14 +2228,7 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str):
                 {k: _build.LAUNCHES[k] for k in _build.PATHS["mine_sharded"]})
             + f"; peak device memory "
               f"{torch.cuda.max_memory_allocated(device):,} bytes")
-        # a level: K9a once a shard, K9b once (one launch, not three)
-        want = {"shard_partials": mesh.shards_per_rank * prof["levels"],
-                "node_gates": prof["levels"]}
-        if {k: _build.LAUNCHES[k] for k in want} != want:
-            raise SystemExit(f"sharded mine {label}: K9a/K9b launches "
-                             f"{[_build.LAUNCHES[k] for k in want]}, not "
-                             f"{list(want.values())} for {prof['levels']} "
-                             f"levels")
+        level_launches_once(f"sharded mine {label}", prof)
         # a drain: one gather and one leftChar launch at any shard count
         # (in a process group the all-gather's gather adds one)
         want = {"gather_pack": 1 + (mesh.group is not None), "rank": 1}
@@ -2156,7 +2241,7 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str):
         return out
 
     launches = None
-    staged_blocks = {}   # a run's largest drain's blocks (one a shard)
+    staged_blocks = {}   # a run's largest drain's block
     for n in (1, 2, 5):
         mesh = global_samples_mesh(n, device)
         tables = ShardedIndexes.build(idxs, mesh)
@@ -2166,7 +2251,7 @@ def phase_sharded(torch, idxs, dev, device, warm, td: str):
             mesh2, tables2 = mesh, tables
         check_reference(gnu, f"sharded parity, {n} shard(s)")
         k10 = gather_case(torch, staged_blocks[f"{n} shard(s), gnu"][1],
-                          f"the {n}-shard drain's blocks")
+                          f"the {n}-shard drain's block")
     asc = run("2 shards, ascending", mesh2, tables2, order="ascending")
     if asc.format_lines() != warm.format_lines():
         raise SystemExit("the 2-shard ascending run's lines differ from the "
@@ -2761,10 +2846,11 @@ def level_times(torch, device) -> None:
             level_sharded = tee._level_sharded
 
             def recording(dev_, sc, st, mesh_, eskip=0):
+                # a process's one pair list, or (older trees) its shards'
+                lists = st.shards if hasattr(st, "shards") else [st]
                 res["widths_sharded2"].append([
-                    st.nnodes, [sh.pairs.shape[0] for sh in st.shards],
-                    [int((sh.nb[1:] - sh.nb[:-1]).max())
-                     for sh in st.shards]])
+                    st.nnodes, [x.pairs.shape[0] for x in lists],
+                    [int((x.nb[1:] - x.nb[:-1]).max()) for x in lists]])
                 return level_sharded(dev_, sc, st, mesh_, eskip)
 
             tee._level_sharded = recording
@@ -2907,6 +2993,79 @@ def drain_times(torch, device) -> None:
     print(json.dumps(res), flush=True)
 
 
+def random_tables(torch, rng, samples: int, n: int, device):
+    """`samples` texts of n random A/C/G/T codes as stacked forward tables
+    on `device` (a DeviceIndexes whose reverse tables are the same rows):
+    the rank kernel reads nothing but the rows, so any text times it."""
+    from dsm_tpu_torch.mining.engine import EXT4, DeviceIndexes
+    from dsm_tpu_torch.ops.rank import OccTable, fused_rows
+
+    parts, offs, off = [], [], 0
+    for _ in range(samples):
+        t = OccTable.build(rng.choice(np.array(EXT4, dtype=np.int8), size=n))
+        parts.append(fused_rows(t, c4=[int(t.C[x]) for x in EXT4]))
+        offs.append(off)
+        off += parts[-1].shape[0]
+    rows = np.concatenate(parts)
+    return DeviceIndexes.from_host([n] * samples, rows, rows, offs, device)
+
+
+def expand_times(torch, device) -> None:
+    """Times, without checks but equality, the expand step of the package
+    beside this file and prints one JSON line: the one-table `expand`
+    (events, five times 20 calls, and device time) on 5 random texts of
+    1.6M symbols and seeded synthetic levels (`synthetic_pairs`) of
+    4,198,755 pairs (96.4% with both ends in one table row) and 1,428,600
+    (90%); where the package has it, `expand_tables` against `expand` on
+    the same pairs of 273 random texts of 122,000 symbols cut into 128
+    shard tables (row slices of the stacked table), with 1,905,212 pairs of
+    random sample ids (the sample order of a level of 1.24 pairs a node)
+    and 4,619,296 with runs of consecutive ids (a level whose nodes hold
+    every sample).  It calls only `expand`'s contract for the first part,
+    so a copy of this file in the root of another tree times that tree,
+    and two commits are compared in turns (parent, change, change,
+    parent)."""
+    from dsm_tpu_torch.ops import rank
+
+    phase_build()
+    res = {"tree": HERE, "smi": smi_line()}
+    rng = np.random.default_rng(15)
+    dev = random_tables(torch, rng, 5, 1_600_000, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2030)
+    for p, share in ((4_198_755, 0.964), (1_428_600, 0.9)):
+        pairs = synthetic_pairs(torch, dev, gen, p, share)
+        fn = lambda: rank.expand(dev.frows, pairs, FMIN, 0b1111)  # noqa: E731
+        res[f"expand_{p}_ms"] = [cuda_ms(torch, fn, 20) for _ in range(5)]
+        res[f"expand_{p}_device_ms"] = device_ms(torch, fn)
+    del dev
+    if hasattr(rank, "expand_tables"):
+        S, n, shards = 273, 122_000, 128
+        dev = random_tables(torch, rng, S, n, device)
+        bounds = [k * S // shards for k in range(shards + 1)]
+        for label, p in (("random", 1_905_212), ("runs", 4_619_296)):
+            sid = (torch.randint(0, S, (p,), device=device, generator=gen)
+                   if label == "random" else torch.arange(p, device=device) % S)
+            u = torch.rand((2, p), device=device, generator=gen,
+                           dtype=torch.float64)
+            pairs = torch.zeros((p, 6), dtype=torch.int32, device=device)
+            pairs[:, 0] = (u[0] * (n + 1)).to(torch.int64)
+            pairs[:, 1] = torch.clamp(pairs[:, 0] + (u[1] * 300).to(
+                torch.int32), max=n)
+            pairs[:, 3], pairs[:, 4] = sid, dev.soff[sid]
+            one = lambda: rank.expand(dev.frows, pairs, FMIN,  # noqa: E731
+                                      0b1111)
+            e = expand_tables_case(torch, dev, pairs, bounds,
+                                   f"{S} random texts, {label} ids")
+            res[f"tables_{label}"] = {k: e[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms")}
+            res[f"tables_{label}_expand_ms"] = [cuda_ms(torch, one, 20)
+                                                for _ in range(3)]
+            res[f"tables_{label}_expand_device_ms"] = device_ms(torch, one)
+        res["tables"] = shards
+    print(json.dumps(res), flush=True)
+
+
 def variant_times(torch, device) -> None:
     """The decode (K6) on `decode_inputs`' histories, the stats step (K2)
     and the partial rows (K9a) on `segstats_level`'s levels (K9a also on
@@ -3018,7 +3177,7 @@ def variant_times(torch, device) -> None:
 
 # ------------------------------------------------ phase 15: scale 1000, the
 # JAX package's largest size (bench.py:240-281), against a reference frozen
-# from dsm_tpu
+# from the JAX package's own host engine
 
 def s1000_build(torch, toy, td: str, device):
     """The scale-1000 toydata and its indexes built on the card per sample
@@ -3168,6 +3327,8 @@ def s1000_run(torch, label: str, run, mine_path: str = "mine",
             + prof["drains"]:
         raise SystemExit(f"{tag} {label}: the rank kernel was not "
                          "launched once a level and once a drain")
+    if mine_path == "mine_sharded":
+        level_launches_once(f"{tag} {label}", prof)
     return out, rec
 
 
@@ -3295,7 +3456,7 @@ def s1000_whole(torch, idxs, dev, device) -> tuple:
 def s1000_sharded(torch, idxs, device) -> tuple:
     """`mine --engine sharded-episode` at 2 shards on the one card, gnu,
     against the frozen concatenation; -> (its record, its largest drain's
-    blocks)."""
+    block)."""
     from dsm_tpu_torch.mining.engine import MiningConfig
     from dsm_tpu_torch.parallel import engine_episode as tee
     from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
@@ -3309,11 +3470,9 @@ def s1000_sharded(torch, idxs, device) -> tuple:
 
     def keeping(*a, **k):
         st = a[3]
-        rows = sum(sh.ocount for sh in st.shards)
-        if rows > blocks.get("rows", 0):
-            blocks.update(rows=rows, blocks=[
-                (sh.out[:sh.ocount].clone(), a[6].base(j))
-                for j, sh in enumerate(st.shards) if sh.ocount])
+        if st.ocount > blocks.get("rows", 0):
+            blocks.update(rows=st.ocount, blocks=[
+                (st.out[:st.ocount].clone(), a[6].base(0))])
         return drain(*a, **k)
 
     tee._drain_sharded = keeping
@@ -3325,10 +3484,6 @@ def s1000_sharded(torch, idxs, device) -> tuple:
     finally:
         tee._drain_sharded = drain
     s1000_check(out, S1000, "2 shards", "gnu")
-    want = {"shard_partials": 2 * rec["levels"], "node_gates": rec["levels"]}
-    if {k: rec["launches"][k] for k in want} != want:
-        raise SystemExit(f"scale 1000 2 shards: K9a/K9b launches "
-                         f"{rec['launches']}, not {want}")
     return rec, blocks["blocks"]
 
 
@@ -3360,12 +3515,13 @@ def s1000_level(torch, dev, device) -> list[dict]:
 
 def level_kernels(torch, dev, device, cfg, level, tag: str,
                   bounds) -> list[dict]:
-    """K1's expand, K2, K3, P1 with its stage_rows entry, and K9a/K9b/K9c
-    on a real level (pair rows, node starts, depth) of a mine over `dev`
-    at `cfg`, each against its plain version, timed by events and by the
-    profiler's device time; K9 on the level cut into the sample shards
-    [bounds[k], bounds[k + 1]), K9c with K9b's ids and the level's own rank
-    outputs on every shard; -> the entries (K9a's and K9c's of shard 0)."""
+    """K1's expand, K2, K3, P1 with its stage_rows entry, and K1's
+    expand_tables and K9a/K9b/K9c on a real level (pair rows, node starts,
+    depth) of a mine over `dev` at `cfg`, each against its plain version,
+    timed by events and by the profiler's device time; the sharded level's
+    kernels on the level as the one pair list of the sample shards
+    [bounds[k], bounds[k + 1]) of one process (K9c with K9b's ids and the
+    level's own rank outputs); -> the entries."""
     from dsm_tpu_torch.mining.engine_device import _Scalars
     from dsm_tpu_torch.ops.children import (children, children_ids,
                                             children_ids_plain,
@@ -3480,63 +3636,55 @@ def level_kernels(torch, dev, device, cfg, level, tag: str,
         f"{entries[-1]['plain_ms']:.4f} ms (pairs[mask] "
         f"{entries[-1]['library_ms']:.4f} ms)")
 
+    # the sharded level's form: the level as one process's pair list over
+    # the shard tables [bounds[k], bounds[k + 1]) (K1's expand_tables, timed
+    # by itself), K9a over the list, K9b on its rows, K9c on the list with
+    # K9b's ids and the level's own rank outputs
+    entries.append(expand_tables_case(torch, dev, pairs, bounds,
+                                      f"{tag} (depth {depth})"))
     level4 = (pairs[:, 5].to(torch.int64), pairs[:, 3].to(torch.int64), freq,
               cbits)
     shards = split_level(torch, level4, bounds, nodes=u)
-    nb0, _nid0, _sid0, freq0, cbits0 = shards[0]
-    p0 = freq0.shape[0]
     part = torch.empty((u, PART_COLS), dtype=torch.int64, device=device)
     kept = torch.empty(1, dtype=torch.float64, device=device)
-    shard_partials(nb0, freq0, cbits0, g.sym_mask, part, kept)
+    shard_partials(nb, freq, cbits, g.sym_mask, part, kept)
     # the fixed-point column, in units (k9b_case holds every column)
     off = int((part[:, 1] - shard_partials_plain(
-        nb0, freq0, cbits0, g.sym_mask)[0][:, 1]).abs().max())
+        nb, freq, cbits, g.sym_mask)[0][:, 1]).abs().max())
     entries.append(dict(
         name="shard_partials", route="cuda",
         source="dsm_tpu_torch/csrc/shardstats.cu",
         replaces="dsm_tpu/mining/engine_device.py:421", max_abs_err=off,
-        ms=cuda_ms(torch, lambda: shard_partials(nb0, freq0, cbits0,
+        ms=cuda_ms(torch, lambda: shard_partials(nb, freq, cbits,
                                                  g.sym_mask, part, kept)),
         plain_ms=cuda_ms(torch, lambda: shard_partials_plain(
-            nb0, freq0, cbits0, g.sym_mask)),
-        **bound(4 * (u + 1) + 5 * p0 + 24 * u + 8, 6 * p0, F64_TOPS),
+            nb, freq, cbits, g.sym_mask)),
+        **bound(4 * (u + 1) + 5 * p + 24 * u + 8, 6 * p, F64_TOPS),
         library_ms=None))
     timed.append((entries[-1], lambda: shard_partials(
-        nb0, freq0, cbits0, g.sym_mask, part, kept)))
-    entry, fk9, kk9, child_total9 = k9b_case(torch, shards, g, device)
+        nb, freq, cbits, g.sym_mask, part, kept)))
+    entry, _whole, fk9, kk9, child_total9 = k9b_case(torch, shards, g,
+                                                     device)
     entries.append(entry)
-    lanes = []
-    for j, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
-        own = (pairs[:, 3] >= lo) & (pairs[:, 3] < hi)
-        sp_ = pairs[own].contiguous()
-        so, sh = olo[:, own].contiguous(), ohi[:, own].contiguous()
-        skeep = keepc[:, own].contiguous()
-        cargs = (shards[j][0], sp_, so, sh, skeep, fk9, kk9,
-                 int(skeep.sum()), child_total9)
-        (kr, kn), (pr_, pn) = children_ids(*cargs), children_ids_plain(*cargs)
-        torch.cuda.synchronize()
-        if not (torch.equal(kr, pr_) and torch.equal(kn, pn)):
-            raise SystemExit(f"{tag}: children_ids disagrees with its plain "
-                             f"version (shard {j})")
-        del kr, kn, pr_, pn
-        lanes.append(cargs[7])
-        if j == 0:
-            entries.append(dict(
-                name="children_ids", route="cuda",
-                source="dsm_tpu_torch/csrc/children.cu",
-                replaces="dsm_tpu/mining/engine_device.py:490",
-                max_abs_err=0,
-                ms=cuda_ms(torch, lambda: children_ids(*cargs)),
-                plain_ms=cuda_ms(torch, lambda: children_ids_plain(*cargs),
-                                 3),
-                **bound(12 * u + 4 + lane_bytes(skeep)
-                        + 4 * (child_total9 + 1), 16 * sp_.shape[0]),
-                library_ms=None))
-            c0 = cargs
-            timed.append((entries[-1], lambda: children_ids(*c0)))
-    log(f"kernel children_ids: {tag}: {len(lanes)} shard(s) of "
-        f"{min(lanes):,}-{max(lanes):,} kept lanes, each equal to the plain "
-        f"version; shard 0 {entries[-1]['ms']:.4f} ms")
+    cargs = (nb, pairs, olo, ohi, keepc, fk9, kk9, pair_count, child_total9)
+    (kr, kn), (pr_, pn) = children_ids(*cargs), children_ids_plain(*cargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(kr, pr_) and torch.equal(kn, pn)):
+        raise SystemExit(f"{tag}: children_ids disagrees with its plain "
+                         f"version")
+    del kr, kn, pr_, pn
+    entries.append(dict(
+        name="children_ids", route="cuda",
+        source="dsm_tpu_torch/csrc/children.cu",
+        replaces="dsm_tpu/mining/engine_device.py:490", max_abs_err=0,
+        ms=cuda_ms(torch, lambda: children_ids(*cargs)),
+        plain_ms=cuda_ms(torch, lambda: children_ids_plain(*cargs), 3),
+        **bound(12 * u + 4 + lane_bytes(keepc) + 4 * (child_total9 + 1),
+                16 * p), library_ms=None))
+    timed.append((entries[-1], lambda: children_ids(*cargs)))
+    log(f"kernel children_ids: {tag}: the one list of {len(shards)} "
+        f"shards, {pair_count:,} kept lanes into {child_total9:,} children, "
+        f"equal to the plain version; {entries[-1]['ms']:.4f} ms")
     for e, fn in timed:
         e["device_ms"] = device_ms(torch, fn)
     return entries
@@ -3629,7 +3777,7 @@ def phase_scale1000(torch, toy, td: str, device) -> tuple:
 
 
 # ------------------------------------------------ phase 16: the sample axis,
-# d = 64, 273 and 512 samples, against references frozen from dsm_tpu
+# d = 64, 273 and 512 samples, against references frozen from the JAX package
 
 def samples_build(torch, fz, ref: dict, td: str, device) -> tuple:
     """make_samples' data of `ref` built on the card a sample at a time (2d
@@ -3742,9 +3890,11 @@ def level_widths(torch, dev, cfg) -> tuple:
 def samples_sharded(torch, idxs, ref: dict, n: int, device,
                     keep: dict | None = None) -> dict:
     """The sharded episode at n shards on the one card, ascending and gnu,
-    each against `ref`: K9a launched once a shard a level, K9b once a
-    level; `keep` gets the gnu run's largest drain's blocks and the shard
-    tables; -> the runs' records."""
+    each against `ref`: the expand, K9a, K9b and K9c launched once a level
+    (`s1000_run`); at SAMPLES_SHARDS' most shards one more ascending run
+    under torch.profiler, whose device time and activities a level go into
+    that order's record; `keep` gets the gnu run's largest drain's block
+    and the shard tables; -> the runs' records."""
     from dsm_tpu_torch.parallel import engine_episode as tee
     from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
     from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
@@ -3757,11 +3907,9 @@ def samples_sharded(torch, idxs, ref: dict, n: int, device,
 
     def keeping(*a, **k):
         st = a[3]
-        rows = sum(sh.ocount for sh in st.shards)
-        if rows > keep.get("rows", 0):
-            keep.update(rows=rows, tables=tables, blocks=[
-                (sh.out[:sh.ocount].clone(), a[6].base(j))
-                for j, sh in enumerate(st.shards) if sh.ocount])
+        if st.ocount > keep.get("rows", 0):
+            keep.update(rows=st.ocount, tables=tables, blocks=[
+                (st.out[:st.ocount].clone(), a[6].base(0))])
         return drain(*a, **k)
 
     for order in ("ascending", "gnu"):
@@ -3776,12 +3924,19 @@ def samples_sharded(torch, idxs, ref: dict, n: int, device,
         finally:
             tee._drain_sharded = drain
         samples_check(out, ref, f"{n} shards", order)
-        want = {"shard_partials": n * rec["levels"],
-                "node_gates": rec["levels"]}
-        if {k: rec["launches"][k] for k in want} != want:
-            raise SystemExit(f"D{d} {n} shards: K9a/K9b launches "
-                             f"{rec['launches']}, not {want}")
         recs[f"{n} shards {order}"] = rec
+    if n == max(SAMPLES_SHARDS):
+        prof = {}
+        ms, acts, top = device_profile(torch, lambda: mine_device_sharded(
+            idxs, cfg, mesh=mesh, dev=tables, profile=prof))
+        rec = recs[f"{n} shards ascending"]
+        rec.update(device_ms=ms, activities=acts,
+                   activities_per_level=acts / prof["levels"])
+        log(f"D{d} {n} shards ascending: level_s {rec['level_s']} over "
+            f"{rec['levels']} levels, peak {rec['peak_bytes']:,} bytes; "
+            f"under torch.profiler device time {fmt_ms(ms)} in {acts:,} "
+            f"device activities, {acts / prof['levels']:.1f} a level; the "
+            f"largest: " + json.dumps(top))
     return recs
 
 
@@ -3895,18 +4050,17 @@ def samples_plan(torch, idxs, ref: dict, recs: dict, device) -> dict:
 
 
 def samples_drain_kernels(torch, keep: dict, tag: str) -> list[dict]:
-    """K10 on the largest drain's blocks of a many-shard gnu run, and K5
-    on the rows it packs over that run's shard tables, each against its
-    plain version; -> their entries."""
+    """K10 on the largest drain's block of a many-shard gnu run, and K5 on
+    the rows it packs over that run's shard tables, each against its plain
+    version; -> their entries."""
     from dsm_tpu_torch.mining.engine import OC_SID
     from dsm_tpu_torch.ops.gatherpack import gather_pack
 
     blocks, sh = keep["blocks"], keep["tables"]
-    entries = [gather_case(torch, blocks, f"{tag}, {len(blocks)} blocks")]
+    entries = [gather_case(torch, blocks, f"{tag}, one block")]
     rows = gather_pack([c for c, _b in blocks], [b for _c, b in blocks],
                        OC_SID)[0]
-    tables = [(sd.rrows, sd.soff, sh.base(j))
-              for j, sd in enumerate(sh.shards)]
+    tables = sh.leftchar_tables()
     entries.append(leftchar_case(torch, tables, rows,
                                  f"{tag} over {len(tables)} shard tables")[0])
     return entries
@@ -4002,7 +4156,8 @@ def samples_set(torch, fz, ref: dict, td: str, device, kernels: list,
         runs={k: {f: r.get(f) for f in (
             "wall_s", "paths_per_s", "levels", "level_s", "drain_s",
             "tail_s", "tail_depth", "drains", "histfull", "pull_s",
-            "save_s", "saves", "peak_bytes")} for k, r in recs.items()})
+            "save_s", "saves", "peak_bytes", "device_ms",
+            "activities_per_level") if f in r} for k, r in recs.items()})
     log(f"{tag} summary: {json.dumps(summary)}")
     return summary
 

@@ -26,8 +26,9 @@ attributes of the objects they are given.
     cut to its live sizes under GLOBAL sample ids (s_loc: dsm_tpu's
     samples a shard), the inert padding samples dropped;
   * `sharded_state_from_numpy(state, s_loc, dev)` /
-    `sharded_state_to_numpy(st, dev)`: that state <-> the port's ShardedEpisodeState, whose shards
-    need not be dsm_tpu's (the pairs are dealt out again by sample).
+    `sharded_state_to_numpy(st, dev)`: that state <-> the port's
+    ShardedEpisodeState (one pair list a process, whose shards need not be
+    dsm_tpu's: the pairs are taken again by sample).
 """
 
 from __future__ import annotations
@@ -195,48 +196,41 @@ def sharded_live_numpy(state: dict, s_loc: int, d: int) -> dict:
 def sharded_state_from_numpy(state: dict, s_loc: int, dev: ShardedIndexes
                              ) -> "tee.ShardedEpisodeState":
     """A stacked JAX sharded-episode state (numpy; s_loc: dsm_tpu's
-    samples a shard) -> the port's state on `dev`'s shards, with a history
-    buffer as long as the JAX one."""
+    samples a shard) -> the port's state of this process on `dev`, with a
+    history buffer as long as the JAX one."""
     if int(state["eskip"]) != 0:
         raise ValueError("a state in the middle of a chunked emission "
                          "(eskip > 0) has no counterpart in the port")
     live = sharded_live_numpy(state, s_loc, dev.S)
     st = tee._fresh_state(
-        tee._stack_pairs_by_shard(live["pr"], live["nnodes"], dev),
-        live["nnodes"], live["depth"], np.asarray(state["hist"]).shape[0],
-        dev.device, live["total_paths"], live["ent_min"], live["ent_max"])
+        *tee._local_pairs(live["pr"], live["nnodes"], dev), live["depth"],
+        np.asarray(state["hist"]).shape[0], live["total_paths"],
+        live["ent_min"], live["ent_max"])
     st.hist[:live["hist_len"]] = torch.tensor(live["hist"])
     st.hist_len = live["hist_len"]
     st.lvl_off = [int(v) for v in live["lvl_off"]]
-    out = live["out"]
-    shard_of = np.searchsorted(dev.bounds, out[:, ted.OC_SID],
-                               side="right") - 1
-    for k, sh in enumerate(st.shards):
-        own = out[shard_of == dev.first + k].copy()
-        own[:, ted.OC_SID] -= dev.base(k)
-        if own.shape[0]:
-            sh.out, sh.ocount = torch.tensor(own, device=dev.device), \
-                own.shape[0]
+    out, lo = live["out"], dev.base(0)
+    own = out[(out[:, ted.OC_SID] >= lo)
+              & (out[:, ted.OC_SID] < lo + dev.local_samples)].copy()
+    own[:, ted.OC_SID] -= lo
+    if own.shape[0]:
+        st.out, st.ocount = torch.tensor(own, device=dev.device), \
+            own.shape[0]
     return st
 
 
 def sharded_state_to_numpy(st: "tee.ShardedEpisodeState",
                            dev: ShardedIndexes) -> dict:
     """The port's sharded state -> the keys of `sharded_live_numpy` (one
-    process: the shards of `st` are all the shards)."""
-    prs, outs = [], []
-    for k, sh in enumerate(st.shards):
-        pr = sh.pairs.cpu().numpy().copy()
-        pr[:, ted.PC_SID] += dev.base(k)
-        prs.append(pr)
-        if sh.ocount:
-            o = sh.out[:sh.ocount].cpu().numpy().copy()
-            o[:, ted.OC_SID] += dev.base(k)
-            outs.append(o)
-    outs.append(np.zeros((0, ted.OUT_COLS), dtype=np.int32))
+    process: its shards are all the shards)."""
+    pr = st.pairs.cpu().numpy().copy()
+    pr[:, ted.PC_SID] += dev.base(0)
+    out = (st.out[:st.ocount].cpu().numpy().copy() if st.ocount
+           else np.zeros((0, ted.OUT_COLS), dtype=np.int32))
+    out[:, ted.OC_SID] += dev.base(0)
     return dict(
-        pr=_canonical(np.concatenate(prs), ted.PC_NID, ted.PC_SID),
-        out=_canonical(np.concatenate(outs), ted.OC_ROW, ted.OC_SID),
+        pr=_canonical(pr, ted.PC_NID, ted.PC_SID),
+        out=_canonical(out, ted.OC_ROW, ted.OC_SID),
         nnodes=st.nnodes, depth=st.depth,
         hist=st.hist[:st.hist_len].cpu().numpy(), hist_len=st.hist_len,
         lvl_off=np.asarray(st.lvl_off, dtype=np.int32),

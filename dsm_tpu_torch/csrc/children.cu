@@ -9,13 +9,15 @@
 // nb boundaries.  A node's pairs are already contiguous and in pair order,
 // so every output slot follows from scans and no sort is needed.
 //
-// dsm_children_ids (kOutsideIds) is the same step for one shard of a
-// sample-sharded level (_level_sharded, the children block at :474-507): a
-// child exists when ANY shard keeps a lane of it, so which symbols of a
+// dsm_children_ids (kOutsideIds) is the same step for one process's pair
+// list of a sample-sharded level (_level_sharded, the children block at
+// :474-507): a child exists when ANY process keeps a lane of it, so which
+// symbols of a
 // node have a child (the exists bits of `flags`) and the node's first child
 // id (`kid0`) come from the level's global numbering (shardstats.cu), every
 // existing child gets an nb_next entry here (an empty segment when this
-// shard keeps no lane of it), and the history, one a rank, is not written.
+// process keeps no lane of it), and the history, one a rank, is not
+// written.
 //
 // What bounds it on an H100: bytes, and before them the loads a thread has
 // in flight.  A pair brings 4 keep bytes and its 24-byte row, a kept lane 16
@@ -70,7 +72,7 @@
 // block of 256 threads.  It does not grow with the pairs a node holds.
 // Writes past pair_count or child_total are dropped (the host's counts size
 // the outputs).  A tile whose nodes are nearly all without a pair is walked
-// by its one block: a shard that holds no sample costs one block's walk
+// by its one block: a process that holds no pair costs one block's walk
 // over the nodes, not a fault.
 
 #include <cstdint>
@@ -466,7 +468,7 @@ extern "C" int dsm_children(const void* nb, const void* pairs, const void* olo,
 }
 
 // flags, kid0: (U,) int32 from dsm_node_gates; nb_next has child_total + 1
-// entries whatever this shard keeps.
+// entries whatever this process keeps.
 extern "C" int dsm_children_ids(const void* nb, const void* pairs,
                                 const void* olo, const void* ohi,
                                 const void* keep, long long U, long long P,

@@ -1,5 +1,5 @@
 // The gather of a sharded drain: the count-bounded int32 rows of several
-// blocks (the shards' staged output rows, their live pair rows, or the
+// blocks (a process's staged output rows, its live pair rows, or the
 // slices of an all-gathered tensor) packed into one list in block order, each
 // block's LOCAL sample ids rewritten to global ones, and the blocks' int8
 // leftChar codes placed beside them where there are any.
@@ -29,12 +29,11 @@
 //   * the base is added to each word whose index mod C is sid_col on its
 //     way through registers; the codes span is copied the same way;
 //   * kInFlight chunks a thread are loaded before any is stored.
-// A drain hands it one block a shard (each shard stages its rows in one
-// buffer), and a process holds at most 128 shards (ops/shardstats.py
-// MAX_SHARDS), so the table holds kMaxBlocks = 128 40-byte entries (5 KB of
-// the 32,764 bytes of parameters sm_90 takes): one launch a drain, a
-// live-pair gather or an all-gather of up to 128 ranks; ops/gatherpack.py
-// launches once per kMaxBlocks blocks above that.
+// A drain and a live-pair gather hand it one block (a process keeps one
+// list of its shards' pairs and stages its rows in one buffer); the table
+// holds kMaxBlocks = 128 40-byte entries (5 KB of the 32,764 bytes of
+// parameters sm_90 takes): one launch for an all-gather of up to 128 ranks;
+// ops/gatherpack.py launches once per kMaxBlocks blocks above that.
 
 #include <cstdint>
 #include <cuda_runtime.h>

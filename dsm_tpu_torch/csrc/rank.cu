@@ -7,7 +7,9 @@
 // step of dsm_tpu/mining/engine_device.py _level_single (714-724) and
 // _level_sharded (409-419): both interval ends of every pair and the gate
 // inputs (freq, the active and kept child lanes, the child bits) in one
-// launch; with the `leftchar` entry, _jitted_lc_pairs
+// launch, over one table (the single-device level) or over the tables of
+// a process's shards (the sharded level, `expand_tables`: each pair's table
+// found from its sample id); with the `leftchar` entry, _jitted_lc_pairs
 // (engine_device.py:1077, leftchar_codes_pairsT, dsm_tpu/mining/engine.py
 // :239-260) and the shard_lc body of dsm_tpu/parallel/engine_episode.py
 // _jitted_lc_sharded (:242-267): the soff lookup by sample id, both ends'
@@ -53,6 +55,14 @@
 // All arithmetic is uint32, reinterpreted as int32, as lax.bitcast_convert
 // does in the JAX version; the baked-C4 wrap-around stays bit-exact.
 //
+// The expand_tables entry stages a tile's pair rows as expand does, with the
+// launch's shard bases (the first process-local sample id of each table,
+// ascending) in shared memory; each pair's thread bisects them for the last
+// base at or below its PC_SID and keeps the table's number in that column of
+// the staged row (expand reads no sample id), and the group path gathers
+// both ends' rows from that table.  The one-table `expand` entry is another
+// instantiation of the same body and does none of this.
+//
 // The leftChar entry stages a tile's 20-byte output rows with 16-byte loads
 // (the tile starts 5120 bytes apart, so one aligned list keeps every tile
 // aligned), finds each row's shard by bisecting the launch's parameter
@@ -65,8 +75,9 @@
 // Entries (one kernel body, a mode each; ops/rank.py and mining/engine.py
 // count all of them as launches of `rank`): dsm_occ_cum8 (one end,
 // (8, Q)), dsm_expand (the (P, 6) pair rows -> olo, ohi, freq, keepc,
-// cbits), dsm_leftchar (the (n, 5) output rows and a shard table -> (n,)
-// int8 codes).
+// cbits), dsm_expand_tables (the same over up to kMaxShards tables),
+// dsm_leftchar (the (n, 5) output rows and a shard table -> (n,) int8
+// codes).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,7 +91,8 @@ constexpr int kTile = 256;              // queries (pairs) a block
 static_assert(kTile == kThreads, "one thread a query at both ends");
 constexpr int kPairCols = 6;            // ops/children.py PAIR_COLS
 constexpr int kLo = 0, kHi = 1, kSoff = 4;   // PC_LO, PC_HI, PC_SOFF
-// kLeftChar: the row's shard, in the column the pair rows keep PC_SID in
+// kLeftChar and kExpandTables: the row's shard, in the column the pair rows
+// keep PC_SID in
 constexpr int kShard = 3;
 // kLeftChar: the staged output rows (mining/engine.py OC_*, OUT_COLS)
 constexpr int kOutCols = 5;
@@ -92,19 +104,19 @@ constexpr int kLcN = 1, kLcZero = 0;  // mining/engine_np.py LC_N, LC_ZERO
 // (neighbouring columns) in 16 distinct banks
 constexpr int kOutStride = kTile + 8;
 
-enum Mode { kSingle = 0, kExpand = 1, kLeftChar = 2 };
+enum Mode { kSingle = 0, kExpand = 1, kLeftChar = 2, kExpandTables = 3 };
 
 struct Args {
   const uint4* rows;
-  const int32_t* pairs;                  // kExpand: (n, 6) rows
+  const int32_t* pairs;                  // kExpand*: (n, 6) rows
   const int32_t* lo;                     // kSingle (pos)
   const int32_t* soff;                   // kSingle
   long long lo_stride, soff_stride;
-  int32_t* olo;                          // (8, n), kSingle and kExpand
-  int32_t* ohi;                          // (8, n), kExpand
-  int32_t* freq;                         // (n,), kExpand
-  uint8_t* keepc;                        // (4, n) bool, kExpand
-  uint8_t* cbits;                        // (n,), kExpand
+  int32_t* olo;                          // (8, n), kSingle and kExpand*
+  int32_t* ohi;                          // (8, n), kExpand*
+  int32_t* freq;                         // (n,), kExpand*
+  uint8_t* keepc;                        // (4, n) bool, kExpand*
+  uint8_t* cbits;                        // (n,), kExpand*
   const int32_t* orows;                  // kLeftChar: (n, 5) rows
   int8_t* codes;                         // kLeftChar: (n,)
   long long n;
@@ -129,6 +141,15 @@ template <>
 struct Shards<kLeftChar> {
   int n;
   LcShard s[kMaxShards];
+};
+
+// kExpandTables' tables, in the launch's parameters: table k's forward rows
+// and its first process-local sample id, the bases ascending.
+template <>
+struct Shards<kExpandTables> {
+  int n;
+  int base[kMaxShards];
+  const uint4* rows[kMaxShards];
 };
 
 // The row of `blk`'s word-group `lane` (lane 7's is padding).
@@ -187,6 +208,7 @@ __device__ __forceinline__ const uint4* rows_of(const Args& a,
                                                 const Shards<kMode>& tab,
                                                 const int32_t* p) {
   if constexpr (kMode == kLeftChar) return tab.s[p[kShard]].rows;
+  if constexpr (kMode == kExpandTables) return tab.rows[p[kShard]];
   return a.rows;
 }
 
@@ -194,7 +216,9 @@ template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     rank_kernel(const Args a, const __grid_constant__ Shards<kMode> tab) {
   constexpr bool kTwo = kMode != kSingle;
+  constexpr bool kPairs = kMode == kExpand || kMode == kExpandTables;
   __shared__ __align__(16) int32_t pw[kTile * kPairCols];
+  __shared__ int s_base[kMode == kExpandTables ? kMaxShards : 1];
   __shared__ int32_t s_lo[8 * kOutStride];
   __shared__ __align__(16) int32_t s_hi[kTwo ? 8 * kOutStride : 1];
 
@@ -203,7 +227,7 @@ __global__ void __launch_bounds__(kThreads)
   const int t = threadIdx.x;
 
   // ---- the tile's queries into shared memory, in pair-row layout -------
-  if constexpr (kMode == kExpand) {
+  if constexpr (kPairs) {
     const int32_t* src = a.pairs + base * kPairCols;   // 16-byte aligned
     const int words = cnt * kPairCols;
     const int vec = words >> 2;
@@ -211,6 +235,19 @@ __global__ void __launch_bounds__(kThreads)
       reinterpret_cast<int4*>(pw)[i] =
           __ldg(reinterpret_cast<const int4*>(src) + i);
     for (int i = 4 * vec + t; i < words; i += kThreads) pw[i] = src[i];
+    if constexpr (kMode == kExpandTables) {
+      for (int k = t; k < tab.n; k += kThreads) s_base[k] = tab.base[k];
+      __syncthreads();
+      if (t < cnt) {                   // the last table whose base <= sid
+        const int sid = pw[t * kPairCols + kShard];
+        int lo = 0, hi = tab.n - 1;
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (s_base[mid] <= sid) lo = mid; else hi = mid - 1;
+        }
+        pw[t * kPairCols + kShard] = lo;
+      }
+    }
   } else if constexpr (kMode == kLeftChar) {
     // the tile's rows into s_hi (rewritten only after the barrier below)
     int32_t* raw = s_hi;
@@ -318,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < 8; ++k) a.olo[k * n + q] = s_lo[k * kOutStride + t];
   }
-  if constexpr (kMode == kExpand) {
+  if constexpr (kPairs) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) a.ohi[k * n + q] = s_hi[k * kOutStride + t];
     const int32_t lo = pw[t * kPairCols + kLo], hi = pw[t * kPairCols + kHi];
@@ -386,6 +423,38 @@ extern "C" int dsm_expand(const void* rows, const void* pairs, void* olo,
   a.fmin = fmin;
   a.sym_mask = sym_mask;
   return launch<kExpand>(a, stream);
+}
+
+// The expand step over a process's shard tables: pairs, outputs, p, fmin
+// and sym_mask as in dsm_expand, each pair's PC_SOFF an offset into its own
+// table; tables: ntables x (forward rows pointer, first process-local
+// sample id) int64 in HOST memory, copied into the launch's parameters, the
+// ids ascending, every pair's PC_SID at or above the first.
+// 1 <= ntables <= kMaxShards.
+extern "C" int dsm_expand_tables(const void* tables, int ntables,
+                                 const void* pairs, void* olo, void* ohi,
+                                 void* freq, void* keepc, void* cbits,
+                                 long long p, int fmin, int sym_mask,
+                                 void* stream) {
+  if (ntables < 1 || ntables > kMaxShards) return (int)cudaErrorInvalidValue;
+  Shards<kExpandTables> tab;
+  tab.n = ntables;
+  const long long* h = (const long long*)tables;
+  for (int k = 0; k < ntables; ++k) {
+    tab.rows[k] = (const uint4*)h[2 * k];
+    tab.base[k] = (int)h[2 * k + 1];
+  }
+  Args a{};
+  a.pairs = (const int32_t*)pairs;
+  a.olo = (int32_t*)olo;
+  a.ohi = (int32_t*)ohi;
+  a.freq = (int32_t*)freq;
+  a.keepc = (uint8_t*)keepc;
+  a.cbits = (uint8_t*)cbits;
+  a.n = p;
+  a.fmin = fmin;
+  a.sym_mask = sym_mask;
+  return launch<kExpandTables>(a, tab, stream);
 }
 
 // leftChar codes of the staged output rows: orows (n, 5) int32 contiguous

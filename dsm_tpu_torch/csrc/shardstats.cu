@@ -1,8 +1,8 @@
 // The per-node statistics and gates of one trie level whose samples are
-// sharded: each shard reduces its own pairs to node-indexed partial rows,
-// the rows are summed over the shards, and the gates, the global child
-// numbering, each shard's pair gates and the level's values follow from the
-// sums.
+// sharded: each process reduces its own pairs (the pairs of all its shards,
+// in one list) to node-indexed partial rows, the rows are summed over the
+// processes, and the gates, the global child numbering, the process's pair
+// gates and the level's values follow from the sums.
 //
 // Replaces the stats, merge and numbering blocks of
 // dsm_tpu/mining/engine_device.py _level_sharded (:421-489): boundary
@@ -13,23 +13,20 @@
 //
 //   [0] the sum of its active pairs' frequencies,
 //   [1] the sum of trunc((f+1)*log2(f+1) * 2^kNlnFp) over them: fixed point,
-//       so that the sum over shards and ranks is the same integer in any
-//       order (a term is under 2^53 and 512 of them fit),
+//       so that the sum over processes is the same integer in any order (a
+//       term is under 2^53 and 512 of them fit),
 //   [2] five 12-bit fields: the active readers, then the pairs with an
 //       active child under A, C, G, T.  A node owns at most MAX_SAMPLES =
-//       512 pairs over all shards, so a field of the summed rows never
+//       512 pairs over all processes, so a field of the summed rows never
 //       carries into the next.
 //
-// partials (K9a), one launch a shard, writing the shard's rows or adding
-// them to the rows an earlier shard's launch left (a row is one thread's,
-// and launches on a stream run in turn, so the add needs no atomic): the
-// episode keeps one (U, 3) buffer a level whatever its shards a process,
-// where a buffer a shard held 24 bytes a node a shard (1.7 GB at 128
-// shards of a 564k-node level).  Each pair's fixed-point term is made
+// partials (K9a), one launch a process a level, over the process's one pair
+// list (whatever its shards), writing one (U, 3) row a node.  Each pair's
+// fixed-point term is made
 // by the thread that loads the pair (for f < kLut from a table of int64
 // terms made once a device with the same expression, so bit-equal to the
 // computed term); the row is integers, so the order of the sums does not
-// matter; a node without a pair in the shard gets zeros.  Two shapes of
+// matter; a node without a pair in the process gets zeros.  Two shapes of
 // one design, chosen by the level's width:
 //   * a wide level (more than kWarpLevel pairs a node on average), on the
 //     design of segstats.cu: a block takes tiles of consecutive nodes (512,
@@ -40,36 +37,32 @@
 //     with coalesced loads into shared memory; a node of at most kWide
 //     pairs is summed by a thread from there, a wider one by a warp; the
 //     tile's rows are staged and stored coalesced, 24 bytes a node;
-//   * a narrow level (the sharded levels of a few samples a shard: 0..3
+//   * a narrow level (the sharded levels of a few samples a process: 0..3
 //     pairs a node), where that design's four barriers a tile cost more
 //     than its coalescing gains: a warp takes 32 consecutive nodes at a
 //     time, stages their pair range in chunks of kWarpPairs, a lane sums
 //     its node from there (the warp a node of more than kWarpWide pairs)
 //     and writes its row, 32 rows a warp contiguous; no block barrier.
-// In its epilogue the shard's kept lanes (popcount(cbits & sym_mask) over
+// In its epilogue the process's kept lanes (popcount(cbits & sym_mask) over
 // its pairs, the children step's row count) meet in a 64-bit atomic, and
-// the last block (a ticket) writes them into the shard's slot of the
-// level's values and zeroes its running state.
+// the last block (a ticket) writes them into their slot of the level's
+// values and zeroes its running state.
 //
-// node_gates (K9b), one launch a process: tiles of kTile = 512 nodes, two
-// a thread, handed out in issue order by an atomic counter to a grid the
-// card holds at once.  At a tile's start the node starts of its first
-// kStage shards are copied into shared memory (cp.async) while a thread
-// adds its two nodes' rows (the episode passes one, into which each shard's
-// K9a launch has added its own; already summed over the processes by the
-// library's all-reduce where there are several; the loads of kRowBatch
-// rows in flight at once) in registers, applies
-// the gates of segstats.cu with the GLOBAL counts and writes the nodes'
-// flags (present, stat, gated, the existing child symbols, the active
-// readers from bit 8 up) and entropy.  A block scan a round numbers the
-// tile's children in node order, and the tile publishes its count for the
-// decoupled look-back (lookback.cuh's status words).  Then, for each shard
-// k of the process (a table of pointers in the launch's parameters: nb_k,
-// pair_out_k, ocount_k; no upload), the tile's pairs there are the
-// contiguous range [nb_k[n0], nb_k[n0 + kTile]): the thread of each pair
-// finds its node in the staged nb_k and stores the staged gate, so
-// pair_out_k is written coalesced and whole (no memset first), and the
-// shard's gated pairs are counted.  Only then does warp 0 look back, so
+// node_gates (K9b), one launch a process a level: tiles of kTile = 512
+// nodes, two a thread, handed out in issue order by an atomic counter to a
+// grid the card holds at once.  At a tile's start its node starts are
+// copied into shared memory (cp.async) while a thread reads its two nodes'
+// rows (already summed over the processes by the library's all-reduce
+// where there are several), applies the gates of segstats.cu with the
+// GLOBAL counts and writes the nodes' flags (present, stat, gated, the
+// existing child symbols, the active readers from bit 8 up) and entropy.
+// A block scan a round numbers the tile's children in node order, and the
+// tile publishes its count for the decoupled look-back (lookback.cuh's
+// status words).  Then the tile's pairs are the contiguous range
+// [nb[n0], nb[n0 + kTile]): the thread of each pair finds its node in the
+// staged nb and stores the staged gate, so pair_out is written coalesced
+// and whole (no memset first), and the gated pairs are counted.  Only then
+// does warp 0 look back, so
 // that its predecessors have had the pair pass to publish their prefixes
 // and the walk is short, and kid0 and the history entries u*4 + c (staged
 // in shared memory, stored coalesced; entries past the history's room are
@@ -78,16 +71,16 @@
 // block adds its tiles' share of the level's values with integer atomics
 // once (the entropy range as order-preserving keys, exact whatever the
 // order of the blocks): the children, the present nodes, the entropy range
-// over the nodes with F_STAT and each shard's gated pairs.  The last block
-// (a ticket) writes them with the staged maximum, max over k of ocount_k +
-// gated pairs_k, into the level's values, and zeroes the running state and
+// over the nodes with F_STAT and the gated pairs.  The last block (a
+// ticket) writes them with the staged rows after the emit, ocount + the
+// gated pairs, into the level's values, and zeroes the running state and
 // the look-back words for the next launch on the stream.
 //
 // What bounds both on an H100: bytes.  K9a reads 5 bytes a pair and 4 a node
-// and writes 24 a node; K9b reads 24 bytes a node a shard and 4 a node a
-// shard of nb, and writes 20 a node (flags, entropy, kid0), 4 a child and a
-// byte a pair.  Every value derived here is a function of integer sums
-// alone, so all shards and processes gate and number alike.
+// and writes 24 a node; K9b reads 24 bytes and 4 of nb a node, and writes
+// 20 a node (flags, entropy, kid0), 4 a child and a byte a pair.  Every
+// value derived here is a function of integer sums alone, so all processes
+// gate and number alike.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -108,11 +101,8 @@ constexpr int kMinTile = 32;    // the fewest
 constexpr int kChunk = 2048;    // pairs a block stages at once
 constexpr int kWide = 64;       // a node of more pairs is summed by a warp
 constexpr int kLut = 4096;      // terms tabulated for f < kLut
-constexpr int kMaxShards = 128; // K9b: shards a process
 constexpr int kNodes = 2;       // K9b: nodes a thread a tile
 constexpr int kTile = kThreads * kNodes;  // K9b: nodes a tile
-constexpr int kStage = 4;       // shards whose nb a K9b block stages at once
-constexpr int kRowBatch = 2;    // shards a K9b thread loads the rows of at once
 constexpr int kWarpPairs = 128; // K9a by warps: pairs a warp stages at once
 constexpr int kWarpWide = 32;   // a node of more pairs is summed by the warp
 constexpr int kWarpLevel = 4;   // K9a by warps where P <= kWarpLevel * U
@@ -120,29 +110,22 @@ constexpr int kMaxDevices = 64;
 constexpr double kLog2 = 0.69314718055994530942;
 
 // the running state a (device, stream), uint64 words that are 0 between
-// launches: K9a's ticket and kept lanes, then K9b's
+// launches: K9a's ticket and kept lanes, then K9b's (ops/shardstats.py
+// _STATE_WORDS counts them)
 enum : int {
   kPartTicket, kPartKept,
   kGateTicket, kGateNextTile, kGateChildren, kGatePresent, kGateEntMax,
-  kGateEntMinNeg, kGateGated  // + k: shard k's gated pairs
+  kGateEntMinNeg, kGateGated
 };
 
 // the level's values (f64): see ops/shardstats.py V_*
-enum : int { kVChildren, kVPresent, kVEntMin, kVEntMax, kVStaged, kVShards };
+enum : int {
+  kVChildren, kVPresent, kVEntMin, kVEntMax, kVStaged, kVKept, kVGated
+};
 
 struct Gates {
   int depth, s_total, mindepth, pmin, pmax, use_egate, sym_mask;
   double emin_lo, emax_hi;  // emin - margin, emax + margin
-};
-
-struct Shard {
-  const int32_t* nb;
-  uint8_t* pair_out;
-  long long ocount;
-};
-
-struct ShardTable {
-  Shard s[kMaxShards];
 };
 
 __device__ __forceinline__ long long nln_term(int f) {
@@ -208,8 +191,7 @@ __global__ void __launch_bounds__(kThreads)
 partials_kernel(const int32_t* __restrict__ nb,
                 const int32_t* __restrict__ freq,
                 const uint8_t* __restrict__ cbits, long long n_nodes,
-                int tile, unsigned sym_mask, int accumulate,
-                long long* __restrict__ part,
+                int tile, unsigned sym_mask, long long* __restrict__ part,
                 unsigned long long* __restrict__ state,
                 double* __restrict__ kept_out) {
   __shared__ int s_nb[2][kMaxTile + 1];  // this tile's and the next's
@@ -300,10 +282,10 @@ partials_kernel(const int32_t* __restrict__ nb,
     // its first barrier
     long long* dst = part + n0 * kPartCols;
     for (int i = t; i < cnt * kPartCols; i += kThreads)
-      dst[i] = (accumulate ? dst[i] : 0) + s_row[i];
+      dst[i] = s_row[i];
   }
 
-  // the block's kept lanes into the shard's: a 64-bit atomic, then the
+  // the block's kept lanes into the level's: a 64-bit atomic, then the
   // last block to finish (a ticket) writes them and zeroes its words
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -331,8 +313,7 @@ __global__ void __launch_bounds__(kThreads)
 partials_warp_kernel(const int32_t* __restrict__ nb,
                      const int32_t* __restrict__ freq,
                      const uint8_t* __restrict__ cbits, long long n_nodes,
-                     unsigned sym_mask, int accumulate,
-                     long long* __restrict__ part,
+                     unsigned sym_mask, long long* __restrict__ part,
                      unsigned long long* __restrict__ state,
                      double* __restrict__ kept_out) {
   __shared__ long long s_term[kWarps][kWarpPairs];
@@ -397,9 +378,9 @@ partials_warp_kernel(const int32_t* __restrict__ nb,
     }
     if (lane < cnt) {
       long long* row = part + (n0 + lane) * kPartCols;
-      row[0] = (accumulate ? row[0] : 0) + r.sumf;
-      row[1] = (accumulate ? row[1] : 0) + r.nln;
-      row[2] = (accumulate ? row[2] : 0) + r.fields;
+      row[0] = r.sumf;
+      row[1] = r.nln;
+      row[2] = r.fields;
     }
   }
 
@@ -421,43 +402,27 @@ partials_warp_kernel(const int32_t* __restrict__ nb,
   vs[kPartTicket] = 0;
 }
 
-// Tile i's nb entries [n0, n0 + cnt] of shards [k0, k1) into s_nb, by
-// asynchronous copies (cp.async) that the caller waits for.
-__device__ __forceinline__ void stage_nb(int (*s_nb)[kTile + 1],
-                                         const ShardTable& tab, int k0,
-                                         int k1, long long n0, int cnt) {
-  const int w = cnt + 1;
-  for (int j = threadIdx.x; j < (k1 - k0) * w; j += kThreads) {
-    const int k = j / w, i = j - k * w;
-    __pipeline_memcpy_async(&s_nb[k][i], tab.s[k0 + k].nb + n0 + i, 4);
-  }
-  __pipeline_commit();
-}
-
 __global__ void __launch_bounds__(kThreads)
-gates_kernel(const long long* __restrict__ parts, int nparts, int n,
-             long long U,
+gates_kernel(const long long* __restrict__ part, long long U,
              long long ntiles, Gates g, int32_t* __restrict__ flags,
              double* __restrict__ ent, int32_t* __restrict__ kid0,
              int32_t* __restrict__ hist, long long room,
-             const __grid_constant__ ShardTable tab,
-             unsigned long long* __restrict__ state,
+             const int32_t* __restrict__ nb, uint8_t* __restrict__ pair_out,
+             long long ocount, unsigned long long* __restrict__ state,
              unsigned long long* __restrict__ status,
              double* __restrict__ vals) {
-  __shared__ int s_nb[kStage][kTile + 1];
+  __shared__ int s_nb[kTile + 1];
   __shared__ int32_t s_hist[4 * kTile];
   __shared__ uint8_t s_gate[kTile];
-  __shared__ unsigned long long s_gp[kMaxShards];
   __shared__ int s_wsum[kWarps];
-  __shared__ unsigned long long s_red[kWarps];
+  __shared__ unsigned long long s_red[kWarps][2];
   __shared__ double s_redd[kWarps][2];
   __shared__ long long s_tile, s_base;
   __shared__ int s_last;
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  for (int k = t; k < n; k += kThreads) s_gp[k] = 0;
   // the block's share of the level's values, over its tiles
-  unsigned long long pres = 0, children = 0;
+  unsigned long long pres = 0, children = 0, gp = 0;
   double emin = pos_inf(), emax = -pos_inf();
   for (;;) {
     if (t == 0) s_tile = (long long)atomicAdd(state + kGateNextTile, 1ull);
@@ -466,37 +431,18 @@ gates_kernel(const long long* __restrict__ parts, int nparts, int n,
     if (tile >= ntiles) break;
     const long long n0 = tile * kTile;
     const int cnt = (int)min((long long)kTile, U - n0);
-    // the first shards' nb on their way while the rows are summed
-    stage_nb(s_nb, tab, 0, min(n, kStage), n0, cnt);
+    // the tile's nb on its way while the rows are read
+    stage_ints(s_nb, nb + n0, cnt + 1);
 
-    // ---- a thread's kNodes nodes (t, t + kThreads, ...): their rows
-    // summed (all of a batch of shards' loads in flight at once) ----------
+    // ---- a thread's kNodes nodes (t, t + kThreads, ...): their rows -----
     long long sumf[kNodes], nln[kNodes], fields[kNodes];
 #pragma unroll
-    for (int j = 0; j < kNodes; ++j) sumf[j] = nln[j] = fields[j] = 0;
-    for (int k0 = 0; k0 < nparts; k0 += kRowBatch) {
-      long long r[kNodes][kRowBatch][kPartCols];
-#pragma unroll
-      for (int j = 0; j < kNodes; ++j) {
-        const int i = min(j * kThreads + t, cnt - 1);
-#pragma unroll
-        for (int b = 0; b < kRowBatch; ++b) {
-          const long long* row =
-              parts +
-              ((long long)min(k0 + b, nparts - 1) * U + n0 + i) * kPartCols;
-#pragma unroll
-          for (int c = 0; c < kPartCols; ++c)
-            r[j][b][c] = k0 + b < nparts ? row[c] : 0;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kNodes; ++j)
-#pragma unroll
-        for (int b = 0; b < kRowBatch; ++b) {
-          sumf[j] += r[j][b][0];
-          nln[j] += r[j][b][1];
-          fields[j] += r[j][b][2];
-        }
+    for (int j = 0; j < kNodes; ++j) {
+      const int i = min(j * kThreads + t, cnt - 1);
+      const long long* row = part + (n0 + i) * kPartCols;
+      sumf[j] = row[0];
+      nln[j] = row[1];
+      fields[j] = row[2];
     }
 
     // ---- their gates, flags and entropy; the children numbered in node
@@ -571,36 +517,22 @@ gates_kernel(const long long* __restrict__ parts, int nparts, int n,
                (tile == 0 ? dsm::kPrefix : dsm::kAggregate) | (unsigned)total);
     }
 
-    // ---- each shard: its gated pairs and its pair gates, coalesced ------
-    for (int k0 = 0; k0 < n; k0 += kStage) {
-      const int k1 = min(n, k0 + kStage);
-      if (k0 > 0) {
-        __syncthreads();  // the previous group's nb are read
-        stage_nb(s_nb, tab, k0, k1, n0, cnt);
-      }
-      __pipeline_wait_prior(0);
-      __syncthreads();
-      for (int k = k0; k < k1; ++k) {
-        const int* nb = s_nb[k - k0];
-        unsigned w = 0;
+    // ---- the tile's gated pairs and its pair gates, coalesced -----------
+    __pipeline_wait_prior(0);
+    __syncthreads();
 #pragma unroll
-        for (int j = 0; j < kNodes; ++j) {
-          const int i = j * kThreads + t;
-          if (i < cnt && s_gate[i]) w += (unsigned)(nb[i + 1] - nb[i]);
-        }
-        w = __reduce_add_sync(0xFFFFFFFFu, w);
-        if (lane == 0 && w) atomicAdd(&s_gp[k], (unsigned long long)w);
-        uint8_t* po = tab.s[k].pair_out;
-        const int c1 = nb[cnt];
-        for (int p = nb[0] + t; p < c1; p += kThreads) {
-          int lo = 0, hi = cnt - 1;  // the last node whose first pair <= p
-          while (lo < hi) {
-            const int mid = (lo + hi + 1) >> 1;
-            if (nb[mid] <= p) lo = mid; else hi = mid - 1;
-          }
-          po[p] = s_gate[lo];
-        }
+    for (int j = 0; j < kNodes; ++j) {
+      const int i = j * kThreads + t;
+      if (i < cnt && s_gate[i]) gp += (unsigned)(s_nb[i + 1] - s_nb[i]);
+    }
+    const int c1 = s_nb[cnt];
+    for (int p = s_nb[0] + t; p < c1; p += kThreads) {
+      int lo = 0, hi = cnt - 1;  // the last node whose first pair <= p
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_nb[mid] <= p) lo = mid; else hi = mid - 1;
       }
+      pair_out[p] = s_gate[lo];
     }
 
     // ---- the tile's first child id: the look-back (by then its
@@ -629,26 +561,28 @@ gates_kernel(const long long* __restrict__ parts, int nparts, int n,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     pres += __shfl_xor_sync(0xFFFFFFFFu, pres, o);
+    gp += __shfl_xor_sync(0xFFFFFFFFu, gp, o);
     emin = fmin(emin, __shfl_xor_sync(0xFFFFFFFFu, emin, o));
     emax = fmax(emax, __shfl_xor_sync(0xFFFFFFFFu, emax, o));
   }
   if (lane == 0) {
-    s_red[warp] = pres;
+    s_red[warp][0] = pres;
+    s_red[warp][1] = gp;
     s_redd[warp][0] = emin;
     s_redd[warp][1] = emax;
   }
   __syncthreads();
-  for (int k = t; k < n; k += kThreads)
-    if (s_gp[k]) atomicAdd(state + kGateGated + k, s_gp[k]);
   if (t == 0) {
-    unsigned long long r = 0;
+    unsigned long long r = 0, q = 0;
     for (int w = 0; w < kWarps; ++w) {
-      r += s_red[w];
+      r += s_red[w][0];
+      q += s_red[w][1];
       emin = fmin(emin, s_redd[w][0]);
       emax = fmax(emax, s_redd[w][1]);
     }
     if (children) atomicAdd(state + kGateChildren, children);
     if (r) atomicAdd(state + kGatePresent, r);
+    if (q) atomicAdd(state + kGateGated, q);
     if (emax >= emin) {  // the block has a node with F_STAT
       atomicMax(state + kGateEntMax, order_key(emax));
       atomicMax(state + kGateEntMinNeg, ~order_key(emin));
@@ -670,15 +604,10 @@ gates_kernel(const long long* __restrict__ parts, int nparts, int n,
   const unsigned long long hi = vs[kGateEntMax], lo = vs[kGateEntMinNeg];
   vals[kVEntMin] = lo ? key_value(~lo) : pos_inf();
   vals[kVEntMax] = hi ? key_value(hi) : -pos_inf();
-  long long staged = 0;
-  for (int k = 0; k < n; ++k) {
-    const long long gp = (long long)vs[kGateGated + k];
-    vals[kVShards + 2 * k + 1] = (double)gp;
-    staged = max(staged, tab.s[k].ocount + gp);
-    vs[kGateGated + k] = 0;
-  }
-  vals[kVStaged] = (double)staged;
-  for (int i = kGateTicket; i < kGateGated; ++i) vs[i] = 0;
+  const long long gated = (long long)vs[kGateGated];
+  vals[kVGated] = (double)gated;
+  vals[kVStaged] = (double)(ocount + gated);
+  for (int i = kGateTicket; i <= kGateGated; ++i) vs[i] = 0;
 }
 
 // Once a device: the blocks of `kernel` the card holds at once.
@@ -727,15 +656,15 @@ int resident(cudaStream_t stream, Resident* out) {
 }  // namespace
 
 // nb: (U+1,) int32; freq: (P,) int32, 0 for an inactive pair; cbits: (P,)
-// uint8; part: (U, 3) int64, the rows written, or with `accumulate` added
-// to the rows it holds; state: the running state of ops/shardstats.py
-// (0 at the launch and again when the kernel ends, used by one stream at a
-// time); kept: 1 f64, the shard's slot of the level's values.  U >= 1; a
+// uint8; part: (U, 3) int64, the rows written; state: the running state of
+// ops/shardstats.py (0 at the launch and again when the kernel ends, used
+// by one stream at a time); kept: 1 f64, the kept lanes' slot of the
+// level's values.  U >= 1; a
 // node holds at most kChunk pairs (MAX_SAMPLES = 512), else the launch
 // stops with a fault.
 extern "C" int dsm_shard_partials(const void* nb, const void* freq,
                                   const void* cbits, long long U, long long P,
-                                  int sym_mask, int accumulate, void* part,
+                                  int sym_mask, void* part,
                                   void* state, void* kept, void* stream) {
   if (U < 1 || P < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -747,8 +676,8 @@ extern "C" int dsm_shard_partials(const void* nb, const void* freq,
     if (blocks > r.partials_warp) blocks = r.partials_warp;
     partials_warp_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
         (const int32_t*)nb, (const int32_t*)freq, (const uint8_t*)cbits, U,
-        (unsigned)sym_mask, accumulate, (long long*)part,
-        (unsigned long long*)state, (double*)kept);
+        (unsigned)sym_mask, (long long*)part, (unsigned long long*)state,
+        (double*)kept);
     return (int)cudaGetLastError();
   }
   // the tile: kMaxTile nodes, halved while a tile would hold more than 7/8
@@ -759,7 +688,7 @@ extern "C" int dsm_shard_partials(const void* nb, const void* freq,
   if (blocks > r.partials) blocks = r.partials;
   partials_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
       (const int32_t*)nb, (const int32_t*)freq, (const uint8_t*)cbits, U,
-      (int)tile, (unsigned)sym_mask, accumulate, (long long*)part,
+      (int)tile, (unsigned)sym_mask, (long long*)part,
       (unsigned long long*)state, (double*)kept);
   return (int)cudaGetLastError();
 }
@@ -769,44 +698,35 @@ extern "C" long long dsm_node_gates_workspace(long long U) {
   return (U + kTile - 1) / kTile;
 }
 
-// parts: (nparts, U, 3) int64, added up a node (the n shards' rows, or
-// fewer rows that K9a has already added them into); flags, kid0: (U,)
-// int32; ent: (U,) f64; hist has
-// `room` entries; shards: n x (nb pointer, pair_out pointer, ocount) int64
-// in HOST memory, copied into the launch's parameters; state and status:
-// the running state and `words` >= dsm_node_gates_workspace(U) look-back
-// words of ops/shardstats.py (0 at the launch and again when the kernel
-// ends, used by one stream at a time); vals: the level's values (5 + 2n
-// f64; the kept lanes' slots are not written).  U >= 1,
-// 1 <= nparts, 1 <= n <= kMaxShards.
-extern "C" int dsm_node_gates(const void* parts, int nparts, int n,
-                              long long U,
-                              int depth, int s_total, int mindepth, int pmin,
-                              int pmax, int use_egate, int sym_mask,
-                              double emin_lo, double emax_hi, void* flags,
-                              void* ent, void* kid0, void* hist,
-                              long long room, const void* shards, void* state,
-                              void* status, long long words, void* vals,
-                              void* stream) {
+// part: (U, 3) int64, the process's rows (summed over the processes where
+// there are several); flags, kid0: (U,) int32; ent: (U,) f64; hist has
+// `room` entries; nb: (U+1,) int32, the process's node starts; pair_out:
+// (nb[U],) bool; ocount: the rows staged before this level; state and
+// status: the running state and `words` >= dsm_node_gates_workspace(U)
+// look-back words of ops/shardstats.py (0 at the launch and again when the
+// kernel ends, used by one stream at a time); vals: the level's values
+// (7 f64; the kept lanes' slot is not written).  U >= 1.
+extern "C" int dsm_node_gates(const void* part, long long U, int depth,
+                              int s_total, int mindepth, int pmin, int pmax,
+                              int use_egate, int sym_mask, double emin_lo,
+                              double emax_hi, void* flags, void* ent,
+                              void* kid0, void* hist, long long room,
+                              const void* nb, void* pair_out,
+                              long long ocount, void* state, void* status,
+                              long long words, void* vals, void* stream) {
   const long long tiles = dsm_node_gates_workspace(U);
-  if (U < 1 || nparts < 1 || n < 1 || n > kMaxShards || words < tiles)
-    return (int)cudaErrorInvalidValue;
+  if (U < 1 || words < tiles) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Resident r;
   const int err = resident(s, &r);
   if (err) return err;
   Gates g{depth, s_total, mindepth, pmin, pmax, use_egate, sym_mask,
           emin_lo, emax_hi};
-  ShardTable tab;
-  const long long* h = (const long long*)shards;
-  for (int k = 0; k < n; ++k)
-    tab.s[k] = Shard{(const int32_t*)h[3 * k], (uint8_t*)h[3 * k + 1],
-                     h[3 * k + 2]};
   const long long blocks = tiles < r.gates ? tiles : r.gates;
   gates_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      (const long long*)parts, nparts, n, U, tiles, g, (int32_t*)flags,
-      (double*)ent,
-      (int32_t*)kid0, (int32_t*)hist, room, tab, (unsigned long long*)state,
+      (const long long*)part, U, tiles, g, (int32_t*)flags, (double*)ent,
+      (int32_t*)kid0, (int32_t*)hist, room, (const int32_t*)nb,
+      (uint8_t*)pair_out, ocount, (unsigned long long*)state,
       (unsigned long long*)status, (double*)vals);
   return (int)cudaGetLastError();
 }

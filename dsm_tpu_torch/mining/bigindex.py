@@ -20,8 +20,8 @@ says why), so residency shrinks only along the sample axis.
 
 A device is a process's one device: the plan counts the processes of the
 `torch.distributed` group (one without a group).  Shards that DSM_SHARDS
-or a plan puts on one device share its memory, so they are not devices
-for the plan.
+or a plan puts on one device share its memory (their tables, and one
+episode state a process), so they are not devices for the plan.
 """
 
 from __future__ import annotations
@@ -89,13 +89,14 @@ def level_pairs(indexes, fmin: int = 1, prefix: bytes = b"") -> int:
 
 def episode_bytes(indexes, fmin: int = 1, prefix: bytes = b"") -> int:
     """Device bytes that an episode over `indexes` under `prefix` mined at
-    `fmin` may hold beside its tables, on one device or as one shard of
-    the sharded episode: the largest level's pairs and nodes (at most
-    `level_pairs` of each), the staged output rows (up to out_reserve
-    plus one level's gated pairs, three times over: a shard's doubling
-    buffer and its old copy, the drain's packed copy), the history buffer
-    (engine_device._hist_cap) and the kernels' scratch.  Shards that
-    share a device add their node rows and staged rows each."""
+    `fmin` may hold beside its tables, on one device or as one process of
+    the sharded episode (whose shards share one pair list, one node array
+    and one staging buffer, so the bound does not grow with them): the
+    largest level's pairs and nodes (at most `level_pairs` of each), the
+    staged output rows (up to out_reserve plus one level's gated pairs,
+    three times over: the doubling buffer and its old copy, the drain's
+    packed copy), the history buffer (engine_device._hist_cap) and the
+    kernels' scratch."""
     ns = np.array([idx.n for idx in indexes], dtype=np.int64)
     pairs = level_pairs(indexes, fmin, prefix)
     level = (PAIR_BYTES + NODE_BYTES) * pairs

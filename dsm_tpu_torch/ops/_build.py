@@ -13,8 +13,9 @@ Each C entry point launches on the stream it is given and returns
 passes the device's current stream, raises on a non-zero code and adds
 one to the kernel's count in `LAUNCHES`: the counts are of wrapper calls
 that launched the kernel, and nothing else adds to them.  The key `rank`
-counts launches of the rank kernel by any of its three entries,
-`occ_cum8`, `expand` (a level's expand step) and `leftchar` (a drain's
+counts launches of the rank kernel by any of its four entries,
+`occ_cum8`, `expand` and `expand_tables` (a level's expand step over one
+table or over a process's shard tables) and `leftchar` (a drain's
 leftChar codes, mining/engine.leftchar_rows).  The key
 `compact` counts launches of the compaction kernel by either of its
 entries, `compact_rows` and the emit's `stage_rows`: the mine and sharded
@@ -60,6 +61,9 @@ _SIGNATURES = {
     "dsm_occ_cum8": [_P, _P, _I64, _P, _I64, _P, _I64, _P],
     # rows, pairs, olo, ohi, freq, keepc, cbits, p, fmin, sym_mask, stream
     "dsm_expand": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
+    # tables (a host table), ntables, pairs, olo, ohi, freq, keepc, cbits,
+    # p, fmin, sym_mask, stream
+    "dsm_expand_tables": [_P, _I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     # mask, values, n, c, out, width, scratch, count, stream
     "dsm_compact_rows": [_P, _P, _I64, _I, _P, _I64, _P, _P, _P],
     # mask, pairs, n, depth, out, width, scratch, count, stream
@@ -77,14 +81,13 @@ _SIGNATURES = {
     # scratch, newp, nb_next, stream
     "dsm_children_ids": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I64,
                          _P, _P, _P, _P],
-    # nb, freq, cbits, U, P, sym_mask, accumulate, part, state, kept, stream
-    "dsm_shard_partials": [_P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
-    # parts, rows a node, shards, U, depth, s_total, mindepth, pmin, pmax,
-    # use_egate, sym_mask, emin_lo, emax_hi, flags, ent, kid0, hist, room,
-    # shards' table (a host table), state, status, status words, vals,
-    # stream
-    "dsm_node_gates": [_P, _I, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D,
-                       _P, _P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P],
+    # nb, freq, cbits, U, P, sym_mask, part, state, kept, stream
+    "dsm_shard_partials": [_P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P],
+    # part, U, depth, s_total, mindepth, pmin, pmax, use_egate, sym_mask,
+    # emin_lo, emax_hi, flags, ent, kid0, hist, room, nb, pair_out, ocount,
+    # state, status, status words, vals, stream
+    "dsm_node_gates": [_P, _I64, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P, _P,
+                       _P, _P, _I64, _P, _P, _I64, _P, _P, _I64, _P, _P],
     # U -> look-back words
     "dsm_node_gates_workspace": [_I64],
     # table (a host table), nblk, C, sid_col, out, lc_out, stream

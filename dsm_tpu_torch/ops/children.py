@@ -26,14 +26,14 @@ pair_count and child_total are the level's counts (the number of kept
 lanes and of (node, symbol) groups with one), which the level has already
 read back to size the outputs.
 
-`children_ids(...)` (kernel K9c) is the same step for one shard of a
-sample-sharded level (dsm_tpu/mining/engine_device.py `_level_sharded`,
-:474-507).  A child exists when any shard keeps a lane of it, so the ids
-come from outside, from the level's global numbering (ops/shardstats
-`node_gates`: the exists bits of `flags`, and `kid0`, each node's first
-child id): nb_next has child_total + 1 entries on every shard, a child of
-which this shard keeps no lane has an empty segment, and no history entry
-is written (the history is one a process, written by `node_gates`).
+`children_ids(...)` (kernel K9c) is the same step for one process's pair
+list of a sample-sharded level (dsm_tpu/mining/engine_device.py
+`_level_sharded`, :474-507).  A child exists when any process keeps a lane
+of it, so the ids come from outside, from the level's global numbering
+(ops/shardstats `node_gates`: the exists bits of `flags`, and `kid0`, each
+node's first child id): nb_next has child_total + 1 entries on every process, a child
+of which this process keeps no lane has an empty segment, and no history
+entry is written (written by `node_gates`).
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ def children_ids(nb: torch.Tensor, pairs: torch.Tensor, olo: torch.Tensor,
                  ohi: torch.Tensor, keep: torch.Tensor, flags: torch.Tensor,
                  kid0: torch.Tensor, pair_count: int, child_total: int):
     """-> (newp (pair_count, 6) int32, nb_next (child_total + 1,) int32)
-    of one shard, with the child ids given by `flags` and `kid0` ((U,)
+    of one process, with the child ids given by `flags` and `kid0` ((U,)
     int32, from ops/shardstats.node_gates); the other arguments as in
     `children`.  Every lane of `keep` must lie on an existing symbol of
     its node.  CPU tensors take the plain version; CUDA tensors launch

@@ -13,8 +13,8 @@ in block order with column `sid_col` + the block's base, lc (sum m_k,)
 int8 or None).
 
 The kernel takes its block table in the launch's parameters: one launch
-for up to MAX_BLOCKS non-empty blocks (a drain hands it one a shard, and a
-process holds at most MAX_SHARDS = MAX_BLOCKS shards), one a group of
+for up to MAX_BLOCKS non-empty blocks (a drain hands it one, the
+process's staged rows; an all-gather one a process), one a group of
 MAX_BLOCKS above that; empty blocks are left out of the table.  The
 blocks' rows need only their dtype's 4-byte alignment and the codes none.
 """

@@ -26,8 +26,8 @@ expand step built on them (dsm_tpu/mining/engine_device.py:714-724).  Its
 table is the ROW-major (R, ROWW) `fused_rows` table (stored as int32 bit
 patterns: torch has no general uint32 arithmetic); dsm_tpu's transposed
 (32, R) layout is not carried over.  One kernel body (csrc/rank.cu) has
-three entries, all counted as launches of `rank` (the third, the drain's
-leftChar codes, has its wrapper beside the output rows it reads:
+four entries, all counted as launches of `rank` (the drain's leftChar
+codes have their wrapper beside the output rows they read:
 mining/engine.leftchar_rows):
 
   * `occ_cum8(rows, pos, soff)` -> (8, Q) int32 with rows
@@ -38,11 +38,15 @@ mining/engine.leftchar_rows):
     blk = (pos >> 7) + soff and rem = pos & 127; the kernel derives both;
   * `expand(frows, pairs, fmin, sym_mask)`: the level's expand step on the
     (P, 6) pair rows -> (olo, ohi, freq, keepc, cbits), both ends' ranks
-    and the gate inputs in one launch.
+    and the gate inputs in one launch;
+  * `expand_tables(tables, pairs, fmin, sym_mask)`: the same over the
+    tables of a process's shards (the sharded level's one pair list), each
+    pair ranked in the table its sample id falls in, also in one launch.
 """
 
 from __future__ import annotations
 
+import array
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,12 +54,13 @@ import torch
 
 from ..index.alphabet import PAD, SIGMA
 from . import _build
-from .children import PAIR_COLS, PC_HI, PC_LO, PC_SOFF
+from .children import PAIR_COLS, PC_HI, PC_LO, PC_SID, PC_SOFF
 
 BLOCK = 128        # BWT codes per block: one table row
 LOG2_BLOCK = 7
 ROWW = 32          # fused uint32 row width: 8 cum + 5 planes x 4 words (+pad)
 _NPLANES = 5       # thermometer levels j = 1..5 (j=6 is the identity: pos)
+MAX_TABLES = 128   # csrc/rank.cu kMaxShards: the tables of expand_tables
 
 
 @dataclass
@@ -288,4 +293,74 @@ def expand(frows: torch.Tensor, pairs: torch.Tensor, fmin: int,
                       pairs.data_ptr(), olo.data_ptr(), ohi.data_ptr(),
                       freq.data_ptr(), keepc.data_ptr(), cbits.data_ptr(), p,
                       int(fmin), int(sym_mask))
+    return olo, ohi, freq, keepc, cbits
+
+
+def _table_of_pair(bases, sid: torch.Tensor) -> torch.Tensor:
+    """The table of each sample id: the last whose base is at or below it."""
+    b = torch.tensor([int(x) for x in bases], dtype=torch.int32,
+                     device=sid.device)
+    return torch.searchsorted(b, sid.contiguous(), right=True) - 1
+
+
+def expand_tables_plain(tables, pairs: torch.Tensor, fmin: int,
+                        sym_mask: int):
+    """Plain PyTorch version of the multi-table expand step (any device):
+    `expand_plain` on each table's pairs, under a mask."""
+    p, device = pairs.shape[0], pairs.device
+    olo = torch.empty((8, p), dtype=torch.int32, device=device)
+    ohi = torch.empty_like(olo)
+    freq = torch.empty(p, dtype=torch.int32, device=device)
+    keepc = torch.empty((4, p), dtype=torch.bool, device=device)
+    cbits = torch.empty(p, dtype=torch.uint8, device=device)
+    table = _table_of_pair([b for _r, b in tables], pairs[:, PC_SID])
+    for k, (frows, _base) in enumerate(tables):
+        mine = table == k
+        lo, hi, f, kc, cb = expand_plain(frows, pairs[mine], fmin, sym_mask)
+        olo[:, mine], ohi[:, mine], freq[mine] = lo, hi, f
+        keepc[:, mine], cbits[mine] = kc, cb
+    return olo, ohi, freq, keepc, cbits
+
+
+def expand_tables(tables, pairs: torch.Tensor, fmin: int, sym_mask: int):
+    """The expand step over the tables of a process's shards -> the
+    outputs of `expand`.  tables: 1 to MAX_TABLES (frows, base), a shard's
+    forward table and the process-local id of its first sample, the bases
+    ascending; pairs: (P, 6) int32 rows whose PC_SID is a process-local
+    sample id at or above the first base and whose PC_SOFF is the sample's
+    row offset in its own table.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel, one launch, which wants `pairs` contiguous
+    and 16-byte aligned."""
+    if pairs.device.type == "cpu":
+        return expand_tables_plain(tables, pairs, fmin, sym_mask)
+    if not 1 <= len(tables) <= MAX_TABLES:
+        raise ValueError(f"expand_tables: takes 1 to {MAX_TABLES} tables "
+                         f"(got {len(tables)})")
+    device = pairs.device
+    entries = []
+    for frows, base in tables:
+        _check_rows(frows, "expand_tables")
+        if frows.device != device:
+            raise ValueError(f"expand_tables: a table is not on {device}")
+        if entries and int(base) < entries[-1]:
+            raise ValueError("expand_tables: the tables' bases must ascend")
+        entries += (frows.data_ptr(), int(base))
+    if (pairs.dtype != torch.int32 or pairs.dim() != 2
+            or pairs.shape[1] != PAIR_COLS or not pairs.is_contiguous()
+            or pairs.data_ptr() % 16):
+        raise ValueError(f"expand_tables: pairs must be contiguous, 16-byte "
+                         f"aligned (P, {PAIR_COLS}) int32 on {device}")
+    p = pairs.shape[0]
+    olo = torch.empty((8, p), dtype=torch.int32, device=device)
+    ohi = torch.empty_like(olo)
+    freq = torch.empty(p, dtype=torch.int32, device=device)
+    keepc = torch.empty((4, p), dtype=torch.bool, device=device)
+    cbits = torch.empty(p, dtype=torch.uint8, device=device)
+    if p:
+        table = array.array("q", entries)
+        _build.launch("dsm_expand_tables", "rank", device,
+                      table.buffer_info()[0], len(tables), pairs.data_ptr(),
+                      olo.data_ptr(), ohi.data_ptr(), freq.data_ptr(),
+                      keepc.data_ptr(), cbits.data_ptr(), p, int(fmin),
+                      int(sym_mask))
     return olo, ohi, freq, keepc, cbits

@@ -2,36 +2,34 @@
 K9a and K9b, csrc/shardstats.cu).
 
 Counterpart of the stats, merge and numbering blocks of
-dsm_tpu/mining/engine_device.py `_level_sharded` (:421-489).  A shard
-holds only its samples' pairs, so a node's statistics are summed over the
-shards before anything is derived from them.  What a level reads back
-once, after both kernels, is its values `vals` ((V_SHARDS + 2n,)
-float64, `level_values`; counts far below 2^53 are exact in float64):
-the children, the present nodes, the entropy range, the staged maximum,
-and for each shard k of the process its kept lanes (V_SHARDS + 2k) and
-its gated pairs (V_SHARDS + 2k + 1).
+dsm_tpu/mining/engine_device.py `_level_sharded` (:421-489).  A process
+holds only its shards' samples' pairs (in one list, whatever its shards),
+so a node's statistics are summed over the processes before anything is
+derived from them.  What a level reads back once, after both kernels, is
+its values `vals` ((N_VALS,) float64, `level_values`; counts far below
+2^53 are exact in float64): the children, the present nodes, the entropy
+range, the staged rows after the emit, the process's kept lanes and its
+gated pairs.
 
-`shard_partials(nb, freq, cbits, sym_mask, out, kept, accumulate)` writes
-`out`, (U, 3) int64, one partial row a node from this shard's pairs [nb[u],
-nb[u+1]) (zeros where it has none), or with `accumulate` adds them to the
-rows `out` holds (the episode sums its shards into one buffer this way):
+`shard_partials(nb, freq, cbits, sym_mask, out, kept)` writes `out`, (U, 3)
+int64, one partial row a node from the process's pairs [nb[u], nb[u+1])
+(zeros where it has none):
   * [0] the sum of the active pairs' frequencies;
   * [1] the sum of trunc((f+1)*log2(f+1) * 2^NLN_FP): fixed point, so that
-    the sum over shards and processes is the same integer in any order (a
-    term is under 2^53, and MAX_SAMPLES = 512 of them fit an int64);
+    the sum over processes is the same integer in any order (a term is
+    under 2^53, and MAX_SAMPLES = 512 of them fit an int64);
   * [2] five FIELD_BITS-wide fields: the active readers, then the pairs
     with an active child under A, C, G, T (a node owns at most 512 pairs
-    over all shards, so summed fields do not carry);
-and `kept` ((1,) float64, the shard's slot of `vals`): the shard's kept
-lanes, popcount(cbits & sym_mask) over its pairs.
+    over all processes, so summed fields do not carry);
+and `kept` ((1,) float64, `vals[V_KEPT:V_KEPT + 1]`): the kept lanes,
+popcount(cbits & sym_mask) over the pairs.
 
-`node_gates(parts, gates, hist, shards, vals)`: parts (m, U, 3) int64,
-the m rows of a node added here (the shards of this process, or one row
-they were added into; where there are several processes
-`torch.distributed.all_reduce` has summed them before); shards: each
-shard's (nb, pair count, staged row count).  ->
-(flags (U,) int32, ent (U,) float64, kid0 (U,) int32, pair_outs: a (P_k,)
-bool a shard), and hist and vals written:
+`node_gates(part, gates, hist, nb, P, ocount, vals)`: part (U, 3) int64,
+the rows of a node (where there are several processes
+`torch.distributed.all_reduce` has summed them before); nb, P: the
+process's (U+1,) node starts and pair count; ocount: its rows staged
+before this level.  -> (flags (U,) int32, ent (U,) float64, kid0 (U,)
+int32, pair_out (P,) bool), and hist and vals written:
   * flags: as ops/segstats (bit 0 present, bit 1 stat, bit 2 gated, bits
     4-7 the existing child symbols), with the GLOBAL sample count as
     `gates.s_total`, and the node's active readers from bit NACT_SHIFT up;
@@ -43,16 +41,13 @@ bool a shard), and hist and vals written:
   * hist[:children] gets the history entries node*4 + symbol in child
     order (entries past len(hist) are dropped: the level is then redone
     after the history is pulled);
-  * pair_outs[k]: the gate of each pair of shard k (its node's bit 2);
+  * pair_out: the gate of each pair (its node's bit 2);
   * vals: the children, the present nodes, the least and largest entropy
-    of the nodes with F_STAT (+inf and -inf where there is none), each
-    shard's gated pairs and the staged maximum, max over k of the shard's
-    staged rows (its ocount) + its gated pairs.
+    of the nodes with F_STAT (+inf and -inf where there is none), the
+    gated pairs and the staged rows after the emit, ocount + gated pairs.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -67,27 +62,30 @@ FIELD_BITS = 12    # kFieldBits
 PART_COLS = 3
 NACT_SHIFT = 8     # flags: the active readers from this bit up
 FLAG_BITS = (1 << NACT_SHIFT) - 1   # the bits ops/segstats also writes
-MAX_SHARDS = 128   # kMaxShards: the shards of a process node_gates takes
-# the level's values (`vals`): then V_SHARDS + 2k, shard k's kept lanes, and
-# V_SHARDS + 2k + 1, its gated pairs
-V_CHILDREN, V_PRESENT, V_ENT_MIN, V_ENT_MAX, V_STAGED, V_SHARDS = range(6)
-# the kernels' running state, a (device, stream): 2 words of K9a, 6 + one a
-# shard of K9b (csrc/shardstats.cu), and K9b's look-back words, one a tile.
+# the shards of a process: the level's expand (ops/rank.expand_tables) and
+# the drain's leftChar carry their tables in one launch's parameters
+MAX_SHARDS = 128
+# the level's values (`vals`)
+(V_CHILDREN, V_PRESENT, V_ENT_MIN, V_ENT_MAX, V_STAGED, V_KEPT,
+ V_GATED) = range(7)
+N_VALS = 7
+# the kernels' running state, a (device, stream): 2 words of K9a, 7 of K9b
+# (csrc/shardstats.cu), and K9b's look-back words, one a tile.
 # Made zero; the last block of each launch zeroes what it used for the
 # next launch on that stream, which spares a memset a launch; launches on
 # two streams never share one
-_STATE_WORDS = 2 + 6 + MAX_SHARDS
+_STATE_WORDS = 2 + 7
 _STATES: dict = {}
 
 
-def level_values(n: int, device) -> torch.Tensor:
-    """An uninitialised `vals` for a level of n shards a process."""
-    return torch.empty(V_SHARDS + 2 * n, dtype=torch.float64, device=device)
+def level_values(device) -> torch.Tensor:
+    """An uninitialised `vals` for a level."""
+    return torch.empty(N_VALS, dtype=torch.float64, device=device)
 
 
-def kept_slot(vals: torch.Tensor, k: int) -> torch.Tensor:
-    """Shard k's kept-lanes slot of `vals`, the `kept` of shard_partials."""
-    return vals[V_SHARDS + 2 * k:V_SHARDS + 2 * k + 1]
+def kept_slot(vals: torch.Tensor) -> torch.Tensor:
+    """The kept-lanes slot of `vals`, the `kept` of shard_partials."""
+    return vals[V_KEPT:V_KEPT + 1]
 
 
 def _running_state(device, tiles: int):
@@ -137,12 +135,10 @@ def shard_partials_plain(nb: torch.Tensor, freq: torch.Tensor,
 
 def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
                    cbits: torch.Tensor, sym_mask: int, out: torch.Tensor,
-                   kept: torch.Tensor, accumulate: bool = False
-                   ) -> torch.Tensor:
-    """Write this shard's partial rows into `out` ((U, 3) int64, a row of
-    the (m, U, 3) tensor node_gates reads), or add them to its rows with
-    `accumulate`, and its kept lanes into `kept` ((1,) float64, `kept_slot`
-    of the level's values); return `out`.
+                   kept: torch.Tensor) -> torch.Tensor:
+    """Write the process's partial rows into `out` ((U, 3) int64, what
+    node_gates reads) and its kept lanes into `kept` ((1,) float64,
+    `kept_slot` of the level's values); return `out`.
     nb: (U+1,) int32; freq: (P,) int32, 0 for inactive pairs; cbits: (P,)
     uint8, bit c set if child symbol c is active for the pair.  CPU
     tensors take the plain version; CUDA tensors launch the kernel, once."""
@@ -151,10 +147,7 @@ def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
                 "int32 pair positions")
     if freq.device.type == "cpu":
         part, k = shard_partials_plain(nb, freq, cbits, sym_mask)
-        if accumulate:
-            out.add_(part)
-        else:
-            out.copy_(part)
+        out.copy_(part)
         kept.copy_(k)
         return out
     device = freq.device
@@ -176,17 +169,16 @@ def shard_partials(nb: torch.Tensor, freq: torch.Tensor,
     state, _ = _running_state(device, 0)
     _build.launch("dsm_shard_partials", "shard_partials", device,
                   nb.data_ptr(), freq.data_ptr(), cbits.data_ptr(), U, P,
-                  sym_mask, int(accumulate), out.data_ptr(),
-                  state.data_ptr(), kept.data_ptr())
+                  sym_mask, out.data_ptr(), state.data_ptr(), kept.data_ptr())
     return out
 
 
-def node_gates_plain(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
-                     shards: list, vals: torch.Tensor):
+def node_gates_plain(part: torch.Tensor, g: Gates, hist: torch.Tensor,
+                     nb: torch.Tensor, P: int, ocount: int,
+                     vals: torch.Tensor):
     """Plain PyTorch version of the gates kernel (any device)."""
-    dev = parts.device
-    tot = parts.sum(dim=0)                                   # (U, 3)
-    sumf, nln, fields = tot[:, 0], tot[:, 1], tot[:, 2]
+    dev = part.device
+    sumf, nln, fields = part[:, 0], part[:, 1], part[:, 2]
     mask = (1 << FIELD_BITS) - 1
     nact = fields & mask
     sym = torch.arange(4, device=dev)
@@ -213,51 +205,37 @@ def node_gates_plain(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
     entries = torch.nonzero(ex.reshape(-1), as_tuple=True)[0]
     room = min(entries.shape[0], hist.shape[0])
     hist[:room] = entries[:room].to(torch.int32)
-    pair_outs = [gated[_node_of_pair(nb, P)] for nb, P, _oc in shards]
-    gp = torch.stack([po.sum() for po in pair_outs]).to(torch.float64)
+    pair_out = gated[_node_of_pair(nb, P)]
     inf = torch.full((1,), np.inf, dtype=torch.float64, device=dev)
     vals[V_CHILDREN] = nchild.sum()
     vals[V_PRESENT] = present.sum()
     vals[V_ENT_MIN] = torch.cat([torch.where(stat, ent, np.inf), inf]).min()
     vals[V_ENT_MAX] = torch.cat([torch.where(stat, ent, -np.inf), -inf]).max()
-    vals[V_SHARDS + 1::2] = gp
-    vals[V_STAGED] = (gp + torch.tensor([oc for _nb, _P, oc in shards],
-                                        dtype=torch.float64,
-                                        device=dev)).max()
-    return flags.to(torch.int32), ent, kid0.to(torch.int32), pair_outs
+    vals[V_GATED] = pair_out.sum()
+    vals[V_STAGED] = vals[V_GATED] + ocount
+    return flags.to(torch.int32), ent, kid0.to(torch.int32), pair_out
 
 
-def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
-               shards: list, vals: torch.Tensor):
-    """parts: (m, U, 3) int64 contiguous partial rows, added up a node (the
-    n shards' rows, or 1 <= m < n rows they were added into); hist: 1-D
-    int32, the free tail of the history buffer; shards: n tuples (nb, P,
-    ocount), a
-    shard's (U+1,) int32 node starts, its pair count (nb[U]) and its staged
-    rows; vals: the level's values (its kept slots already written).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, once,
-    for any 1 <= n <= MAX_SHARDS (more raise)."""
-    refuse_past("node_gates", "nodes", parts.shape[1], MAX_NODES,
+def node_gates(part: torch.Tensor, g: Gates, hist: torch.Tensor,
+               nb: torch.Tensor, P: int, ocount: int, vals: torch.Tensor):
+    """part: (U, 3) int64 contiguous partial rows; hist: 1-D int32, the
+    free tail of the history buffer; nb: the process's (U+1,) int32 node
+    starts; P: its pair count (nb[U]); ocount: its staged rows; vals: the
+    level's values (its kept slot already written).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel, once."""
+    refuse_past("node_gates", "nodes", part.shape[0], MAX_NODES,
                 "int32 history entries parent * 4 + symbol")
-    if parts.device.type == "cpu":
-        return node_gates_plain(parts, g, hist, shards, vals)
-    device = parts.device
+    if part.device.type == "cpu":
+        return node_gates_plain(part, g, hist, nb, P, ocount, vals)
+    device = part.device
     if device.type != "cuda":
         raise ValueError(f"node_gates: unsupported device {device}")
-    if (parts.dtype != torch.int64 or parts.dim() != 3
-            or parts.shape[2] != PART_COLS or not parts.is_contiguous()):
-        raise ValueError("node_gates: parts must be contiguous (m, U, 3) "
-                         "int64")
-    m, U, _ = parts.shape
-    n = len(shards)
-    if not 1 <= n <= MAX_SHARDS or not 1 <= m <= n:
-        raise ValueError(f"node_gates: takes 1 to {MAX_SHARDS} shards, "
-                         f"one (nb, P, ocount) each, and 1 to that many "
-                         f"rows a node (got {m} rows and {n} shards)")
+    U = part.shape[0]
     for name, t, dt, shape in (
-            [("hist", hist, torch.int32, hist.shape[:1]),
-             ("vals", vals, torch.float64, (V_SHARDS + 2 * n,))]
-            + [("nb", nb, torch.int32, (U + 1,)) for nb, _P, _oc in shards]):
+            ("part", part, torch.int64, (U, PART_COLS)),
+            ("hist", hist, torch.int32, hist.shape[:1]),
+            ("nb", nb, torch.int32, (U + 1,)),
+            ("vals", vals, torch.float64, (N_VALS,))):
         if (t.dtype != dt or t.shape != shape or not t.is_contiguous()
                 or t.device != device):
             raise ValueError(f"node_gates: {name} must be contiguous {dt} "
@@ -265,24 +243,19 @@ def node_gates(parts: torch.Tensor, g: Gates, hist: torch.Tensor,
     flags = torch.empty(U, dtype=torch.int32, device=device)
     ent = torch.empty(U, dtype=torch.float64, device=device)
     kid0 = torch.empty(U, dtype=torch.int32, device=device)
-    pair_outs = [torch.empty(P, dtype=torch.bool, device=device)
-                 for _nb, P, _oc in shards]
+    pair_out = torch.empty(P, dtype=torch.bool, device=device)
     if U <= 0:
-        vals[:V_SHARDS] = torch.tensor(
-            [0, 0, np.inf, -np.inf, max(oc for _nb, _P, oc in shards)],
-            dtype=torch.float64)
-        vals[V_SHARDS + 1::2] = 0
-        return flags, ent, kid0, pair_outs
-    table = (ctypes.c_longlong * (3 * n))(*[
-        v for (nb, _P, oc), po in zip(shards, pair_outs)
-        for v in (nb.data_ptr(), po.data_ptr(), int(oc))])
+        vals[:V_KEPT] = torch.tensor([0, 0, np.inf, -np.inf, ocount],
+                                     dtype=torch.float64)
+        vals[V_GATED] = 0
+        return flags, ent, kid0, pair_out
     state, status = _running_state(
         device, _build.lib().dsm_node_gates_workspace(U))
-    _build.launch("dsm_node_gates", "node_gates", device, parts.data_ptr(),
-                  m, n, U, g.depth, g.s_total, g.mindepth, g.pmin, g.pmax,
+    _build.launch("dsm_node_gates", "node_gates", device, part.data_ptr(),
+                  U, g.depth, g.s_total, g.mindepth, g.pmin, g.pmax,
                   int(g.use_egate), g.sym_mask, g.emin_lo, g.emax_hi,
                   flags.data_ptr(), ent.data_ptr(), kid0.data_ptr(),
-                  hist.data_ptr(), hist.shape[0], ctypes.addressof(table),
-                  state.data_ptr(), status.data_ptr(), status.shape[0],
-                  vals.data_ptr())
-    return flags, ent, kid0, pair_outs
+                  hist.data_ptr(), hist.shape[0], nb.data_ptr(),
+                  pair_out.data_ptr(), int(ocount), state.data_ptr(),
+                  status.data_ptr(), status.shape[0], vals.data_ptr())
+    return flags, ent, kid0, pair_out

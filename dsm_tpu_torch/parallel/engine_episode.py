@@ -9,50 +9,53 @@ engine_np.mine_np, and the same exits: DONE, TAIL, DRAIN, HISTFULL.
 
 Layout (parallel/mesh.SamplesMesh: world x shards_per_rank shards):
 
-  * a shard: its samples' occ tables (parallel/engine_sharded), its pair
-    list with LOCAL sample ids, `nb` (node -> first local pair; a node may
-    own no pair here, so nb has nnodes + 1 entries on every shard) and its
-    staged output rows, in one buffer that each level's emit appends to;
-  * a process, once: the parent-pointer history, the level offsets, the
-    depth, the node count, total_paths and the entropy range.  dsm_tpu
-    keeps a replicated copy a shard; the shards of one device share one.
+  * a shard: its samples' occ tables (parallel/engine_sharded), kept
+    apart so that each keeps its own int32 row offsets;
+  * a process, once, laid out as the single-device episode: ONE pair list
+    of all its shards' samples, sorted by (node, sample), with
+    PROCESS-LOCAL sample ids (global id = dev.base(0) + local) and each
+    pair's PC_SOFF an offset into its own shard's table; `nb` of nnodes +
+    1 entries (a node may own no pair on this process: an empty segment);
+    one buffer of staged output rows that each level's emit appends to;
+    the parent-pointer history, the level offsets, the depth, the node
+    count, total_paths and the entropy range.  dsm_tpu keeps all of this a
+    shard, one shard a device; the port's shards of one device share it,
+    so a level's work and launches do not grow with them.
 
-A level (`_level_sharded`, dsm_tpu mining/engine_device.py:350-597):
-  1. a shard: the expand step, one launch of the rank kernel: both
-     interval ends, freq, active children (engine_device._expand, as the
-     single-device level);
-  2. a shard: the partials kernel (ops/shardstats.shard_partials), one
-     integer row a node, and the shard's kept lanes into the level's
-     values;
+A level (`_level_sharded`, dsm_tpu mining/engine_device.py:350-597), one
+launch of each kernel whatever the shards a process:
+  1. the expand step over the process's shard tables (ops/rank
+     .expand_tables: each pair ranked in its own shard's table): both
+     interval ends, freq, active children;
+  2. the partials kernel (ops/shardstats.shard_partials): one integer row
+     a node, and the process's kept lanes into the level's values;
   3. the trie merge: where the mesh has a process group, ONE
      `all_reduce` of the rows a level (the library's collective, as
-     `lax.psum` was XLA's); the sum over this process's shards is taken by
-  4. the gates kernel (ops/shardstats.node_gates), one launch a process:
-     gates, existing children, global child ids, history entries, each
-     shard's pair gates, and the level's values (children, present nodes,
-     entropy range, each shard's gated pairs, the staged maximum);
-  5. in a group, a scalar max-reduce of the staged maximum, then the ONE
+     `lax.psum` was XLA's);
+  4. the gates kernel (ops/shardstats.node_gates): gates, existing
+     children, global child ids, history entries, the pair gates and the
+     level's values (children, present nodes, entropy range, gated pairs,
+     the rows staged after the emit);
+  5. in a group, a scalar max-reduce of the staged rows, then the ONE
      readback of the level's values;
-  6. a shard: the emit through the compaction kernel, onto the end of the
-     shard's staged rows, and the outside-ids children kernel
-     (ops/children.children_ids);
+  6. the emit through the compaction kernel, onto the end of the staged
+     rows, and the outside-ids children kernel (ops/children.children_ids);
   7. the exit: HISTFULL, DONE and TAIL follow from reduced values; DRAIN
-     when any shard of any process has more than `out_reserve` rows
-     staged.
+     when any process has more than `out_reserve` rows staged.
 Everything derived from the reduced rows is a function of integer sums, so
-every shard and process gates, numbers and exits alike.
+every process gates, numbers and exits alike.
 
-A drain (`_drain_sharded`, dsm_tpu :311-410) packs the staged rows of
-every shard (one block a shard) into one list with global sample ids
-(ops/gatherpack, one launch), takes the packed rows' leftChar codes, each
-from its shard's own reverse table (the rank kernel's leftChar entry, one
-launch), all-gathers rows and codes where there are several processes
-(every process ends with the same rows and emits the full output), and
-hands them to the single-device drain's host half.  A process holds at
-most MAX_SHARDS (ops/shardstats) shards: both kernels carry its shards in
-one launch's parameters.  Snapshots hold global sample ids in (node,
-sample) order, so they resume in the single-device engine, at another
-shard count and in dsm_tpu, and theirs here.
+A drain (`_drain_sharded`, dsm_tpu :311-410) packs the staged rows into a
+list with global sample ids (ops/gatherpack, one launch), takes the packed
+rows' leftChar codes, each from its shard's own reverse table (the rank
+kernel's leftChar entry, one launch), all-gathers rows and codes where
+there are several processes (every process ends with the same rows and
+emits the full output), and hands them to the single-device drain's host
+half.  A process holds at most MAX_SHARDS (ops/shardstats) shards: the
+level's expand and the drain's leftChar carry its shard tables in one
+launch's parameters.  Snapshots hold global sample ids in (node, sample)
+order, so they resume in the single-device engine, at another shard count
+and in dsm_tpu, and theirs here.
 
 No counterpart, because the port allocates every level to its size:
 `_resize_sharded`, `_auto_cap_sharded`, the bucket ladder, FLAG_GROW,
@@ -75,7 +78,7 @@ from ..mining.engine_device import (FLAG_DONE, FLAG_DRAIN, FLAG_HISTFULL,
                                     FLAG_RUN, FLAG_TAIL, OC_SID, OUT_COLS,
                                     TAIL_MIN_DEPTH,
                                     PathHistory, _emit_drained,
-                                    _episode_setup, _expand, _hist_cap,
+                                    _episode_setup, _hist_cap,
                                     _load_snapshot, _node_starts,
                                     _run_episode, _Scalars)
 from ..mining.engine_np import MinedOutput
@@ -83,77 +86,71 @@ from ..ops.children import (PAIR_COLS, PC_HI, PC_NID, PC_SID, PC_SOFF,
                             children_ids)
 from ..ops.compact import stage_rows
 from ..ops.gatherpack import gather_pack
+from ..ops.rank import expand_tables
 from ..ops.segstats import F_GATED
 from ..ops.shardstats import (MAX_SHARDS, NACT_SHIFT, PART_COLS,
-                              V_CHILDREN, V_ENT_MAX, V_ENT_MIN, V_PRESENT,
-                              V_SHARDS, V_STAGED, kept_slot, level_values,
-                              node_gates, shard_partials)
+                              V_CHILDREN, V_ENT_MAX, V_ENT_MIN, V_GATED,
+                              V_KEPT, V_PRESENT, V_STAGED, kept_slot,
+                              level_values, node_gates, shard_partials)
 from .engine_sharded import ShardedIndexes
 from .mesh import SamplesMesh
 from .multihost import global_samples_mesh, shards_from_env
 
-STAGE_ROWS = 4096   # the least rows of a shard's staging buffer
-
-
-@dataclass
-class ShardState:
-    """One shard's part of the episode: pairs (P, 6) int32 with LOCAL
-    sample ids, sorted by node; nb (nnodes + 1,) int32; out[:ocount]: the
-    staged (k, 5) output rows (local sample ids) awaiting a drain, rows of
-    one int32 buffer (None until the shard stages a row), so that a drain
-    hands the gather one block a shard."""
-
-    pairs: torch.Tensor
-    nb: torch.Tensor
-    out: torch.Tensor | None = None
-    ocount: int = 0
+STAGE_ROWS = 4096   # the least rows of the staging buffer
 
 
 @dataclass
 class ShardedEpisodeState:
-    """One episode on a process: its shards' states and what is one a
-    process (the fields of engine_device.EpisodeState of the same names,
-    which the decode and history helpers read)."""
+    """One episode on a process, laid out as engine_device.EpisodeState
+    (whose fields of the same names the decode and history helpers read):
+    pairs (P, 6) int32 of all its shards' samples, sorted by (node,
+    sample), with process-local sample ids; nb (nnodes + 1,) int32;
+    out[:ocount]: the staged (k, 5) output rows (process-local sample ids)
+    awaiting a drain, rows of one int32 buffer (None until a row is
+    staged), so that a drain hands the gather one block."""
 
-    shards: list
-    nnodes: int
+    pairs: torch.Tensor
+    nb: torch.Tensor
     depth: int
     hist: torch.Tensor
     hist_len: int = 0
     lvl_off: list = field(default_factory=list)
+    out: torch.Tensor | None = None
+    ocount: int = 0
     total_paths: int = 0
     ent_min: float = np.inf
     ent_max: float = -np.inf
 
+    @property
+    def nnodes(self) -> int:
+        return self.nb.shape[0] - 1
 
-def _fresh_state(shards: list, nnodes: int, depth: int, hist_cap: int,
-                 device, total_paths: int = 0, ent_min: float = np.inf,
-                 ent_max: float = -np.inf) -> ShardedEpisodeState:
+
+def _fresh_state(pairs: torch.Tensor, nb: torch.Tensor, depth: int,
+                 hist_cap: int, total_paths: int = 0,
+                 ent_min: float = np.inf, ent_max: float = -np.inf
+                 ) -> ShardedEpisodeState:
     return ShardedEpisodeState(
-        shards=shards, nnodes=nnodes, depth=depth,
-        hist=torch.zeros(hist_cap, dtype=torch.int32, device=device),
+        pairs=pairs, nb=nb, depth=depth,
+        hist=torch.zeros(hist_cap, dtype=torch.int32, device=pairs.device),
         total_paths=total_paths, ent_min=float(ent_min),
         ent_max=float(ent_max))
 
 
 def _seed_sharded_episode(dev: ShardedIndexes,
                           hist_cap: int) -> ShardedEpisodeState:
-    """The root: one node; shard k holds one pair [0, n_s) for each of its
-    samples (local ids 0.., global id = dev.base(k) + local)."""
-    device = dev.device
-    shards = []
-    for sd in dev.shards:
-        pairs = torch.zeros((sd.S, PAIR_COLS), dtype=torch.int32,
-                            device=device)
-        pairs[:, PC_HI] = torch.as_tensor(sd.ns, dtype=torch.int32,
-                                          device=device)
-        pairs[:, PC_SID] = torch.arange(sd.S, dtype=torch.int32,
-                                        device=device)
-        pairs[:, PC_SOFF] = sd.soff
-        shards.append(ShardState(
-            pairs=pairs,
-            nb=torch.tensor([0, sd.S], dtype=torch.int32, device=device)))
-    return _fresh_state(shards, 1, 0, hist_cap, device)
+    """The root: one node holding one pair [0, n_s) for each of the
+    process's samples (local ids 0.., global id = dev.base(0) + local)."""
+    device, S = dev.device, dev.local_samples
+    lo = dev.base(0)
+    pairs = torch.zeros((S, PAIR_COLS), dtype=torch.int32, device=device)
+    pairs[:, PC_HI] = torch.as_tensor(dev.ns[lo:lo + S], dtype=torch.int32,
+                                      device=device)
+    pairs[:, PC_SID] = torch.arange(S, dtype=torch.int32, device=device)
+    pairs[:, PC_SOFF] = dev.local_soff()
+    return _fresh_state(
+        pairs, torch.tensor([0, S], dtype=torch.int32, device=device), 0,
+        hist_cap)
 
 
 def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
@@ -169,34 +166,26 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
     g = sc.gates(depth, dev.S)
     grouped = mesh.group is not None
 
-    # ---- a shard: expand, partial rows and kept lanes; the shards' rows
-    # added into one (U, 3) buffer, whatever the shards a process ---------
-    parts = torch.empty((1, U, PART_COLS), dtype=torch.int64, device=device)
-    vals = level_values(len(st.shards), device)
-    expanded = []
-    for k, sh in enumerate(st.shards):
-        olo, ohi, freq, keepc, cbits = _expand(dev.shards[k].frows, sh.pairs,
-                                               sc.fmin, g.sym_mask)
-        shard_partials(sh.nb, freq, cbits, g.sym_mask, parts[0],
-                       kept_slot(vals, k), accumulate=k > 0)
-        expanded.append((olo, ohi, keepc))
+    # ---- expand over the shard tables, the partial rows and kept lanes --
+    olo, ohi, freq, keepc, cbits = expand_tables(
+        dev.expand_tables(), st.pairs, sc.fmin, g.sym_mask)
+    part = torch.empty((U, PART_COLS), dtype=torch.int64, device=device)
+    vals = level_values(device)
+    shard_partials(st.nb, freq, cbits, g.sym_mask, part, kept_slot(vals))
 
-    # ---- the trie merge, then one gates launch a process ----------------
+    # ---- the trie merge, then the gates -------------------------------
     if grouped:
-        dist.all_reduce(parts, group=mesh.group)
-    flags, _ent, kid0, pair_outs = node_gates(
-        parts, g, st.hist[st.hist_len:],
-        [(sh.nb, sh.pairs.shape[0], sh.ocount) for sh in st.shards], vals)
+        dist.all_reduce(part, group=mesh.group)
+    flags, _ent, kid0, pair_out = node_gates(
+        part, g, st.hist[st.hist_len:], st.nb, st.pairs.shape[0], st.ocount,
+        vals)
     if eskip:
         gated = (flags & F_GATED) != 0
         gp = torch.where(gated, flags >> NACT_SHIFT, 0)
         gated = gated & (torch.cumsum(gp, 0) > eskip)
-        for k, sh in enumerate(st.shards):
-            pair_outs[k] = gated[sh.pairs[:, PC_NID].to(torch.int64)]
-            vals[V_SHARDS + 2 * k + 1] = pair_outs[k].sum()
-        vals[V_STAGED] = (vals[V_SHARDS + 1::2] + torch.tensor(
-            [sh.ocount for sh in st.shards], dtype=torch.float64,
-            device=device)).max()
+        pair_out = gated[st.pairs[:, PC_NID].to(torch.int64)]
+        vals[V_GATED] = pair_out.sum()
+        vals[V_STAGED] = vals[V_GATED] + st.ocount
     if grouped:
         dist.all_reduce(vals[V_STAGED:V_STAGED + 1], op=dist.ReduceOp.MAX,
                         group=mesh.group)
@@ -215,20 +204,16 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
     st.ent_min = min(st.ent_min, vals[V_ENT_MIN])
     st.ent_max = max(st.ent_max, vals[V_ENT_MAX])
 
-    # ---- a shard: emit, children --------------------------------------
-    for k, sh in enumerate(st.shards):
-        pair_count = int(vals[V_SHARDS + 2 * k])
-        n_gated = int(vals[V_SHARDS + 2 * k + 1])
-        if n_gated:
-            _stage_shard(sh, pair_outs[k], n_gated, depth)
-        olo, ohi, keepc = expanded[k]
-        sh.pairs, sh.nb = children_ids(sh.nb, sh.pairs, olo, ohi, keepc,
-                                       flags, kid0, pair_count, child_total)
-        expanded[k] = None
+    # ---- emit, children -----------------------------------------------
+    n_gated = int(vals[V_GATED])
+    if n_gated:
+        _stage(st, pair_out, n_gated, depth)
+    st.pairs, st.nb = children_ids(st.nb, st.pairs, olo, ohi, keepc, flags,
+                                   kid0, int(vals[V_KEPT]), child_total)
 
     st.lvl_off.append(st.hist_len)
     st.hist_len += child_total
-    st.nnodes, st.depth = child_total, depth + 1
+    st.depth = depth + 1
     if child_total == 0:
         return FLAG_DONE
     if child_total <= sc.tail_width and depth + 1 >= TAIL_MIN_DEPTH:
@@ -266,47 +251,42 @@ def _all_gather(t: torch.Tensor, mesh: SamplesMesh) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def _stage_shard(sh: ShardState, pair_out: torch.Tensor, n_gated: int,
-                 depth: int) -> None:
-    """The emit step of a shard: the (freq, rlo, sid, nid, depth) output
-    rows of the `n_gated` pairs that `pair_out` marks, compacted in order
-    onto the end of its staged rows.  The buffer doubles (one copy of the
-    staged rows) when they do not fit."""
-    need = sh.ocount + n_gated
-    if sh.out is None or sh.out.shape[0] < need:
+def _stage(st: ShardedEpisodeState, pair_out: torch.Tensor, n_gated: int,
+           depth: int) -> None:
+    """The emit step: the (freq, rlo, sid, nid, depth) output rows of the
+    `n_gated` pairs that `pair_out` marks, compacted in order onto the end
+    of the staged rows.  The buffer doubles (one copy of the staged rows)
+    when they do not fit."""
+    need = st.ocount + n_gated
+    if st.out is None or st.out.shape[0] < need:
         buf = torch.empty((max(2 * need, STAGE_ROWS), OUT_COLS),
-                          dtype=torch.int32, device=sh.pairs.device)
-        if sh.ocount:
-            buf[:sh.ocount] = sh.out[:sh.ocount]
-        sh.out = buf
-    stage_rows(pair_out, sh.pairs, depth, n_gated,
-               sh.out[sh.ocount:need])
-    sh.ocount = need
+                          dtype=torch.int32, device=st.pairs.device)
+        if st.ocount:
+            buf[:st.ocount] = st.out[:st.ocount]
+        st.out = buf
+    stage_rows(pair_out, st.pairs, depth, n_gated,
+               st.out[st.ocount:need])
+    st.ocount = need
 
 
 def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
                    st: ShardedEpisodeState, ph: PathHistory, seg_depth0: int,
                    dev: ShardedIndexes, mesh: SamplesMesh,
                    tracker=None) -> bool:
-    """Every shard's staged rows packed into one list under global sample
-    ids and their leftChar codes (each from its shard's own reverse table),
-    the same on every process; then the host half of the single-device
-    drain (engine_device._emit_drained).  On the device that is two
-    launches, whatever the shard count: the gather kernel packs every
-    shard's staged rows (a block a shard), and the rank kernel's leftChar
-    entry codes the packed rows with the process's shards in its table.
-    The shards keep their buffers for the next levels.  -> whether a shard
-    of this process had rows staged."""
-    blocks, bases = [], []
-    for k, sh in enumerate(st.shards):
-        if sh.ocount:
-            blocks.append(sh.out[:sh.ocount])
-            bases.append(dev.base(k))
-            sh.ocount = 0
-    if blocks:
-        rows = gather_pack(blocks, bases, OC_SID)[0]
-        lc = leftchar_rows([(sd.rrows, sd.soff, dev.base(k))
-                            for k, sd in enumerate(dev.shards)], rows)
+    """The staged rows under global sample ids and their leftChar codes
+    (each from its shard's own reverse table), the same on every process;
+    then the host half of the single-device drain
+    (engine_device._emit_drained).  On the device that is two launches,
+    whatever the shard count: the gather kernel packs the staged rows and
+    adds the process's first sample id, and the rank kernel's leftChar
+    entry codes them with the process's shard tables.  The episode keeps
+    its buffer for the next levels.  -> whether this process had rows
+    staged."""
+    staged = st.ocount > 0
+    if staged:
+        rows = gather_pack([st.out[:st.ocount]], [dev.base(0)], OC_SID)[0]
+        lc = leftchar_rows(dev.leftchar_tables(), rows)
+        st.ocount = 0
     else:
         rows = torch.empty((0, OUT_COLS), dtype=torch.int32,
                            device=dev.device)
@@ -319,41 +299,35 @@ def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
     if rows.shape[0]:
         _emit_drained(out, cfg, d, st, ph, seg_depth0, rows.cpu().numpy(),
                       lc.cpu().numpy(), tracker)
-    return bool(blocks)
+    return staged
 
 
 def _gather_live_pairs(st: ShardedEpisodeState, dev: ShardedIndexes,
                        mesh: SamplesMesh) -> np.ndarray:
-    """The live pair rows of every shard of every process on the host,
-    (m, 6) int32 with global sample ids, in canonical (node, sample)
-    order: what a snapshot stores and the tail handoff densifies."""
-    rows = gather_pack([sh.pairs for sh in st.shards],
-                       [dev.base(k) for k in range(len(st.shards))],
-                       PC_SID)[0]
+    """The live pair rows of every process on the host, (m, 6) int32 with
+    global sample ids, in canonical (node, sample) order: what a snapshot
+    stores and the tail handoff densifies."""
+    rows = gather_pack([st.pairs], [dev.base(0)], PC_SID)[0]
     if mesh.group is not None:
         rows = _all_gather_rows(rows, mesh)
     rows = rows.cpu().numpy()
     return rows[np.lexsort((rows[:, PC_SID], rows[:, PC_NID]))]
 
 
-def _stack_pairs_by_shard(pairs: np.ndarray, n_nodes: int,
-                          dev: ShardedIndexes) -> list:
-    """Split canonical pair rows ((m, 6), global sample ids, sorted by
-    node then sample) into this process's ShardStates: local sample ids,
-    and PC_SOFF recomputed for this run's tables (the snapshot may come
-    from another shard count, the single-device engine or dsm_tpu)."""
-    shard_of = np.searchsorted(dev.bounds, pairs[:, PC_SID],
-                               side="right") - 1
-    shards = []
-    for k, sd in enumerate(dev.shards):
-        loc = pairs[shard_of == dev.first + k].copy()
-        loc[:, PC_SID] -= dev.base(k)
-        loc[:, PC_SOFF] = sd.soff.cpu().numpy()[loc[:, PC_SID]]
-        shards.append(ShardState(
-            pairs=torch.as_tensor(loc, device=dev.device),
-            nb=torch.as_tensor(_node_starts(loc[:, PC_NID], n_nodes),
-                               device=dev.device)))
-    return shards
+def _local_pairs(pairs: np.ndarray, n_nodes: int, dev: ShardedIndexes):
+    """Canonical pair rows ((m, 6), global sample ids, sorted by node then
+    sample) -> this process's (pairs, nb) on its device: its samples' rows
+    with process-local ids, and PC_SOFF recomputed for this run's tables
+    (the snapshot may come from another shard count, the single-device
+    engine or dsm_tpu)."""
+    lo = dev.base(0)
+    loc = pairs[(pairs[:, PC_SID] >= lo)
+                & (pairs[:, PC_SID] < lo + dev.local_samples)].copy()
+    loc[:, PC_SID] -= lo
+    loc[:, PC_SOFF] = dev.local_soff().cpu().numpy()[loc[:, PC_SID]]
+    return (torch.as_tensor(loc, device=dev.device),
+            torch.as_tensor(_node_starts(loc[:, PC_NID], n_nodes),
+                            device=dev.device))
 
 
 def _resume_sharded(path: str, cfg: MiningConfig, prefix: bytes,
@@ -362,9 +336,9 @@ def _resume_sharded(path: str, cfg: MiningConfig, prefix: bytes,
     MinedOutput, PathHistory seeded with the frontier's paths, eskip)."""
     host, pairs, out, base_paths = _load_snapshot(path, cfg, prefix, dev.ns)
     n, depth = int(host["nvalid"]), int(host["depth"])
-    st = _fresh_state(_stack_pairs_by_shard(pairs, n, dev), n, depth,
-                      hist_cap, dev.device, int(host["total_paths"]),
-                      float(host["ent_min"]), float(host["ent_max"]))
+    st = _fresh_state(*_local_pairs(pairs, n, dev), depth, hist_cap,
+                      int(host["total_paths"]), float(host["ent_min"]),
+                      float(host["ent_max"]))
     return (st, out, PathHistory(base_depth=depth, base_paths=base_paths),
             int(host.get("eskip", 0)))
 
@@ -426,10 +400,10 @@ def mine_device_sharded(
     if mesh.shards_per_rank > MAX_SHARDS:
         raise ValueError(
             f"{mesh.shards_per_rank} shards a process: the sharded episode "
-            f"takes at most {MAX_SHARDS} (the level's gates kernel and the "
-            "drain's leftChar carry the process's shards in one launch's "
-            "parameters); use fewer shards a process (DSM_SHARDS) or more "
-            "processes")
+            f"takes at most {MAX_SHARDS} (the level's expand and the "
+            "drain's leftChar carry the process's shard tables in one "
+            "launch's parameters); use fewer shards a process (DSM_SHARDS) "
+            "or more processes")
     tracker, sc, prof = _episode_setup(indexes, cfg, prefix, tail_width,
                                        out_reserve, reader_order, profile)
     if dev is None:

@@ -3,7 +3,10 @@
 Counterpart of dsm_tpu/parallel/engine_sharded.py `ShardedIndexes`.  The
 samples are split into consecutive, nearly equal shards (shard k holds
 samples [k*S // n, (k+1)*S // n)); a process uploads the tables of its own
-shards, each as a `DeviceIndexes` with LOCAL sample ids and row offsets.
+shards, each as a `DeviceIndexes` with its own sample ids and int32 row
+offsets (under mining/bigindex.MAX_TABLE_ROWS a shard).  The episode keeps
+one pair list a process over all of them (parallel/engine_episode), with
+process-local sample ids: shard k's samples start at base(k) - base(0).
 dsm_tpu pads every sample to a common row count and the sample set to a
 multiple of the shard count, because `shard_map` wants equal shards; here
 the shards may differ in size, there is no dummy sample, and a shard may
@@ -41,6 +44,29 @@ class ShardedIndexes:
     def base(self, k: int) -> int:
         """The global id of local shard k's first sample."""
         return int(self.bounds[self.first + k])
+
+    @property
+    def local_samples(self) -> int:
+        """The samples of this process's shards."""
+        return sum(sd.S for sd in self.shards)
+
+    def local_soff(self) -> torch.Tensor:
+        """(local_samples,) int32: each of this process's samples' first
+        row in its own shard's table, by process-local sample id."""
+        return torch.cat([sd.soff for sd in self.shards])
+
+    def expand_tables(self) -> list:
+        """The forward tables as ops/rank.expand_tables takes them: (frows,
+        the process-local id of the shard's first sample) a shard."""
+        b0 = self.base(0)
+        return [(sd.frows, self.base(k) - b0)
+                for k, sd in enumerate(self.shards)]
+
+    def leftchar_tables(self) -> list:
+        """The reverse tables as mining/engine.leftchar_rows takes them:
+        (rrows, soff, the global id of the shard's first sample) a shard."""
+        return [(sd.rrows, sd.soff, self.base(k))
+                for k, sd in enumerate(self.shards)]
 
     @classmethod
     def build(cls, indexes: list[FMIndex], mesh: SamplesMesh

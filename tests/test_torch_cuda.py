@@ -10,9 +10,10 @@ is held against its plain PyTorch version on the same CUDA tensors, at
 edge shapes; the suffix array also against the host numpy one; the
 mining run (plain, killed and resumed from its snapshot, and halted) and
 the index build on the card against the port's CPU path.
-The kernels of the sharded level and drain (the partial rows, the gates
-from their sums, the outside-ids children step, the gather, the leftChar
-entry over 1, 2 and 7 shard tables) are held against their plain versions
+The kernels of the sharded level and drain (the expand over 1, 2 and 128
+shard tables, the partial rows, the gates from their sums, the
+outside-ids children step, the gather, the leftChar entry over 1, 2 and 7
+shard tables) are held against their plain versions
 at ragged sizes with empty segments (the gather also with more blocks than
 one launch takes, at unaligned slices), a sharded drain must be two
 launches at 2 and 7 shards, and a sharded mine (2 and 7 shards on the
@@ -129,6 +130,38 @@ def test_expand_kernel(cuda, toy_indexes, p, share):
         expand(dev.frows, pairs[:, :5], 2, 15)
 
 
+@pytest.mark.parametrize("tables", [1, 2, 128])
+@pytest.mark.parametrize("p", [1, 4097, (1 << 20) + 3])
+def test_expand_tables_kernel(cuda, toy_indexes, tables, p):
+    """The expand step over a process's shard tables (the sharded level's
+    one pair list; 128 tables of 5 samples: 123 empty) against its plain
+    version and against the one-table expand on the unsharded tables: one
+    launch, counted as `rank`, every output equal."""
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+    from dsm_tpu_torch.ops.rank import (expand, expand_tables,
+                                        expand_tables_plain)
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    dev = DeviceIndexes.build(toy_indexes, cuda)
+    sh = ShardedIndexes.build(toy_indexes, global_samples_mesh(tables, cuda))
+    whole = _card_pairs(dev, p, 0.7, np.random.default_rng(p + tables), cuda)
+    pairs = whole.clone()
+    pairs[:, 4] = sh.local_soff()[pairs[:, 3].to(torch.int64)]
+    for fmin, sym_mask in ((1, 0b1111), (5, 0b0110)):
+        before = _build.LAUNCHES["rank"]
+        got = expand_tables(sh.expand_tables(), pairs, fmin, sym_mask)
+        assert _build.LAUNCHES["rank"] == before + 1
+        want = expand_tables_plain(sh.expand_tables(), pairs, fmin, sym_mask)
+        one = expand(dev.frows, whole, fmin, sym_mask)
+        torch.cuda.synchronize()
+        for g, w, o in zip(got, want, one):
+            assert g.dtype == w.dtype and torch.equal(g, w), (fmin, sym_mask)
+            assert torch.equal(g, o)
+    with pytest.raises(ValueError):
+        expand_tables(sh.expand_tables(), pairs[:, :5], 2, 15)
+
+
 def _staged_rows(dev, k, rng, cuda):
     """(k, 5) int32 staged output rows over the card's samples (global
     ids, sorted as a packed drain holds them): rlo and rlo + freq inside
@@ -194,8 +227,8 @@ def test_leftchar_kernel(cuda, toy_indexes, shards, k):
 @pytest.mark.parametrize("shards", [2, 7])
 def test_sharded_drain_is_two_launches(cuda, toy_indexes, shards,
                                        monkeypatch):
-    """Each drain of a sharded mine (small drains: many levels staged a
-    shard, each emit onto the shard's one buffer) launches the gather
+    """Each drain of a sharded mine (small drains: many levels staged, each
+    level's one emit onto the process's one buffer) launches the gather
     kernel once and the rank kernel once (its leftChar entry), whatever
     the shard count."""
     from dsm_tpu_torch.mining.config import MiningConfig
@@ -221,7 +254,7 @@ def test_sharded_drain_is_two_launches(cuda, toy_indexes, shards,
                             mesh=global_samples_mesh(shards, cuda),
                             reader_order="gnu", out_reserve=64)
     staged = [d for d in drains if d[0]]
-    assert len(staged) > 2 and max(c for _s, c, _l in staged) > shards
+    assert len(staged) > 2 and max(c for _s, c, _l in staged) > 1
     assert all(lc == {"gather_pack": 1, "rank": 1} for _s, _c, lc in staged)
 
 
@@ -616,40 +649,45 @@ def _sharded_level(rng, S, U, n):
 
 
 def _shardstats_inputs(rng, S, U, n, device):
-    """A level of `_sharded_level` on the card: per shard (nb, freq,
-    cbits), and node_gates' shard table with random staged row counts."""
-    _nid, _sid, shards = _sharded_level(rng, S, U, n)
-    args = [[torch.as_tensor(a, device=device) for a in sh[:3]]
-            for sh in shards]
-    table = [(nb, freq.shape[0], int(oc)) for (nb, freq, _cb), oc in
-             zip(args, rng.integers(0, 1000, size=n))]
-    return args, table
+    """A level of `_sharded_level` on the card: the whole list's (nb, freq,
+    cbits) (one process holding the n shards) and each shard's."""
+    nid, _sid, shards = _sharded_level(rng, S, U, n)
+    P = nid.shape[0]
+    freq, cbits = np.zeros(P, dtype=np.int32), np.zeros(P, dtype=np.uint8)
+    for _nb, f, c, own in shards:
+        freq[own], cbits[own] = f, c
+    nb = np.concatenate([[0], np.cumsum(np.bincount(nid, minlength=U))])
+    whole = [torch.as_tensor(a, device=device)
+             for a in (nb.astype(np.int32), freq, cbits)]
+    return whole, [[torch.as_tensor(a, device=device) for a in sh[:3]]
+                   for sh in shards]
 
 
-def _partials_checked(args, sym_mask, device):
-    """K9a on every shard against its plain version: the rows (the
-    fixed-point column within one unit a pair) and the kept lanes, equal.
-    -> (parts, vals with the kept slots written)."""
-    from dsm_tpu_torch.ops.shardstats import (PART_COLS, V_SHARDS, kept_slot,
+def _partials_checked(whole, parts_of, sym_mask, device):
+    """K9a on the whole list, one launch, against its plain version (the
+    fixed-point column within one unit a pair) and against the shards'
+    plain rows added up (exact but that column); -> (the rows, the plain
+    rows, vals with the kept slot written)."""
+    from dsm_tpu_torch.ops.shardstats import (PART_COLS, V_KEPT, kept_slot,
                                               level_values, shard_partials,
                                               shard_partials_plain)
 
-    n, U = len(args), args[0][0].shape[0] - 1
-    parts = torch.empty((n, U, PART_COLS), dtype=torch.int64, device=device)
-    vals, want_vals = level_values(n, device), level_values(n, device)
+    nb, freq, cbits = whole
+    U = nb.shape[0] - 1
+    part = torch.empty((U, PART_COLS), dtype=torch.int64, device=device)
+    vals = level_values(device)
     before = _build.LAUNCHES["shard_partials"]
-    for k, (nb, freq, cbits) in enumerate(args):
-        shard_partials(nb, freq, cbits, sym_mask, parts[k],
-                       kept_slot(vals, k))
-        want, kept = shard_partials_plain(nb, freq, cbits, sym_mask)
-        kept_slot(want_vals, k).copy_(kept)
-        torch.cuda.synchronize()
-        assert torch.equal(parts[k][:, [0, 2]], want[:, [0, 2]])
-        width = (nb[1:] - nb[:-1]).to(torch.int64)
-        assert bool(((parts[k][:, 1] - want[:, 1]).abs() <= width).all())
-    assert _build.LAUNCHES["shard_partials"] == before + n
-    assert torch.equal(vals[V_SHARDS::2], want_vals[V_SHARDS::2])
-    return parts, vals
+    shard_partials(nb, freq, cbits, sym_mask, part, kept_slot(vals))
+    assert _build.LAUNCHES["shard_partials"] == before + 1
+    want, kept = shard_partials_plain(nb, freq, cbits, sym_mask)
+    added = sum(shard_partials_plain(*a, sym_mask)[0] for a in parts_of)
+    torch.cuda.synchronize()
+    assert torch.equal(part[:, [0, 2]], want[:, [0, 2]])
+    assert torch.equal(want, added)
+    width = (nb[1:] - nb[:-1]).to(torch.int64)
+    assert bool(((part[:, 1] - want[:, 1]).abs() <= width).all())
+    assert float(vals[V_KEPT]) == float(kept)
+    return part, want, vals
 
 
 def _gates_equal(got, want, got_vals, want_vals, got_hist, want_hist):
@@ -661,9 +699,7 @@ def _gates_equal(got, want, got_vals, want_vals, got_hist, want_hist):
     assert float((got[1] - want[1]).abs().max()) < 1e-9
     assert torch.equal(got[2], want[2])
     assert torch.equal(got_hist, want_hist)
-    assert len(got[3]) == len(want[3])
-    for a, b in zip(got[3], want[3]):
-        assert torch.equal(a, b)
+    assert torch.equal(got[3], want[3])
     gv, wv = got_vals.tolist(), want_vals.tolist()
     for i, (a, b) in enumerate(zip(gv, wv)):
         if i in (V_ENT_MIN, V_ENT_MAX) and a != b:
@@ -679,17 +715,19 @@ def _gates_equal(got, want, got_vals, want_vals, got_hist, want_hist):
 def test_shardstats_kernels(cuda, S, U, n):
     """K9a and K9b against their plain versions in every output: rows,
     kept lanes, flags, entropy, kid0, history (also with a room below the
-    children), each shard's pair_out and the level's values; one launch a
-    call.  U = 257, 5000 and 300,001 are no multiple of a tile; nodes of
-    S = 273 and 512 samples are wider than a warp's threshold."""
+    children), pair_out and the level's values; one launch a call.  U =
+    257, 5000 and 300,001 are no multiple of a tile; nodes of S = 273 and
+    512 samples are wider than a warp's threshold."""
     from dsm_tpu_torch.ops.segstats import Gates
     from dsm_tpu_torch.ops.shardstats import node_gates, node_gates_plain
 
     rng = np.random.default_rng(S * U + n)
-    args, table = _shardstats_inputs(rng, S, U, n, cuda)
+    whole, parts_of = _shardstats_inputs(rng, S, U, n, cuda)
+    nb, P, ocount = whole[0], whole[1].shape[0], int(rng.integers(0, 1000))
     for depth, sym_mask, room in ((0, 0b1111, 4 * U), (6, 0b1111, 4 * U),
                                   (6, 0b0100, 4 * U), (6, 0b1111, U // 3)):
-        parts, vals = _partials_checked(args, sym_mask, cuda)
+        part, plain, vals = _partials_checked(whole, parts_of, sym_mask,
+                                              cuda)
         want_vals = vals.clone()
         g = Gates(depth=depth, s_total=S, mindepth=2, pmin=2, pmax=0,
                   use_egate=True, sym_mask=sym_mask, emin_lo=0.2,
@@ -697,9 +735,9 @@ def test_shardstats_kernels(cuda, S, U, n):
         got_hist = torch.full((room,), -7, dtype=torch.int32, device=cuda)
         want_hist = got_hist.clone()
         before = _build.LAUNCHES["node_gates"]
-        got = node_gates(parts, g, got_hist, table, vals)
+        got = node_gates(part, g, got_hist, nb, P, ocount, vals)
         assert _build.LAUNCHES["node_gates"] == before + 1
-        want = node_gates_plain(parts, g, want_hist, table, want_vals)
+        want = node_gates_plain(part, g, want_hist, nb, P, ocount, want_vals)
         torch.cuda.synchronize()
         _gates_equal(got, want, vals, want_vals, got_hist, want_hist)
 
@@ -708,37 +746,28 @@ def test_shardstats_kernels(cuda, S, U, n):
                                    (512, 300, 3), (273, 5000, 128),
                                    (64, 20_000, 128)])
 def test_shardstats_one_row_a_node(cuda, S, U, n):
-    """The sharded episode's form: K9a adding each shard's rows into one
-    (U, 3) buffer (`accumulate`, one launch a shard) gives the shards'
-    rows added, at up to 128 shards (more shards than samples: empty
-    ones), on both of its shapes; K9b on that one row equals its plain
-    version on the n rows."""
+    """The sharded episode's form: the pairs of n shards a process (up to
+    128: more shards than samples, empty ones) in one list, K9a once over
+    it, on both of its shapes, gives the shards' rows added, and K9b on
+    that one row a node (summed again over two processes, as the
+    all-reduce sums them) equals its plain version."""
     from dsm_tpu_torch.ops.segstats import Gates
-    from dsm_tpu_torch.ops.shardstats import (PART_COLS, kept_slot,
-                                              level_values, node_gates,
-                                              node_gates_plain,
-                                              shard_partials)
+    from dsm_tpu_torch.ops.shardstats import node_gates, node_gates_plain
 
     rng = np.random.default_rng(S * U + n + 1)
-    args, table = _shardstats_inputs(rng, S, U, n, cuda)
-    g = Gates(depth=6, s_total=S, mindepth=2, pmin=2, pmax=0, use_egate=True,
-              sym_mask=0b1111, emin_lo=0.2, emax_hi=1.6)
-    parts, vals = _partials_checked(args, g.sym_mask, cuda)
-    acc = torch.full((1, U, PART_COLS), -5, dtype=torch.int64, device=cuda)
-    one_vals = level_values(n, cuda)
-    before = _build.LAUNCHES["shard_partials"]
-    for k, (nb, freq, cbits) in enumerate(args):
-        shard_partials(nb, freq, cbits, g.sym_mask, acc[0],
-                       kept_slot(one_vals, k), accumulate=k > 0)
-    assert _build.LAUNCHES["shard_partials"] == before + n
-    assert torch.equal(acc[0], parts.sum(0))
+    whole, parts_of = _shardstats_inputs(rng, S, U, n, cuda)
+    g = Gates(depth=6, s_total=2 * S, mindepth=2, pmin=2, pmax=0,
+              use_egate=True, sym_mask=0b1111, emin_lo=0.2, emax_hi=1.6)
+    part, _plain, vals = _partials_checked(whole, parts_of, g.sym_mask, cuda)
+    part = 2 * part
     want_vals = vals.clone()
+    nb, P = whole[0], whole[1].shape[0]
     got_hist = torch.full((4 * U,), -7, dtype=torch.int32, device=cuda)
     want_hist = got_hist.clone()
-    got = node_gates(acc, g, got_hist, table, one_vals)
-    want = node_gates_plain(parts, g, want_hist, table, want_vals)
+    got = node_gates(part, g, got_hist, nb, P, 17, vals)
+    want = node_gates_plain(part, g, want_hist, nb, P, 17, want_vals)
     torch.cuda.synchronize()
-    _gates_equal(got, want, one_vals, want_vals, got_hist, want_hist)
+    _gates_equal(got, want, vals, want_vals, got_hist, want_hist)
 
 
 def test_node_gates_on_two_streams(cuda):
@@ -752,24 +781,26 @@ def test_node_gates_on_two_streams(cuda):
               use_egate=True, sym_mask=0b1111, emin_lo=0.2, emax_hi=1.6)
     cases = []
     for U, n in ((300_001, 2), (70_000, 3)):
-        args, table = _shardstats_inputs(rng, 5, U, n, cuda)
-        parts, vals = _partials_checked(args, g.sym_mask, cuda)
+        whole, parts_of = _shardstats_inputs(rng, 5, U, n, cuda)
+        part, _plain, vals = _partials_checked(whole, parts_of, g.sym_mask,
+                                               cuda)
+        nb, P = whole[0], whole[1].shape[0]
         want_hist = torch.full((4 * U,), -7, dtype=torch.int32, device=cuda)
         want_vals = vals.clone()
-        want = node_gates_plain(parts, g, want_hist, table, want_vals)
-        cases.append((parts, vals, table, want, want_vals, want_hist))
+        want = node_gates_plain(part, g, want_hist, nb, P, 5, want_vals)
+        cases.append((part, vals, nb, P, want, want_vals, want_hist))
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda) for _ in cases]
     for _round in range(2):
         got = []
-        for st, (parts, vals, table, *_w) in zip(streams, cases):
+        for st, (part, vals, nb, P, *_w) in zip(streams, cases):
             with torch.cuda.stream(st):
-                hist = torch.full((parts.shape[1] * 4,), -7,
+                hist = torch.full((part.shape[0] * 4,), -7,
                                   dtype=torch.int32, device=cuda)
                 v = vals.clone()
-                got.append((node_gates(parts, g, hist, table, v), v, hist))
+                got.append((node_gates(part, g, hist, nb, P, 5, v), v, hist))
         torch.cuda.synchronize()
-        for (out, v, hist), (_p, _v, _t, want, want_vals, want_hist) in \
+        for (out, v, hist), (*_c, want, want_vals, want_hist) in \
                 zip(got, cases):
             _gates_equal(out, want, v, want_vals, hist, want_hist)
 
@@ -1335,8 +1366,8 @@ def _pool(d: int):
 def test_many_samples_on_card_equal_cpu(cuda, d, order):
     """d = 64, 273 and 512 samples on one device and at 64 / 128 shards on
     the card (nodes of up to 512 pairs in K2, K3, K9a-c), with small
-    drains: lines and counters equal the CPU path's, K9a launched once a
-    shard a level and K9b once a level."""
+    drains: lines and counters equal the CPU path's, the expand, K9a, K9b
+    and K9c launched once a level and the leftChar once a drain."""
     from dsm_tpu_torch.mining.engine import mine_torch
     from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
     from dsm_tpu_torch.parallel.multihost import global_samples_mesh
@@ -1354,8 +1385,10 @@ def test_many_samples_on_card_equal_cpu(cuda, d, order):
                                mesh=global_samples_mesh(shards, cuda),
                                profile=prof)
     assert all(_build.LAUNCHES[k] > 0 for k in _build.PATHS["mine_sharded"])
-    assert _build.LAUNCHES["shard_partials"] == shards * prof["levels"]
-    assert _build.LAUNCHES["node_gates"] == prof["levels"]
+    assert prof["histfull"] == 0
+    for key in ("shard_partials", "node_gates", "children_ids"):
+        assert _build.LAUNCHES[key] == prof["levels"], key
+    assert _build.LAUNCHES["rank"] == prof["levels"] + prof["drains"]
     for got in (one, many):
         assert got.format_lines() == want.format_lines()
         assert (got.total_paths, got.total_output, got.total_occs) == \
@@ -1366,9 +1399,10 @@ def test_many_samples_on_card_equal_cpu(cuda, d, order):
 
 
 def test_128_shard_drain_is_two_launches(cuda, monkeypatch):
-    """A drain over 128 shards of 273 samples (K10's block table and K5's
-    shard table at MAX_SHARDS): one gather and one leftChar launch, the
-    packed rows and their codes equal the plain versions'."""
+    """A drain over 128 shards of 273 samples (K5's shard table at
+    MAX_SHARDS, rows of more than 100 samples in one drain): one gather
+    and one leftChar launch, the packed rows and their codes equal the
+    plain versions'."""
     from dsm_tpu_torch.mining.engine import OC_SID, leftchar_rows_plain
     from dsm_tpu_torch.ops.gatherpack import gather_pack_plain
     from dsm_tpu_torch.parallel import engine_episode as tee
@@ -1379,17 +1413,13 @@ def test_128_shard_drain_is_two_launches(cuda, monkeypatch):
 
     def counted(*a, **k):
         st, dev = a[3], a[6]
-        blocks = [(sh.out[:sh.ocount].clone(), dev.base(j))
-                  for j, sh in enumerate(st.shards) if sh.ocount]
+        staged_rows = st.out[:st.ocount].clone() if st.ocount else None
         before = dict(_build.LAUNCHES)
         staged = drain(*a, **k)
         if staged:
-            rows = gather_pack_plain([c for c, _b in blocks],
-                                     [b for _c, b in blocks], OC_SID)[0]
-            codes = leftchar_rows_plain(
-                [(sd.rrows, sd.soff, dev.base(j))
-                 for j, sd in enumerate(dev.shards)], rows)
-            drains.append((len(blocks), rows, codes, {
+            rows = gather_pack_plain([staged_rows], [dev.base(0)], OC_SID)[0]
+            codes = leftchar_rows_plain(dev.leftchar_tables(), rows)
+            drains.append((len(set(rows[:, OC_SID].tolist())), rows, codes, {
                 key: _build.LAUNCHES[key] - before[key]
                 for key in ("gather_pack", "rank")}))
         return staged

@@ -20,6 +20,7 @@ the process from the toydata, carried over by convert.py.
 
 from __future__ import annotations
 
+import errno
 import glob
 import gzip
 import io
@@ -65,17 +66,32 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _wait_bound(port: int, seconds: float = 30) -> None:
-    """Wait until a socket is bound to `port` (the server's)."""
+def _listening(port: int) -> bool:
+    """Whether a socket listens on `port`: a probe that sets SO_REUSEADDR
+    binds it until then.  The probe must set it: a probe without it that
+    holds the port at the instant the server binds (with SO_REUSEADDR)
+    makes the server's bind fail with EADDRINUSE."""
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("", port))
+        except OSError:
+            return True
+    return False
+
+
+def _wait_listening(port: int, server: threading.Thread,
+                    seconds: float = 30) -> bool:
+    """Wait until the server thread listens on `port` -> True, or has
+    ended without (its bind failed) -> False."""
     deadline = time.monotonic() + seconds
     while time.monotonic() < deadline:
-        with socket.socket() as s:
-            try:
-                s.bind(("", port))
-            except OSError:
-                return
+        if not server.is_alive():
+            return False
+        if _listening(port):
+            return True
         time.sleep(0.01)
-    raise TimeoutError(f"nothing bound port {port}")
+    raise TimeoutError(f"nothing listens on port {port}")
 
 
 @pytest.fixture(scope="module")
@@ -181,27 +197,38 @@ def test_serialize_trie_matches_dsm_tpu(pidx, indexes, fmin, maxdepth,
 
 # --------------------------------------------------------- (c) servers --
 
-def _fleet(serve_mod, cfg, client_mod, idxs, prefix: str) -> bytes:
+def _fleet(serve_mod, cfg, client_mod, idxs, prefix: str,
+           attempts: int = 5) -> bytes:
     """One server (of `serve_mod`, merging under `cfg`) in a thread and one
-    client (of `client_mod`) a sample in threads; -> the server's
-    stdout."""
-    port, out, errs = _free_port(), io.BytesIO(), []
+    client (of `client_mod`) a sample in threads; -> the server's stdout.
+    A port is picked free and released before the server binds it, so
+    another process may take it in between: the server's bind then fails
+    with EADDRINUSE and the fleet starts again on a fresh port."""
+    for _ in range(attempts):
+        port, out, errs = _free_port(), io.BytesIO(), []
 
-    def run_server():
-        try:
-            readers = serve_mod.accept_readers(port, NAMES,
-                                               err=io.StringIO())
-            ms = serve_mod.MergeServer(readers, cfg, out=out,
-                                       err=io.StringIO())
-            ms.run()
-            for tr in readers:
-                tr.sock.close()
-        except Exception as e:   # surfaced by the test
-            errs.append(e)
+        def run_server():
+            try:
+                readers = serve_mod.accept_readers(port, NAMES,
+                                                   err=io.StringIO())
+                ms = serve_mod.MergeServer(readers, cfg, out=out,
+                                           err=io.StringIO())
+                ms.run()
+                for tr in readers:
+                    tr.sock.close()
+            except Exception as e:   # surfaced by the test
+                errs.append(e)
 
-    th = threading.Thread(target=run_server, daemon=True)
-    th.start()
-    _wait_bound(port)
+        th = threading.Thread(target=run_server, daemon=True)
+        th.start()
+        if _wait_listening(port, th):
+            break
+        if not (errs and isinstance(errs[0], OSError)
+                and errs[0].errno == errno.EADDRINUSE):
+            raise errs[0] if errs else AssertionError(
+                "the server ended before it listened")
+    else:
+        raise AssertionError(f"no free port in {attempts} attempts")
     clients = [threading.Thread(
         target=client_mod.run_client,
         args=(idx, name, [("localhost", port, prefix)], 2), daemon=True)

@@ -23,9 +23,11 @@ dsm_tpu on the same seeded inputs.
     1e-9.
 (e) 513 samples are refused by the single-device episode before any table
     is built, naming the limits that bind.
-At 128 shards the sharded level also keeps one partial row a node (K9a adds
-each shard's rows into one buffer), whatever its shards a process; the gnu
-order's model of libstdc++'s set iterates as dsm_tpu's at up to 512 readers.
+At 128 shards the sharded level keeps one pair list and one partial row a
+node a process, the sizes of the single-shard level's; the multi-table
+expand over 2 to 128 shard tables of d = 64 and 273 samples equals the
+single-table expand; the gnu order's model of libstdc++'s set iterates as
+dsm_tpu's at up to 512 readers.
 """
 
 import os
@@ -154,36 +156,42 @@ def test_nodes_hold_every_sample(pools):
 
 
 def test_sharded_level_keeps_one_partial_row_a_node(pools, monkeypatch):
-    """At 128 shards a process the sharded level adds the shards' partial
-    rows into one (U, 3) buffer (K9a's `accumulate`) and K9b reads that one
-    row: the level's memory does not grow with the shards a process."""
-    from dsm_tpu_torch.ops import shardstats
-
+    """At 128 shards a process the sharded level hands K9b one (U, 3) row a
+    node and the process's one pair list: every level's rows, node starts
+    and pairs have the sizes of the one-shard run's, so the level's memory
+    does not grow with the shards a process."""
     _jidx, pidx, want = pools(273)
-    seen = []
     orig = tee.node_gates
 
-    def recording(parts, *a, **k):
-        seen.append((parts.shape[0], len(a[2])))
-        return orig(parts, *a, **k)
+    def run(shards: int) -> list:
+        seen = []
 
-    monkeypatch.setattr(tee, "node_gates", recording)
-    got = tee.mine_device_sharded(
-        pidx, convert.config_from_jax(config(273)),
-        mesh=global_samples_mesh(shards_per_rank=128, device="cpu"))
-    assert_same(got, want["ascending"])
-    assert seen and set(seen) == {(1, 128)}
-    # the plain version's accumulate adds to what the buffer holds
-    rng = np.random.default_rng(5)
-    nb = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
-    freq = torch.as_tensor(rng.integers(0, 9, size=5).astype(np.int32))
-    cbits = torch.as_tensor(rng.integers(0, 16, size=5).astype(np.uint8))
-    part, _kept = shardstats.shard_partials_plain(nb, freq, cbits, 15)
-    out = torch.full((3, shardstats.PART_COLS), 7, dtype=torch.int64)
-    kept = torch.empty(1, dtype=torch.float64)
-    shardstats.shard_partials(nb, freq, cbits, 15, out, kept,
-                              accumulate=True)
-    assert torch.equal(out, part + 7)
+        def recording(part, g, hist, nb, P, ocount, vals):
+            seen.append((tuple(part.shape), tuple(nb.shape), P))
+            return orig(part, g, hist, nb, P, ocount, vals)
+
+        monkeypatch.setattr(tee, "node_gates", recording)
+        got = tee.mine_device_sharded(
+            pidx, convert.config_from_jax(config(273)),
+            mesh=global_samples_mesh(shards_per_rank=shards, device="cpu"))
+        assert_same(got, want["ascending"])
+        return seen
+
+    many, one = run(128), run(1)
+    assert many and many == one
+    assert all(u == (nb[0] - 1, 3) for u, nb, _p in many)
+
+
+@pytest.mark.parametrize("d,shards", [(64, 2), (64, 64), (273, 3),
+                                      (273, 128)])
+def test_expand_tables_over_many_samples(pools, d, shards):
+    """The multi-table expand over the shard tables of d = 64 and 273
+    samples (at 128 shards of 273, shards of 2 and 3 samples) against the
+    single-table expand of each shard and of the unsharded tables."""
+    from test_torch_sharded import expand_tables_matches_single
+
+    _jidx, pidx, _want = pools(d)
+    expand_tables_matches_single(pidx, shards, 700 + d + shards, k=20_000)
 
 
 def test_gnu_hash_set_matches_dsm_tpu_at_512_readers():

@@ -257,7 +257,7 @@ REFUSALS = {
         _meta(3, I32), _meta(BIG_P, I32), _meta(BIG_P, U8), 15,
         _meta((2, 3), I64), _meta(1, torch.float64)),
     "node_gates nodes": lambda: node_gates(
-        _meta((1, BIG_U, 3), I64), None, _meta(4, I32), [], None),
+        _meta((BIG_U, 3), I64), None, _meta(4, I32), None, 0, 0, None),
     "children nodes": lambda: children(
         _meta(BIG_U + 1, I32), _meta((4, 6), I32), None, None, None, 4, 4,
         _meta(4, I32)),

@@ -14,11 +14,16 @@ Everything runs on the CPU with the kernels' plain versions.
     and of (path, sample, freq, rlo, depth) staged rows.  The entropy
     min/max are float32 there and fixed-point sums here: relative 1e-5.
     The port's sharded level is also held against its single-device
-    `_level` for 1, 2, 3 and 5 shards, where node ids agree: pair rows,
-    history, total_paths and flag exactly, entropy min/max within
-    ENT_FP_TOL.
-(b) The kernels' plain versions: the partial rows summed over shards and
-    gated against `segstats_plain` on the unsharded list (flags equal,
+    `_level` for 1, 2, 3 and 5 shards, where node ids agree: the one pair
+    list a process in (node, global sample) order and by decoded path, the
+    node starts, history, total_paths and flag exactly, entropy min/max
+    within ENT_FP_TOL; and a level launches each of its kernels once at 1,
+    2, 5 and 8 shards (the wrappers' calls counted).
+(b) The kernels' plain versions: the multi-table expand over a process's
+    shard tables against the single-table expand of each shard and of the
+    unsharded tables; the partial rows of the process's list equal to those
+    of its samples' parts added up (the merge over processes), and gated
+    against `segstats_plain` on the unsharded list (flags equal,
     entropy within ENT_FP_TOL: each pair's term is truncated to 2^-17 and
     the sum is divided by s_total + sum f, which exceeds the pairs'
     number, so the error stays under 2^-17 = 7.6e-6),
@@ -125,11 +130,13 @@ from dsm_tpu_torch.ops.gatherpack import (MAX_BLOCKS,  # noqa: E402
 from dsm_tpu_torch.ops.segstats import (S_CHILDREN, S_ENT_MAX,  # noqa: E402
                                         S_ENT_MIN, S_GATED, S_KEPT,
                                         S_PRESENT, Gates, segstats_plain)
+from dsm_tpu_torch.ops.rank import (expand_plain,  # noqa: E402
+                                    expand_tables_plain)
 from dsm_tpu_torch.ops.shardstats import (FLAG_BITS, MAX_SHARDS,  # noqa: E402
                                           NACT_SHIFT,
                                           V_CHILDREN, V_ENT_MAX, V_ENT_MIN,
-                                          V_PRESENT, V_SHARDS, V_STAGED,
-                                          kept_slot, level_values,
+                                          V_GATED, V_KEPT, V_PRESENT,
+                                          V_STAGED, kept_slot, level_values,
                                           node_gates_plain,
                                           shard_partials_plain)
 from dsm_tpu_torch.parallel import engine_episode as tee  # noqa: E402
@@ -297,9 +304,10 @@ def test_level_matches_jax(indexes, case):
 @pytest.mark.parametrize("shards", [1, 2, 3, 5])
 def test_level_matches_single_device(pidx, shards):
     """The sharded level against the single-device one, level by level
-    from the root: the (node, symbol) numbering is the same, so the pair
-    rows (but their table offsets), the history and the node starts are
-    equal as they are."""
+    from the root: the (node, symbol) numbering is the same, so the one
+    pair list (but its table offsets; process-local sample ids are the
+    global ones on one process), the history and the node starts are equal
+    as they are, and so are the pairs and staged rows by decoded path."""
     cfg = convert.config_from_jax(MiningConfig(fmin=2, emax=1.5))
     sc = ted._Scalars.build(cfg, tail_width=0, out_reserve=1 << 30)
     mesh = cpu_mesh(shards)
@@ -319,16 +327,19 @@ def test_level_matches_single_device(pidx, shards):
         live = tee._gather_live_pairs(stn, devn, mesh)
         np.testing.assert_array_equal(live[:, cols],
                                       st1.pairs.numpy()[:, cols], where)
+        np.testing.assert_array_equal(stn.pairs.numpy()[:, cols],
+                                      st1.pairs.numpy()[:, cols], where)
         np.testing.assert_array_equal(stn.hist[:stn.hist_len].numpy(),
                                       st1.hist[:st1.hist_len].numpy(), where)
-        # every shard's nb spans all nodes; their segment lengths add up
-        widths = sum(np.diff(sh.nb.numpy()) for sh in stn.shards)
-        np.testing.assert_array_equal(widths, np.diff(st1.nb.numpy()), where)
-        got = convert.sharded_state_to_numpy(stn, devn)["out"]
-        want = torch.cat(st1.out).numpy() if st1.out else got[:0]
+        np.testing.assert_array_equal(stn.nb.numpy(), st1.nb.numpy(), where)
+        got = convert.sharded_state_to_numpy(stn, devn)
+        want = torch.cat(st1.out).numpy() if st1.out else got["out"][:0]
         np.testing.assert_array_equal(
-            got, want[np.lexsort((want[:, ted.OC_SID],
-                                  want[:, ted.OC_ROW]))], where)
+            got["out"], want[np.lexsort((want[:, ted.OC_SID],
+                                         want[:, ted.OC_ROW]))], where)
+        assert _by_path(got) == _by_path(dict(
+            pr=st1.pairs.numpy(), out=want, hist=st1.hist.numpy(),
+            lvl_off=st1.lvl_off, depth=st1.depth)), where
         for a, b in ((stn.ent_min, st1.ent_min), (stn.ent_max, st1.ent_max)):
             if np.isfinite(float(b)):
                 assert abs(float(a) - float(b)) < ENT_FP_TOL, where
@@ -368,12 +379,13 @@ SPLITS = [(5, 1), (5, 2), (5, 4), (5, 5), (5, 7), (3, 2), (12, 5)]
 
 @pytest.mark.parametrize("S,n", SPLITS)
 def test_partials_and_gates_match_segstats(S, n):
-    """Summed over the shards, the partial rows gate as segstats gates the
-    unsharded list, and the level's values match segstats' sums: the kept
-    lanes, children, present nodes and gated pairs summed over the shards,
-    the entropy range within ENT_FP_TOL, each shard's pair gates those of
-    segstats on its pairs, and the staged maximum.  (5, 4) has one-sample
-    shards, (5, 7) empty ones."""
+    """The partial rows of a list are the rows of its samples' parts (n
+    processes' lists) added up, as the merge over processes adds them; the
+    summed rows gate as segstats gates the list, and the level's values
+    match segstats' sums: the kept lanes, children, present nodes, gated
+    pairs, the entropy range within ENT_FP_TOL, the pair gates, and the
+    rows staged after the emit.  (5, 4) has one-sample parts, (5, 7)
+    empty ones."""
     rng = np.random.default_rng(100 * S + n)
     t = torch.from_numpy
     for trial in range(6):
@@ -381,26 +393,27 @@ def test_partials_and_gates_match_segstats(S, n):
         nid, sid, freq, cbits = _random_level(rng, S, U)
         bounds = _bounds(S, n)
         owns = [(sid >= bounds[k]) & (sid < bounds[k + 1]) for k in range(n)]
-        ocounts = [int(v) for v in rng.integers(0, 1000, size=n)]
-        shards = [(t(_nb(nid[own], U)), int(own.sum()), oc)
-                  for own, oc in zip(owns, ocounts)]
+        nb = t(_nb(nid, U))
+        ocount = int(rng.integers(0, 1000))
         for depth, sym_mask, pmin in ((0, 0b1111, 2), (4, 0b1111, 2),
                                       (9, 0b0100, 1), (9, 0, 2)):
-            parts, vals = [], level_values(n, "cpu")
-            for k, own in enumerate(owns):
-                part, kept = shard_partials_plain(
-                    shards[k][0], t(freq[own]), t(cbits[own]), sym_mask)
-                parts.append(part)
-                kept_slot(vals, k).copy_(kept)
-            parts = torch.stack(parts)
+            vals = level_values("cpu")
+            part, kept = shard_partials_plain(nb, t(freq), t(cbits),
+                                              sym_mask)
+            kept_slot(vals).copy_(kept)
+            parts = [shard_partials_plain(t(_nb(nid[own], U)), t(freq[own]),
+                                          t(cbits[own]), sym_mask)
+                     for own in owns]
+            assert torch.equal(part, sum(p for p, _k in parts))
+            assert float(kept) == sum(float(k) for _p, k in parts)
             g = Gates(depth=depth, s_total=S, mindepth=3, pmin=pmin, pmax=4,
                       use_egate=True, sym_mask=sym_mask, emin_lo=0.2,
                       emax_hi=1.6)
             want_flags, want_ent, want_po, sums = segstats_plain(
-                t(_nb(nid, U)), t(freq), t(cbits), g)
+                nb, t(freq), t(cbits), g)
             hist = torch.full((4 * U,), -1, dtype=torch.int32)
-            flags, ent, kid0, pair_outs = node_gates_plain(parts, g, hist,
-                                                           shards, vals)
+            flags, ent, kid0, pair_out = node_gates_plain(
+                part, g, hist, nb, nid.shape[0], ocount, vals)
             # a gate within ENT_FP_TOL of its threshold may fall either way
             near = ((want_ent - g.emin_lo).abs() < ENT_FP_TOL) | \
                 ((want_ent - g.emax_hi).abs() < ENT_FP_TOL)
@@ -419,25 +432,20 @@ def test_partials_and_gates_match_segstats(S, n):
                 kid0.numpy(), np.cumsum(ex.sum(1)) - ex.sum(1))
             # the level's values against segstats' sums of the whole list
             got, want = vals.tolist(), sums.tolist()
-            gated = [int(po.sum()) for po in pair_outs]
-            assert sum(got[V_SHARDS::2]) == want[S_KEPT]
+            assert got[V_KEPT] == want[S_KEPT]
             assert got[V_CHILDREN] == want[S_CHILDREN] == entries.size
             assert got[V_PRESENT] == want[S_PRESENT]
-            assert got[V_SHARDS + 1::2] == gated
-            assert sum(gated) == want[S_GATED]
+            assert got[V_GATED] == want[S_GATED] == int(pair_out.sum())
             for key, skey in ((V_ENT_MIN, S_ENT_MIN), (V_ENT_MAX, S_ENT_MAX)):
                 if np.isfinite(want[skey]):
                     assert abs(got[key] - want[skey]) < ENT_FP_TOL
                 else:
                     assert got[key] == want[skey]
-            for own, po in zip(owns, pair_outs):
-                np.testing.assert_array_equal(po.numpy(),
-                                              want_po.numpy()[own])
-            assert got[V_STAGED] == max(oc + gp
-                                        for oc, gp in zip(ocounts, gated))
+            np.testing.assert_array_equal(pair_out.numpy(), want_po.numpy())
+            assert got[V_STAGED] == ocount + want[S_GATED]
             # a short history drops the entries past its room
             short = torch.full((entries.size // 2,), -1, dtype=torch.int32)
-            node_gates_plain(parts, g, short, shards, vals)
+            node_gates_plain(part, g, short, nb, nid.shape[0], ocount, vals)
             assert vals[V_CHILDREN] == entries.size
             np.testing.assert_array_equal(short.numpy(),
                                           entries[:entries.size // 2])
@@ -584,27 +592,122 @@ def test_drain_leftchar_over_shards_matches_single_device(pidx, shards):
 
 @pytest.mark.parametrize("gated", [[1], [3000, 3000, 3001], [5, 9000, 7]])
 def test_stage_shard_appends_to_one_buffer(gated):
-    """A shard's emits land in one staging buffer, level after level: it
+    """A process's emits land in one staging buffer, level after level: it
     doubles when a level's rows do not fit (from STAGE_ROWS on), and its
     live rows equal the levels' emitted rows one after another."""
     from dsm_tpu_torch.ops.compact import stage_rows_plain
 
     rng = np.random.default_rng(len(gated) + sum(gated))
-    sh = tee.ShardState(pairs=torch.zeros((0, 6), dtype=torch.int32),
-                        nb=torch.zeros(1, dtype=torch.int32))
+    st = tee._fresh_state(torch.zeros((0, 6), dtype=torch.int32),
+                          torch.zeros(1, dtype=torch.int32), 0, 1)
     want = []
     for depth, n in enumerate(gated):
         p = 2 * n + 3
-        sh.pairs = torch.from_numpy(rng.integers(
+        st.pairs = torch.from_numpy(rng.integers(
             -2**31, 2**31, size=(p, 6), dtype=np.int64).astype(np.int32))
         mark = np.zeros(p, dtype=bool)
         mark[rng.choice(p, size=n, replace=False)] = True
         pair_out = torch.from_numpy(mark)
-        want.append(stage_rows_plain(pair_out, sh.pairs, depth, n)[0])
-        tee._stage_shard(sh, pair_out, n, depth)
-        assert sh.ocount == sum(gated[:depth + 1])
-        assert sh.out.shape[0] >= max(sh.ocount, tee.STAGE_ROWS)
-    assert torch.equal(sh.out[:sh.ocount], torch.cat(want))
+        want.append(stage_rows_plain(pair_out, st.pairs, depth, n)[0])
+        tee._stage(st, pair_out, n, depth)
+        assert st.ocount == sum(gated[:depth + 1])
+        assert st.out.shape[0] >= max(st.ocount, tee.STAGE_ROWS)
+    assert torch.equal(st.out[:st.ocount], torch.cat(want))
+
+
+def _random_pairs(rng, ns: np.ndarray, k: int) -> np.ndarray:
+    """k pair rows over samples of lengths `ns`, sorted by sample: intervals
+    within each sample's text (an eighth of them empty), random rlo."""
+    S = ns.shape[0]
+    pairs = np.zeros((k, 6), dtype=np.int32)
+    sid = np.sort(rng.integers(0, S, size=k))
+    n = ns[sid]
+    lo = (rng.random(k) * (n + 1)).astype(np.int64)
+    hi = lo + (rng.random(k) * (n - lo + 1)).astype(np.int64)
+    hi[::8] = lo[::8]
+    pairs[:, PC_LO], pairs[:, PC_HI], pairs[:, PC_SID] = lo, hi, sid
+    pairs[:, PC_RLO] = rng.integers(0, 1 << 20, size=k)
+    pairs[:, PC_NID] = np.arange(k)
+    return pairs
+
+
+def expand_tables_matches_single(pidx, shards: int, seed: int,
+                                 k: int = 3000) -> None:
+    """The multi-table expand over `shards` shard tables of `pidx` (the
+    pairs' PC_SOFF offsets into their own shard's table) against the
+    single-table expand of each shard's pairs and of the unsharded tables
+    (PC_SOFF into the stacked table): every output equal."""
+    rng = np.random.default_rng(seed)
+    one = DeviceIndexes.build(pidx, "cpu")
+    devn = ShardedIndexes.build(pidx, cpu_mesh(shards))
+    pairs = _random_pairs(rng, one.ns, k)
+    whole = pairs.copy()
+    whole[:, 4] = one.soff.numpy()[pairs[:, PC_SID]]
+    pairs[:, 4] = devn.local_soff().numpy()[pairs[:, PC_SID]]
+    fmin, sym_mask = 2, 0b1011
+    got = expand_tables_plain(devn.expand_tables(), torch.from_numpy(pairs),
+                              fmin, sym_mask)
+    want = expand_plain(one.frows, torch.from_numpy(whole), fmin, sym_mask)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for j, (frows, base) in enumerate(devn.expand_tables()):
+        mine = ((pairs[:, PC_SID] >= base)
+                & (pairs[:, PC_SID] < base + devn.shards[j].S))
+        own = expand_plain(frows, torch.from_numpy(pairs[mine]), fmin,
+                           sym_mask)
+        for a, b in zip(got, own):
+            assert torch.equal(a[..., torch.from_numpy(mine)], b)
+    assert bool(got[3].any()) and not bool(got[3].all())
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 5, 7])
+def test_expand_tables_matches_single_table(pidx, shards):
+    """The multi-table expand at 1, 2, 3, 5 and 7 shards of the toydata (7
+    shards of 5 samples: two empty)."""
+    expand_tables_matches_single(pidx, shards, 600 + shards)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 5, 8])
+def test_level_launches_each_kernel_once(pidx, shards, monkeypatch):
+    """A sharded level calls the multi-table expand, the partials, the
+    gates and the children step once each at any shard count, and the emit
+    once where it gates a pair; a drain the gather and leftChar once each
+    (the wrappers' calls counted, as the card counts their launches)."""
+    calls = {}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        monkeypatch.setattr(tee, name, wrapped)
+
+    for name in ("expand_tables", "shard_partials", "node_gates",
+                 "stage_rows", "children_ids", "gather_pack",
+                 "leftchar_rows"):
+        counting(name, getattr(tee, name))
+    cfg = convert.config_from_jax(MiningConfig(fmin=2, emax=1.5))
+    sc = ted._Scalars.build(cfg, tail_width=0, out_reserve=1 << 30)
+    mesh = cpu_mesh(shards)
+    dev = ShardedIndexes.build(pidx, mesh)
+    st = tee._seed_sharded_episode(dev, HIST_CAP)
+    staged = 0
+    for level in range(10):
+        calls.clear()
+        before = st.ocount
+        flag = tee._level_sharded(dev, sc, st, mesh)
+        emitted = int(st.ocount > before)
+        staged += emitted
+        assert calls == {"expand_tables": 1, "shard_partials": 1,
+                         "node_gates": 1, "children_ids": 1,
+                         **({"stage_rows": 1} if emitted else {})}, level
+        if flag == ted.FLAG_DONE:
+            break
+    assert staged > 2
+    calls.clear()
+    out = tee.MinedOutput(freq_histogram=np.zeros(dev.S, dtype=np.int64))
+    assert tee._drain_sharded(out, cfg, dev.S, st, ted.PathHistory(), 0,
+                              dev, mesh)
+    assert calls == {"gather_pack": 1, "leftchar_rows": 1}
 
 
 @pytest.mark.parametrize("how", ["mesh", "DSM_SHARDS"])
