@@ -10,6 +10,10 @@ and `expand_times`),
     python3 -c 'import torch, chip_smoke as c; c.drain_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.expand_times(torch, torch.device("cuda", 0))'
 
+and phase 17 alone (see `levels_alone`),
+
+    python3 -c 'import torch, chip_smoke as c; c.levels_alone(torch, torch.device("cuda", 0))'
+
 Phases, each of which fails the run (non-zero exit, no result line):
   1. environment: the card, torch/CUDA versions, nvcc, triton;
   2. build: nvcc builds dsm_tpu_torch/csrc into build/kernels;
@@ -185,6 +189,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      node, K9c), against their plain versions, and K10 and K5 on the
      largest drain of its 128-shard gnu run, timed by events and device
      time.
+ 17. the per-level engines (`mine_torch(reader_order="level-gnu")` and
+     `mine_sharded`, dsm_tpu's dense per-level loop and its (prefix,
+     samples) mesh engine; a level one launch of K12, the dense expand in
+     csrc/rank.cu, and one of K13, csrc/level.cu, whatever the rows and
+     shard tables, redone levels included): on D512 (phase 16's indexes,
+     one upload) level-gnu, `mine_sharded` at mesh (1, 1) ascending and at
+     (4, 2) and (4, 128) in both orders and at (4, 2) in gnu order inside
+     a one-rank NCCL group, each against the frozen D512; the
+     four one-symbol prefix runs through the episode (both orders) and
+     through level-gnu, concatenated, against the whole run's sha256; on
+     scale 100 under LEVEL_PREFIX (two symbols, ~2.9M paths; a gnu run's
+     host loop ~45-48 s) the episode in both orders, and level-gnu and
+     `mine_sharded` at (4, 2) in both orders equal to its bytes; K12 and
+     K13 against their plain versions (every output equal) at the widest
+     level of the level-gnu run (one row, one table) and of the sharded
+     run with four prefix rows (scale 100's (4, 2): 2 tables; D512's
+     (4, 128): 128 tables) of each set (D512's level-gnu: depth 6, 4,096
+     nodes x 512 samples), each entry with its own run's launches; K14
+     (`compact_kidx`, csrc/compact.cu) at N = LEVEL_KIDX_N with 30% set,
+     also below the count, beside `torch.nonzero`, and K15 (`occ_batch`,
+     csrc/occbatch.cu) at LEVEL_OCC_Q queries on toy0's blocks, each first
+     called once through its API (the "ops" path).  Each run's wall,
+     levels, regrows and launches on a line of its own; "levels summary:"
+     and "levels kernels:" lines.  Alone: `python3 -c 'import torch, chip_smoke as c;
+     c.levels_alone(torch, torch.device("cuda", 0))'`.
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume, halt, owned and capacity
 phases).
@@ -303,6 +332,12 @@ D512 = dict(
     ascending=(
         "dc1465e15fa0220d12425597b169284045100a6be3cb433eaa301ecee185a517"))
 SAMPLES_ENT_TOL = 5e-6  # the port's f64 entropy range against dsm_tpu's f32
+# phase 17: the enforced prefix of the scale-100 per-level runs (~0.7M
+# paths; their gnu runs' host loop sets the phase's wall), and the shapes
+# of K14 and K15's checks
+LEVEL_PREFIX = b"AC"
+LEVEL_KIDX_N = 1 << 23
+LEVEL_OCC_Q = 1 << 22
 SAMPLES_SHARDS = (2, 128)   # the sharded episode's shards on the one card
 SAMPLES_RESERVE = 400   # D273's killed gnu mine: a few drains, each a save
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
@@ -330,7 +365,9 @@ LAUNCH_KEY = {"occ_cum8": "rank", "expand": "rank", "leftchar": "rank",
               "async_copy": "repro_async", "dynamic_store": "repro_dynstore",
               "pairwise_matrices": "distance",
               "shard_partials": "shard_partials", "node_gates": "node_gates",
-              "children_ids": "children_ids", "gather_pack": "gather_pack"}
+              "children_ids": "children_ids", "gather_pack": "gather_pack",
+              "level_expand": "level_expand", "level_compact": "level_compact",
+              "compact_kidx": "compact_kidx", "occ_batch": "occ_batch"}
 
 
 def log(msg: str) -> None:
@@ -4068,17 +4105,21 @@ def samples_drain_kernels(torch, keep: dict, tag: str) -> list[dict]:
 
 def samples_set(torch, fz, ref: dict, td: str, device, kernels: list,
                 resume: bool = False, measure: bool = False,
-                shard_counts=SAMPLES_SHARDS) -> dict:
+                shard_counts=SAMPLES_SHARDS, held: dict | None = None
+                ) -> dict:
     """One sample set of phase 16 (see the module's docstring): with
     `measure`, the kernels at its widest level, at its level with the most
     nodes past 64 pairs and at the largest drain of its run with the most
-    shards, their entries appended to `kernels`; -> its summary."""
+    shards, their entries appended to `kernels`; `held` (a dict) keeps its
+    indexes under d; -> its summary."""
     from dsm_tpu_torch.mining.engine import DeviceIndexes, mine_torch
 
     d, cfg = ref["make"][0], samples_config(ref)
     tag = f"D{d}"
     t_set = time.perf_counter()
     idxs, build_launches, build_s = samples_build(torch, fz, ref, td, device)
+    if held is not None:
+        held[d] = idxs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dev = DeviceIndexes.build(idxs, device)
@@ -4162,10 +4203,11 @@ def samples_set(torch, fz, ref: dict, td: str, device, kernels: list,
     return summary
 
 
-def phase_samples(torch, device) -> list[dict]:
+def phase_samples(torch, device, held: dict | None = None) -> list[dict]:
     """Phase 16: D64, D273 (also killed and resumed; the kernels at its
     widest level, its level with the most nodes past 64 pairs and a
-    128-shard drain) and D512; -> the kernels' entries."""
+    128-shard drain) and D512 (its indexes kept in `held`, a dict, for
+    phase 17); -> the kernels' entries."""
     fz = load_tests_module("freeze_samples_reference")
     kernels = []
     t0 = time.perf_counter()
@@ -4174,7 +4216,8 @@ def phase_samples(torch, device) -> list[dict]:
             samples_set(torch, fz, ref, td, device, kernels,
                         resume=ref is D273, measure=ref is D273,
                         shard_counts=(128,) if ref is D512
-                        else SAMPLES_SHARDS)
+                        else SAMPLES_SHARDS,
+                        held=held if ref is D512 else None)
     log(f"samples kernels: {json.dumps(kernels)}")
     log(f"samples: phase 16 in {time.perf_counter() - t0:.1f} s")
     return kernels
@@ -4186,6 +4229,375 @@ def samples_alone(torch, device) -> None:
     phase_env(torch)
     phase_build()
     phase_samples(torch, device)
+
+
+# ------------------------------------------------ phase 17: the per-level
+# engines, mine_torch(reader_order="level-gnu") and mine_sharded
+
+def level_run(torch, label: str, run, tag: str) -> tuple:
+    """One run of a per-level engine (`s1000_run`, path "mine_level"): K12
+    and K13 each launched once a level, redone levels included; the widest
+    real level (the most valid nodes x samples) recorded; -> (output, its
+    record, that level as (tables, state, fmin, sym_mask)).
+
+    The recorder adds no sync to the timed step: a state's valid nodes are
+    the last kept level's child counts (R of them, copied without blocking
+    into pinned memory, which the loop's own read of the counts completes),
+    or R at the root."""
+    from dsm_tpu_torch.mining import engine as eng
+
+    step, widest = eng._level_step, {}
+    seen = dict(nodes=None, counts=None, cap=0)
+
+    def recording(tables, state, fmin, sym_mask, group=None):
+        if seen["nodes"] is None:
+            seen["nodes"] = state[0].shape[0]
+        elif max(seen["counts"].tolist()) <= seen["cap"]:
+            # the last level was kept (not redone at a larger capacity)
+            seen["nodes"] = int(seen["counts"].sum())
+        cells = seen["nodes"] * state[0].shape[2]
+        if cells > widest.get("cells", -1):
+            widest.update(cells=cells, level=(tables, state, fmin, sym_mask))
+        res = step(tables, state, fmin, sym_mask, group)
+        cc = res["child_count"]
+        if seen["counts"] is None:
+            seen["counts"] = torch.empty(cc.shape, dtype=cc.dtype,
+                                         pin_memory=True)
+        seen["counts"].copy_(cc, non_blocking=True)
+        seen["cap"] = state[0].shape[1]
+        return res
+
+    eng._level_step = recording
+    try:
+        out, rec = s1000_run(torch, label, run, "mine_level", tag=tag)
+    finally:
+        eng._level_step = step
+    got = (rec["launches"]["level_expand"], rec["launches"]["level_compact"])
+    if got != (rec["levels"], rec["levels"]):
+        raise SystemExit(f"{tag} {label}: K12 / K13 launched {got} times in "
+                         f"{rec['levels']} levels")
+    return out, rec, widest["level"]
+
+
+def concat_check(outs, ref: dict, label: str, order: str) -> None:
+    """The four prefix runs' bytes concatenated against the whole run's
+    frozen sha256 in `order`, their lines and occurrences summed."""
+    blob = b"".join(o.format_lines() for o in outs)
+    sha = hashlib.sha256(blob).hexdigest()
+    got = (sum(o.total_output for o in outs), sum(o.total_occs for o in outs),
+           sum(o.total_paths for o in outs), sha)
+    want = (ref["lines"], ref["occs"], ref["paths"], ref[order])
+    if got != want:
+        raise SystemExit(f"{label} ({order}) FAILED: lines, occs, paths, "
+                         f"sha256 {got}, want {want}")
+    log(f"{label} ({order}): A, C, G, T concatenated: {got[0]:,} lines, "
+        f"sha256 {sha}: the whole run's frozen reference")
+
+
+def table_rows(torch, tables, pos_a, pos_b, mask, S: int) -> int:
+    """The distinct table rows that cells under `mask` read at positions
+    pos_a and pos_b (R, CAP, S), each column in its own table."""
+    soff = torch.cat([t[2].to(torch.int64) for t in tables])
+    table = torch.cat([torch.full((t[2].shape[0],), k, dtype=torch.int64,
+                                  device=soff.device)
+                       for k, t in enumerate(tables)])
+    ids = []
+    for pos in (pos_a, pos_b):
+        row = (pos.to(torch.int64) >> 7) + soff
+        ids.append((table[None, None, :] * (1 << 40) + row)[mask])
+    return int(torch.unique(torch.cat(ids)).numel())
+
+
+def level_kernel_cases(torch, level, label: str) -> list[dict]:
+    """K12 and K13 on a recorded level against their plain versions (every
+    output equal), timed by events and device time; -> their entries."""
+    from dsm_tpu_torch.ops import level as L
+
+    tables, state, fmin, sym_mask = level
+    lo, hi, rlo, valid = state
+    R, CAP, S = lo.shape
+    core = L.expand_level(tables, *state, fmin)
+    want = L.expand_level_plain(tables, *state, fmin)
+    bad = [k for k in ("clo", "chi", "crlo", "cactive", "freq", "lc", "sums")
+           if not torch.equal(core[k], want[k])]
+    res = L.compact_level(core, core["sums"], sym_mask)
+    exp = L.compact_level_plain(want, want["sums"], sym_mask)
+    bad += [k for k in exp if not torch.equal(res[k], exp[k])]
+    torch.cuda.synchronize()
+    if bad:
+        raise SystemExit(f"K12/K13 disagree with their plain versions at "
+                         f"{label}: {bad}")
+    cells, nodes = R * CAP * S, R * CAP
+    active = (hi > lo) & valid[..., None]
+    frows = table_rows(torch, tables, lo, hi, active, S)
+    rrows = table_rows(torch, tables, rlo, rlo + (hi - lo), hi > lo, S)
+    kept = int(res["child_count"].clamp(max=CAP).sum())
+    n_active, n_lc = int(active.sum()), int((hi > lo).sum())
+    # K12: the state once, the table rows its cells touch, every output
+    # once (57 B a cell: clo, chi, crlo, cactive of 4 children, freq, lc;
+    # and the 20-byte node sums); ~50 integer operations an end
+    b12 = 12 * cells + nodes + 128 * (frows + rrows) + 57 * cells \
+        + 20 * nodes
+    # K13: the sums, the kept children's S-wide rows and activity, the next
+    # state and the row outputs written once
+    b13 = 20 * nodes + 4 * R + 13 * S * kept + 12 * cells + 10 * nodes \
+        + 4 * R
+    entries = []
+    for name, fn, plain, nbytes, ops, src, rep in (
+            ("level_expand",
+             lambda: L.expand_level(tables, *state, fmin),
+             lambda: L.expand_level_plain(tables, *state, fmin), b12,
+             100 * (2 * n_active + 2 * n_lc), "dsm_tpu_torch/csrc/rank.cu",
+             "dsm_tpu/mining/engine.py:286"),
+            ("level_compact",
+             lambda: L.compact_level(core, core["sums"], sym_mask),
+             lambda: L.compact_level_plain(core, core["sums"], sym_mask),
+             b13, 20 * nodes, "dsm_tpu_torch/csrc/level.cu",
+             "dsm_tpu/mining/engine.py:351")):
+        e = dict(name=name, route="cuda", source=src, replaces=rep,
+                 max_abs_err=0, ms=cuda_ms(torch, fn),
+                 device_ms=device_ms(torch, fn),
+                 plain_ms=cuda_ms(torch, plain, reps=3),
+                 **bound(nbytes, ops), library_ms=None, case=label)
+        entries.append(e)
+        log(f"kernel {name}: {label}: R={R}, CAP={CAP:,}, S={S}, "
+            f"{n_active:,} active cells, {kept:,} children kept, table rows "
+            f"{frows:,} + {rrows:,}; equal; {e['ms']:.4f} ms (device "
+            f"{fmt_ms(e['device_ms'])}) vs plain {e['plain_ms']:.4f} ms; "
+            f"bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
+    return entries
+
+
+def ops_cases(torch, toy0, device) -> list[dict]:
+    """K14 (compact_kidx) at N = LEVEL_KIDX_N, 30% set, and K15
+    (occ_batch) at LEVEL_OCC_Q queries on toy0's blocks, each first called
+    once through its API (the "ops" path, counts from 0), then against its
+    plain version and timed; -> their entries."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.compact import (compact_kidx, compact_kidx_plain,
+                                           compact_kidx_sort)
+    from dsm_tpu_torch.ops.rank import occ_batch, occ_batch_plain
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    mask = torch.rand(LEVEL_KIDX_N, device=device, generator=gen) < 0.3
+    t = toy0.table
+    blocks = torch.as_tensor(t.blocks, device=device)
+    occ = torch.as_tensor(t.occ, device=device)
+    pos = (torch.rand(LEVEL_OCC_Q, device=device, generator=gen)
+           * (t.n + 1)).to(torch.int32).clamp(max=t.n)
+    syms = torch.randint(0, 8, (LEVEL_OCC_Q,), device=device,
+                         dtype=torch.int32, generator=gen)
+    count = int(mask.sum())
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    kidx, c1 = compact_kidx(mask, count)
+    kidx_s, c2 = compact_kidx_sort(mask, count)
+    ranks = occ_batch(blocks, occ, syms, pos)
+    torch.cuda.synchronize()
+    launches = path_launches("ops", "the API ops' path (one call each)")
+    want, wc = compact_kidx_plain(mask, count)
+    if not (torch.equal(kidx, want) and torch.equal(kidx_s, want)
+            and int(c1) == int(c2) == int(wc) == count):
+        raise SystemExit("compact_kidx disagrees with its plain version")
+    below, bc = compact_kidx(mask, count // 2)
+    if not torch.equal(below, want[:count // 2]) or int(bc) != count:
+        raise SystemExit("compact_kidx disagrees below the count")
+    if not torch.equal(ranks, occ_batch_plain(blocks, occ, syms, pos)):
+        raise SystemExit("occ_batch disagrees with its plain version")
+    blk = (pos.to(torch.int64) >> 7)
+    nblk = int(torch.unique(blk).numel())
+    n = LEVEL_KIDX_N
+    entries = [
+        dict(name="compact_kidx", route="cuda",
+             source="dsm_tpu_torch/csrc/compact.cu",
+             replaces="dsm_tpu/ops/compact.py:33", launches=launches[
+                 "compact_kidx"], max_abs_err=0,
+             ms=cuda_ms(torch, lambda: compact_kidx(mask, count)),
+             device_ms=device_ms(torch, lambda: compact_kidx(mask, count)),
+             plain_ms=cuda_ms(torch, lambda: compact_kidx_plain(mask, count)),
+             **bound(n + 4 * count, 2 * n),
+             library_ms=cuda_ms(torch, lambda: torch.nonzero(mask)[:count]),
+             case=f"N={n:,}, {count:,} set"),
+        dict(name="occ_batch", route="cuda",
+             source="dsm_tpu_torch/csrc/occbatch.cu",
+             replaces="dsm_tpu/ops/rank.py:270", launches=launches[
+                 "occ_batch"], max_abs_err=0,
+             ms=cuda_ms(torch, lambda: occ_batch(blocks, occ, syms, pos)),
+             device_ms=device_ms(torch,
+                                 lambda: occ_batch(blocks, occ, syms, pos)),
+             plain_ms=cuda_ms(torch,
+                              lambda: occ_batch_plain(blocks, occ, syms, pos),
+                              reps=3),
+             **bound(12 * LEVEL_OCC_Q + nblk * (128 + 4 * occ.shape[1]),
+                     40 * LEVEL_OCC_Q),
+             library_ms=None,
+             case=f"Q={LEVEL_OCC_Q:,} on toy0's {blocks.shape[0]:,} blocks")]
+    for e in entries:
+        log(f"kernel {e['name']}: {e['case']}: equal; {e['ms']:.4f} ms "
+            f"(device {fmt_ms(e['device_ms'])}) vs plain {e['plain_ms']:.4f}"
+            f" ms, library {fmt_ms(e['library_ms'])}; bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']}")
+    return entries
+
+
+def levels_d512(torch, idxs, device) -> tuple:
+    """D512's per-level runs against the frozen D512 (see the module's
+    docstring); -> (records, {label: the widest level of the level-gnu run
+    and of the (4, 128) ascending run})."""
+    from dsm_tpu_torch.mining.engine import DeviceIndexes, mine_torch
+    from dsm_tpu_torch.parallel.engine_sharded import (ShardedIndexes,
+                                                       mine_sharded)
+    from dsm_tpu_torch.parallel.mesh import make_mesh
+
+    ref, tag = D512, "D512 levels"
+    cfg = samples_config(ref)
+    dev = DeviceIndexes.build(idxs, device)
+    recs, widest = {}, {}
+    out, recs["level-gnu"], widest["level-gnu"] = level_run(
+        torch, "mine_torch level-gnu", lambda prof: mine_torch(
+            idxs, cfg, dev=dev, reader_order="level-gnu", profile=prof), tag)
+    samples_check(out, ref, "level-gnu", "gnu")
+    for shape, orders in (((1, 1), ("ascending",)),
+                          ((4, 2), ("ascending", "gnu")),
+                          ((4, 128), ("ascending", "gnu"))):
+        mesh = make_mesh(*shape, device=device)
+        tables = ShardedIndexes.build(idxs, mesh.samples)
+        for order in orders:
+            label = f"mine_sharded {shape} {order}"
+            out, recs[label], w = level_run(
+                torch, label, lambda prof: mine_sharded(
+                    idxs, cfg, mesh=mesh, dev=tables, reader_order=order,
+                    profile=prof), tag)
+            if shape == (4, 128) and order == "ascending":
+                widest[label] = w
+            samples_check(out, ref, f"mine_sharded {shape}", order)
+        del tables
+    # the level's all-reduce and the emission's gathers on the card: the
+    # (4, 2) gnu run once more in a process group of this one process
+    import torch.distributed as dist
+
+    from dsm_tpu_torch.parallel.multihost import initialize
+
+    with tempfile.TemporaryDirectory(prefix="dsm_smoke_nccl_") as td:
+        initialize(f"file://{os.path.join(td, 'rendezvous')}", 1, 0,
+                   backend="nccl")
+        try:
+            mesh = make_mesh(4, 2, device=device)
+            if mesh.samples.group is None:
+                raise SystemExit("no process group after initialize()")
+            label = "mine_sharded (4, 2) gnu in a one-rank NCCL group"
+            out, recs[label], _w = level_run(
+                torch, label, lambda prof: mine_sharded(
+                    idxs, cfg, mesh=mesh, reader_order="gnu", profile=prof),
+                tag)
+            samples_check(out, ref, "mine_sharded (4, 2), NCCL group", "gnu")
+        finally:
+            dist.destroy_process_group()
+    # the four one-symbol prefix runs, concatenated, in each order
+    for how, order in (("episode", "ascending"), ("episode", "gnu"),
+                       ("level-gnu", "gnu")):
+        outs = []
+        for p in b"ACGT":
+            ro = "level-gnu" if how == "level-gnu" else order
+            outs.append(mine_torch(idxs, cfg, dev=dev, prefix=bytes([p]),
+                                   reader_order=ro))
+        concat_check(outs, ref, f"D512 prefix runs by {how}", order)
+    return recs, widest
+
+
+def levels_s100(torch, idxs, device) -> tuple:
+    """Scale 100 under LEVEL_PREFIX: the episode's bytes in each order, and
+    level-gnu and mine_sharded at (4, 2) in both orders equal to them;
+    -> (records, {label: the widest level of the level-gnu run and of the
+    (4, 2) ascending run})."""
+    from dsm_tpu_torch.mining.engine import (DeviceIndexes, MiningConfig,
+                                             mine_torch)
+    from dsm_tpu_torch.parallel.engine_sharded import (ShardedIndexes,
+                                                       mine_sharded)
+    from dsm_tpu_torch.parallel.mesh import make_mesh
+
+    tag, p = "scale 100 levels", LEVEL_PREFIX
+    cfg = MiningConfig(fmin=FMIN, emax=EMAX)
+    dev = DeviceIndexes.build(idxs, device)
+    want, recs = {}, {}
+    for order in ("ascending", "gnu"):
+        want[order], recs[f"episode {order}"] = s1000_run(
+            torch, f"episode {order} under {p.decode()}",
+            lambda prof: mine_torch(idxs, cfg, dev=dev, prefix=p,
+                                    reader_order=order, profile=prof),
+            tag=tag)
+    log(f"{tag}: under {p.decode()} the episode finds "
+        f"{want['gnu'].total_paths:,} paths, {want['gnu'].total_output:,} "
+        f"lines")
+    mesh = make_mesh(4, 2, device=device)
+    tables = ShardedIndexes.build(idxs, mesh.samples)
+    runs = [("level-gnu", "gnu", lambda prof: mine_torch(
+        idxs, cfg, dev=dev, prefix=p, reader_order="level-gnu",
+        profile=prof))]
+    for order in ("ascending", "gnu"):
+        runs.append((f"mine_sharded (4, 2) {order}", order,
+                     lambda prof, order=order: mine_sharded(
+                         idxs, cfg, mesh=mesh, dev=tables, prefix=p,
+                         reader_order=order, profile=prof)))
+    widest = {}
+    for label, order, run in runs:
+        out, recs[label], w = level_run(torch, f"{label} under "
+                                        f"{p.decode()}", run, tag)
+        if label == "level-gnu" or order == "ascending":
+            widest[label] = w
+        got = (out.format_lines(), out.total_paths, out.total_occs)
+        if got != (want[order].format_lines(), want[order].total_paths,
+                   want[order].total_occs):
+            raise SystemExit(f"{tag} {label}: not the episode's bytes")
+        log(f"{tag} {label}: {out.total_output:,} lines, the episode's "
+            f"{order} bytes")
+    return recs, widest
+
+
+def phase_levels(torch, idxs, d512, device) -> list[dict]:
+    """Phase 17: the per-level engines on D512 (its indexes from phase 16)
+    and on scale 100 under LEVEL_PREFIX; K12 and K13 at the widest level of
+    each one's level-gnu run (one row, one table) and of its sharded run
+    with four prefix rows ((4, 2): 2 tables; (4, 128): 128), each entry
+    with the launches of its own run; K14 and K15 through their API; -> the
+    kernels' entries."""
+    t0 = time.perf_counter()
+    recs512, w512 = levels_d512(torch, d512, device)
+    recs100, w100 = levels_s100(torch, idxs, device)
+    kernels = []
+    cases = [(f"scale 100 under {LEVEL_PREFIX.decode()}", recs100, w100),
+             ("D512", recs512, w512)]
+    for where, recs, widest in cases:
+        for run, level in widest.items():
+            label = f"{where}, the {run} run's widest level"
+            for e in level_kernel_cases(torch, level, label):
+                e["launches"] = recs[run]["launches"][e["name"]]
+                kernels.append(e)
+        widest.clear()
+    kernels += ops_cases(torch, idxs[0], device)
+    summary = {"D512": {k: {f: r.get(f) for f in (
+        "wall_s", "levels", "regrows", "level_s", "host_s", "peak_bytes")}
+        for k, r in recs512.items()},
+        "scale 100": {k: {f: r.get(f) for f in (
+            "wall_s", "paths", "levels", "regrows", "level_s", "host_s",
+            "peak_bytes")} for k, r in recs100.items()},
+        "phase_s": time.perf_counter() - t0, "card": smi_line()}
+    log(f"levels summary: {json.dumps(summary)}")
+    log(f"levels kernels: {json.dumps(kernels)}")
+    return kernels
+
+
+def levels_alone(torch, device) -> None:
+    """Phase 17 by itself, after the environment, the build, the scale-100
+    data and D512's build (for a quicker run while developing; no result
+    line)."""
+    phase_env(torch)
+    phase_build()
+    fz = load_tests_module("freeze_samples_reference")
+    with tempfile.TemporaryDirectory(prefix="dsm_smoke_levels_") as td:
+        idxs, _toy0, _l = phase_data(torch, load_make_toydata(), td, device)
+        d512 = samples_build(torch, fz, D512, td, device)[0]
+    phase_levels(torch, idxs, d512, device)
 
 
 def main() -> int:
@@ -4230,7 +4642,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="dsm_smoke1000_") as td:
         launches["s1000_build"], launches["s1000_mine"], _k = \
             phase_scale1000(torch, toy, td, device)
-    samples = phase_samples(torch, device)
+    held = {}
+    samples = phase_samples(torch, device, held)
+    levels = phase_levels(torch, idxs, held[512], device)
     # a kernel of two paths (rank, compact, decode) keeps the count of the
     # first, the single-device mine
     counts = {}
@@ -4240,8 +4654,9 @@ def main() -> int:
     for k in kernels:
         k["launches"] = counts[LAUNCH_KEY[k["name"]]]
     # phase 16's entries (each with its "case") keep the launches of their
-    # D273 run's path
-    kernels += samples
+    # D273 run's path, phase 17's those of the run each case was taken from
+    # and of the API ops' path
+    kernels += samples + levels
     if any(m == "jax" or m.split(".")[0] == "dsm_tpu" for m in sys.modules):
         raise SystemExit("chip_smoke: jax or the JAX package was imported")
     print(json.dumps({"kernels": kernels}))

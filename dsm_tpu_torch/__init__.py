@@ -11,16 +11,17 @@ accumulator), and replaces the device path:
 
 ops      : the hand-written CUDA kernels (csrc/) and their plain PyTorch
            versions: fused rank, masked row compaction, segment stats,
-           children, path decode, the suffix array's sort and rank
-           update, the pairwise distance matrices, the repro cases; and
-           the host occ tables and NumPy suffix sort
+           children, path decode, the per-level engines' dense expand and
+           analyse-and-compact, the rank on raw BWT blocks, the suffix
+           array's sort and rank update, the pairwise distance matrices,
+           the repro cases; and the host occ tables and NumPy suffix sort
 index    : FM-index (build with the suffix arrays on a device, query,
            .dsmi/.fmi/.rlcsa files), FASTA input, incremental merge
 mining   : device tables, the device-resident level loop, host drain,
-           the NumPy engine, gnu order, checkpoints, capacity planning
-           (bigindex)
-parallel : the sample-sharded episode on torch.distributed, prefix
-           ownership (multihost)
+           the per-level loop (level-gnu), the NumPy engine, gnu order,
+           checkpoints, capacity planning (bigindex)
+parallel : the sample-sharded episode on torch.distributed, the
+           (prefix, samples) mesh engine, prefix ownership (multihost)
 net      : the reference wire protocol on the host: the codec (and its
            C++ twin, built with g++ at first use), the client behind
            `enumerate` and the merging server behind `serve`

@@ -24,8 +24,10 @@ mine:      stdout is `out.format_lines()`; with -v, stderr carries the
            numpy mines on the host (engine_np.mine_np); --engine
            sharded-episode shards the samples over DSM_SHARDS (environment,
            default 1) shards on --device (parallel/engine_episode);
-           --engine sharded maps to it (dsm's per-level mesh engine is not
-           ported); --engine auto routes by the capacity plan
+           --engine sharded runs the per-level (prefix, samples) mesh engine
+           (parallel/engine_sharded.mine_sharded, mesh default_mesh_shape(
+           DSM_SHARDS)), which, as dsm's, takes no snapshot and ignores
+           --checkpoint; --engine auto routes by the capacity plan
            (mining/bigindex.mine_big) under --hbm-budget bytes a device.
            --num-hosts N --host-id I mines host I's share of the DNA-prefix
            shards (parallel/multihost.mine_owned; --coordinator H:P joins a
@@ -245,7 +247,13 @@ def cmd_mine(args) -> int:
 
         out = mine_np(indexes, cfg, prefix=prefix,
                       reader_order=args.reader_order)
-    elif args.engine in ("sharded", "sharded-episode"):
+    elif args.engine == "sharded":
+        # the per-level engine takes no snapshot: --checkpoint is not used
+        from ..parallel.engine_sharded import mine_sharded
+
+        out = mine_sharded(indexes, cfg, prefix=prefix,
+                           reader_order=args.reader_order, device=device)
+    elif args.engine == "sharded-episode":
         from ..parallel.engine_episode import mine_device_sharded
 
         out = mine_device_sharded(indexes, cfg, prefix=prefix,
@@ -449,8 +457,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tpu (default): the device-resident episode; numpy: "
                         "the host engine; sharded-episode: the episode with "
                         "the samples in DSM_SHARDS (environment, default 1) "
-                        "shards on --device; sharded: the same (dsm's "
-                        "per-level mesh engine is not ported); auto: "
+                        "shards on --device; sharded: the per-level "
+                        "(prefix, samples) mesh engine, default_mesh_shape("
+                        "DSM_SHARDS) on --device, which takes no snapshot "
+                        "(--checkpoint is not used); auto: "
                         "capacity-planned routing (one device / "
                         "sample-sharded episode / bounded-memory host, "
                         "mining/bigindex.py)")

@@ -25,6 +25,10 @@ attributes of the objects they are given.
     episode (`_seed_sharded_episode` / `_level_sharded` under shard_map)
     cut to its live sizes under GLOBAL sample ids (s_loc: dsm_tpu's
     samples a shard), the inert padding samples dropped;
+  * `level_state_from_jax(lo, hi, rlo, valid, device, sym_mask=None)`: a
+    dsm_tpu per-level state (`_seed_state`, `_level_step_impl`, or the
+    (R, CAP, S) stacked state of its mesh engine) -> the port's (R, CAP, S)
+    int32 tensors and (R, CAP) bool, and the (R, 4) bool symbol mask;
   * `sharded_state_from_numpy(state, s_loc, dev)` /
     `sharded_state_to_numpy(st, dev)`: that state <-> the port's
     ShardedEpisodeState (one pair list a process, whose shards need not be
@@ -79,6 +83,28 @@ def tables_from_device_indexes(jdev, device) -> DeviceIndexes:
     """dsm_tpu.mining.engine.DeviceIndexes -> the port's tables."""
     return DeviceIndexes.from_host(jdev.ns, jdev.fnp, jdev.rnp,
                                    np.asarray(jdev.soff), device)
+
+
+def level_state_from_jax(lo, hi, rlo, valid, device, sym_mask=None):
+    """A dsm_tpu per-level state, (CAP, S) or (R, CAP, S) arrays with the
+    (CAP,) or (R, CAP) valid rows -> (lo, hi, rlo, valid) as the port's
+    level step takes them ((R, CAP, S) int32, (R, CAP) bool, R = 1 for a
+    single device's), with `sym_mask` ((4,) or (R, 4)) as (R, 4) bool after
+    them where it is given."""
+    lo = np.asarray(lo)
+    rows = lo.shape[:-2] if lo.ndim == 3 else (1,)
+
+    def up(a, dtype, shape):
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(a).astype(dtype).reshape(shape)), device=device)
+
+    S = lo.shape[-1]
+    cap = lo.shape[-2]
+    out = (up(lo, np.int32, (*rows, cap, S)), up(hi, np.int32, (*rows, cap, S)),
+           up(rlo, np.int32, (*rows, cap, S)), up(valid, bool, (*rows, cap)))
+    if sym_mask is None:
+        return out
+    return (*out, up(sym_mask, bool, (*rows, 4)))
 
 
 def live_numpy(state: dict) -> dict:

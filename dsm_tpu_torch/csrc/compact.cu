@@ -3,16 +3,17 @@
 // from the count on are zeroed, rows past width are dropped, and count
 // receives the number of set mask bytes whatever width is.
 //
-// Two entries share the kernel.  dsm_compact_rows takes its rows from a
+// Three entries share the kernel.  dsm_compact_rows takes its rows from a
 // (N, C) int32 matrix.  dsm_stage_rows is the emit step of a trie level:
 // row p is made on the fly from pair row p as (hi - lo, rlo, sid, nid,
 // depth), so the level never builds the (P, 5) matrix it keeps a handful
-// of rows of.
+// of rows of.  dsm_compact_kidx (K14) writes the set rows' indices.
 //
 // Replaces dsm_tpu/ops/pallas_compact.py compact_rows (kernel _kernel), with
 // the semantics of ops/compact.py compact_kidx_sort followed by a row take,
-// and the emit block of dsm_tpu/mining/engine_device.py _level_single
-// (build_stage: orows, compact_kidx_sort, take).  On the TPU the grid ran in
+// the emit block of dsm_tpu/mining/engine_device.py _level_single
+// (build_stage: orows, compact_kidx_sort, take), and ops/compact.py
+// compact_kidx and compact_kidx_sort themselves (:33, :88).  On the TPU the grid ran in
 // order on one core and carried the running output offset in SMEM from one
 // step to the next, and each 128-row tile was permuted on the MXU over
 // 16-bit halves.  Blocks on Hopper run in no order on 132 SMs, so the
@@ -88,6 +89,15 @@ struct EmitRows {
       case 3: return p[5];
       default: return depth;
     }
+  }
+};
+
+// The indices of the rows themselves: compact_kidx (K14), a (width, 1)
+// output of the set rows' indices.
+struct IndexRows {
+  __device__ __forceinline__ int cols() const { return 1; }
+  __device__ __forceinline__ int32_t word(long long row, int) const {
+    return (int32_t)row;
   }
 };
 
@@ -266,4 +276,13 @@ extern "C" int dsm_stage_rows(const void* mask, const void* pairs, long long n,
                               void* scratch, void* count, void* stream) {
   return run(mask, n, EmitRows{(const int32_t*)pairs, (int32_t)depth}, out,
              width, scratch, count, (cudaStream_t)stream);
+}
+
+// compact_kidx (K14): out (width,) int32 receives the indices of the set
+// mask bytes, in order, then zeroes; the rest as in dsm_compact_rows.
+extern "C" int dsm_compact_kidx(const void* mask, long long n, void* out,
+                                long long width, void* scratch, void* count,
+                                void* stream) {
+  return run(mask, n, IndexRows{}, out, width, scratch, count,
+             (cudaStream_t)stream);
 }

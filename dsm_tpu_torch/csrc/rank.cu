@@ -1,6 +1,7 @@
 // Fused rank over the baked-C4 occ tables (K1), the level's expand step
 // built on it (the per-pair, per-level hot primitive of the mining episode)
-// and the drain's leftChar codes (K5).
+// and the drain's leftChar codes (K5); below them, a kernel of its own on
+// the same row gather, the per-level engines' dense expand (K12).
 //
 // Replaces dsm_tpu/ops/rank.py occ_cumT / occ_cum8T (the XLA column gather
 // over the transposed (32, R) table); with the `expand` entry, the expand
@@ -374,6 +375,196 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the per-level engines' dense expand (K12) --------------------------
+//
+// Replaces dsm_tpu/mining/engine.py expand_core + leftchar_codes (:263-333)
+// as _level_step_impl (:382) and, under a vmap over the prefix rows,
+// parallel/engine_sharded.py _sharded_step_impl (:125) run them: the dense
+// frontier (R rows, CAP nodes, S samples) expanded in one launch.  A cell
+// (r, u, s) is parent-active when hi > lo and row (r, u) is valid; then its
+// forward ranks at lo and hi give the four children's bounds (C4 baked),
+// their reverse starts rlo + psum_hi - psum_lo and their activity (width at
+// least fmin), and every cell with hi > lo takes its leftChar code from the
+// reverse ranks at rlo and rlo + (hi - lo).  A cell that is not active
+// writes dsm_tpu's zeros, and one with hi == lo the code 0, without a
+// gather (a level never holds lo > hi).  The per-node sums over the
+// launch's samples, [active cells, active children under A, C, G, T], are
+// added in shared memory a tile and then to the (R, CAP, 5) output with one
+// atomic a node and column that is not zero (the entry zeroes it first).
+//
+// A block takes 256 consecutive cells; the cells are staged in pair-row
+// layout (lo, hi, rlo, table, soff, flags) and ranked by the groups of 8
+// lanes above, first both forward ends of the active cells, then both
+// reverse ends of the cells with hi > lo.  The tables are the launch's
+// parameters: up to kMaxShards (forward rows, reverse rows, soff, first
+// sample column), the columns ascending; a cell's table is the last whose
+// first column is at or below its sample's.
+
+constexpr int kRlo = 2, kFlags = 5;     // the staged cell's other columns
+constexpr int kActive = 1, kLcNeed = 2;  // kFlags bits
+
+struct LevelTables {
+  int n;
+  int base[kMaxShards];
+  const uint4* frows[kMaxShards];
+  const uint4* rrows[kMaxShards];
+  const int32_t* soff[kMaxShards];
+};
+
+struct LevelArgs {
+  const int32_t* lo;                     // (R, CAP, S)
+  const int32_t* hi;
+  const int32_t* rlo;
+  const uint8_t* valid;                  // (R, CAP)
+  long long nodes;                       // R * CAP
+  int S, fmin;
+  int32_t* clo;                          // (R, CAP, 4, S)
+  int32_t* chi;
+  int32_t* crlo;
+  uint8_t* cact;                         // (R, CAP, 4, S) bool
+  int32_t* freq;                         // (R, CAP, S)
+  int8_t* lc;                            // (R, CAP, S)
+  int32_t* sums;                         // (R, CAP, 5)
+};
+
+// Both ends (pw[i]'s kLo and kHi) of staged cell i ranked in `rows` by the
+// group of 8 lanes: rows 0..7 of column i of s_lo and s_hi.
+__device__ __forceinline__ void rank_both(const uint4* rows, const int32_t* p,
+                                          int lane, unsigned mask,
+                                          int32_t* s_lo, int32_t* s_hi,
+                                          int i) {
+  const uint32_t lo = (uint32_t)p[kLo], hi = (uint32_t)p[kHi];
+  const long long b_lo = (long long)(lo >> 7) + p[kSoff];
+  const long long b_hi = (long long)(hi >> 7) + p[kSoff];
+  const uint4 v_lo = load_row(rows, b_lo, lane);
+  const bool same = b_hi == b_lo;
+  const uint4 v_hi = same ? v_lo : load_row(rows, b_hi, lane);
+  uint32_t cum = cum_word(v_lo, lane, mask);
+  rank_end(v_lo, cum, lo, lane, mask, s_lo, i);
+  if (!same) cum = cum_word(v_hi, lane, mask);
+  rank_end(v_hi, cum, hi, lane, mask, s_hi, i);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    level_expand_kernel(const LevelArgs a,
+                        const __grid_constant__ LevelTables tab) {
+  __shared__ __align__(16) int32_t pw[kTile * kPairCols];
+  __shared__ int32_t s_lo[8 * kOutStride];
+  __shared__ int32_t s_hi[8 * kOutStride];
+  __shared__ int s_base[kMaxShards];
+  __shared__ int s_sum[kTile * 5];       // a tile's nodes' sums
+
+  const long long cells = a.nodes * a.S;
+  const long long base = (long long)blockIdx.x * kTile;
+  const int cnt = cells - base < kTile ? (int)(cells - base) : kTile;
+  const int t = threadIdx.x;
+  const long long node0 = base / a.S;
+  for (int k = t; k < tab.n; k += kThreads) s_base[k] = tab.base[k];
+  for (int k = t; k < kTile * 5; k += kThreads) s_sum[k] = 0;
+  __syncthreads();
+
+  // ---- stage the tile's cells ------------------------------------------
+  long long q = 0, node = 0;
+  int s = 0;
+  int32_t lo = 0, hi = 0, rlo = 0;
+  bool pa = false;
+  if (t < cnt) {
+    q = base + t;
+    node = q / a.S;
+    s = (int)(q - node * a.S);
+    lo = a.lo[q];
+    hi = a.hi[q];
+    rlo = a.rlo[q];
+    pa = hi > lo && a.valid[node];
+    int l = 0, h = tab.n - 1;            // the last table whose base <= s
+    while (l < h) {
+      const int mid = (l + h + 1) >> 1;
+      if (s_base[mid] <= s) l = mid; else h = mid - 1;
+    }
+    int32_t* p = pw + t * kPairCols;
+    p[kLo] = lo;
+    p[kHi] = hi;
+    p[kShard] = l;
+    p[kSoff] = __ldg(tab.soff[l] + (s - s_base[l]));
+    p[kFlags] = (pa ? kActive : 0) | (hi > lo ? kLcNeed : 0);
+  }
+  __syncthreads();
+
+  const int lane = t & 7;
+  const int g = t >> 3;
+  const unsigned mask = 0xFFu << (t & 24);
+  // ---- forward ranks of the active cells ---------------------------------
+#pragma unroll 1
+  for (int i = g; i < cnt; i += kGroups) {
+    const int32_t* p = pw + i * kPairCols;
+    if (p[kFlags] & kActive)
+      rank_both(tab.frows[p[kShard]], p, lane, mask, s_lo, s_hi, i);
+  }
+  __syncthreads();
+
+  const int32_t freq = (int32_t)((uint32_t)hi - (uint32_t)lo);
+  const int ln = (int)(node - node0);
+  if (t < cnt) {
+    a.freq[q] = freq;
+    const long long out0 = node * 4 * a.S + s;   // (node, child 0, s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int32_t clo = 0, chi = 0, crlo = 0;
+      bool act = false;
+      if (pa) {
+        clo = s_lo[c * kOutStride + t];
+        chi = s_hi[c * kOutStride + t];
+        crlo = (int32_t)((uint32_t)rlo +
+                         (uint32_t)s_hi[(4 + c) * kOutStride + t] -
+                         (uint32_t)s_lo[(4 + c) * kOutStride + t]);
+        act = chi - clo >= a.fmin;
+      }
+      const long long o = out0 + (long long)c * a.S;
+      a.clo[o] = clo;
+      a.chi[o] = chi;
+      a.crlo[o] = crlo;
+      a.cact[o] = act;
+      if (act) atomicAdd(s_sum + ln * 5 + 1 + c, 1);
+    }
+    if (pa) atomicAdd(s_sum + ln * 5, 1);
+    // the reverse ends of this cell: rlo and rlo + freq
+    pw[t * kPairCols + kLo] = rlo;
+    pw[t * kPairCols + kHi] = (int32_t)((uint32_t)rlo + (uint32_t)freq);
+  }
+  __syncthreads();
+
+  // ---- reverse ranks of the cells with hi > lo: the leftChar codes ------
+#pragma unroll 1
+  for (int i = g; i < cnt; i += kGroups) {
+    const int32_t* p = pw + i * kPairCols;
+    if (p[kFlags] & kLcNeed)
+      rank_both(tab.rrows[p[kShard]], p, lane, mask, s_lo, s_hi, i);
+  }
+  __syncthreads();
+  if (t < cnt) {
+    int code = kLcZero;
+    if (hi > lo) {
+      bool any = false;
+#pragma unroll
+      for (int c = 3; c >= 0; --c) {
+        const int32_t cf = (int32_t)((uint32_t)s_hi[c * kOutStride + t] -
+                                     (uint32_t)s_lo[c * kOutStride + t]);
+        if (cf == freq) code = c + 2;
+        any |= cf > 0;
+      }
+      if (code < 2) code = any ? kLcN : kLcZero;
+    }
+    a.lc[q] = (int8_t)code;
+  }
+
+  // ---- the tile's node sums into the output ------------------------------
+  const int nn = cnt > 0 ? (int)((base + cnt - 1) / a.S - node0) + 1 : 0;
+  for (int k = t; k < nn * 5; k += kThreads) {
+    const int v = s_sum[k];
+    if (v) atomicAdd(a.sums + node0 * 5 + k, v);
+  }
+}
+
 template <int kMode>
 int launch(const Args& a, const Shards<kMode>& tab, void* stream) {
   const long long blocks = (a.n + kTile - 1) / kTile;
@@ -477,4 +668,52 @@ extern "C" int dsm_leftchar(const void* orows, long long n, const void* shards,
   a.codes = (int8_t*)codes;
   a.n = n;
   return launch<kLeftChar>(a, tab, stream);
+}
+
+// The per-level engines' dense expand (K12): lo, hi, rlo (R, CAP, S) int32
+// contiguous, valid (R, CAP) bool; nodes = R * CAP; tables: ntables x
+// (forward rows, reverse rows, soff, first sample column) int64 in HOST
+// memory, copied into the launch's parameters, the columns ascending from
+// 0; outputs clo, chi, crlo (R, CAP, 4, S) int32, cact (R, CAP, 4, S)
+// bool, freq (R, CAP, S) int32, lc (R, CAP, S) int8, sums (R, CAP, 5)
+// int32 (zeroed here).  1 <= ntables <= kMaxShards.
+extern "C" int dsm_level_expand(const void* tables, int ntables,
+                                const void* lo, const void* hi,
+                                const void* rlo, const void* valid,
+                                long long nodes, int S, int fmin, void* clo,
+                                void* chi, void* crlo, void* cact, void* freq,
+                                void* lc, void* sums, void* stream) {
+  if (ntables < 1 || ntables > kMaxShards) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = (int)cudaMemsetAsync(sums, 0, (size_t)nodes * 5 * 4, st);
+  if (err) return err;
+  const long long cells = nodes * S;
+  if (cells == 0) return 0;
+  LevelTables tab;
+  tab.n = ntables;
+  const long long* h = (const long long*)tables;
+  for (int k = 0; k < ntables; ++k) {
+    tab.frows[k] = (const uint4*)h[4 * k];
+    tab.rrows[k] = (const uint4*)h[4 * k + 1];
+    tab.soff[k] = (const int32_t*)h[4 * k + 2];
+    tab.base[k] = (int)h[4 * k + 3];
+  }
+  LevelArgs a{};
+  a.lo = (const int32_t*)lo;
+  a.hi = (const int32_t*)hi;
+  a.rlo = (const int32_t*)rlo;
+  a.valid = (const uint8_t*)valid;
+  a.nodes = nodes;
+  a.S = S;
+  a.fmin = fmin;
+  a.clo = (int32_t*)clo;
+  a.chi = (int32_t*)chi;
+  a.crlo = (int32_t*)crlo;
+  a.cact = (uint8_t*)cact;
+  a.freq = (int32_t*)freq;
+  a.lc = (int8_t*)lc;
+  a.sums = (int32_t*)sums;
+  const long long blocks = (cells + kTile - 1) / kTile;
+  level_expand_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(a, tab);
+  return (int)cudaGetLastError();
 }

@@ -5,8 +5,12 @@ per-sample bidirectional fused occ tables stacked on one device),
 `hbm_budget`, the drain's deferred left-branching codes
 (`leftchar_codes_pairs`, the plain counterpart of leftchar_codes_pairsT,
 and `leftchar_rows`, the rank kernel's leftChar entry on the staged output
-rows of one device or of every shard of a process) and `mine_torch`, the
-dispatch of `mine_tpu` for the ascending and gnu reader orders.
+rows of one device or of every shard of a process), the per-level engine
+(`_level_step`, `_seed_state`, `_resize`, `MIN_CAP` and `mine_levels`,
+the dense level loop with host emission that mine_tpu's 'level-gnu' order
+and parallel/engine_sharded's mesh engine run) and `mine_torch`, the
+dispatch of `mine_tpu`: the ascending and gnu reader orders to the
+episode, 'level-gnu' to the per-level loop.
 
 The tables are uploaded ROW-major, (R, ROWW) int32 bit patterns of the
 uint32 `fused_rows(..., c4=)` rows: one 128-byte row per 128-symbol block
@@ -23,13 +27,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..index.alphabet import EXT_CHARS
 from ..index.fmindex import FMIndex
 from ..ops import _build
+from ..ops.level import compact_level, expand_level
 from ..ops.rank import ROWW, fused_rows, occ_cum8_pair_plain
 from ..ops.shardstats import MAX_SHARDS
 from ..utils.device import resolve_device
 from .config import MiningConfig
-from .engine_np import LC_N, LC_ZERO, MinedOutput
+from .engine_np import LC_N, LC_ZERO, MinedOutput, emit_level
 
 EXT4 = (2, 3, 4, 6)  # codes of A, C, G, T (alphabet.EXT_CODES as a tuple)
 # the staged output rows' columns ((k, 5) int32), as in dsm_tpu
@@ -225,18 +231,205 @@ def leftchar_rows(tables, orows: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------- the per-level engine
+
+MIN_CAP = 1024
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(x - 1, 1).bit_length()
+
+
+def _seed_state(ns, rows: int, cap: int, device):
+    """The root frontier of `rows` prefix rows: (lo, hi, rlo) (rows, cap,
+    S) int32 with node 0's intervals [0, n_s) and reverse starts 0, valid
+    (rows, cap) bool with node 0 alone."""
+    S = len(ns)
+    lo = torch.zeros((rows, cap, S), dtype=torch.int32, device=device)
+    hi = torch.zeros_like(lo)
+    hi[:, 0] = torch.as_tensor(np.asarray(ns, dtype=np.int32),
+                               device=device)
+    rlo = torch.zeros_like(lo)
+    valid = torch.zeros((rows, cap), dtype=torch.bool, device=device)
+    valid[:, 0] = True
+    return lo, hi, rlo, valid
+
+
+def _resize(state, cap: int):
+    """The frontier at another capacity: cut, or padded with empty
+    nodes."""
+    cur = state[0].shape[1]
+    if cap == cur:
+        return state
+    if cap < cur:
+        return tuple(a[:, :cap].contiguous() for a in state)
+    grown = []
+    for a in state:
+        g = torch.zeros((a.shape[0], cap, *a.shape[2:]), dtype=a.dtype,
+                        device=a.device)
+        g[:, :cur] = a
+        grown.append(g)
+    return tuple(grown)
+
+
+def _level_step(tables, state, fmin: int, sym_mask: torch.Tensor,
+                group=None) -> dict:
+    """One dense level (dsm_tpu's _level_step_impl, and with `group` its
+    _sharded_step_impl): the expand (K12) over `tables` (ops/level.py), in
+    a group one all-reduce of the per-node sums, and the analyse-and-compact
+    (K13) -> the next frontier with parent_row, sym, child_count,
+    single_full, freq and lc."""
+    core = expand_level(tables, *state, fmin)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(core["sums"], group=group)
+    res = compact_level(core, core["sums"], sym_mask)
+    res.update(freq=core["freq"], lc=core["lc"])
+    return res
+
+
+def mine_levels(cfg: MiningConfig, d: int, tables, ns, row_masks: np.ndarray,
+                prefix: bytes, trackers, cap: int, device, group=None,
+                gather=None, profile: dict | None = None) -> MinedOutput:
+    """The per-level loop of dsm_tpu's mine_tpu(reader_order='level-gnu')
+    and mine_sharded: a dense frontier of R prefix rows, a level a step;
+    the frontier regrows and redoes a level whose children pass its
+    capacity and shrinks toward the live width; the host emits every level
+    (engine_np.emit_level: one GnuOrderTracker a row, or none for ascending
+    order) and builds the paths.
+
+    d: the samples in all; tables, ns: this process's shard tables (as
+    ops/level.py takes them) and their samples' text lengths; row_masks:
+    (R, k, 4) bool, the symbols row r may take at depth < k
+    (parallel/mesh.row_prefix_masks; one device: (1, 0, 4)); prefix: the
+    enforced path; trackers: R trackers or None; cap: the first capacity;
+    group: the process group whose processes hold the other samples (one
+    all-reduce a level), and `gather`, which turns a (R, m, S_local) tensor
+    into the (R, m, d) host array of every process's columns.  `profile`,
+    a dict, receives the levels run (redone ones too), the regrows and the
+    seconds of the level steps and of the host's part."""
+    import time
+
+    R, k_rows = row_masks.shape[0], row_masks.shape[1]
+    out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
+    prefix_codes = [EXT_CHARS.index(b) for b in prefix]
+    onehot = np.eye(4, dtype=bool)
+    host = gather or (lambda t: t.cpu().numpy())
+    state = _seed_state(ns, R, cap, device)
+    paths: list[list[bytes]] = [[b""] for _ in range(R)]
+    depth = levels = regrows = 0
+    step_s = host_s = 0.0
+    while True:
+        t0 = time.perf_counter()
+        if depth >= cfg.maxdepth:
+            mask = np.zeros((R, 4), dtype=bool)
+        else:
+            # each row's prefix partition composed with the enforced path
+            mask = np.ones((R, 4), dtype=bool)
+            if depth < k_rows:
+                mask &= row_masks[:, depth, :]
+            if depth < len(prefix_codes):
+                mask &= onehot[prefix_codes[depth]][None, :]
+        res = _level_step(tables, state, cfg.fmin,
+                          torch.from_numpy(mask).to(device), group)
+        counts = res["child_count"].tolist()
+        t1 = time.perf_counter()
+        step_s += t1 - t0
+        levels += 1
+        cap_now, cmax = state[0].shape[1], max(counts)
+        if cmax > cap_now:
+            # frontier overflow: grow capacity and redo this level
+            regrows += 1
+            state = _resize(state, _next_pow2(cmax))
+            continue
+        if depth > 0:
+            # rows past a row's paths are empty: no line, no path counted
+            live = max(len(p) for p in paths)
+            freq = host(res["freq"][:, :live]).astype(np.int64)
+            lc = host(res["lc"][:, :live])
+            sf = res["single_full"][:, :live].cpu().numpy()
+            for r in range(R):
+                n = len(paths[r])
+                emit_level(out, cfg, d, depth, paths[r], freq[r, :n],
+                           lc[r, :n], sf[r, :n],
+                           trackers[r] if trackers else None)
+        if cmax == 0:
+            host_s += time.perf_counter() - t1
+            break
+        parent_row = res["parent_row"][:, :cmax].cpu().numpy()
+        sym = res["sym"][:, :cmax].cpu().numpy()
+        if trackers:
+            act = host((res["hi"][:, :cmax] > res["lo"][:, :cmax])
+                       .to(torch.uint8)).astype(bool)
+        for r in range(R):
+            cc = counts[r]
+            pr, sy = parent_row[r, :cc].tolist(), sym[r, :cc].tolist()
+            if trackers:
+                trackers[r].advance(
+                    depth, paths[r],
+                    [(u, c, act[r, j]) for j, (u, c) in enumerate(zip(pr, sy))])
+            paths[r] = [paths[r][u] + EXT_CHARS[c:c + 1]
+                        for u, c in zip(pr, sy)]
+        state = (res["lo"], res["hi"], res["rlo"], res["valid"])
+        # shrink toward the live width to keep deep narrow levels cheap
+        want = max(MIN_CAP, _next_pow2(cmax))
+        if want < cap_now:
+            state = _resize(state, want)
+        depth += 1
+        host_s += time.perf_counter() - t1
+    if profile is not None:
+        profile.update(levels=levels, regrows=regrows, level_s=step_s,
+                       host_s=host_s)
+    out.sort_postorder()
+    return out
+
+
+def _mine_level_gnu(indexes, cfg: MiningConfig, prefix: bytes, device,
+                    dev: DeviceIndexes | None, cap: int,
+                    profile: dict | None) -> MinedOutput:
+    """mine_tpu's reader_order='level-gnu': the per-level loop on one device,
+    its host emission driving the per-level GnuOrderTracker (the
+    differential oracle of the episode's lazy gnu reconstruction)."""
+    from .gnuorder import GnuOrderTracker
+
+    if dev is None:
+        dev = DeviceIndexes.build(indexes, device)
+    tracker = GnuOrderTracker(dev.S, server_prefix_len=max(1, len(prefix)))
+    return mine_levels(cfg, dev.S, [(dev.frows, dev.rrows, dev.soff, 0)],
+                       dev.ns, np.ones((1, 0, 4), dtype=bool), prefix,
+                       [tracker], cap, dev.device, profile=profile)
+
+
 def mine_torch(indexes: list[FMIndex], cfg: MiningConfig,
                prefix: bytes = b"", reader_order: str = "ascending",
                device="cuda", dev: DeviceIndexes | None = None,
                tail_width: int = TAIL_WIDTH, out_reserve: int = OUT_RESERVE,
                profile: dict | None = None, checkpoint: str | None = None,
-               halt=None) -> MinedOutput:
-    """Mine the cross-sample union trie on `device` with the
-    device-resident episode (mining/engine_device.mine_device, which
+               halt=None, cap: int = MIN_CAP) -> MinedOutput:
+    """Mine the cross-sample union trie on `device`.  Same semantics and
+    output as dsm_tpu's mine_tpu and engine_np.mine_np.  reader_order
+    'ascending', or 'gnu' for the reference's byte-exact reader order, runs
+    the device-resident episode (mining/engine_device.mine_device, which
     documents the arguments, among them the snapshot file `checkpoint` and
-    the steering callback `halt`).  Same semantics and output as dsm_tpu's
-    mine_tpu and engine_np.mine_np: reader_order 'ascending', or 'gnu' for
-    the reference's byte-exact reader order."""
+    the steering callback `halt`).  'level-gnu' runs the per-level loop
+    (`mine_levels`, kernels K12 and K13 a level, starting at capacity
+    `cap`), whose host emission drives the per-level gnu order tracker: the
+    same bytes as 'gnu'; it takes no `checkpoint` and no `halt`, and
+    `profile` receives its levels, regrows and seconds."""
+    if reader_order == "level-gnu":
+        cfg.validate()
+        if checkpoint is not None:
+            raise ValueError("checkpointing requires reader_order="
+                             "'ascending' or 'gnu' (the episode engine); the "
+                             "legacy 'level-gnu' per-level loop has no "
+                             "checkpoints")
+        if halt is not None:
+            raise ValueError("halt requires reader_order='ascending' or "
+                             "'gnu' (the episode engine)")
+        return _mine_level_gnu(indexes, cfg, prefix,
+                               None if dev else resolve_device(device), dev,
+                               cap, profile)
     from .engine_device import mine_device
 
     return mine_device(indexes, cfg, prefix=prefix, dev=dev,

@@ -115,8 +115,9 @@ class NativeTrieParser:
     def pending(self) -> int:
         return len(self._tail)
 
-    def feed(self, data: bytes, max_events: int | None = None):
-        """-> list of events: (OPEN, sym_byte) | (CLOSE, freq, leftchar)."""
+    def _parse(self, data: bytes, max_events: int | None):
+        """Parse the held tail and `data` -> (types, syms, freqs) of the
+        events, the unparsed bytes kept for the next call."""
         buf = self._tail + data
         cap = max(len(buf), 16)
         if max_events is not None:
@@ -132,13 +133,25 @@ class NativeTrieParser:
         if self._st.err:
             raise StreamError(self._st.errmsg.decode())
         self._tail = buf[consumed.value:]
+        return types[:nev], syms[:nev], freqs[:nev]
+
+    def feed(self, data: bytes, max_events: int | None = None):
+        """-> list of events: (OPEN, sym_byte) | (CLOSE, freq, leftchar)."""
+        types, syms, freqs = self._parse(data, max_events)
         events = []
-        for i in range(nev):
+        for i in range(types.shape[0]):
             if types[i] == 0:
                 events.append((OPEN, int(syms[i])))
             else:
                 events.append((CLOSE, int(freqs[i]), int(syms[i])))
         return events
+
+    def feed_arrays(self, data: bytes):
+        """The events of `feed` as arrays, with no Python loop: -> (types
+        uint8 (0 open, 1 close), syms uint8 (the symbol of an open, the
+        leftChar of a close), freqs uint64 (a close's frequency))."""
+        types, syms, freqs = self._parse(data, None)
+        return types.copy(), syms.copy(), freqs.copy()
 
 
 def native_encode(types: np.ndarray, syms: np.ndarray, freqs: np.ndarray,

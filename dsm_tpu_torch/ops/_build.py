@@ -17,12 +17,16 @@ counts launches of the rank kernel by any of its four entries,
 `occ_cum8`, `expand` and `expand_tables` (a level's expand step over one
 table or over a process's shard tables) and `leftchar` (a drain's
 leftChar codes, mining/engine.leftchar_rows).  The key
-`compact` counts launches of the compaction kernel by either of its
-entries, `compact_rows` and the emit's `stage_rows`: the mine and sharded
-paths reach it through the emit.  `PATHS` names
-the kernels each entry point runs: `dsm_tpu_torch build` (the suffix
-array), `mine`, `mine --engine sharded-episode`, `distance --fast`, and
-the repro tool (`dsm_tpu_torch.tools.pallas_repro`).
+`compact` counts launches of the compaction kernel by its entries
+`compact_rows` and the emit's `stage_rows`: the mine and sharded paths
+reach it through the emit; its third entry, `compact_kidx`, has a key of
+its own.  `PATHS` names the kernels each entry point runs: `dsm_tpu_torch
+build` (the suffix array), `mine`, `mine --engine sharded-episode`, the
+per-level engines (`mine_torch(reader_order="level-gnu")` and `mine
+--engine sharded`: `level_expand` in rank.cu and `level_compact`),
+`distance --fast`, the repro tool (`dsm_tpu_torch.tools.pallas_repro`) and
+the API ops that no engine calls (`ops/compact.compact_kidx`,
+`ops/rank.occ_batch`).
 """
 
 from __future__ import annotations
@@ -47,8 +51,10 @@ PATHS = {
     "mine": ("rank", "compact", "segstats", "children", "decode"),
     "mine_sharded": ("rank", "compact", "shard_partials", "node_gates",
                      "children_ids", "gather_pack", "decode"),
+    "mine_level": ("level_expand", "level_compact"),
     "distance": ("distance",),
     "repro": ("repro_carry", "repro_async", "repro_dynstore"),
+    "ops": ("compact_kidx", "occ_batch"),
 }
 LAUNCHES = {k: 0 for keys in PATHS.values() for k in keys}
 
@@ -94,6 +100,18 @@ _SIGNATURES = {
     "dsm_gather_pack": [_P, _I, _I, _I, _P, _P, _P],
     # orows, n, shards (a host table), nshards, codes, stream
     "dsm_leftchar": [_P, _I64, _P, _I, _P, _P],
+    # tables (a host table), ntables, lo, hi, rlo, valid, nodes, S, fmin,
+    # clo, chi, crlo, cact, freq, lc, sums, stream
+    "dsm_level_expand": [_P, _I, _P, _P, _P, _P, _I64, _I, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _P],
+    # sums, sym_mask, clo, chi, crlo, cact, R, cap, S, lo, hi, rlo, valid,
+    # parent_row, sym, child_count, single_full, scratch, stream
+    "dsm_level_compact": [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P],
+    # mask, n, out, width, scratch, count, stream
+    "dsm_compact_kidx": [_P, _I64, _P, _I64, _P, _P, _P],
+    # blocks, occ, sigma, syms, pos, out, q, stream
+    "dsm_occ_batch": [_P, _P, _I, _P, _P, _P, _I64, _P],
     # hist, lvl_off, rows, jrel, m, maxj, base, syms, stream
     "dsm_decode": [_P, _P, _P, _P, _I64, _I, _P, _P, _P],
     # F, f_is64, bins, nfactor, R, d, nbins, slices, counts, order, count,

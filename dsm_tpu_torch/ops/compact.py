@@ -16,10 +16,18 @@ readback).
 (hi - lo, rlo, sid, nid, depth) rows of the marked pairs, in order.  On
 the card it is a second entry of the same one-pass kernel that makes each
 row from its pair row as it copies it, so no (P, 5) matrix is built.
+
+`compact_kidx` (kernel K14) is dsm_tpu/ops/compact.py `compact_kidx` and
+`compact_kidx_sort` (:33, :88), two implementations of one function there
+(a select over packed words, and a sort): the indices of a mask's set
+entries, in order, in front of a (width,) int32 output, and the count.
+Here both names are the third entry of the same kernel, and
+`compact_kidx_np` is the port's copy of the NumPy oracle.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -133,3 +141,58 @@ def stage_rows(pair_out: torch.Tensor, pairs: torch.Tensor, depth: int,
         raise ValueError("stage_rows: pairs must be (P, 6) pair rows")
     return _launch("dsm_stage_rows", pair_out, pairs, depth, STAGE_COLS,
                    width, out)
+
+
+def compact_kidx_np(mask: np.ndarray, width: int):
+    """NumPy oracle for compact_kidx (exact on the first `count` slots)."""
+    idx = np.flatnonzero(mask)
+    out = np.zeros(width, dtype=np.int32)
+    k = min(len(idx), width)
+    out[:k] = idx[:k]
+    return out, len(idx)
+
+
+def compact_kidx_plain(mask: torch.Tensor, width: int):
+    """Plain PyTorch version of the index entry (any device)."""
+    idx = torch.nonzero(mask, as_tuple=True)[0][:width]
+    out = torch.zeros(width, dtype=torch.int32, device=mask.device)
+    out[:idx.shape[0]] = idx.to(torch.int32)
+    return out, mask.sum(dtype=torch.int64)
+
+
+def compact_kidx(mask: torch.Tensor, width: int):
+    """Indices of the set entries of `mask`, compacted to the front ->
+    (kidx (width,) int32, count): kidx[j] is the index of the j-th set
+    entry for j < count, and 0 past it (dsm_tpu leaves in-range garbage
+    there); count is the number of set entries, whatever width is, a 0-dim
+    int64 tensor on the mask's device.  mask: (N,) bool contiguous, any N
+    (dsm_tpu's select form wants a multiple of 32); width <= N.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    n = mask.shape[0]
+    if not 0 <= width <= n:
+        raise ValueError(f"compact_kidx: width {width} is not in [0, {n}]")
+    refuse_past("compact_kidx", "rows", n, MAX_COMPACT_ROWS,
+                "32-bit look-back totals")
+    if mask.device.type == "cpu":
+        return compact_kidx_plain(mask, width)
+    if mask.device.type != "cuda":
+        raise ValueError(f"compact_kidx: unsupported device {mask.device}")
+    if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
+        raise ValueError("compact_kidx: mask must be contiguous (N,) bool")
+    device = mask.device
+    out = torch.empty(width, dtype=torch.int32, device=device)
+    if n == 0:
+        return out, torch.zeros((), dtype=torch.int64, device=device)
+    count = torch.empty((), dtype=torch.int64, device=device)
+    scratch = torch.empty(-(-n // TILE_ROWS) + 1, dtype=torch.int64,
+                          device=device)
+    _build.launch("dsm_compact_kidx", "compact_kidx", device, mask.data_ptr(),
+                  n, out.data_ptr(), width, scratch.data_ptr(),
+                  count.data_ptr())
+    return out, count
+
+
+def compact_kidx_sort(mask: torch.Tensor, width: int):
+    """dsm_tpu's sort form of compact_kidx: the same function, here the
+    same kernel."""
+    return compact_kidx(mask, width)

@@ -42,6 +42,14 @@ mining/engine.leftchar_rows):
   * `expand_tables(tables, pairs, fmin, sym_mask)`: the same over the
     tables of a process's shards (the sharded level's one pair list), each
     pair ranked in the table its sample id falls in, also in one launch.
+
+`occ_cum(rows, blk, rem)` is dsm_tpu's `occ_cum` (:158), the (..., 5)
+cumulative counts at table row `blk` and offset `rem`: the `occ_cum8`
+entry with `blk` as the row offset, no kernel of its own.  The per-level
+engines' dense expand (K12) is a fifth kernel of csrc/rank.cu, wrapped in
+ops/level.py.  `occ_batch(blocks, occ, syms, pos)` (K15, csrc/occbatch.cu)
+is dsm_tpu's `occ_batch` (:270): the rank of one symbol a query on the raw
+int8 BWT blocks and the occ table, as `occ_prefix_np` counts it.
 """
 
 from __future__ import annotations
@@ -106,7 +114,12 @@ def occ_prefix_np(table: OccTable, syms: np.ndarray, pos: np.ndarray) -> np.ndar
     pos = np.atleast_1d(np.asarray(pos, dtype=np.int64))
     b, r = pos >> LOG2_BLOCK, pos & (BLOCK - 1)
     base = table.occ[b, syms].astype(np.int64)
-    rows = table.blocks[b]  # (Q, BLOCK)
+    if table.blocks.shape[0] == 0:
+        return base
+    # pos = n with n a multiple of BLOCK points past the last block, with
+    # r = 0: that block's row is read and counts nothing (dsm_tpu's copy
+    # indexes past the blocks there and raises)
+    rows = table.blocks[np.minimum(b, table.blocks.shape[0] - 1)]
     lane = np.arange(BLOCK, dtype=np.int64)
     inblock = ((rows == syms[:, None]) & (lane[None, :] < r[:, None])).sum(axis=1)
     return base + inblock
@@ -261,6 +274,85 @@ def occ_cum8(rows: torch.Tensor, pos: torch.Tensor,
     _build.launch("dsm_occ_cum8", "rank", rows.device, rows.data_ptr(),
                   pos.data_ptr(), pos.stride(0), soff.data_ptr(),
                   soff.stride(0), out.data_ptr(), q)
+    return out
+
+
+def _cum5(o8: torch.Tensor) -> torch.Tensor:
+    """(8, Q) rank rows -> (Q, 5) cum(1..5): rows 4, 5, 6 are cum 1..3,
+    row 7 cum 5, and cum 4 is cum 3 plus row 2 (mod 2^32, as the tables'
+    baked C4 wraps)."""
+    c4 = _wrap32(o8[6].to(torch.int64) + o8[2].to(torch.int64))
+    return torch.stack([o8[4], o8[5], o8[6], c4, o8[7]], dim=-1)
+
+
+def occ_cum_plain(rows: torch.Tensor, blk: torch.Tensor,
+                  rem: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of occ_cum (any device)."""
+    b, r = blk.reshape(-1), rem.reshape(-1)
+    return _cum5(occ_cum8_plain(rows, r, b)).reshape(*blk.shape, 5)
+
+
+def occ_cum(rows: torch.Tensor, blk: torch.Tensor,
+            rem: torch.Tensor) -> torch.Tensor:
+    """(..., 5) int32 cum(j, pos) for j = 1..5 at pos = blk * BLOCK + rem:
+    rows (R, ROWW) int32 contiguous (several tables stacked: the caller
+    adds a table's row offset to `blk`); blk (...,) int32 table rows; rem
+    (...,) int32 in [0, BLOCK).  CPU tensors take the plain version; CUDA
+    tensors launch the rank kernel's `occ_cum8` entry, one launch."""
+    if rows.device.type == "cpu":
+        return occ_cum_plain(rows, blk, rem)
+    b = blk.reshape(-1).to(torch.int32)
+    r = rem.reshape(-1).to(torch.int32)
+    return _cum5(occ_cum8(rows, r, b)).reshape(*blk.shape, 5)
+
+
+def occ_batch_plain(blocks: torch.Tensor, occ: torch.Tensor,
+                    syms: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of occ_batch (any device)."""
+    p = pos.to(torch.int64)
+    s = syms.to(torch.int64)
+    b, r = p >> LOG2_BLOCK, p & (BLOCK - 1)
+    base = occ[b, s]
+    if blocks.shape[0] == 0:
+        return base.to(torch.int32)
+    # pos = n at a block boundary points past the last block, with r = 0
+    rows = blocks[b.clamp(max=blocks.shape[0] - 1)].to(torch.int64)
+    lane = torch.arange(BLOCK, device=blocks.device)
+    match = (rows == s[:, None]) & (lane[None, :] < r[:, None])
+    return (base + match.sum(dim=1)).to(torch.int32)
+
+
+def occ_batch(blocks: torch.Tensor, occ: torch.Tensor, syms: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    """(Q,) int32: the count of syms[i] in L[: pos[i]] from the raw blocks
+    (nblocks, BLOCK) int8 and the occ table (nblocks + 1, SIGMA) int32 of
+    an `OccTable`; syms, pos (Q,) integers, 0 <= pos <= n.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (K15): blocks and occ
+    contiguous, syms and pos made int32 contiguous where they are not."""
+    if blocks.device.type == "cpu":
+        return occ_batch_plain(blocks, occ, syms, pos)
+    device = blocks.device
+    if device.type != "cuda":
+        raise ValueError(f"occ_batch: unsupported device {device}")
+    if (blocks.dtype != torch.int8 or blocks.dim() != 2
+            or blocks.shape[1] != BLOCK or not blocks.is_contiguous()
+            or blocks.data_ptr() % 4):
+        raise ValueError(f"occ_batch: blocks must be contiguous, 4-byte "
+                         f"aligned (nb, {BLOCK}) int8")
+    if (occ.dtype != torch.int32 or occ.dim() != 2
+            or occ.shape[0] != blocks.shape[0] + 1 or not occ.is_contiguous()
+            or occ.device != device):
+        raise ValueError("occ_batch: occ must be contiguous (nb + 1, sigma) "
+                         f"int32 on {device}")
+    if syms.shape != pos.shape or syms.dim() != 1:
+        raise ValueError("occ_batch: syms and pos must be (Q,) alike")
+    syms = syms.to(device=device, dtype=torch.int32).contiguous()
+    pos = pos.to(device=device, dtype=torch.int32).contiguous()
+    out = torch.empty(pos.shape[0], dtype=torch.int32, device=device)
+    if pos.shape[0]:
+        _build.launch("dsm_occ_batch", "occ_batch", device, blocks.data_ptr(),
+                      occ.data_ptr(), occ.shape[1], syms.data_ptr(),
+                      pos.data_ptr(), out.data_ptr(), pos.shape[0])
     return out
 
 

@@ -22,6 +22,14 @@ card) is held against the single-device one.  Prefix ownership
 modes mine on the card as the host engine and the single-device episode
 do, and so do the four prefix runs over one shared upload (bench.py's
 topology for large tries) and a prefix run that pulls its history.
+The per-level engines' kernels (K12, the dense expand, and K13, the
+analyse-and-compact) are held against their plain versions at every level
+of dense mines of 1, 5, 273 and 512 samples over 1 to 3 tables with 1, 4
+and 16 prefix rows (an enforced prefix leaves rows empty; a small first
+capacity overflows), and on levels with no valid row or no active cell;
+`compact_kidx` (K14) and `occ_batch` (K15) against theirs;
+`mine_sharded` and `mine_torch(reader_order="level-gnu")` on the card (and
+`mine_sharded` in a one-rank NCCL group) against the CPU.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
 version sums with index_add_, whose order on the card may differ), the
 fixed-point entropy sums of the partial rows (each term truncated from a
@@ -1441,3 +1449,221 @@ def test_128_shard_drain_is_two_launches(cuda, monkeypatch):
     for (_n, rows, codes, _lc), (got_rows, got_codes) in zip(drains, kept):
         assert torch.equal(got_rows, rows)
         assert torch.equal(got_codes, codes)
+
+
+# ------------------------------------- the per-level engines (K12-K15) --
+
+def _level_tables(idxs, parts, device):
+    """The samples in `parts` consecutive tables -> (tables, ns)."""
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+
+    bounds = [k * len(idxs) // parts for k in range(parts + 1)]
+    tables = []
+    for k in range(parts):
+        dev = DeviceIndexes.build(idxs[bounds[k]:bounds[k + 1]], device)
+        tables.append((dev.frows, dev.rrows, dev.soff, bounds[k]))
+    return tables, np.array([i.n for i in idxs])
+
+
+def _walk_levels(tables, ns, rows, prefix, fmin, maxdepth, cap, device):
+    """The dense level loop with K12 and K13 on the card, each held against
+    its plain version on the same inputs at every level (every output, the
+    rows past the count included); -> (levels, regrows)."""
+    from dsm_tpu_torch.mining.engine import (MIN_CAP, _next_pow2, _resize,
+                                             _seed_state)
+    from dsm_tpu_torch.ops import level as L
+    from dsm_tpu_torch.parallel.mesh import row_prefix_masks
+
+    masks = row_prefix_masks(rows)
+    R = masks.shape[0]
+    state = _seed_state(ns, R, cap, device)
+    depth = levels = regrows = 0
+    while True:
+        mask = np.zeros((R, 4), bool) if depth >= maxdepth else \
+            np.ones((R, 4), bool)
+        if depth < min(masks.shape[1], maxdepth):
+            mask &= masks[:, depth]
+        if depth < min(len(prefix), maxdepth):
+            mask &= np.eye(4, dtype=bool)[b"ACGT".index(prefix[depth])]
+        sm = torch.from_numpy(mask).to(device)
+        e0, c0 = _build.LAUNCHES["level_expand"], _build.LAUNCHES[
+            "level_compact"]
+        core = L.expand_level(tables, *state, fmin)
+        res = L.compact_level(core, core["sums"], sm)
+        assert (_build.LAUNCHES["level_expand"] - e0,
+                _build.LAUNCHES["level_compact"] - c0) == (1, 1)
+        want = L.expand_level_plain(tables, *state, fmin)
+        for k in ("clo", "chi", "crlo", "cactive", "freq", "lc", "sums"):
+            assert torch.equal(core[k], want[k]), (depth, k)
+        exp = L.compact_level_plain(want, want["sums"], sm)
+        for k in exp:
+            assert torch.equal(res[k], exp[k]), (depth, k)
+        levels += 1
+        counts = res["child_count"].tolist()
+        cap_now, cmax = state[0].shape[1], max(counts)
+        if cmax > cap_now:
+            regrows += 1
+            state = _resize(state, _next_pow2(cmax))
+            continue
+        if cmax == 0:
+            return levels, regrows
+        state = (res["lo"], res["hi"], res["rlo"], res["valid"])
+        want_cap = max(MIN_CAP, _next_pow2(cmax))
+        if want_cap < cap_now:
+            state = _resize(state, want_cap)
+        depth += 1
+
+
+@pytest.mark.parametrize("S,parts,rows,prefix,maxdepth,cap", [
+    (1, 1, 1, b"", 12, 1024), (5, 1, 1, b"", 12, 2),
+    (5, 2, 4, b"A", 10, 16), (5, 3, 16, b"", 8, 1024),
+    (273, 2, 4, b"", 5, 64), (512, 3, 16, b"G", 4, 1024),
+    (512, 1, 1, b"", 3, 1024)])
+def test_level_kernels(cuda, toy_indexes, S, parts, rows, prefix, maxdepth,
+                       cap):
+    """K12 and K13 at every level of a dense mine: S = 1 and 5 (toydata),
+    273 and 512 (pools), R = 1, 4 and 16 prefix rows (rows that hold
+    nothing: the enforced prefix empties three of four), 1-3 tables, and a
+    first capacity that overflows."""
+    idxs = toy_indexes[:S] if S <= 5 else _pool(S)[0]
+    tables, ns = _level_tables(idxs, parts, cuda)
+    levels, regrows = _walk_levels(tables, ns, rows, prefix, 2, maxdepth,
+                                   cap, cuda)
+    assert levels > 2
+    if cap < 64:
+        assert regrows > 0
+
+
+def test_level_kernels_all_inactive(cuda, toy_indexes):
+    """A level with no valid row and one whose cells are all empty: the
+    kernels write dsm_tpu's zeros, the codes 0 and no child."""
+    from dsm_tpu_torch.ops import level as L
+
+    tables, _ns = _level_tables(toy_indexes, 2, cuda)
+    R, CAP, S = 4, 3000, 5
+    g = torch.Generator(device="cpu").manual_seed(3)
+    lo = torch.randint(0, 1000, (R, CAP, S), generator=g,
+                       dtype=torch.int32).to(cuda)
+    for valid, hi in ((torch.zeros((R, CAP), dtype=torch.bool, device=cuda),
+                       lo + 5),
+                      (torch.ones((R, CAP), dtype=torch.bool, device=cuda),
+                       lo.clone())):
+        rlo = lo.clone()
+        core = L.expand_level(tables, lo, hi, rlo, valid, 1)
+        want = L.expand_level_plain(tables, lo, hi, rlo, valid, 1)
+        for k in ("clo", "chi", "crlo", "cactive", "freq", "lc", "sums"):
+            assert torch.equal(core[k], want[k]), k
+        assert not core["cactive"].any() and not core["sums"].any()
+        sm = torch.ones((R, 4), dtype=torch.bool, device=cuda)
+        res = L.compact_level(core, core["sums"], sm)
+        exp = L.compact_level_plain(want, want["sums"], sm)
+        for k in exp:
+            assert torch.equal(res[k], exp[k]), k
+        assert res["child_count"].tolist() == [0] * R
+
+
+@pytest.mark.parametrize("n", [1, 31, 4096, 4097, (1 << 20) + 7])
+@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
+def test_compact_kidx_kernel(cuda, n, frac):
+    from dsm_tpu_torch.ops.compact import (compact_kidx, compact_kidx_plain,
+                                           compact_kidx_sort)
+
+    g = torch.Generator(device="cpu").manual_seed(n)
+    mask = (torch.rand(n, generator=g) < frac).to(cuda)
+    k = int(mask.sum())
+    for width in sorted({0, max(k - 3, 0), k, n}):
+        before = _build.LAUNCHES["compact_kidx"]
+        got, count = compact_kidx(mask, width)
+        assert _build.LAUNCHES["compact_kidx"] == before + 1
+        want, wcount = compact_kidx_plain(mask, width)
+        assert int(count) == int(wcount) == k
+        assert torch.equal(got, want)
+        assert torch.equal(compact_kidx_sort(mask, width)[0], want)
+
+
+@pytest.mark.parametrize("q", [1, 33, 100_003])
+def test_occ_batch_kernel(cuda, toy_indexes, q):
+    from dsm_tpu_torch.ops.rank import occ_batch, occ_batch_plain
+
+    t = toy_indexes[0].table
+    blocks = torch.as_tensor(t.blocks, device=cuda)
+    occ = torch.as_tensor(t.occ, device=cuda)
+    rng = np.random.default_rng(q)
+    pos = rng.integers(0, t.n + 1, size=q).astype(np.int32)
+    pos[:min(q, 3)] = [0, t.n, (t.n // 128) * 128][:min(q, 3)]
+    syms = rng.integers(0, 8, size=q).astype(np.int32)
+    args = (torch.as_tensor(syms, device=cuda),
+            torch.as_tensor(pos, device=cuda))
+    before = _build.LAUNCHES["occ_batch"]
+    got = occ_batch(blocks, occ, *args)
+    assert _build.LAUNCHES["occ_batch"] == before + 1
+    assert torch.equal(got, occ_batch_plain(blocks, occ, *args))
+
+
+def test_occ_cum_on_card(cuda, toy_indexes):
+    from dsm_tpu_torch.mining.engine import DeviceIndexes
+    from dsm_tpu_torch.ops.rank import occ_cum, occ_cum_plain
+
+    dev = DeviceIndexes.build(toy_indexes, cuda)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    blk = torch.randint(0, dev.frows.shape[0], (7, 1001), generator=g,
+                        dtype=torch.int32).to(cuda)
+    rem = torch.randint(0, 128, (7, 1001), generator=g,
+                        dtype=torch.int32).to(cuda)
+    got = occ_cum(dev.frows, blk, rem)
+    assert got.shape == (7, 1001, 5)
+    assert torch.equal(got, occ_cum_plain(dev.frows, blk, rem))
+
+
+@pytest.mark.parametrize("order", ["ascending", "gnu"])
+def test_level_engines_on_card_equal_cpu(cuda, toy_indexes, order):
+    """mine_sharded at (4, 2) and (3, 2) and, in gnu order,
+    mine_torch(reader_order='level-gnu') on the card against the episode
+    on the CPU; each level one launch of K12 and of K13."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+    from dsm_tpu_torch.parallel.engine_sharded import mine_sharded
+    from dsm_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = MiningConfig(fmin=2, emax=1.2, maxdepth=10)
+    want = mine_torch(toy_indexes, cfg, reader_order=order, device="cpu")
+    runs = [lambda p: mine_sharded(toy_indexes, cfg, mesh=make_mesh(
+        *shape, device=cuda), reader_order=order, cap=64, profile=p)
+        for shape in ((4, 2), (3, 2))]
+    if order == "gnu":
+        runs.append(lambda p: mine_torch(toy_indexes, cfg,
+                                         reader_order="level-gnu",
+                                         device=cuda, profile=p))
+    for run in runs:
+        _build.reset_launches()
+        prof = {}
+        got = run(prof)
+        assert got.format_lines() == want.format_lines()
+        assert got.total_paths == want.total_paths
+        assert _build.LAUNCHES["level_expand"] == prof["levels"]
+        assert _build.LAUNCHES["level_compact"] == prof["levels"]
+
+
+def test_mine_sharded_in_a_nccl_group(cuda, toy_indexes, tmp_path):
+    """mine_sharded at (4, 2) inside a one-rank NCCL group: the level's
+    all-reduce of the per-node sums and the emission's all-gathers on the
+    card, against the CPU's run without a group."""
+    import torch.distributed as dist
+
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.parallel.engine_sharded import mine_sharded
+    from dsm_tpu_torch.parallel.mesh import make_mesh
+    from dsm_tpu_torch.parallel.multihost import initialize
+
+    cfg = MiningConfig(fmin=2, emax=1.2, maxdepth=10)
+    want = mine_sharded(toy_indexes, cfg, mesh=make_mesh(4, 2, device="cpu"),
+                        reader_order="gnu", device="cpu")
+    initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(4, 2, device=cuda)
+        assert mesh.samples.group is not None
+        got = mine_sharded(toy_indexes, cfg, mesh=mesh, reader_order="gnu")
+    finally:
+        dist.destroy_process_group()
+    assert got.format_lines() == want.format_lines()
+    assert got.total_paths == want.total_paths

@@ -47,6 +47,7 @@ Everything runs on the CPU with the kernels' plain versions.
 
 import functools
 import glob
+import gzip
 import os
 import shutil
 import subprocess
@@ -938,22 +939,58 @@ def test_two_gloo_processes(indexes, tmp_path):
 
 # ------------------------------------------------------------ (e) the CLI --
 
+def test_cli_mine_sharded_matches_golden(indexes, tmp_path, monkeypatch,
+                                         capsysbinary):
+    """`mine --engine sharded --reader-order gnu --prefix A` with
+    DSM_SHARDS=8 (a (4, 2) mesh, as `dsm mine --engine sharded` takes on
+    eight devices) prints the reference server's frozen output for A."""
+    paths = []
+    for i, idx in enumerate(indexes):
+        paths.append(str(tmp_path / f"toy{i}.dsmi"))
+        idx.save(paths[-1])
+    monkeypatch.setenv("DSM_SHARDS", "8")
+    assert port_main(["mine", "--engine", "sharded", "--reader-order", "gnu",
+                      "-f", "2", "-E", "1.2", "--prefix", "A", "--device",
+                      "cpu", *paths]) == 0
+    with gzip.open(os.path.join(HERE, "golden",
+                                "server-output.default.A.txt.gz")) as f:
+        assert capsysbinary.readouterr().out == f.read()
+
+
 @pytest.mark.parametrize("engine", ["sharded-episode", "sharded"])
 def test_cli_mine_sharded(indexes, tmp_path, monkeypatch, capsysbinary,
                           engine):
     """`mine --engine sharded-episode --device cpu` with DSM_SHARDS=2
     prints what `dsm mine` prints, with --checkpoint from scratch and from
-    a snapshot left by an aborted dsm_tpu run of the same mine."""
+    a snapshot left by an aborted dsm_tpu run of the same mine.  `mine
+    --engine sharded` with DSM_SHARDS=2 runs the per-level mesh engine
+    (`mine_sharded` on default_mesh_shape(2) = a (2, 1) mesh), prints what
+    `dsm mine --engine sharded` prints and, as that does, takes no
+    snapshot: --checkpoint leaves no file."""
     paths = []
     for i, idx in enumerate(indexes):
         paths.append(str(tmp_path / f"toy{i}.dsmi"))
         idx.save(paths[-1])
     args = ["mine", "-f", "2", "-E", "1.2", "-M", "9", *paths]
+    if engine == "sharded":
+        args += ["--engine", "sharded"]
     assert dsm_main(args) == 0
     want = capsysbinary.readouterr().out
     assert want
     ck = tmp_path / "cli.ckpt"
     monkeypatch.setenv("DSM_SHARDS", "2")
+    if engine == "sharded":
+        from dsm_tpu_torch.parallel import engine_sharded as pes
+
+        meshes = []
+        orig = pes.make_mesh
+        monkeypatch.setattr(pes, "make_mesh", lambda *a, **k: (
+            meshes.append(a), orig(*a, **k))[1])
+        assert port_main([*args, "--device", "cpu", "--checkpoint",
+                          str(ck)]) == 0
+        assert capsysbinary.readouterr().out == want
+        assert meshes == [(2, 1)] and not ck.exists()
+        return
     seen = []
     orig = tee.global_samples_mesh
     monkeypatch.setattr(tee, "global_samples_mesh",
