@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-and, for timings alone (see `level_times`, `variant_times`, `drain_times`
-and `expand_times`),
+and, for timings alone (see `level_times`, `variant_times`, `drain_times`,
+`expand_times`, `dense_level_times` and `level_variant_times`),
 
     python3 -c 'import torch, chip_smoke as c; c.level_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.variant_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.drain_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.expand_times(torch, torch.device("cuda", 0))'
+    python3 -c 'import torch, chip_smoke as c; c.dense_level_times(torch, torch.device("cuda", 0))'
+    python3 -c 'import torch, chip_smoke as c; c.level_variant_times(torch, torch.device("cuda", 0))'
 
 and phase 17 alone (see `levels_alone`),
 
@@ -206,7 +208,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      level of the level-gnu run (one row, one table) and of the sharded
      run with four prefix rows (scale 100's (4, 2): 2 tables; D512's
      (4, 128): 128 tables) of each set (D512's level-gnu: depth 6, 4,096
-     nodes x 512 samples), each entry with its own run's launches; K14
+     nodes x 512 samples), each entry with its own run's launches and
+     also timed by events around calls queued behind a spin kernel
+     (`queued_ms`: device time without the wrapper's host time), the runs
+     passing the tables prepared once (`LevelTables`); K14
      (`compact_kidx`, csrc/compact.cu) at N = LEVEL_KIDX_N with 30% set,
      also below the count, beside `torch.nonzero`, and K15 (`occ_batch`,
      csrc/occbatch.cu) at LEVEL_OCC_Q queries on toy0's blocks, each first
@@ -547,6 +552,30 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def queued_ms(torch, fn, reps: int = 40) -> float:
+    """Device time a call of fn without its host time: CUDA events around
+    `reps` calls queued behind a spin kernel (torch.cuda._sleep) that keeps
+    the card busy while the host enqueues them, so that they run back to
+    back; in ms."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / reps
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    # spin ~2x the host's enqueue time (cycles at ~1.98 GHz)
+    torch.cuda._sleep(int(2 * host * reps * 1.98e9))
     a.record()
     for _ in range(reps):
         fn()
@@ -4310,7 +4339,9 @@ def table_rows(torch, tables, pos_a, pos_b, mask, S: int) -> int:
 
 def level_kernel_cases(torch, level, label: str) -> list[dict]:
     """K12 and K13 on a recorded level against their plain versions (every
-    output equal), timed by events and device time; -> their entries."""
+    output equal), timed by events, by the profiler's device time and by
+    events around calls queued behind a spin kernel (`queued_ms`); -> their
+    entries."""
     from dsm_tpu_torch.ops import level as L
 
     tables, state, fmin, sym_mask = level
@@ -4327,45 +4358,245 @@ def level_kernel_cases(torch, level, label: str) -> list[dict]:
     if bad:
         raise SystemExit(f"K12/K13 disagree with their plain versions at "
                          f"{label}: {bad}")
-    cells, nodes = R * CAP * S, R * CAP
-    active = (hi > lo) & valid[..., None]
-    frows = table_rows(torch, tables, lo, hi, active, S)
-    rrows = table_rows(torch, tables, rlo, rlo + (hi - lo), hi > lo, S)
-    kept = int(res["child_count"].clamp(max=CAP).sum())
-    n_active, n_lc = int(active.sum()), int((hi > lo).sum())
-    # K12: the state once, the table rows its cells touch, every output
-    # once (57 B a cell: clo, chi, crlo, cactive of 4 children, freq, lc;
-    # and the 20-byte node sums); ~50 integer operations an end
-    b12 = 12 * cells + nodes + 128 * (frows + rrows) + 57 * cells \
-        + 20 * nodes
-    # K13: the sums, the kept children's S-wide rows and activity, the next
-    # state and the row outputs written once
-    b13 = 20 * nodes + 4 * R + 13 * S * kept + 12 * cells + 10 * nodes \
-        + 4 * R
+    sizes, b12, b13 = level_bounds(torch, level, res["child_count"])
     entries = []
-    for name, fn, plain, nbytes, ops, src, rep in (
+    for name, fn, plain, b, src, rep in (
             ("level_expand",
              lambda: L.expand_level(tables, *state, fmin),
              lambda: L.expand_level_plain(tables, *state, fmin), b12,
-             100 * (2 * n_active + 2 * n_lc), "dsm_tpu_torch/csrc/rank.cu",
-             "dsm_tpu/mining/engine.py:286"),
+             "dsm_tpu_torch/csrc/rank.cu", "dsm_tpu/mining/engine.py:286"),
             ("level_compact",
              lambda: L.compact_level(core, core["sums"], sym_mask),
              lambda: L.compact_level_plain(core, core["sums"], sym_mask),
-             b13, 20 * nodes, "dsm_tpu_torch/csrc/level.cu",
+             b13, "dsm_tpu_torch/csrc/level.cu",
              "dsm_tpu/mining/engine.py:351")):
         e = dict(name=name, route="cuda", source=src, replaces=rep,
                  max_abs_err=0, ms=cuda_ms(torch, fn),
                  device_ms=device_ms(torch, fn),
+                 queued_ms=queued_ms(torch, fn),
                  plain_ms=cuda_ms(torch, plain, reps=3),
-                 **bound(nbytes, ops), library_ms=None, case=label)
+                 **b, library_ms=None, case=label)
         entries.append(e)
         log(f"kernel {name}: {label}: R={R}, CAP={CAP:,}, S={S}, "
-            f"{n_active:,} active cells, {kept:,} children kept, table rows "
-            f"{frows:,} + {rrows:,}; equal; {e['ms']:.4f} ms (device "
-            f"{fmt_ms(e['device_ms'])}) vs plain {e['plain_ms']:.4f} ms; "
-            f"bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
+            f"{sizes['active']:,} active cells, {sizes['kept']:,} children "
+            f"kept, table rows {sizes['frows']:,} + {sizes['rrows']:,}; "
+            f"equal; {e['ms']:.4f} ms (device {fmt_ms(e['device_ms'])}, "
+            f"queued {e['queued_ms']:.4f}) vs "
+            f"plain {e['plain_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms by "
+            f"{e['bound_by']}")
     return entries
+
+
+def level_bounds(torch, level, child_count) -> tuple:
+    """The least times of K12 and K13 on a recorded level whose K13 gave
+    `child_count`: -> (its sizes, K12's bound, K13's bound)."""
+    tables, state, _fmin, _sm = level
+    tables = getattr(tables, "tables", tables)
+    lo, hi, rlo, valid = state
+    R, CAP, S = lo.shape
+    cells, nodes = R * CAP * S, R * CAP
+    active = (hi > lo) & valid[..., None]
+    sizes = dict(R=R, CAP=CAP, S=S, tables=len(tables),
+                 active=int(active.sum()), lc=int((hi > lo).sum()),
+                 kept=int(child_count.clamp(max=CAP).sum()),
+                 frows=table_rows(torch, tables, lo, hi, active, S),
+                 rrows=table_rows(torch, tables, rlo, rlo + (hi - lo),
+                                  hi > lo, S))
+    # K12: the state once, the table rows its cells touch, every output
+    # once (57 B a cell: clo, chi, crlo, cactive of 4 children, freq, lc;
+    # and the 20-byte node sums); ~50 integer operations an end
+    b12 = 12 * cells + nodes + 128 * (sizes["frows"] + sizes["rrows"]) \
+        + 57 * cells + 20 * nodes
+    # K13: the sums, the kept children's S-wide rows and activity, the next
+    # state and the row outputs written once
+    b13 = 20 * nodes + 4 * R + 13 * S * sizes["kept"] + 12 * cells \
+        + 10 * nodes + 4 * R
+    return (sizes, bound(b12, 100 * (2 * sizes["active"] + 2 * sizes["lc"])),
+            bound(b13, 20 * nodes))
+
+
+def dense_level_times(torch, device) -> None:
+    """Times, without checks but equality, K12 and K13 of the package
+    beside this file and prints one JSON line.  It records the widest level
+    (`level_run`) of four per-level runs in ascending order, which walk the
+    gnu runs' frontiers: scale 100 under LEVEL_PREFIX on one row and one
+    table (`mine_levels` as level-gnu drives it) and `mine_sharded` at
+    (4, 2) (four rows, 2 tables); D512 on one row and at (4, 128) (128
+    tables).  At each it times `expand_level` and `compact_level` with the
+    tables as a list (events: five times 20 calls; device time by the
+    profiler and by events around calls queued behind a spin kernel,
+    `queued_ms`; host time a call) and, where the package has it, `expand_level` with the tables
+    prepared once (`LevelTables`); and each run's wall, levels and
+    `level_s`.  It calls only the level functions' contract, so a copy of
+    this file in the root of another tree times that tree, and two commits
+    are compared in turns (parent, change, change, parent)."""
+    from dsm_tpu_torch.ops import level as L
+
+    phase_build()
+    res = {"tree": HERE, "smi": smi_line(), "runs": {}, "levels": {}}
+    for label, (rec, level) in dense_levels(torch, device).items():
+        res["runs"][label] = {k: rec.get(k) for k in (
+            "wall_s", "levels", "regrows", "level_s", "host_s")}
+        tables, state, fmin, sym_mask = level
+        listed = getattr(tables, "tables", tables)
+        core = L.expand_level(listed, *state, fmin)
+        out = L.compact_level(core, core["sums"], sym_mask)
+        sizes, b12, b13 = level_bounds(torch, level, out["child_count"])
+        fns = {"expand": lambda: L.expand_level(listed, *state, fmin),
+               "compact": lambda: L.compact_level(core, core["sums"],
+                                                  sym_mask)}
+        if hasattr(L, "LevelTables"):
+            prepared = L.LevelTables(listed)
+            fns["expand_prepared"] = lambda: L.expand_level(
+                prepared, *state, fmin)
+        t = dict(sizes, expand_bound_ms=b12["bound_ms"],
+                 compact_bound_ms=b13["bound_ms"])
+        for name, f in fns.items():
+            t[f"{name}_ms"] = [cuda_ms(torch, f, 20) for _ in range(5)]
+            t[f"{name}_device_ms"] = device_ms(torch, f)
+            t[f"{name}_queued_ms"] = [queued_ms(torch, f) for _ in range(3)]
+            t[f"{name}_host_ms"] = host_ms(torch, f)
+        res["levels"][label] = t
+        log(f"level times {label}: {json.dumps(t)}")
+    print(json.dumps(res), flush=True)
+
+
+# the build variants of K12 and K13 that `level_variant_times` times:
+# (source, constant, value), or (source, "cut", n): the source built with a
+# `return` (a `continue` inside K12's chunk loop) before the anchors of cut
+# n, so that the kernel stops after its first stages (its outputs then
+# wrong, its time that of those stages)
+LEVEL_VARIANTS = (("rank.cu", "cut", 1), ("rank.cu", "cut", 2),
+                  ("rank.cu", "cut", 3), ("rank.cu", "cut", 4),
+                  ("rank.cu", "kExpandBlocks", 3),
+                  ("rank.cu", "kExpandBlocks", 5),
+                  ("rank.cu", "kWideBlocks", 2), ("rank.cu", "kWideBlocks", 3),
+                  ("level.cu", "cut", 1), ("level.cu", "cut", 2),
+                  ("level.cu", "cut", 3), ("level.cu", "kBlocksPerSm", 2),
+                  ("level.cu", "kBlocksPerSm", 8))
+LEVEL_CUTS = {
+    "rank.cu": {  # node tiles: cells loaded, staged, ranked, summed;
+        #           chunks: cells loaded, ranked
+        1: ("  // ---- stage the cells and list the rank jobs",
+            "    // jobs: the forward ones (cells of mf)"),
+        2: ("  // ---- the rank jobs: a group of 8 lanes a job",),
+        3: ("  // ---- the nodes' sums: a warp's segments",
+            "    // this lane's cell out"),
+        4: ("  // ---- the staged spans out, 16 bytes a store",)},
+    "level.cu": {  # launched; the flags' phase; the grid barrier
+        1: ("  // ---- phase 1: the flags",),
+        2: ("  cg::this_grid().sync();",),
+        3: ("  // ---- phase 2: the rows",)}}
+
+
+def level_variant_times(torch, device) -> None:
+    """K12 and K13 on `dense_levels`' four recorded levels, as built and
+    with each of LEVEL_VARIANTS (its source changed, built with the other
+    sources into its own library under build/variants/): device time by
+    `queued_ms`, three times each; the variants that change a constant are
+    held against the plain versions.  K13's running state is made anew for
+    each variant (a cut one leaves it unzeroed).  Prints one JSON line."""
+    import re
+    import shutil
+
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops import level as L
+
+    phase_build()
+    levels = dense_levels(torch, device)
+    want = {}
+    for label, (_rec, (tables, state, fmin, sm)) in levels.items():
+        core = L.expand_level_plain(tables, *state, fmin)
+        want[label] = core, L.compact_level_plain(core, core["sums"], sm)
+    res = {"smi": smi_line()}
+
+    def time_build(tag: str, check: bool) -> None:
+        L._COMPACT_STATES.clear()
+        for label, (_rec, (tables, state, fmin, sm)) in levels.items():
+            core = L.expand_level(tables, *state, fmin)
+            out = L.compact_level(core, core["sums"], sm)
+            if check and not (
+                    all(torch.equal(core[k], want[label][0][k])
+                        for k in want[label][0])
+                    and all(torch.equal(out[k], want[label][1][k])
+                            for k in out)):
+                raise SystemExit(f"level_variant_times: {tag} disagrees with "
+                                 f"the plain versions on {label}")
+            res[f"{tag}, {label}"] = {
+                "K12": [queued_ms(torch, lambda: L.expand_level(
+                    tables, *state, fmin)) for _ in range(3)],
+                "K13": [queued_ms(torch, lambda: L.compact_level(
+                    core, core["sums"], sm)) for _ in range(3)]}
+
+    time_build("as built", True)
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    try:
+        for src, name, value in LEVEL_VARIANTS:
+            work = os.path.join(HERE, "build", "variants",
+                                f"{src[:-3]}_{name}{value}")
+            shutil.rmtree(work, ignore_errors=True)
+            shutil.copytree(csrc, os.path.join(work, "csrc"))
+            path = os.path.join(work, "csrc", src)
+            with open(path) as fh:
+                text = fh.read()
+            if name == "cut":
+                n = 0
+                for anchor in LEVEL_CUTS[src][value]:
+                    stop = "    continue;\n" if anchor.startswith("    ") \
+                        else "  return;\n"
+                    n += text.count(anchor)
+                    text = text.replace(anchor, stop + anchor, 1)
+            else:
+                text, n = re.subn(rf"constexpr int {name} = \d+;",
+                                  f"constexpr int {name} = {value};", text)
+            if n != (len(LEVEL_CUTS[src][value]) if name == "cut" else 1):
+                raise SystemExit(f"level_variant_times: {src} has no "
+                                 f"{name} {value}")
+            with open(path, "w") as fh:
+                fh.write(text)
+            _build.CSRC = Path(work) / "csrc"
+            _build.BUILD_DIR, _build._lib = Path(work), None
+            _build.lib()
+            time_build(f"{src} {name} {value}", name != "cut")
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
+        L._COMPACT_STATES.clear()
+    print(json.dumps(res), flush=True)
+
+
+def dense_levels(torch, device) -> dict:
+    """`dense_level_times`' four runs: -> {label: (the run's record, its
+    widest level as (tables, state, fmin, sym_mask))}."""
+    from dsm_tpu_torch.mining import engine as eng
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.parallel.engine_sharded import (ShardedIndexes,
+                                                       mine_sharded)
+    from dsm_tpu_torch.parallel.mesh import make_mesh
+
+    fz = load_tests_module("freeze_samples_reference")
+    with tempfile.TemporaryDirectory(prefix="dsm_times_levels_") as td:
+        s100 = phase_data(torch, load_make_toydata(), td, device)[0]
+        d512 = samples_build(torch, fz, D512, td, device)[0]
+    found = {}
+    sets = (("scale 100 under " + LEVEL_PREFIX.decode(), s100, LEVEL_PREFIX,
+             MiningConfig(fmin=FMIN, emax=EMAX), (4, 2)),
+            ("D512", d512, b"", samples_config(D512), (4, 128)))
+    for where, idxs, prefix, cfg, shape in sets:
+        dev = eng.DeviceIndexes.build(idxs, device)
+        mesh = make_mesh(*shape, device=device)
+        sharded = ShardedIndexes.build(idxs, mesh.samples)
+        runs = (("one row", lambda prof: eng.mine_levels(
+            cfg, dev.S, [(dev.frows, dev.rrows, dev.soff, 0)], dev.ns,
+            np.ones((1, 0, 4), dtype=bool), prefix, None, eng.MIN_CAP,
+            device, profile=prof)),
+            (f"{shape}", lambda prof: mine_sharded(
+                idxs, cfg, mesh=mesh, dev=sharded, prefix=prefix,
+                reader_order="ascending", profile=prof)))
+        for run, fn in runs:
+            label = f"{where}, {run}"
+            _out, rec, level = level_run(torch, label, fn, "level times")
+            found[label] = rec, level
+    return found
 
 
 def ops_cases(torch, toy0, device) -> list[dict]:

@@ -388,20 +388,77 @@ __global__ void __launch_bounds__(kThreads)
 // reverse ranks at rlo and rlo + (hi - lo).  A cell that is not active
 // writes dsm_tpu's zeros, and one with hi == lo the code 0, without a
 // gather (a level never holds lo > hi).  The per-node sums over the
-// launch's samples, [active cells, active children under A, C, G, T], are
-// added in shared memory a tile and then to the (R, CAP, 5) output with one
-// atomic a node and column that is not zero (the entry zeroes it first).
+// launch's samples are [active cells, active children under A, C, G, T].
+// The tables are the launch's parameters: up to kMaxShards (forward rows,
+// reverse rows, soff, first sample column), the columns ascending; a
+// cell's table is the last whose first column is at or below its sample's.
 //
-// A block takes 256 consecutive cells; the cells are staged in pair-row
-// layout (lo, hi, rlo, table, soff, flags) and ranked by the groups of 8
-// lanes above, first both forward ends of the active cells, then both
-// reverse ends of the cells with hi > lo.  The tables are the launch's
-// parameters: up to kMaxShards (forward rows, reverse rows, soff, first
-// sample column), the columns ascending; a cell's table is the last whose
-// first column is at or below its sample's.
+// What bounds it on an H100: by count, bytes (the state in, 57 B a cell
+// and 20 a node out); in practice the rank jobs wherever many cells are
+// active (AC's one-row level, D512's widest): two 8-lane row gathers from
+// the L2 a job and their popcounts, 20-30 SM clocks a job on an H100 as
+// chip_smoke.level_variant_times measures it, cutting the kernel after
+// each stage.  Empty rows cost their bytes.
+//
+// The first design took 256 consecutive CELLS a block and lost in three
+// places.  Its stores: a cell wrote its four children at
+// node * 4S + c * S + s, so at S = 5 one warp's store spanned six or seven
+// nodes with gaps, and cact one byte at a time; the sums went through
+// shared and then global atomics onto an array the entry zeroed with a
+// memset.  Its empty tiles: a tile with no active cell still passed every
+// barrier of both rank phases (three empty prefix rows cost 7x the one-row
+// level's device time).  Its gathers: a group of 8 lanes ranked its cells
+// one after another, one dependent row gather in flight, forward and
+// reverse phases one after the other.
+//
+// The design, two kernels by S:
+//   * S <= kCells, node-major tiles: a block takes kCells // S whole nodes,
+//     a thread a cell.  A node's sums are complete inside its block: a
+//     warp's cells add theirs in a segmented shuffle scan (a node's cells
+//     are contiguous), one shared-memory atomic a node a warp, and each
+//     sum is written once, with a plain store: no memset, no global
+//     atomic.  The outputs are staged in shared memory in output order:
+//     the tile's clo / chi / crlo / cact span (nodes x 4 x S) and its lc
+//     span are contiguous in the output, each staged shifted by its
+//     start's offset from a 16-byte boundary, so that the block's threads
+//     store whole aligned 16-byte vectors of any of the five spans and
+//     only their ragged ends go out as scalars; freq is stored coalesced
+//     by the cell threads.  A tile without a cell to rank (no hi > lo)
+//     learns it from one barrier, stores its zeros and freq straight to
+//     the output and skips the rank phase: an empty prefix row or invalid
+//     node costs its bytes.  The rank jobs are one list a tile, built with
+//     warp-aggregated shared atomics: a forward job (lo, hi in the forward
+//     table) for each active cell and a reverse job (rlo, rlo + freq in
+//     the reverse table) for each cell with hi > lo.  A group of 8 lanes
+//     takes every 32nd job and issues the next job's row loads before it
+//     popcounts the current one (two jobs' gathers in flight), so forward
+//     and reverse ends of different cells overlap; it keeps K1's 8-lane
+//     row gather and uint32 arithmetic.  The lanes that hold child c's values write its clo,
+//     chi, crlo and cact straight into the staged span; a reverse job's
+//     code comes from two ballots of the group.
+//   * S > kCells (D512): a block takes one node, and each warp chunks of
+//     32 of its samples.  A chunk's child c is one contiguous run of the
+//     output, so each lane stores its own cell's outputs, coalesced,
+//     without staging the span; the warp ranks its chunk's jobs by its
+//     four groups (cells handed over by shuffles, a round of four jobs
+//     ranked while the next round's rows load), loads its next chunk's
+//     cells meanwhile, and the warps run apart: one barrier, before the
+//     node's five sums.  The rank jobs bound it there, as they bound the
+//     first design: the node in passes of 256 samples through the staged
+//     tile measured no faster.
+//   A cell's table is bisected in the launch's parameters, so its soff
+//   load issues with the cell's own loads.
 
-constexpr int kRlo = 2, kFlags = 5;     // the staged cell's other columns
-constexpr int kActive = 1, kLcNeed = 2;  // kFlags bits
+constexpr int kCells = 256;        // a node tile's cells: one a thread
+static_assert(kCells == kThreads, "one thread a cell when staging");
+constexpr int kWarps = kThreads / 32;
+constexpr int kExpandBlocks = 4;   // blocks an SM the registers allow
+constexpr int kWideBlocks = 4;     // the same for the S > kCells kernel
+constexpr int kSpanI = 4 * kCells + 4;   // a tile's span + its phase
+constexpr int kSpanB = 4 * kCells + 16;
+constexpr int kSumFields = 5;      // active cells, then A C G T children
+constexpr int kFieldBits = 6;      // a warp's count of one field (<= 32)
+constexpr int kRevJob = 0x100;     // a job's cell, and this bit: reverse
 
 struct LevelTables {
   int n;
@@ -418,151 +475,454 @@ struct LevelArgs {
   const uint8_t* valid;                  // (R, CAP)
   long long nodes;                       // R * CAP
   int S, fmin;
-  int32_t* clo;                          // (R, CAP, 4, S)
+  int npb;                               // nodes a block (S <= kCells)
+  int32_t* clo;                          // (R, CAP, 4, S), 16-byte aligned
   int32_t* chi;
   int32_t* crlo;
   uint8_t* cact;                         // (R, CAP, 4, S) bool
   int32_t* freq;                         // (R, CAP, S)
-  int8_t* lc;                            // (R, CAP, S)
+  int8_t* lc;                            // (R, CAP, S), 16-byte aligned
   int32_t* sums;                         // (R, CAP, 5)
 };
 
-// Both ends (pw[i]'s kLo and kHi) of staged cell i ranked in `rows` by the
-// group of 8 lanes: rows 0..7 of column i of s_lo and s_hi.
-__device__ __forceinline__ void rank_both(const uint4* rows, const int32_t* p,
-                                          int lane, unsigned mask,
-                                          int32_t* s_lo, int32_t* s_hi,
-                                          int i) {
-  const uint32_t lo = (uint32_t)p[kLo], hi = (uint32_t)p[kHi];
-  const long long b_lo = (long long)(lo >> 7) + p[kSoff];
-  const long long b_hi = (long long)(hi >> 7) + p[kSoff];
-  const uint4 v_lo = load_row(rows, b_lo, lane);
-  const bool same = b_hi == b_lo;
-  const uint4 v_hi = same ? v_lo : load_row(rows, b_hi, lane);
-  uint32_t cum = cum_word(v_lo, lane, mask);
-  rank_end(v_lo, cum, lo, lane, mask, s_lo, i);
-  if (!same) cum = cum_word(v_hi, lane, mask);
-  rank_end(v_hi, cum, hi, lane, mask, s_hi, i);
+// A cell's inputs: its interval, reverse start, valid node, table and
+// soff entry.  The table (the last whose first column is at or below s) is
+// bisected in the launch's parameters, so that the soff load issues with
+// the cell's own loads.
+struct Cell {
+  int32_t lo, hi, rlo, soff;
+  int l;
+  bool valid;
+};
+
+__device__ __forceinline__ Cell load_cell(const LevelArgs& a,
+                                          const LevelTables& tab,
+                                          long long q, long long node,
+                                          int s) {
+  Cell c;
+  int l = 0, h = tab.n - 1;
+  while (l < h) {
+    const int mid = (l + h + 1) >> 1;
+    if (tab.base[mid] <= s) l = mid; else h = mid - 1;
+  }
+  c.l = l;
+  c.lo = a.lo[q];
+  c.hi = a.hi[q];
+  c.rlo = a.rlo[q];
+  c.valid = a.valid[node] != 0;
+  c.soff = __ldg(tab.soff[l] + (s - tab.base[l]));
+  return c;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One interval end's values in plane lane 2 + j (K1's rank_end, kept in
+// registers): for the lanes of child c (2, 3, 4, 6 -> c = 0..3) `a` is
+// output row c ([c1-c0, c2-c1, c3-c2, pos-c4]) and `b` row c + 4 (the
+// psum c_c).
+__device__ __forceinline__ void end_values(uint4 v, uint32_t cum,
+                                           uint32_t pos, int lane,
+                                           unsigned mask, uint32_t& a,
+                                           uint32_t& b) {
+  const int rem = (int)(pos & 127u);
+  const uint32_t c = cum + __popc(v.x & low_bits(rem)) +
+                     __popc(v.y & low_bits(rem - 32)) +
+                     __popc(v.z & low_bits(rem - 64)) +
+                     __popc(v.w & low_bits(rem - 96));
+  const uint32_t next = __shfl_down_sync(mask, c, 1, 8);
+  a = lane == 6 ? pos - c : next - c;
+  b = c;
+}
+
+// A rank job: its two ends and their rows' numbers in `rows`.
+struct Job {
+  const uint4* rows;
+  uint32_t pa, pb;
+  long long ba, bb;
+};
+
+__device__ __forceinline__ Job make_job(const LevelTables& tab, bool rev,
+                                        int32_t lo, int32_t hi, int32_t rlo,
+                                        int32_t soff, int l) {
+  Job jo;
+  jo.pa = rev ? (uint32_t)rlo : (uint32_t)lo;
+  jo.pb = rev ? (uint32_t)rlo + ((uint32_t)hi - (uint32_t)lo) : (uint32_t)hi;
+  jo.rows = rev ? tab.rrows[l] : tab.frows[l];
+  jo.ba = (long long)(jo.pa >> 7) + soff;
+  jo.bb = (long long)(jo.pb >> 7) + soff;
+  return jo;
+}
+
+// A job with its cell, its reverse start and its two ends' rows as loaded
+// (vb unused where both ends share a row).
+struct Fetched {
+  Job jo;
+  uint4 va, vb;
+  int i;
+  int32_t rlo;
+  bool rev;
+};
+
+__device__ __forceinline__ void load_rows(Fetched& f, int gl) {
+  f.va = load_row(f.jo.rows, f.jo.ba, gl);
+  if (f.jo.bb != f.jo.ba) f.vb = load_row(f.jo.rows, f.jo.bb, gl);
+}
+
+// Both ends of a fetched job ranked by its group of 8 lanes: for the child
+// lanes, `a0`/`a1` rows c of the two ends and `c0`/`c1` rows c + 4.
+__device__ __forceinline__ void rank_job(const Fetched& f, int gl,
+                                         unsigned gmask, uint32_t& a0,
+                                         uint32_t& c0, uint32_t& a1,
+                                         uint32_t& c1) {
+  const bool same = f.jo.bb == f.jo.ba;
+  uint32_t cum = cum_word(f.va, gl, gmask);
+  end_values(f.va, cum, f.jo.pa, gl, gmask, a0, c0);
+  if (!same) cum = cum_word(f.vb, gl, gmask);
+  end_values(same ? f.va : f.vb, cum, f.jo.pb, gl, gmask, a1, c1);
+}
+
+// A reverse job's leftChar code from its child lanes' counts: the first
+// base that every occurrence extends with, else N if any extends, else 0.
+// All 8 lanes of the group call it; lane 0's result is the code.
+__device__ __forceinline__ int lc_code(uint32_t a0, uint32_t a1,
+                                       const Job& jo, bool child_lane,
+                                       unsigned gmask) {
+  const int32_t cf = (int32_t)(a1 - a0);
+  const int32_t fr = (int32_t)(jo.pb - jo.pa);
+  const unsigned eq = __ballot_sync(gmask, child_lane && cf == fr) & gmask;
+  const unsigned any = __ballot_sync(gmask, child_lane && cf > 0) & gmask;
+  const unsigned e = (eq >> (threadIdx.x & 24)) & 0x5Cu;   // lanes 2,3,4,6
+  if (e) {
+    const int L = __ffs(e) - 1;
+    return (L == 6 ? 3 : L - 2) + 2;
+  }
+  return any ? kLcN : kLcZero;
+}
+
+// Vector i of a staged run: elements k of run[phase + k] (the run 16-byte
+// aligned) to dst[k], k < n, where dst - phase is 16-byte aligned; whole
+// 16-byte vectors, scalars at the run's two ragged ends.  A null run
+// stores zeros.
+template <typename T>
+__device__ __forceinline__ void store_vec(T* dst, const T* run, int phase,
+                                          int n, int i) {
+  constexpr int V = 16 / sizeof(T);
+  const int end = phase + n, k0 = i * V;
+  if (k0 >= end) return;
+  T* base = dst - phase;
+  if (k0 >= phase && k0 + V <= end) {
+    reinterpret_cast<uint4*>(base)[i] =
+        run ? reinterpret_cast<const uint4*>(run)[i] : make_uint4(0, 0, 0, 0);
+  } else {
+    const int k1 = k0 + V < end ? k0 + V : end;
+    for (int k = k0 > phase ? k0 : phase; k < k1; ++k)
+      base[k] = run ? run[k] : T(0);
+  }
+}
+
+// A node tile's outputs: its clo, chi, crlo and cact span and its lc span,
+// from their staged copies or (staged false) zeros; every thread of the
+// block takes vectors of any of the five.
+__device__ __forceinline__ void store_tile(
+    const LevelArgs& a, bool staged, long long out0, long long cell0,
+    int cnt, const int32_t* s_clo, const int32_t* s_chi,
+    const int32_t* s_crlo, const uint8_t* s_cact, const int8_t* s_lc) {
+  const int span = 4 * cnt;
+  const int nvi = (span + 6) >> 2;       // the span's int vectors, at most
+  const int nvb = (span + 30) >> 4;      // and its byte vectors
+  const int nvl = (cnt + 30) >> 4;
+  const int phi = (int)(out0 & 3), phb = (int)(out0 & 15);
+  for (int v = threadIdx.x; v < 3 * nvi + nvb + nvl; v += kThreads) {
+    if (v < 3 * nvi) {
+      const int arr = v / nvi;
+      int32_t* dst = (arr == 0 ? a.clo : arr == 1 ? a.chi : a.crlo) + out0;
+      const int32_t* run =
+          staged ? (arr == 0 ? s_clo : arr == 1 ? s_chi : s_crlo) : nullptr;
+      store_vec<int32_t>(dst, run, phi, span, v - arr * nvi);
+    } else if (v < 3 * nvi + nvb) {
+      store_vec<uint8_t>(a.cact + out0, staged ? s_cact : nullptr, phb, span,
+                         v - 3 * nvi);
+    } else {
+      store_vec<int8_t>(a.lc + cell0, staged ? s_lc : nullptr,
+                        (int)(cell0 & 15), cnt, v - 3 * nvi - nvb);
+    }
+  }
+}
+
+// S <= kCells: a block takes kCells // S whole nodes, a thread a cell.
+__global__ void __launch_bounds__(kThreads, kExpandBlocks)
     level_expand_kernel(const LevelArgs a,
                         const __grid_constant__ LevelTables tab) {
-  __shared__ __align__(16) int32_t pw[kTile * kPairCols];
-  __shared__ int32_t s_lo[8 * kOutStride];
-  __shared__ int32_t s_hi[8 * kOutStride];
-  __shared__ int s_base[kMaxShards];
-  __shared__ int s_sum[kTile * 5];       // a tile's nodes' sums
+  __shared__ __align__(16) int32_t s_clo[kSpanI];
+  __shared__ __align__(16) int32_t s_chi[kSpanI];
+  __shared__ __align__(16) int32_t s_crlo[kSpanI];
+  __shared__ __align__(16) uint8_t s_cact[kSpanB];
+  __shared__ __align__(16) int8_t s_lc[kCells + 16];
+  __shared__ int32_t s_lo[kCells], s_hi[kCells], s_rlo[kCells];
+  __shared__ int32_t s_soff[kCells];
+  __shared__ int16_t s_l0[kCells];       // a cell's child-0 slot in the span
+  __shared__ uint8_t s_tab[kCells];
+  __shared__ uint16_t s_jobs[2 * kCells];
+  __shared__ int s_sum[kCells * kSumFields];
+  __shared__ int s_njobs;
 
-  const long long cells = a.nodes * a.S;
-  const long long base = (long long)blockIdx.x * kTile;
-  const int cnt = cells - base < kTile ? (int)(cells - base) : kTile;
   const int t = threadIdx.x;
-  const long long node0 = base / a.S;
-  for (int k = t; k < tab.n; k += kThreads) s_base[k] = tab.base[k];
-  for (int k = t; k < kTile * 5; k += kThreads) s_sum[k] = 0;
-  __syncthreads();
+  const int S = a.S;
+  const long long node0 = (long long)blockIdx.x * a.npb;
+  const int nn = a.nodes - node0 < a.npb ? (int)(a.nodes - node0) : a.npb;
+  const int cnt = nn * S;
+  const long long cell0 = node0 * S;           // freq / lc of cell 0
+  const long long out0 = node0 * 4 * S;        // child 0 of cell 0
+  for (int k = t; k < nn * kSumFields; k += kThreads) s_sum[k] = 0;
+  if (t == 0) s_njobs = 0;
 
-  // ---- stage the tile's cells ------------------------------------------
-  long long q = 0, node = 0;
-  int s = 0;
-  int32_t lo = 0, hi = 0, rlo = 0;
-  bool pa = false;
+  int j = -1, l0 = 0;                          // the cell's node, its slot
+  Cell cell{};
+  bool pa = false, need = false;
   if (t < cnt) {
-    q = base + t;
-    node = q / a.S;
-    s = (int)(q - node * a.S);
-    lo = a.lo[q];
-    hi = a.hi[q];
-    rlo = a.rlo[q];
-    pa = hi > lo && a.valid[node];
-    int l = 0, h = tab.n - 1;            // the last table whose base <= s
-    while (l < h) {
-      const int mid = (l + h + 1) >> 1;
-      if (s_base[mid] <= s) l = mid; else h = mid - 1;
+    j = t / S;
+    const int s = t - j * S;
+    l0 = j * 4 * S + s;
+    cell = load_cell(a, tab, cell0 + t, node0 + j, s);
+    need = cell.hi > cell.lo;
+    pa = need && cell.valid;
+    a.freq[cell0 + t] = (int32_t)((uint32_t)cell.hi - (uint32_t)cell.lo);
+  }
+  if (!__syncthreads_or(need)) {
+    // nothing to rank: the zeros straight to the output
+    store_tile(a, false, out0, cell0, cnt, s_clo, s_chi, s_crlo, s_cact,
+               s_lc);
+    for (int k = t; k < nn * kSumFields; k += kThreads)
+      a.sums[node0 * kSumFields + k] = 0;
+    return;
+  }
+  // child c of cell i is staged at s_l0[i] + phi + c * S (ints) and
+  // s_l0[i] + phb + c * S (bytes), a cell's code at phl + i
+  const int phi = (int)(out0 & 3), phb = (int)(out0 & 15);
+  const int phl = (int)(cell0 & 15);
+
+  // ---- stage the cells and list the rank jobs ---------------------------
+  if (t < cnt) {
+    s_lo[t] = cell.lo;
+    s_hi[t] = cell.hi;
+    s_rlo[t] = cell.rlo;
+    s_l0[t] = (int16_t)l0;
+    s_tab[t] = (uint8_t)cell.l;
+    s_soff[t] = cell.soff;
+    if (!pa) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s_clo[l0 + phi + c * S] = 0;
+        s_chi[l0 + phi + c * S] = 0;
+        s_crlo[l0 + phi + c * S] = 0;
+        s_cact[l0 + phb + c * S] = 0;
+      }
     }
-    int32_t* p = pw + t * kPairCols;
-    p[kLo] = lo;
-    p[kHi] = hi;
-    p[kShard] = l;
-    p[kSoff] = __ldg(tab.soff[l] + (s - s_base[l]));
-    p[kFlags] = (pa ? kActive : 0) | (hi > lo ? kLcNeed : 0);
+    if (!need) s_lc[phl + t] = 0;
+  }
+  {
+    const int wl = t & 31;
+    const unsigned mf = __ballot_sync(0xFFFFFFFFu, pa);
+    const unsigned mr = __ballot_sync(0xFFFFFFFFu, need);
+    int first = 0;
+    if (wl == 0 && (mf | mr))
+      first = atomicAdd(&s_njobs, __popc(mf) + __popc(mr));
+    first = __shfl_sync(0xFFFFFFFFu, first, 0);
+    const unsigned below = (1u << wl) - 1;
+    if (pa) s_jobs[first + __popc(mf & below)] = (uint16_t)t;
+    if (need)
+      s_jobs[first + __popc(mf) + __popc(mr & below)] =
+          (uint16_t)(t | kRevJob);
   }
   __syncthreads();
 
-  const int lane = t & 7;
-  const int g = t >> 3;
-  const unsigned mask = 0xFFu << (t & 24);
-  // ---- forward ranks of the active cells ---------------------------------
+  // ---- the rank jobs: a group of 8 lanes a job, the next job's rows
+  // loading while the current one is ranked ------------------------------
+  const int gl = t & 7;
+  const unsigned gmask = 0xFFu << (t & 24);
+  const bool child_lane = gl >= 2 && gl != 5 && gl != 7;
+  const int my_c = gl == 6 ? 3 : gl - 2;
+  const int J = s_njobs;
+  auto fetch = [&](int jb) -> Fetched {
+    Fetched f{};
+    if (jb < J) {                          // group-uniform
+      const int job = s_jobs[jb];
+      f.i = job & (kRevJob - 1);
+      f.rev = (job & kRevJob) != 0;
+      f.rlo = s_rlo[f.i];
+      f.jo = make_job(tab, f.rev, s_lo[f.i], s_hi[f.i], f.rlo, s_soff[f.i],
+                      s_tab[f.i]);
+      load_rows(f, gl);
+    }
+    return f;
+  };
+  Fetched cur = fetch(t >> 3);
 #pragma unroll 1
-  for (int i = g; i < cnt; i += kGroups) {
-    const int32_t* p = pw + i * kPairCols;
-    if (p[kFlags] & kActive)
-      rank_both(tab.frows[p[kShard]], p, lane, mask, s_lo, s_hi, i);
+  for (int jb = t >> 3; jb < J; jb += kGroups) {
+    const Fetched nxt = fetch(jb + kGroups);
+    uint32_t a0, c0, a1, c1;
+    rank_job(cur, gl, gmask, a0, c0, a1, c1);
+    if (!cur.rev) {
+      if (child_lane) {
+        const int li = s_l0[cur.i] + my_c * S;
+        s_clo[li + phi] = (int32_t)a0;
+        s_chi[li + phi] = (int32_t)a1;
+        s_crlo[li + phi] = (int32_t)((uint32_t)cur.rlo + c1 - c0);
+        s_cact[li + phb] = (int32_t)(a1 - a0) >= a.fmin;
+      }
+    } else {
+      const int code = lc_code(a0, a1, cur.jo, child_lane, gmask);
+      if (gl == 0) s_lc[phl + cur.i] = (int8_t)code;
+    }
+    cur = nxt;
   }
   __syncthreads();
 
-  const int32_t freq = (int32_t)((uint32_t)hi - (uint32_t)lo);
-  const int ln = (int)(node - node0);
-  if (t < cnt) {
-    a.freq[q] = freq;
-    const long long out0 = node * 4 * a.S + s;   // (node, child 0, s)
+  // ---- the nodes' sums: a warp's segments, one atomic a node ------------
+  {
+    const int wl = t & 31;
+    uint32_t v = 0;
+    if (pa) {
+      v = 1u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v += (uint32_t)s_cact[l0 + phb + c * S] << (kFieldBits * (c + 1));
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t u = __shfl_up_sync(0xFFFFFFFFu, v, o);
+      const int k = __shfl_up_sync(0xFFFFFFFFu, j, o);
+      if (wl >= o && k == j) v += u;
+    }
+    const int next = __shfl_down_sync(0xFFFFFFFFu, j, 1);
+    if (j >= 0 && (wl == 31 || next != j) && v) {
+#pragma unroll
+      for (int f = 0; f < kSumFields; ++f) {
+        const int x =
+            (int)((v >> (kFieldBits * f)) & ((1u << kFieldBits) - 1));
+        if (x) atomicAdd(s_sum + j * kSumFields + f, x);
+      }
+    }
+  }
+
+  // ---- the staged spans out, 16 bytes a store ---------------------------
+  store_tile(a, true, out0, cell0, cnt, s_clo, s_chi, s_crlo, s_cact, s_lc);
+  __syncthreads();
+  for (int k = t; k < nn * kSumFields; k += kThreads)
+    a.sums[node0 * kSumFields + k] = s_sum[k];
+}
+
+// S > kCells: a block takes one node, its warps chunks of 32 samples.
+// Each warp ranks its chunk's jobs by its four groups and stores its cells'
+// outputs itself: for a chunk, child c's 32 cells are one contiguous run of
+// the output, so a lane's stores are coalesced without a block barrier,
+// and the warps run apart (one barrier before the node's sums).
+__global__ void __launch_bounds__(kThreads, kWideBlocks)
+    level_expand_wide_kernel(const LevelArgs a,
+                             const __grid_constant__ LevelTables tab) {
+  __shared__ int32_t w_clo[kWarps][4][32];
+  __shared__ int32_t w_chi[kWarps][4][32];
+  __shared__ int32_t w_crlo[kWarps][4][32];
+  __shared__ uint8_t w_cact[kWarps][4][32];
+  __shared__ int8_t w_lc[kWarps][32];
+  __shared__ int s_sum[kSumFields];
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int S = a.S;
+  const long long node = blockIdx.x;
+  if (t < kSumFields) s_sum[t] = 0;
+  __syncthreads();
+
+  const int gl = lane & 7, g = lane >> 3;
+  const unsigned gmask = 0xFFu << (lane & 24);
+  const bool child_lane = gl >= 2 && gl != 5 && gl != 7;
+  const int my_c = gl == 6 ? 3 : gl - 2;
+  const int nchunks = (S + 31) / 32;
+  uint32_t sums[kSumFields] = {0, 0, 0, 0, 0};   // lane 0's, of this warp
+
+  auto load = [&](int k) -> Cell {
+    const int s = k * 32 + lane;
+    return s < S ? load_cell(a, tab, node * S + s, node, s) : Cell{};
+  };
+  Cell cell = warp < nchunks ? load(warp) : Cell{}, nxt{};
+  for (int k = warp; k < nchunks; k += kWarps, cell = nxt) {
+    // the next chunk's cells load while this one runs
+    nxt = k + kWarps < nchunks ? load(k + kWarps) : Cell{};
+    const int s = k * 32 + lane;
+    const long long q = node * S + s;
+    const bool in = s < S;
+    const bool need = in && cell.hi > cell.lo;
+    const bool pa = need && cell.valid;
+    if (in) a.freq[q] = (int32_t)((uint32_t)cell.hi - (uint32_t)cell.lo);
+    const unsigned mf = __ballot_sync(0xFFFFFFFFu, pa);
+    const unsigned mr = __ballot_sync(0xFFFFFFFFu, need);
+    const int nf = __popc(mf), J = nf + __popc(mr);
+    // jobs: the forward ones (cells of mf) then the reverse ones (of mr),
+    // a round of four, one a group; the next round's rows load while this
+    // one is ranked.  Every lane calls fetch (its shuffles).
+    auto fetch = [&](int jb) -> Fetched {
+      Fetched f{};
+      f.rev = jb >= nf;
+      f.i = jb < J ? (int)__fns(f.rev ? mr : mf, 0,
+                                (f.rev ? jb - nf : jb) + 1)
+                   : 0;
+      const int32_t lo = __shfl_sync(0xFFFFFFFFu, cell.lo, f.i);
+      const int32_t hi = __shfl_sync(0xFFFFFFFFu, cell.hi, f.i);
+      f.rlo = __shfl_sync(0xFFFFFFFFu, cell.rlo, f.i);
+      const int32_t soff = __shfl_sync(0xFFFFFFFFu, cell.soff, f.i);
+      const int l = __shfl_sync(0xFFFFFFFFu, cell.l, f.i);
+      if (jb < J) {                          // group-uniform
+        f.jo = make_job(tab, f.rev, lo, hi, f.rlo, soff, l);
+        load_rows(f, gl);
+      }
+      return f;
+    };
+    Fetched cur = fetch(g);
+#pragma unroll 1
+    for (int r0 = 0; r0 < J; r0 += 4) {      // warp-uniform
+      const Fetched nxt = fetch(r0 + 4 + g);
+      if (r0 + g < J) {                      // group-uniform
+        uint32_t a0, c0, a1, c1;
+        rank_job(cur, gl, gmask, a0, c0, a1, c1);
+        if (!cur.rev) {
+          if (child_lane) {
+            w_clo[warp][my_c][cur.i] = (int32_t)a0;
+            w_chi[warp][my_c][cur.i] = (int32_t)a1;
+            w_crlo[warp][my_c][cur.i] =
+                (int32_t)((uint32_t)cur.rlo + c1 - c0);
+            w_cact[warp][my_c][cur.i] = (int32_t)(a1 - a0) >= a.fmin;
+          }
+        } else {
+          const int code = lc_code(a0, a1, cur.jo, child_lane, gmask);
+          if (gl == 0) w_lc[warp][cur.i] = (int8_t)code;
+        }
+      }
+      cur = nxt;
+    }
+    __syncwarp();
+    // this lane's cell out: its four children (child c's 32 cells one
+    // contiguous run), freq above, lc
+    const long long o = node * 4 * S + s;    // child 0
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      int32_t clo = 0, chi = 0, crlo = 0;
-      bool act = false;
-      if (pa) {
-        clo = s_lo[c * kOutStride + t];
-        chi = s_hi[c * kOutStride + t];
-        crlo = (int32_t)((uint32_t)rlo +
-                         (uint32_t)s_hi[(4 + c) * kOutStride + t] -
-                         (uint32_t)s_lo[(4 + c) * kOutStride + t]);
-        act = chi - clo >= a.fmin;
+      const bool act = pa && w_cact[warp][c][lane];
+      if (in) {
+        a.clo[o + (long long)c * S] = pa ? w_clo[warp][c][lane] : 0;
+        a.chi[o + (long long)c * S] = pa ? w_chi[warp][c][lane] : 0;
+        a.crlo[o + (long long)c * S] = pa ? w_crlo[warp][c][lane] : 0;
+        a.cact[o + (long long)c * S] = act;
       }
-      const long long o = out0 + (long long)c * a.S;
-      a.clo[o] = clo;
-      a.chi[o] = chi;
-      a.crlo[o] = crlo;
-      a.cact[o] = act;
-      if (act) atomicAdd(s_sum + ln * 5 + 1 + c, 1);
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, act);
+      if (lane == 0) sums[1 + c] += __popc(m);
     }
-    if (pa) atomicAdd(s_sum + ln * 5, 1);
-    // the reverse ends of this cell: rlo and rlo + freq
-    pw[t * kPairCols + kLo] = rlo;
-    pw[t * kPairCols + kHi] = (int32_t)((uint32_t)rlo + (uint32_t)freq);
+    if (in) a.lc[q] = need ? w_lc[warp][lane] : (int8_t)kLcZero;
+    if (lane == 0) sums[0] += __popc(mf);
+    __syncwarp();
   }
-  __syncthreads();
-
-  // ---- reverse ranks of the cells with hi > lo: the leftChar codes ------
-#pragma unroll 1
-  for (int i = g; i < cnt; i += kGroups) {
-    const int32_t* p = pw + i * kPairCols;
-    if (p[kFlags] & kLcNeed)
-      rank_both(tab.rrows[p[kShard]], p, lane, mask, s_lo, s_hi, i);
-  }
-  __syncthreads();
-  if (t < cnt) {
-    int code = kLcZero;
-    if (hi > lo) {
-      bool any = false;
+  if (lane == 0)
 #pragma unroll
-      for (int c = 3; c >= 0; --c) {
-        const int32_t cf = (int32_t)((uint32_t)s_hi[c * kOutStride + t] -
-                                     (uint32_t)s_lo[c * kOutStride + t]);
-        if (cf == freq) code = c + 2;
-        any |= cf > 0;
-      }
-      if (code < 2) code = any ? kLcN : kLcZero;
-    }
-    a.lc[q] = (int8_t)code;
-  }
-
-  // ---- the tile's node sums into the output ------------------------------
-  const int nn = cnt > 0 ? (int)((base + cnt - 1) / a.S - node0) + 1 : 0;
-  for (int k = t; k < nn * 5; k += kThreads) {
-    const int v = s_sum[k];
-    if (v) atomicAdd(a.sums + node0 * 5 + k, v);
-  }
+    for (int f = 0; f < kSumFields; ++f)
+      if (sums[f]) atomicAdd(s_sum + f, (int)sums[f]);
+  __syncthreads();
+  if (t < kSumFields) a.sums[node * kSumFields + t] = s_sum[t];
 }
 
 template <int kMode>
@@ -676,19 +1036,21 @@ extern "C" int dsm_leftchar(const void* orows, long long n, const void* shards,
 // memory, copied into the launch's parameters, the columns ascending from
 // 0; outputs clo, chi, crlo (R, CAP, 4, S) int32, cact (R, CAP, 4, S)
 // bool, freq (R, CAP, S) int32, lc (R, CAP, S) int8, sums (R, CAP, 5)
-// int32 (zeroed here).  1 <= ntables <= kMaxShards.
+// int32, every element written by the kernel (no memset); clo, chi, crlo,
+// cact and lc 16-byte aligned.  1 <= ntables <= kMaxShards.
 extern "C" int dsm_level_expand(const void* tables, int ntables,
                                 const void* lo, const void* hi,
                                 const void* rlo, const void* valid,
                                 long long nodes, int S, int fmin, void* clo,
                                 void* chi, void* crlo, void* cact, void* freq,
                                 void* lc, void* sums, void* stream) {
-  if (ntables < 1 || ntables > kMaxShards) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(sums, 0, (size_t)nodes * 5 * 4, st);
-  if (err) return err;
-  const long long cells = nodes * S;
-  if (cells == 0) return 0;
+  if (ntables < 1 || ntables > kMaxShards || S < 0)
+    return (int)cudaErrorInvalidValue;
+  const void* staged[] = {clo, chi, crlo, cact, lc};
+  for (const void* p : staged)
+    if (reinterpret_cast<uintptr_t>(p) & 15)
+      return (int)cudaErrorMisalignedAddress;
+  if (nodes <= 0) return 0;
   LevelTables tab;
   tab.n = ntables;
   const long long* h = (const long long*)tables;
@@ -706,6 +1068,8 @@ extern "C" int dsm_level_expand(const void* tables, int ntables,
   a.nodes = nodes;
   a.S = S;
   a.fmin = fmin;
+  // whole nodes a block, or one node a block in chunks of 32 samples
+  a.npb = S > kCells ? 1 : (S > 0 ? kCells / S : kCells);
   a.clo = (int32_t*)clo;
   a.chi = (int32_t*)chi;
   a.crlo = (int32_t*)crlo;
@@ -713,7 +1077,12 @@ extern "C" int dsm_level_expand(const void* tables, int ntables,
   a.freq = (int32_t*)freq;
   a.lc = (int8_t*)lc;
   a.sums = (int32_t*)sums;
-  const long long blocks = (cells + kTile - 1) / kTile;
-  level_expand_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(a, tab);
+  const long long blocks = (nodes + a.npb - 1) / a.npb;
+  if (S > kCells)
+    level_expand_wide_kernel<<<(unsigned)blocks, kThreads, 0,
+                               (cudaStream_t)stream>>>(a, tab);
+  else
+    level_expand_kernel<<<(unsigned)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(a, tab);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,7 @@ import torch
 from ..index.alphabet import EXT_CHARS
 from ..index.fmindex import FMIndex
 from ..ops import _build
-from ..ops.level import compact_level, expand_level
+from ..ops.level import LevelTables, compact_level, expand_level
 from ..ops.rank import ROWW, fused_rows, occ_cum8_pair_plain
 from ..ops.shardstats import MAX_SHARDS
 from ..utils.device import resolve_device
@@ -299,8 +299,8 @@ def mine_levels(cfg: MiningConfig, d: int, tables, ns, row_masks: np.ndarray,
     (engine_np.emit_level: one GnuOrderTracker a row, or none for ascending
     order) and builds the paths.
 
-    d: the samples in all; tables, ns: this process's shard tables (as
-    ops/level.py takes them) and their samples' text lengths; row_masks:
+    d: the samples in all; tables, ns: this process's shard tables (the
+    list ops/level.py takes) and their samples' text lengths; row_masks:
     (R, k, 4) bool, the symbols row r may take at depth < k
     (parallel/mesh.row_prefix_masks; one device: (1, 0, 4)); prefix: the
     enforced path; trackers: R trackers or None; cap: the first capacity;
@@ -312,6 +312,7 @@ def mine_levels(cfg: MiningConfig, d: int, tables, ns, row_masks: np.ndarray,
     import time
 
     R, k_rows = row_masks.shape[0], row_masks.shape[1]
+    tables = LevelTables(tables)      # checked and packed once a run
     out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
     prefix_codes = [EXT_CHARS.index(b) for b in prefix]
     onehot = np.eye(4, dtype=bool)

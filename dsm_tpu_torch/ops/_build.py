@@ -105,9 +105,9 @@ _SIGNATURES = {
     "dsm_level_expand": [_P, _I, _P, _P, _P, _P, _I64, _I, _I, _P, _P, _P,
                          _P, _P, _P, _P, _P],
     # sums, sym_mask, clo, chi, crlo, cact, R, cap, S, lo, hi, rlo, valid,
-    # parent_row, sym, child_count, single_full, scratch, stream
+    # parent_row, sym, child_count, single_full, status, bits, stream
     "dsm_level_compact": [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _P],
     # mask, n, out, width, scratch, count, stream
     "dsm_compact_kidx": [_P, _I64, _P, _I64, _P, _P, _P],
     # blocks, occ, sigma, syms, pos, out, q, stream

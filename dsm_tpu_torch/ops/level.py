@@ -15,7 +15,10 @@ a list of (frows, rrows, soff, base), a table's forward and reverse fused
 rows (mining/engine.DeviceIndexes), its samples' first rows and the first
 sample column it holds; the columns of table k are [base_k, base_k+1), the
 bases ascending from 0 (one device: `[(dev.frows, dev.rrows, dev.soff,
-0)]`; a process's shards: parallel/engine_sharded `level_tables`).
+0)]`; a process's shards: parallel/engine_sharded `level_tables`), or the
+same list prepared once a run, `LevelTables(list)`: checked once, its
+pointers packed once for the launch's parameters, its device kept
+(mining/engine.mine_levels prepares it; a list is prepared on each call).
 
 `expand_level(tables, lo, hi, rlo, valid, fmin)` -> dict:
   clo, chi, crlo (R, CAP, 4, S) int32 and cactive (R, CAP, 4, S) bool: the
@@ -49,6 +52,60 @@ SUM_COLS = 5       # sums: active cells, then active children under A C G T
 MAX_TABLES = 128   # csrc/rank.cu kMaxShards
 MAX_ROWS = 1024    # csrc/level.cu kMaxRows
 TILE_FLAGS = 4096  # csrc/level.cu kTileFlags
+TILE_THREADS = 256  # csrc/level.cu kThreads: a flag word a thread a tile
+# K13's running state, a (device, stream): the look-back status words and
+# the ticket (made zero; each launch leaves them zero, which spares a memset
+# a level) and the flag words a tile that its second phase reads; launches
+# on two streams never share one
+_COMPACT_STATES: dict = {}
+
+
+class LevelTables:
+    """expand_level's tables prepared once: checked (1 to MAX_TABLES
+    tables; forward and reverse rows contiguous (n, ROWW) int32 and soff
+    contiguous 1-D int32, all on one device; the first base 0 and the bases
+    ascending), their pointers packed once into the array the launch copies
+    into its parameters, and their device kept.  `tables` is the list.  The
+    tensors must outlive it."""
+
+    __slots__ = ("tables", "device", "packed", "ptr")
+
+    def __init__(self, tables):
+        tables = list(tables)
+        if not 1 <= len(tables) <= MAX_TABLES:
+            raise ValueError(f"LevelTables: takes 1 to {MAX_TABLES} tables "
+                             f"(got {len(tables)})")
+        device = tables[0][0].device
+        entries, last = [], 0
+        for k, (frows, rrows, soff, base) in enumerate(tables):
+            for name, t in (("frows", frows), ("rrows", rrows)):
+                if (t.dtype != torch.int32 or t.dim() != 2
+                        or t.shape[1] != ROWW or not t.is_contiguous()
+                        or t.device != device):
+                    raise ValueError(f"LevelTables: table {k}'s {name} must "
+                                     f"be contiguous (n, {ROWW}) int32 on "
+                                     f"{device}")
+            if (soff.dtype != torch.int32 or soff.dim() != 1
+                    or not soff.is_contiguous() or soff.device != device):
+                raise ValueError(f"LevelTables: table {k}'s soff must be "
+                                 f"contiguous 1-D int32 on {device}")
+            base = int(base)
+            if k == 0 and base != 0:
+                raise ValueError("LevelTables: the first table's base must "
+                                 "be 0")
+            if base < last:
+                raise ValueError("LevelTables: the tables' bases must ascend")
+            last = base
+            entries += (frows.data_ptr(), rrows.data_ptr(), soff.data_ptr(),
+                        base)
+        self.tables = tables
+        self.device = device
+        self.packed = array.array("q", entries)
+        self.ptr = self.packed.buffer_info()[0]
+
+
+def _table_list(tables) -> list:
+    return tables.tables if isinstance(tables, LevelTables) else tables
 
 
 def _views(out: dict) -> dict:
@@ -78,7 +135,8 @@ def expand_level_plain(tables, lo: torch.Tensor, hi: torch.Tensor,
     chi = torch.zeros_like(clo)
     crlo = torch.zeros_like(clo)
     lc = torch.zeros((R, CAP, S), dtype=torch.int8, device=device)
-    for (frows, rrows, soff, _b), c0, c1 in _columns(tables, S):
+    for (frows, rrows, soff, _b), c0, c1 in _columns(_table_list(tables),
+                                                     S):
         n = c1 - c0
         sl = (slice(None), slice(None), slice(c0, c1))
         so = soff.to(torch.int64)[None, None, :].expand(R, CAP, n).reshape(-1)
@@ -127,9 +185,14 @@ def _check_state(who: str, lo, hi, rlo, valid) -> None:
 def expand_level(tables, lo: torch.Tensor, hi: torch.Tensor,
                  rlo: torch.Tensor, valid: torch.Tensor, fmin: int) -> dict:
     """The expand of a dense level (see the module's docstring) in one
-    launch of K12.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel: the state contiguous, 1 to MAX_TABLES tables on its
-    device."""
+    launch of K12.  tables: a LevelTables, or a list that is prepared here.
+    CPU tensors take the plain version; CUDA tensors launch the kernel: the
+    state contiguous, on the tables' device."""
+    if not isinstance(tables, LevelTables) and lo.device.type != "cpu":
+        tables = LevelTables(tables)
+    if isinstance(tables, LevelTables) and tables.device != lo.device:
+        raise ValueError(f"expand_level: the tables are on {tables.device}, "
+                         f"the state on {lo.device}")
     if lo.device.type == "cpu":
         return expand_level_plain(tables, lo, hi, rlo, valid, fmin)
     device = lo.device
@@ -140,26 +203,6 @@ def expand_level(tables, lo: torch.Tensor, hi: torch.Tensor,
     if R * CAP * S >= 2**31:
         raise ValueError(f"expand_level: {R} x {CAP} x {S} cells is past "
                          "the 2^31 the kernel counts in its tiles")
-    if not 1 <= len(tables) <= MAX_TABLES:
-        raise ValueError(f"expand_level: takes 1 to {MAX_TABLES} tables "
-                         f"(got {len(tables)})")
-    entries = []
-    for k, (frows, rrows, soff, base) in enumerate(tables):
-        for name, t in (("frows", frows), ("rrows", rrows)):
-            if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != ROWW
-                    or not t.is_contiguous() or t.device != device):
-                raise ValueError(f"expand_level: table {k}'s {name} must be "
-                                 f"contiguous (R, {ROWW}) int32 on {device}")
-        if (soff.dtype != torch.int32 or soff.dim() != 1
-                or not soff.is_contiguous() or soff.device != device):
-            raise ValueError(f"expand_level: table {k}'s soff must be "
-                             f"contiguous 1-D int32 on {device}")
-        if k == 0 and int(base) != 0:
-            raise ValueError("expand_level: the first table's base must be 0")
-        if entries and int(base) < entries[-1]:
-            raise ValueError("expand_level: the tables' bases must ascend")
-        entries += (frows.data_ptr(), rrows.data_ptr(), soff.data_ptr(),
-                    int(base))
     shape4 = (R, CAP, 4, S)
     clo = torch.empty(shape4, dtype=torch.int32, device=device)
     chi = torch.empty_like(clo)
@@ -168,11 +211,10 @@ def expand_level(tables, lo: torch.Tensor, hi: torch.Tensor,
     freq = torch.empty((R, CAP, S), dtype=torch.int32, device=device)
     lc = torch.empty((R, CAP, S), dtype=torch.int8, device=device)
     sums = torch.empty((R, CAP, SUM_COLS), dtype=torch.int32, device=device)
-    table = array.array("q", entries)
-    _build.launch("dsm_level_expand", "level_expand", device,
-                  table.buffer_info()[0], len(tables), lo.data_ptr(),
-                  hi.data_ptr(), rlo.data_ptr(), valid.data_ptr(), R * CAP, S,
-                  int(fmin), clo.data_ptr(), chi.data_ptr(), crlo.data_ptr(),
+    _build.launch("dsm_level_expand", "level_expand", device, tables.ptr,
+                  len(tables.tables), lo.data_ptr(), hi.data_ptr(),
+                  rlo.data_ptr(), valid.data_ptr(), R * CAP, S, int(fmin),
+                  clo.data_ptr(), chi.data_ptr(), crlo.data_ptr(),
                   cact.data_ptr(), freq.data_ptr(), lc.data_ptr(),
                   sums.data_ptr())
     return _views(dict(clo=clo, chi=chi, crlo=crlo, cactive=cact, freq=freq,
@@ -211,13 +253,31 @@ def compact_level_plain(core: dict, sums: torch.Tensor,
                 single_full=single_full)
 
 
+def _compact_state(device, tiles: int):
+    """K13's (status words and ticket, flag words) on the current stream
+    of `device`, with room for `tiles` tiles."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    status, bits = _COMPACT_STATES.get(key, (None, None))
+    if status is None or status.shape[0] < tiles + 1:
+        status = torch.zeros(1 << tiles.bit_length(), dtype=torch.int64,
+                             device=device)
+    if bits is None or bits.shape[0] < tiles * TILE_THREADS:
+        bits = torch.empty((1 << max(tiles - 1, 1).bit_length())
+                           * TILE_THREADS, dtype=torch.int16, device=device)
+    _COMPACT_STATES[key] = status, bits
+    return status, bits
+
+
 def compact_level(core: dict, sums: torch.Tensor,
                   sym_mask: torch.Tensor) -> dict:
     """The analyse-and-compact of a dense level (see the module's
     docstring) in one launch of K13.  core: expand_level's output (its
     clo, chi, crlo and cactive); sums: its (R, CAP, 5) sums, or their sum
     over every process of a group.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel, a cooperative launch of the card's
+    resident blocks (a launch the card refuses raises)."""
     if sums.device.type == "cpu":
         return compact_level_plain(core, sums, sym_mask)
     device = sums.device
@@ -226,10 +286,11 @@ def compact_level(core: dict, sums: torch.Tensor,
     R, CAP, _4, S = core["clo"].shape
     for name in ("clo", "chi", "crlo", "cactive"):
         t = core[name]
-        if (t.shape != (R, CAP, 4, S) or not t.is_contiguous()
-                or t.device != device):
+        dtype = torch.bool if name == "cactive" else torch.int32
+        if (t.dtype != dtype or t.shape != (R, CAP, 4, S)
+                or not t.is_contiguous() or t.device != device):
             raise ValueError(f"compact_level: {name} must be contiguous "
-                             f"(R, CAP, 4, S) on {device}")
+                             f"(R, CAP, 4, S) {dtype} on {device}")
     if (sums.dtype != torch.int32 or sums.shape != (R, CAP, SUM_COLS)
             or not sums.is_contiguous()):
         raise ValueError(f"compact_level: sums must be contiguous "
@@ -244,6 +305,9 @@ def compact_level(core: dict, sums: torch.Tensor,
     if 4 * CAP >= 2**31:
         raise ValueError(f"compact_level: {CAP} nodes a row is past the "
                          "32-bit flag counts")
+    if R * CAP * S >= 2**31:
+        raise ValueError(f"compact_level: {R} x {CAP} x {S} cells is past "
+                         "the 2^31 the kernel counts in")
     lo = torch.empty((R, CAP, S), dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
     rlo = torch.empty_like(lo)
@@ -252,8 +316,7 @@ def compact_level(core: dict, sums: torch.Tensor,
     sym = torch.empty_like(parent_row)
     child_count = torch.empty(R, dtype=torch.int32, device=device)
     single_full = torch.empty((R, CAP), dtype=torch.bool, device=device)
-    scratch = torch.empty(R * -(-4 * CAP // TILE_FLAGS) + 1,
-                          dtype=torch.int64, device=device)
+    status, bits = _compact_state(device, R * -(-4 * CAP // TILE_FLAGS))
     _build.launch("dsm_level_compact", "level_compact", device,
                   sums.data_ptr(), sym_mask.data_ptr(),
                   core["clo"].data_ptr(), core["chi"].data_ptr(),
@@ -261,6 +324,6 @@ def compact_level(core: dict, sums: torch.Tensor,
                   S, lo.data_ptr(), hi.data_ptr(), rlo.data_ptr(),
                   valid.data_ptr(), parent_row.data_ptr(), sym.data_ptr(),
                   child_count.data_ptr(), single_full.data_ptr(),
-                  scratch.data_ptr())
+                  status.data_ptr(), bits.data_ptr())
     return dict(lo=lo, hi=hi, rlo=rlo, valid=valid, parent_row=parent_row,
                 sym=sym, child_count=child_count, single_full=single_full)

@@ -24,9 +24,14 @@ do, and so do the four prefix runs over one shared upload (bench.py's
 topology for large tries) and a prefix run that pulls its history.
 The per-level engines' kernels (K12, the dense expand, and K13, the
 analyse-and-compact) are held against their plain versions at every level
-of dense mines of 1, 5, 273 and 512 samples over 1 to 3 tables with 1, 4
-and 16 prefix rows (an enforced prefix leaves rows empty; a small first
-capacity overflows), and on levels with no valid row or no active cell;
+of dense mines of 1, 5, 63, 255, 256, 257, 273 and 512 samples over 1 to 3
+and 128 tables with 1, 4, 16 and 1,024 prefix rows (an enforced prefix
+leaves rows empty; a small first capacity overflows), on random levels at
+each of those widths (an empty node tile or chunk beside one that ranks,
+an empty row, 1, 2 and 128 tables, 1 and 1,024 rows), on levels with no
+valid row or no active cell, and K13 on rows of exactly CAP union flags
+and of CAP + 1; the prepared tables (`LevelTables`) give the list's
+outputs, and 129 tables are refused before any launch;
 `compact_kidx` (K14) and `occ_batch` (K15) against theirs;
 `mine_sharded` and `mine_torch(reader_order="level-gnu")` on the card (and
 `mine_sharded` in a one-rank NCCL group) against the CPU.
@@ -1514,18 +1519,29 @@ def _walk_levels(tables, ns, rows, prefix, fmin, maxdepth, cap, device):
         depth += 1
 
 
+def _samples(toy_indexes, S: int) -> list:
+    """S samples: the toydata's (S <= 5), else the first S of a pool."""
+    return toy_indexes[:S] if S <= 5 else _pool(273 if S <= 273 else
+                                                 512)[0][:S]
+
+
 @pytest.mark.parametrize("S,parts,rows,prefix,maxdepth,cap", [
     (1, 1, 1, b"", 12, 1024), (5, 1, 1, b"", 12, 2),
     (5, 2, 4, b"A", 10, 16), (5, 3, 16, b"", 8, 1024),
     (273, 2, 4, b"", 5, 64), (512, 3, 16, b"G", 4, 1024),
-    (512, 1, 1, b"", 3, 1024)])
+    (512, 1, 1, b"", 3, 1024),
+    (5, 1, 1024, b"", 7, 2), (63, 1, 1, b"", 5, 1024),
+    (255, 2, 4, b"", 4, 64), (256, 128, 1, b"", 4, 1024),
+    (257, 2, 16, b"C", 4, 1024), (273, 128, 4, b"", 4, 1024),
+    (512, 128, 1, b"", 3, 1024)])
 def test_level_kernels(cuda, toy_indexes, S, parts, rows, prefix, maxdepth,
                        cap):
     """K12 and K13 at every level of a dense mine: S = 1 and 5 (toydata),
-    273 and 512 (pools), R = 1, 4 and 16 prefix rows (rows that hold
-    nothing: the enforced prefix empties three of four), 1-3 tables, and a
-    first capacity that overflows."""
-    idxs = toy_indexes[:S] if S <= 5 else _pool(S)[0]
+    63, 255, 256, 257, 273 and 512 (pools: node tiles of 4, 1 and 1 nodes,
+    past 256 a node a block in 32-sample chunks), R = 1, 4, 16 and 1,024
+    prefix rows (rows that hold nothing: the enforced prefix empties three
+    of four), 1-3 and 128 tables, and a first capacity that overflows."""
+    idxs = _samples(toy_indexes, S)
     tables, ns = _level_tables(idxs, parts, cuda)
     levels, regrows = _walk_levels(tables, ns, rows, prefix, 2, maxdepth,
                                    cap, cuda)
@@ -1534,15 +1550,17 @@ def test_level_kernels(cuda, toy_indexes, S, parts, rows, prefix, maxdepth,
         assert regrows > 0
 
 
-def test_level_kernels_all_inactive(cuda, toy_indexes):
-    """A level with no valid row and one whose cells are all empty: the
-    kernels write dsm_tpu's zeros, the codes 0 and no child."""
+@pytest.mark.parametrize("S", [5, 257, 512])
+def test_level_kernels_all_inactive(cuda, toy_indexes, S):
+    """A level with no valid row and one whose cells are all empty, in node
+    tiles (S = 5) and in a node's 32-sample chunks (257, 512): the kernels
+    write dsm_tpu's zeros, the codes 0 and no child."""
     from dsm_tpu_torch.ops import level as L
 
-    tables, _ns = _level_tables(toy_indexes, 2, cuda)
-    R, CAP, S = 4, 3000, 5
+    tables, ns = _level_tables(_samples(toy_indexes, S), 2, cuda)
+    R, CAP = 4, 3000 if S == 5 else 40
     g = torch.Generator(device="cpu").manual_seed(3)
-    lo = torch.randint(0, 1000, (R, CAP, S), generator=g,
+    lo = torch.randint(0, int(ns.min()) - 5, (R, CAP, S), generator=g,
                        dtype=torch.int32).to(cuda)
     for valid, hi in ((torch.zeros((R, CAP), dtype=torch.bool, device=cuda),
                        lo + 5),
@@ -1560,6 +1578,154 @@ def test_level_kernels_all_inactive(cuda, toy_indexes):
         for k in exp:
             assert torch.equal(res[k], exp[k]), k
         assert res["child_count"].tolist() == [0] * R
+
+
+def _synthetic_level(ns, R: int, CAP: int, S: int, seed: int, device):
+    """A random dense state over samples of text lengths `ns`: ~40% of the
+    cells empty, the rest narrow or wide intervals and reverse starts that
+    fit their sample, ~85% of the nodes valid.  The first block's node tile
+    of row 0 is all empty (kCells // S nodes, or one node); at S > 256 the
+    next node's samples past 256 too (empty chunks beside ones that rank);
+    the last row (R > 1) is empty and invalid, as an empty prefix row."""
+    rng = np.random.default_rng(seed)
+    n = np.asarray(ns, dtype=np.int64)[None, None, :]
+    shape = (R, CAP, S)
+    wide = rng.random(shape) < 0.5
+    w = np.where(rng.random(shape) < 0.4, 0, np.where(
+        wide, (rng.random(shape) * (n + 1)).astype(np.int64),
+        rng.integers(1, 9, size=shape))).clip(0, n)
+    lo = (rng.random(shape) * (n - w + 1)).astype(np.int64)
+    rlo = (rng.random(shape) * (n - w + 1)).astype(np.int64)
+    hi = lo + w
+    valid = rng.random((R, CAP)) < 0.85
+    tile = max(1, 256 // S)
+    hi[0, :tile] = lo[0, :tile]
+    if S > 256 and CAP > tile:
+        hi[0, tile, 256:] = lo[0, tile, 256:]
+    if R > 1:
+        hi[-1] = lo[-1]
+        valid[-1] = False
+    as32 = [torch.as_tensor(a.astype(np.int32), device=device)
+            for a in (lo, hi, rlo)]
+    return (*as32, torch.as_tensor(valid, device=device))
+
+
+def _level_kernels_equal(tables, state, sym_mask, label):
+    """K12 and K13 (one launch each) against their plain versions: every
+    output, the rows past the count included; -> K13's outputs."""
+    from dsm_tpu_torch.ops import level as L
+
+    e0, c0 = _build.LAUNCHES["level_expand"], _build.LAUNCHES[
+        "level_compact"]
+    core = L.expand_level(tables, *state, 2)
+    res = L.compact_level(core, core["sums"], sym_mask)
+    assert (_build.LAUNCHES["level_expand"] - e0,
+            _build.LAUNCHES["level_compact"] - c0) == (1, 1)
+    want = L.expand_level_plain(tables, *state, 2)
+    for k in ("clo", "chi", "crlo", "cactive", "freq", "lc", "sums"):
+        assert torch.equal(core[k], want[k]), (label, k)
+    exp = L.compact_level_plain(want, want["sums"], sym_mask)
+    for k in exp:
+        assert torch.equal(res[k], exp[k]), (label, k)
+    return res
+
+
+@pytest.mark.parametrize("parts", [1, 2, 128])
+@pytest.mark.parametrize("S", [1, 5, 63, 255, 256, 257, 273, 512])
+def test_level_kernels_synthetic(cuda, toy_indexes, S, parts):
+    """K12 and K13 on random dense levels at every node-tile shape (a tile
+    of 256 // S whole nodes; past 256 a node a block in 32-sample chunks)
+    and every row start's alignment to 16 bytes (S = 63, 255, 257, 273),
+    with an empty tile beside tiles that rank, empty chunks beside ones
+    that rank, an empty prefix row, 1, 2 and 128 tables (tables with no
+    sample among them where S < 128), R = 1 and R = MAX_ROWS at a small
+    capacity."""
+    from dsm_tpu_torch.ops import level as L
+
+    idxs = _samples(toy_indexes, S)
+    tables, ns = _level_tables(idxs, min(parts, S), cuda)
+    if parts > S:        # tables that hold no sample, bases repeated
+        tables += [tables[-1][:3] + (S,)] * (parts - S)
+    for R, CAP in ((1, 700 if S <= 5 else 9), (L.MAX_ROWS, 3)):
+        state = _synthetic_level(ns, R, CAP, S, seed=S * R + parts,
+                                 device=cuda)
+        g = np.random.default_rng(R + S)
+        sm = torch.as_tensor(g.random((R, 4)) < 0.8, device=cuda)
+        _level_kernels_equal(tables, state, sm, (S, parts, R))
+
+
+@pytest.mark.parametrize("S", [1, 5, 256, 257, 512])
+@pytest.mark.parametrize("R", [1, 4, 1024])
+def test_level_compact_at_the_capacity(cuda, R, S):
+    """K13 on sums whose rows have exactly CAP union flags, CAP + 1 (the
+    level overflows), none, and a random number below CAP (the unset flags
+    past the count, over several flag tiles), against its plain version;
+    its running state is left zero for the next launch."""
+    from dsm_tpu_torch.ops import level as L
+
+    CAP = 3000 if R == 1 else (1100 if R == 4 else 5)
+    rng = np.random.default_rng(R * 1000 + S)
+    flags = np.zeros((R, CAP * 4), dtype=bool)
+    want_counts = [CAP, CAP + 1, 0, int(rng.integers(1, CAP))] * R
+    for r in range(R):
+        flags[r, rng.permutation(CAP * 4)[:want_counts[r]]] = True
+    cc = flags.reshape(R, CAP, 4) * rng.integers(1, 7, size=(R, CAP, 4))
+    na = np.where(rng.random((R, CAP)) < 0.5, cc.max(axis=2), 9)
+    sums = torch.as_tensor(np.concatenate([na[..., None], cc], axis=2)
+                           .astype(np.int32), device=cuda)
+    shape4 = (R, CAP, 4, S)
+    g = torch.Generator(device=cuda).manual_seed(R + S)
+    core = {k: torch.randint(-2**31, 2**31 - 1, shape4, generator=g,
+                             device=cuda, dtype=torch.int32)
+            for k in ("clo", "chi", "crlo")}
+    core["cactive"] = torch.rand(shape4, generator=g, device=cuda) < 0.6
+    sm = torch.ones((R, 4), dtype=torch.bool, device=cuda)
+    for _ in range(2):                  # the second finds the state zero
+        res = L.compact_level(core, sums, sm)
+        exp = L.compact_level_plain(core, sums, sm)
+        for k in exp:
+            assert torch.equal(res[k], exp[k]), k
+    assert res["child_count"].tolist() == want_counts[:R]
+    for status, _bits in L._COMPACT_STATES.values():
+        assert not status.any()
+
+
+def test_level_expand_prepared_tables_equal_the_list(cuda, toy_indexes):
+    """The tables prepared once (LevelTables) and as a list give K12 equal
+    outputs, over 1, 2 and 128 tables; a prepared form on another device
+    than the state is refused."""
+    from dsm_tpu_torch.ops import level as L
+
+    idxs = _samples(toy_indexes, 273)
+    for parts in (1, 2, 128):
+        tables, ns = _level_tables(idxs, parts, cuda)
+        state = _synthetic_level(ns, 4, 9, 273, seed=parts, device=cuda)
+        by_list = L.expand_level(tables, *state, 2)
+        prepared = L.LevelTables(tables)
+        got = L.expand_level(prepared, *state, 2)
+        for k in by_list:
+            assert torch.equal(got[k], by_list[k]), (parts, k)
+    on_cpu = L.LevelTables([tuple(t.cpu() for t in tables[0][:3]) + (0,)])
+    with pytest.raises(ValueError, match="tables are on cpu"):
+        L.expand_level(on_cpu, *state, 2)
+
+
+def test_level_expand_refuses_129_tables(cuda, toy_indexes):
+    """More than MAX_TABLES tables are refused before any launch, as a
+    list and when prepared."""
+    from dsm_tpu_torch.ops import level as L
+
+    tables, ns = _level_tables(toy_indexes, 1, cuda)
+    state = _synthetic_level(ns, 1, 4, 5, seed=1, device=cuda)
+    many = tables * (L.MAX_TABLES + 1)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="1 to 128 tables"):
+        L.expand_level(many, *state, 2)
+    with pytest.raises(ValueError, match="1 to 128 tables"):
+        L.LevelTables(many)
+    assert _build.LAUNCHES == before
+    L.expand_level(tables * L.MAX_TABLES, *state, 2)
+    assert _build.LAUNCHES["level_expand"] == before["level_expand"] + 1
 
 
 @pytest.mark.parametrize("n", [1, 31, 4096, 4097, (1 << 20) + 7])

@@ -14,7 +14,11 @@
     bit for bit (freq, lc, single_full, parent_row, sym, child_count and
     the next lo, hi, rlo, valid, the rows past the count included), also
     on a level that overflows its capacity and under an enforced prefix;
-    K12's children equal `expand_core`'s.
+    K12's children equal `expand_core`'s; the same with the tables prepared
+    once (`ops/level.LevelTables`), whose outputs also equal the list's at
+    every level.  `LevelTables` refuses bad tables when it is made, and
+    the level-gnu and sharded engines make one a run, which every level
+    takes.
 (d) `mine_torch(reader_order='level-gnu', device='cpu')` against the
     reference servers' frozen output (tests/golden, all four prefixes
     concatenated, the whole trie at `default`; `shallow` also against
@@ -94,6 +98,7 @@ from dsm_tpu_torch import convert  # noqa: E402
 from dsm_tpu_torch.mining import engine as peng  # noqa: E402
 from dsm_tpu_torch.ops import compact as pcompact  # noqa: E402
 from dsm_tpu_torch.ops import rank as prank  # noqa: E402
+from dsm_tpu_torch.ops import level as plevel  # noqa: E402
 from dsm_tpu_torch.ops.level import expand_level  # noqa: E402
 from dsm_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from dsm_tpu_torch.parallel.engine_sharded import mine_sharded  # noqa: E402
@@ -250,15 +255,17 @@ LEVEL_CASES = {"default": (b"", 1024, 6), "overflow": (b"", 4, 5),
                "prefix": (b"GA", 16, 6), "maxdepth": (b"", 1024, 3)}
 
 
-@pytest.mark.parametrize("case", list(LEVEL_CASES))
-def test_level_step_matches_jax(indexes, case):
+def _level_steps_against_jax(indexes, case, prepared):
     """dsm_tpu's per-level loop, level by level: its state carried across
-    to the port's `_level_step` at every level, every output compared."""
+    to the port's `_level_step` at every level, every output compared; with
+    `prepared`, the step takes the tables as one LevelTables made before
+    the first level and must also give the list's outputs at each level."""
     prefix, cap, depths = LEVEL_CASES[case]
     maxdepth = 3 if case == "maxdepth" else CFG.maxdepth
     jdev = jeng.DeviceIndexes.build(indexes)
     pdev = convert.tables_from_device_indexes(jdev, "cpu")
-    tables = [(pdev.frows, pdev.rrows, pdev.soff, 0)]
+    listed = [(pdev.frows, pdev.rrows, pdev.soff, 0)]
+    tables = plevel.LevelTables(listed) if prepared else listed
     fmin = jnp.asarray(CFG.fmin, dtype=jnp.int32)
     state = jeng._seed_state(jdev, cap)
     depth = levels = regrows = 0
@@ -273,6 +280,12 @@ def test_level_step_matches_jax(indexes, case):
         for k, v in want.items():
             np.testing.assert_array_equal(got[k][0].numpy(), np.asarray(v),
                                           err_msg=f"{case} depth {depth} {k}")
+        if prepared:
+            by_list = peng._level_step(listed, carried[:4], CFG.fmin,
+                                       carried[4])
+            assert by_list.keys() == got.keys()
+            for k in got:
+                assert torch.equal(got[k], by_list[k]), (case, depth, k)
         if depth == 1:
             core = jeng.expand_core(jdev.frows, jdev.rrows, jdev.soff,
                                     *state, fmin)
@@ -298,6 +311,103 @@ def test_level_step_matches_jax(indexes, case):
     assert levels > 3
     if case == "overflow":
         assert regrows > 0
+
+
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_level_step_matches_jax(indexes, case):
+    _level_steps_against_jax(indexes, case, prepared=False)
+
+
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_level_step_prepared_tables_match_jax(indexes, case):
+    _level_steps_against_jax(indexes, case, prepared=True)
+
+
+def _bad_tables(t, case):
+    frows, rrows, soff = t
+    one = (frows, rrows, soff, 0)
+    return {
+        "no table": [],
+        "129 tables": [one] * 129,
+        "frows int64": [(frows.to(torch.int64), rrows, soff, 0)],
+        "rrows 16 words": [(frows, rrows[:, :16].contiguous(), soff, 0)],
+        "frows not contiguous": [(frows.t().contiguous().t(), rrows, soff,
+                                  0)],
+        "soff int64": [(frows, rrows, soff.to(torch.int64), 0)],
+        "soff 2-D": [(frows, rrows, soff[None, :], 0)],
+        "another device": [one, (frows, rrows, soff.to("meta"), 2)],
+        "first base 1": [(frows, rrows, soff, 1)],
+        "bases descending": [one, (frows, rrows, soff, 3),
+                             (frows, rrows, soff, 2)],
+    }[case]
+
+
+BAD_TABLES = ("no table", "129 tables", "frows int64", "rrows 16 words",
+              "frows not contiguous", "soff int64", "soff 2-D",
+              "another device", "first base 1", "bases descending")
+
+
+@pytest.mark.parametrize("case", BAD_TABLES)
+def test_level_tables_refuse_bad_tables(port_indexes, case):
+    """LevelTables checks the tables once, when the run prepares them: each
+    bad table raises there (as the list form raises on the card at every
+    call)."""
+    dev = peng.DeviceIndexes.build(port_indexes, "cpu")
+    t = (dev.frows, dev.rrows, dev.soff)
+    with pytest.raises(ValueError, match="LevelTables"):
+        plevel.LevelTables(_bad_tables(t, case))
+
+
+def test_level_tables_take_128_and_keep_the_list(port_indexes):
+    dev = peng.DeviceIndexes.build(port_indexes, "cpu")
+    listed = [(dev.frows, dev.rrows, dev.soff, min(k, 3))
+              for k in range(plevel.MAX_TABLES)]
+    tables = plevel.LevelTables(listed)
+    assert tables.tables == listed
+    assert tables.device == torch.device("cpu")
+    assert list(tables.packed[:4]) == [dev.frows.data_ptr(),
+                                       dev.rrows.data_ptr(),
+                                       dev.soff.data_ptr(), 0]
+    assert tables.packed[-1] == 3 and len(tables.packed) == 4 * 128
+    # a state on another device than the prepared tables' is refused
+    meta = torch.empty((1, 4, dev.S), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="tables are on cpu"):
+        expand_level(tables, meta, meta, meta,
+                     torch.empty((1, 4), dtype=torch.bool, device="meta"), 2)
+
+
+@pytest.mark.parametrize("engine", ["level-gnu", "sharded (4, 2)"])
+def test_tables_are_packed_once_a_run(port_indexes, monkeypatch, engine):
+    """mine_levels prepares the tables once a run: one LevelTables
+    made, and every level's step (redone levels too) takes that one."""
+    made, seen = [], []
+    init = plevel.LevelTables.__init__
+
+    def counted(self, tables):
+        made.append(len(tables))
+        init(self, tables)
+
+    step = peng._level_step
+
+    def recording(tables, *args, **kw):
+        seen.append(tables)
+        return step(tables, *args, **kw)
+
+    monkeypatch.setattr(plevel.LevelTables, "__init__", counted)
+    monkeypatch.setattr(peng, "_level_step", recording)
+    cfg = convert.config_from_jax(MiningConfig(fmin=2, emax=1.2, maxdepth=6))
+    prof = {}
+    if engine == "level-gnu":
+        peng.mine_torch(port_indexes, cfg, reader_order="level-gnu",
+                        device="cpu", cap=16, profile=prof)
+        assert made == [1]
+    else:
+        mine_sharded(port_indexes, cfg, mesh=pmesh.make_mesh(
+            4, 2, device="cpu"), device="cpu", cap=16, profile=prof)
+        assert made == [2]
+    assert prof["regrows"] > 0 and len(seen) == prof["levels"] > 3
+    assert isinstance(seen[0], plevel.LevelTables)
+    assert all(t is seen[0] for t in seen)
 
 
 # -------------------------------------------------- (d) level-gnu engine --
