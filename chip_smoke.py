@@ -214,11 +214,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      passing the tables prepared once (`LevelTables`); K14
      (`compact_kidx`, csrc/compact.cu) at N = LEVEL_KIDX_N with 30% set,
      also below the count, beside `torch.nonzero`, and K15 (`occ_batch`,
-     csrc/occbatch.cu) at LEVEL_OCC_Q queries on toy0's blocks, each first
-     called once through its API (the "ops" path).  Each run's wall,
+     csrc/occbatch.cu) at LEVEL_OCC_Q queries: (a) random positions on
+     toy0's blocks, (b) the same sorted, (c) random on a table of
+     OCC_BIG_CODES codes past the L2 (`occ_cases`), each an entry of its
+     own with its L2 floor in sectors a query (`occ_bounds`); each first
+     called once through its API (the "ops" path), K14 and K15 also timed
+     by `queued_ms`.  Each run's wall,
      levels, regrows and launches on a line of its own; "levels summary:"
      and "levels kernels:" lines.  Alone: `python3 -c 'import torch, chip_smoke as c;
-     c.levels_alone(torch, torch.device("cuda", 0))'`.
+     c.levels_alone(torch, torch.device("cuda", 0))'`.  K15's three cases
+     timed in turns with another tree's kernel and beside OCC_PATCHES'
+     builds: `c.occ_batch_times(torch, torch.device("cuda", 0),
+     parent="build/parent")` (one JSON line; not part of the run).
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume, halt, owned and capacity
 phases).
@@ -343,6 +350,7 @@ SAMPLES_ENT_TOL = 5e-6  # the port's f64 entropy range against dsm_tpu's f32
 LEVEL_PREFIX = b"AC"
 LEVEL_KIDX_N = 1 << 23
 LEVEL_OCC_Q = 1 << 22
+OCC_BIG_CODES = 1 << 27  # K15's case (c): 1,048,576 blocks, past the L2
 SAMPLES_SHARDS = (2, 128)   # the sharded episode's shards on the one card
 SAMPLES_RESERVE = 400   # D273's killed gnu mine: a few drains, each a save
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
@@ -4599,18 +4607,29 @@ def dense_levels(torch, device) -> dict:
     return found
 
 
-def ops_cases(torch, toy0, device) -> list[dict]:
-    """K14 (compact_kidx) at N = LEVEL_KIDX_N, 30% set, and K15
-    (occ_batch) at LEVEL_OCC_Q queries on toy0's blocks, each first called
-    once through its API (the "ops" path, counts from 0), then against its
-    plain version and timed; -> their entries."""
-    from dsm_tpu_torch.ops import _build
-    from dsm_tpu_torch.ops.compact import (compact_kidx, compact_kidx_plain,
-                                           compact_kidx_sort)
-    from dsm_tpu_torch.ops.rank import occ_batch, occ_batch_plain
+def occ_table_big(torch, device):
+    """K15's table past the 50 MB L2: OCC_BIG_CODES random codes in 1..5
+    made on the card from a seeded generator, as (nb, 128) int8 blocks, and
+    its (nb + 1, SIGMA) int32 occ table by cumulative counts (~0.17 GB)."""
+    from dsm_tpu_torch.ops.rank import SIGMA
 
-    gen = torch.Generator(device=device).manual_seed(17)
-    mask = torch.rand(LEVEL_KIDX_N, device=device, generator=gen) < 0.3
+    gen = torch.Generator(device=device).manual_seed(27)
+    blocks = torch.randint(1, 6, (OCC_BIG_CODES // 128, 128), device=device,
+                           dtype=torch.int8, generator=gen)
+    occ = torch.zeros((blocks.shape[0] + 1, SIGMA), dtype=torch.int32,
+                      device=device)
+    occ[1:] = torch.stack([(blocks == c).sum(1, dtype=torch.int32)
+                           for c in range(SIGMA)], 1).cumsum(
+                               0, dtype=torch.int32)
+    return blocks, occ
+
+
+def occ_cases(torch, toy0, device, gen) -> dict:
+    """K15's three cases, {label: (blocks, occ, syms, pos)}: (a)
+    LEVEL_OCC_Q random positions (and symbols 0..7, PAD included) on toy0's
+    blocks at scale 100, drawn from `gen`; (b) the same positions sorted,
+    the order in which a level's interval ends arrive; (c) LEVEL_OCC_Q
+    random positions on `occ_table_big`, past the L2."""
     t = toy0.table
     blocks = torch.as_tensor(t.blocks, device=device)
     occ = torch.as_tensor(t.occ, device=device)
@@ -4618,12 +4637,58 @@ def ops_cases(torch, toy0, device) -> list[dict]:
            * (t.n + 1)).to(torch.int32).clamp(max=t.n)
     syms = torch.randint(0, 8, (LEVEL_OCC_Q,), device=device,
                          dtype=torch.int32, generator=gen)
+    big_blocks, big_occ = occ_table_big(torch, device)
+    big_pos = torch.randint(0, OCC_BIG_CODES + 1, (LEVEL_OCC_Q,),
+                            device=device, dtype=torch.int32, generator=gen)
+    q, nb = f"Q={LEVEL_OCC_Q:,}", f"{blocks.shape[0]:,}"
+    return {
+        f"(a) {q} random on toy0's {nb} blocks": (blocks, occ, syms, pos),
+        f"(b) {q} sorted on toy0's {nb} blocks": (
+            blocks, occ, syms, torch.sort(pos).values),
+        f"(c) {q} random on {big_blocks.shape[0]:,} blocks past the L2": (
+            big_blocks, big_occ, syms, big_pos)}
+
+
+def occ_bounds(torch, blocks, occ, pos) -> dict:
+    """K15's bounds at these inputs: `bound` by DRAM bytes (12 B a query,
+    each distinct block's row and occ row once) and the L2 floor, the mean
+    32-byte sectors a query reads (its occ sector and the row's sectors it
+    counts in), counted from the row's start and from its nearer end."""
+    p = pos.to(torch.int64)
+    b, r = p >> 7, p & 127
+    nblk = int(torch.unique(b).numel())
+    fwd = (r + 31) // 32
+    back = (r > 64) & (b + 1 < blocks.shape[0])
+    nearer = torch.where(back, 4 - r // 32, fwd)
+    return dict(**bound(12 * p.numel() + nblk * (128 + 4 * occ.shape[1]),
+                        40 * p.numel()),
+                distinct_blocks=nblk,
+                sectors_forward=1 + float(fwd.double().mean()),
+                sectors_nearer=1 + float(nearer.double().mean()))
+
+
+def ops_cases(torch, toy0, device) -> list[dict]:
+    """K14 (compact_kidx) at N = LEVEL_KIDX_N, 30% set, and K15
+    (occ_batch) at `occ_cases`' three cases, each first called once
+    through its API (the "ops" path, counts from 0), then against its plain
+    version and timed (also `queued_ms`, device time without the wrapper's
+    host time; K14's also its scratch's zero fill alone); -> their
+    entries."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.compact import (TILE_ROWS, compact_kidx,
+                                           compact_kidx_plain,
+                                           compact_kidx_sort)
+    from dsm_tpu_torch.ops.rank import occ_batch, occ_batch_plain
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    mask = torch.rand(LEVEL_KIDX_N, device=device, generator=gen) < 0.3
+    cases = occ_cases(torch, toy0, device, gen)
     count = int(mask.sum())
     torch.cuda.synchronize()
     _build.reset_launches()
     kidx, c1 = compact_kidx(mask, count)
     kidx_s, c2 = compact_kidx_sort(mask, count)
-    ranks = occ_batch(blocks, occ, syms, pos)
+    ranks = [occ_batch(*args) for args in cases.values()]
     torch.cuda.synchronize()
     launches = path_launches("ops", "the API ops' path (one call each)")
     want, wc = compact_kidx_plain(mask, count)
@@ -4633,10 +4698,10 @@ def ops_cases(torch, toy0, device) -> list[dict]:
     below, bc = compact_kidx(mask, count // 2)
     if not torch.equal(below, want[:count // 2]) or int(bc) != count:
         raise SystemExit("compact_kidx disagrees below the count")
-    if not torch.equal(ranks, occ_batch_plain(blocks, occ, syms, pos)):
-        raise SystemExit("occ_batch disagrees with its plain version")
-    blk = (pos.to(torch.int64) >> 7)
-    nblk = int(torch.unique(blk).numel())
+    for (label, args), got in zip(cases.items(), ranks):
+        if not torch.equal(got, occ_batch_plain(*args)):
+            raise SystemExit(f"occ_batch disagrees with its plain version at "
+                             f"{label}")
     n = LEVEL_KIDX_N
     entries = [
         dict(name="compact_kidx", route="cuda",
@@ -4645,30 +4710,152 @@ def ops_cases(torch, toy0, device) -> list[dict]:
                  "compact_kidx"], max_abs_err=0,
              ms=cuda_ms(torch, lambda: compact_kidx(mask, count)),
              device_ms=device_ms(torch, lambda: compact_kidx(mask, count)),
+             queued_ms=queued_ms(torch, lambda: compact_kidx(mask, count)),
+             # its scratch's zero fill alone (the C entry clears the status
+             # words and tile counter with cudaMemsetAsync before the kernel)
+             scratch_queued_ms=queued_ms(torch, torch.empty(
+                 -(-n // TILE_ROWS) + 1, dtype=torch.int64,
+                 device=device).zero_),
              plain_ms=cuda_ms(torch, lambda: compact_kidx_plain(mask, count)),
              **bound(n + 4 * count, 2 * n),
              library_ms=cuda_ms(torch, lambda: torch.nonzero(mask)[:count]),
-             case=f"N={n:,}, {count:,} set"),
-        dict(name="occ_batch", route="cuda",
-             source="dsm_tpu_torch/csrc/occbatch.cu",
-             replaces="dsm_tpu/ops/rank.py:270", launches=launches[
-                 "occ_batch"], max_abs_err=0,
-             ms=cuda_ms(torch, lambda: occ_batch(blocks, occ, syms, pos)),
-             device_ms=device_ms(torch,
-                                 lambda: occ_batch(blocks, occ, syms, pos)),
-             plain_ms=cuda_ms(torch,
-                              lambda: occ_batch_plain(blocks, occ, syms, pos),
-                              reps=3),
-             **bound(12 * LEVEL_OCC_Q + nblk * (128 + 4 * occ.shape[1]),
-                     40 * LEVEL_OCC_Q),
-             library_ms=None,
-             case=f"Q={LEVEL_OCC_Q:,} on toy0's {blocks.shape[0]:,} blocks")]
+             case=f"N={n:,}, {count:,} set")]
+    for label, args in cases.items():
+        entries.append(dict(
+            name="occ_batch", route="cuda",
+            source="dsm_tpu_torch/csrc/occbatch.cu",
+            replaces="dsm_tpu/ops/rank.py:270",
+            launches=launches["occ_batch"], max_abs_err=0,
+            ms=cuda_ms(torch, lambda: occ_batch(*args)),
+            device_ms=device_ms(torch, lambda: occ_batch(*args)),
+            queued_ms=queued_ms(torch, lambda: occ_batch(*args)),
+            plain_ms=cuda_ms(torch, lambda: occ_batch_plain(*args), reps=3),
+            **occ_bounds(torch, args[0], args[1], args[3]),
+            library_ms=None, case=label))
     for e in entries:
         log(f"kernel {e['name']}: {e['case']}: equal; {e['ms']:.4f} ms "
-            f"(device {fmt_ms(e['device_ms'])}) vs plain {e['plain_ms']:.4f}"
-            f" ms, library {fmt_ms(e['library_ms'])}; bound "
+            f"(device {fmt_ms(e['device_ms'])}, queued "
+            f"{e['queued_ms']:.4f} ms) vs plain {e['plain_ms']:.4f} ms, "
+            f"library {fmt_ms(e['library_ms'])}; bound "
             f"{e['bound_ms']:.4f} ms by {e['bound_by']}")
     return entries
+
+
+# K15's build variants that `occ_batch_times` times beside the source as
+# built, {label: ((old, new), ...)}: csrc/occbatch.cu with each `old`
+# (found once) replaced by `new`.  Two other forms, checked against the
+# plain version (the count from the row's start; `__vcmpeq4` under a mask a
+# word for the zero-byte test), then cuts that skip stages (their outputs
+# wrong, their time that of the stages left)
+_OCC_NO_OCC = ("mine ? __ldg(occ", "false ? __ldg(occ")
+_OCC_NO_ROWS = ("const bool need = vi < 8",
+                "const bool need = false && vi < 8")
+_OCC_W = "  const uint32_t w[4] = {v.x, v.y, v.z, v.w};\n"
+_OCC_NO_COMPARES = (_OCC_W,
+                    "  return (v.x ^ v.y ^ v.z ^ v.w) & 1u;\n" + _OCC_W)
+OCC_PATCHES = {
+    "from the start": (("return (p & 127u) > 64u",
+                        "return false && (p & 127u) > 64u"),),
+    "vcmpeq4": ((_OCC_W, _OCC_W + """\
+  uint32_t bits = 0;
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t m = __funnelshift_lc(kFull, 0u, max(8 * below - 32 * k, 0));
+    bits += __popc(__vcmpeq4(w[k], sym4) & (back ? ~m : m));
+  }
+  return bits >> 3;
+"""),),
+    "cut: no occ load": (_OCC_NO_OCC,),
+    "cut: no row loads": (_OCC_NO_ROWS,),
+    "cut: no compares": (_OCC_NO_COMPARES,),
+    "cut: positions and symbols only": (
+        _OCC_NO_OCC, _OCC_NO_ROWS, _OCC_NO_COMPARES,
+        ("out[base + lane] = from_end(p, nb) ? o - n : o + n;",
+         "out[base + lane] = (int32_t)p + s;"))}
+
+
+def occ_batch_times(torch, device, parent: str | None = None) -> None:
+    """Times K15 at `occ_cases`' three cases and prints one JSON line:
+    device time by `queued_ms` (three readings a turn) of the package's
+    `occ_batch` as built and, where `parent` names another tree's root
+    (e.g. `git archive` of the parent commit unpacked into build/parent),
+    that tree's kernel, built and bound by that tree's own ops/_build.py,
+    in turns (parent, change, OCC_PATCHES' builds, change, parent); each
+    patched copy of csrc/ is built through _build into its own directory
+    under build/occ_times/.  Every build but the cut ones is first held bit
+    for bit against `occ_batch_plain`; beside the times each case's bounds
+    (`occ_bounds`)."""
+    import importlib.util
+    import shutil
+
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.rank import occ_batch, occ_batch_plain
+
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="dsm_times_occ_") as td:
+        toy0 = phase_data(torch, load_make_toydata(), td, device)[0][0]
+    gen = torch.Generator(device=device).manual_seed(17)
+    torch.rand(LEVEL_KIDX_N, device=device, generator=gen)  # ops_cases' mask
+    cases = occ_cases(torch, toy0, device, gen)
+    calls = {"change": occ_batch}
+    if parent:
+        spec = importlib.util.spec_from_file_location(
+            "parent_build", os.path.join(parent, "dsm_tpu_torch", "ops",
+                                         "_build.py"))
+        pb = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(pb)
+        with_nb = len(pb._SIGNATURES["dsm_occ_batch"]) == 9
+
+        def parent_call(blocks, occ, syms, pos):
+            out = torch.empty(pos.shape[0], dtype=torch.int32, device=device)
+            nb = (blocks.shape[0],) if with_nb else ()
+            pb.launch("dsm_occ_batch", "occ_batch", device, blocks.data_ptr(),
+                      *nb, occ.data_ptr(), occ.shape[1], syms.data_ptr(),
+                      pos.data_ptr(), out.data_ptr(), pos.shape[0])
+            return out
+        calls["parent"] = parent_call
+    res = {"tree": HERE, "smi": smi_line(), "cases": {
+        label: {**occ_bounds(torch, args[0], args[1], args[3]),
+                "queued_ms": {}} for label, args in cases.items()}}
+
+    def time_build(tag: str, call) -> None:
+        for label, args in cases.items():
+            if "cut:" not in tag and not torch.equal(
+                    call(*args), occ_batch_plain(*args)):
+                raise SystemExit(f"occ_batch_times: {tag} disagrees with the "
+                                 f"plain version at {label}")
+            res["cases"][label]["queued_ms"].setdefault(tag, []).extend(
+                queued_ms(torch, lambda: call(*args)) for _ in range(3))
+
+    turns = ["parent"] if parent else []
+    for tag in turns + ["change"]:
+        time_build(tag, calls[tag])
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    try:
+        for i, (label, patches) in enumerate(OCC_PATCHES.items()):
+            work = os.path.join(HERE, "build", "occ_times", f"v{i}")
+            shutil.rmtree(work, ignore_errors=True)
+            shutil.copytree(csrc, os.path.join(work, "csrc"))
+            path = os.path.join(work, "csrc", "occbatch.cu")
+            with open(path) as fh:
+                text = fh.read()
+            for old, new in patches:
+                if text.count(old) != 1:
+                    raise SystemExit(f"occ_batch_times: {label}: {old!r} is "
+                                     f"not in occbatch.cu once")
+                text = text.replace(old, new)
+            with open(path, "w") as fh:
+                fh.write(text)
+            _build.CSRC = Path(work) / "csrc"
+            _build.BUILD_DIR, _build._lib = Path(work), None
+            _build.lib()
+            time_build(label, occ_batch)
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
+    for tag in ["change"] + turns:
+        time_build(tag, calls[tag])
+    for label, t in res["cases"].items():
+        log(f"occ_batch times {label}: {json.dumps(t)}")
+    print(json.dumps(res), flush=True)
 
 
 def levels_d512(torch, idxs, device) -> tuple:

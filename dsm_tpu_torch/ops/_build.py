@@ -110,8 +110,8 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P, _P],
     # mask, n, out, width, scratch, count, stream
     "dsm_compact_kidx": [_P, _I64, _P, _I64, _P, _P, _P],
-    # blocks, occ, sigma, syms, pos, out, q, stream
-    "dsm_occ_batch": [_P, _P, _I, _P, _P, _P, _I64, _P],
+    # blocks, nb, occ, sigma, syms, pos, out, q, stream
+    "dsm_occ_batch": [_P, _I64, _P, _I, _P, _P, _P, _I64, _P],
     # hist, lvl_off, rows, jrel, m, maxj, base, syms, stream
     "dsm_decode": [_P, _P, _P, _P, _I64, _I, _P, _P, _P],
     # F, f_is64, bins, nfactor, R, d, nbins, slices, counts, order, count,

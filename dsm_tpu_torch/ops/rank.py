@@ -327,8 +327,12 @@ def occ_batch(blocks: torch.Tensor, occ: torch.Tensor, syms: torch.Tensor,
     """(Q,) int32: the count of syms[i] in L[: pos[i]] from the raw blocks
     (nblocks, BLOCK) int8 and the occ table (nblocks + 1, SIGMA) int32 of
     an `OccTable`; syms, pos (Q,) integers, 0 <= pos <= n.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (K15): blocks and occ
-    contiguous, syms and pos made int32 contiguous where they are not."""
+    the plain version; CUDA tensors launch the kernel (K15), one launch:
+    blocks and occ contiguous, blocks 4-byte aligned (read with 16-byte
+    loads where it is 16-byte aligned), syms and pos made int32 contiguous
+    where they are not.  The kernel counts a query past the middle of its
+    block from the block's end (occ[b + 1] less the codes from pos on), so
+    occ must be the blocks' cumulative counts, as an `OccTable`'s are."""
     if blocks.device.type == "cpu":
         return occ_batch_plain(blocks, occ, syms, pos)
     device = blocks.device
@@ -351,8 +355,9 @@ def occ_batch(blocks: torch.Tensor, occ: torch.Tensor, syms: torch.Tensor,
     out = torch.empty(pos.shape[0], dtype=torch.int32, device=device)
     if pos.shape[0]:
         _build.launch("dsm_occ_batch", "occ_batch", device, blocks.data_ptr(),
-                      occ.data_ptr(), occ.shape[1], syms.data_ptr(),
-                      pos.data_ptr(), out.data_ptr(), pos.shape[0])
+                      blocks.shape[0], occ.data_ptr(), occ.shape[1],
+                      syms.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                      pos.shape[0])
     return out
 
 

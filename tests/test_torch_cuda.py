@@ -32,7 +32,9 @@ an empty row, 1, 2 and 128 tables, 1 and 1,024 rows), on levels with no
 valid row or no active cell, and K13 on rows of exactly CAP union flags
 and of CAP + 1; the prepared tables (`LevelTables`) give the list's
 outputs, and 129 tables are refused before any launch;
-`compact_kidx` (K14) and `occ_batch` (K15) against theirs;
+`compact_kidx` (K14) and `occ_batch` (K15) against theirs (K15 at every
+in-block offset with each symbol, pos = n at a multiple of 128, ragged Q,
+a blocks view 4-byte but not 16-byte aligned and a table past the L2);
 `mine_sharded` and `mine_torch(reader_order="level-gnu")` on the card (and
 `mine_sharded` in a one-rank NCCL group) against the CPU.
 Exact, except the f64 entropy of segstats: absolute 1e-9 (the plain
@@ -1747,10 +1749,28 @@ def test_compact_kidx_kernel(cuda, n, frac):
         assert torch.equal(compact_kidx_sort(mask, width)[0], want)
 
 
-@pytest.mark.parametrize("q", [1, 33, 100_003])
-def test_occ_batch_kernel(cuda, toy_indexes, q):
+def _occ_batch_once(blocks, occ, syms, pos):
+    """K15 once (one launch) against its plain version, bit for bit."""
     from dsm_tpu_torch.ops.rank import occ_batch, occ_batch_plain
 
+    before = _build.LAUNCHES["occ_batch"]
+    got = occ_batch(blocks, occ, syms, pos)
+    assert _build.LAUNCHES["occ_batch"] == before + 1
+    assert torch.equal(got, occ_batch_plain(blocks, occ, syms, pos))
+
+
+def _occ_edges(n: int, nb: int) -> np.ndarray:
+    """Every in-block offset of the first, a middle and the last block (the
+    last one's codes only), and pos = n, each with the 8 symbols ->
+    (syms, pos) int32."""
+    starts = sorted({0, (nb // 2) * 128, (nb - 1) * 128})
+    pos = np.concatenate([s + np.arange(128) for s in starts] + [[n]])
+    pos = np.tile(pos[pos <= n], 8).astype(np.int32)
+    return np.repeat(np.arange(8, dtype=np.int32), pos.size // 8), pos
+
+
+@pytest.mark.parametrize("q", [1, 7, 33, 100_003])
+def test_occ_batch_kernel(cuda, toy_indexes, q):
     t = toy_indexes[0].table
     blocks = torch.as_tensor(t.blocks, device=cuda)
     occ = torch.as_tensor(t.occ, device=cuda)
@@ -1758,12 +1778,91 @@ def test_occ_batch_kernel(cuda, toy_indexes, q):
     pos = rng.integers(0, t.n + 1, size=q).astype(np.int32)
     pos[:min(q, 3)] = [0, t.n, (t.n // 128) * 128][:min(q, 3)]
     syms = rng.integers(0, 8, size=q).astype(np.int32)
+    _occ_batch_once(blocks, occ, torch.as_tensor(syms, device=cuda),
+                    torch.as_tensor(pos, device=cuda))
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_occ_batch_kernel_every_offset(cuda, toy_indexes, which):
+    """Every in-block offset 0..127 (each 16-byte vector's and sector's
+    edge; the counts from the start and from the nearer end) of toy0's and
+    toy1's first, middle and last blocks and pos = n, with each of the 8
+    symbols, PAD (7) included; toy1's last block holds codes past its
+    middle (counted from its start: the last occ row leaves the padding
+    out of PAD's count)."""
+    t = toy_indexes[which].table
+    if which == 1:
+        assert t.n % 128 > 64
+    syms, pos = _occ_edges(t.n, t.blocks.shape[0])
+    _occ_batch_once(torch.as_tensor(t.blocks, device=cuda),
+                    torch.as_tensor(t.occ, device=cuda),
+                    torch.as_tensor(syms, device=cuda),
+                    torch.as_tensor(pos, device=cuda))
+
+
+def test_occ_batch_kernel_n_multiple_of_128(cuda):
+    """pos = n with n a multiple of 128 reads no row (offset 0 of the row
+    past the last); the last block's offsets, each symbol."""
+    from dsm_tpu_torch.ops.rank import OccTable
+
+    codes = np.random.default_rng(11).integers(1, 6, size=128 * 37)
+    t = OccTable.build(codes.astype(np.int8))
+    syms, pos = _occ_edges(t.n, t.blocks.shape[0])
+    assert pos[-1] == t.n == 128 * t.blocks.shape[0]
+    _occ_batch_once(torch.as_tensor(t.blocks, device=cuda),
+                    torch.as_tensor(t.occ, device=cuda),
+                    torch.as_tensor(syms, device=cuda),
+                    torch.as_tensor(pos, device=cuda))
+
+
+def test_occ_batch_kernel_unaligned_blocks(cuda, toy_indexes):
+    """A blocks view 4-byte aligned but not 16-byte aligned takes the
+    kernel's 4-byte loads, bit for bit; a view not 4-byte aligned is
+    refused."""
+    t = toy_indexes[1].table
+    flat = torch.zeros(t.blocks.size + 16, dtype=torch.int8, device=cuda)
+    blocks = flat[4:4 + t.blocks.size].view(-1, 128)
+    blocks.copy_(torch.as_tensor(t.blocks))
+    assert blocks.data_ptr() % 16 == 4 and blocks.data_ptr() % 4 == 0
+    syms, pos = _occ_edges(t.n, t.blocks.shape[0])
+    rng = np.random.default_rng(12)
+    syms = np.concatenate([syms, rng.integers(0, 8, 10_001)]).astype(np.int32)
+    pos = np.concatenate([pos, rng.integers(0, t.n + 1, 10_001)]).astype(
+        np.int32)
+    occ = torch.as_tensor(t.occ, device=cuda)
     args = (torch.as_tensor(syms, device=cuda),
             torch.as_tensor(pos, device=cuda))
-    before = _build.LAUNCHES["occ_batch"]
-    got = occ_batch(blocks, occ, *args)
-    assert _build.LAUNCHES["occ_batch"] == before + 1
-    assert torch.equal(got, occ_batch_plain(blocks, occ, *args))
+    _occ_batch_once(blocks, occ, *args)
+    odd = flat[1:1 + t.blocks.size].view(-1, 128)
+    from dsm_tpu_torch.ops.rank import occ_batch
+
+    with pytest.raises(ValueError, match="4-byte"):
+        occ_batch(odd, occ, *args)
+
+
+def test_occ_batch_kernel_past_the_l2(cuda):
+    """chip_smoke's case (c): 2^27 random codes in 1..5 (1,048,576 blocks,
+    128 MB, and a 32 MB occ table by cumulative counts), past the 50 MB L2,
+    at 2^16 random queries and the edges of its first, middle and last
+    blocks."""
+    from dsm_tpu_torch.ops.rank import SIGMA
+
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    blocks = torch.randint(1, 6, (1 << 20, 128), device=cuda,
+                           dtype=torch.int8, generator=gen)
+    occ = torch.zeros((blocks.shape[0] + 1, SIGMA), dtype=torch.int32,
+                      device=cuda)
+    occ[1:] = torch.stack([(blocks == c).sum(1, dtype=torch.int32)
+                           for c in range(SIGMA)], 1).cumsum(
+                               0, dtype=torch.int32)
+    n = blocks.numel()
+    syms, pos = _occ_edges(n, blocks.shape[0])
+    rng = np.random.default_rng(13)
+    syms = np.concatenate([syms, rng.integers(0, 8, 1 << 16)])
+    pos = np.concatenate([pos, rng.integers(0, n + 1, 1 << 16)])
+    _occ_batch_once(blocks, occ,
+                    torch.as_tensor(syms.astype(np.int32), device=cuda),
+                    torch.as_tensor(pos.astype(np.int32), device=cuda))
 
 
 def test_occ_cum_on_card(cuda, toy_indexes):

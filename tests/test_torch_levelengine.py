@@ -4,7 +4,9 @@
     `prefixes_of_row` for 1-64 prefix rows, `default_mesh_shape(1..16)`)
     equal dsm_tpu/parallel/mesh.py's, refusals included.
 (b) `occ_cum` and `occ_batch` (plain) equal dsm_tpu/ops/rank.py's on
-    random queries over toy0's tables (block edges and pos = n included);
+    random queries over toy0's tables (block edges and pos = n included),
+    `occ_batch` also at every in-block offset with each symbol, with syms
+    of int8, int32 and int64, at Q = 0 and where n is a multiple of 128;
     `compact_kidx`, `compact_kidx_sort` (plain) equal dsm_tpu's
     `compact_kidx_np` and both JAX forms on the first `count` slots at 0%,
     30% and 100% set, widths below and above the count.
@@ -224,6 +226,71 @@ def test_occ_batch_matches_jax(indexes):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         want, jrank.occ_prefix_np(t, syms.astype(np.int64), pos))
+
+
+def _occ_edges(t) -> np.ndarray:
+    """Every in-block offset of the first, a middle and the last block
+    (the last one's codes only), and pos = n."""
+    nb = t.blocks.shape[0]
+    starts = sorted({0, (nb // 2) * 128, (nb - 1) * 128})
+    pos = np.concatenate([s + np.arange(128) for s in starts] + [[t.n]])
+    return pos[pos <= t.n].astype(np.int32)
+
+
+OCC_EDGE_CASES = ([f"offsets, sym {s}" for s in range(8)]
+                  + ["syms int8", "syms int32", "syms int64", "no queries",
+                     "n a multiple of 128"])
+
+
+@pytest.mark.parametrize("case", OCC_EDGE_CASES)
+def test_occ_batch_edges_match_jax(indexes, case):
+    """The port's occ_batch against dsm_tpu's (JAX on the CPU): every
+    in-block offset (each 16-byte vector's and 32-byte sector's edge, both
+    halves of a block) with each symbol, PAD (7) included, on toy0 and on
+    toy1, whose last block holds codes past its middle; syms of int8, int32
+    and int64; Q = 0; a sample whose n is a multiple of 128 (pos = n is
+    offset 0 of the row past the last), every offset of its last block with
+    each symbol."""
+    tables = [idx.table for idx in indexes[:2]]
+    rng = np.random.default_rng(9)
+    if case.startswith("offsets"):
+        assert tables[1].n % 128 > 64
+        runs = [(t, np.full(_occ_edges(t).size, int(case[-1]), np.int8),
+                 _occ_edges(t)) for t in tables]
+    elif case.startswith("syms"):
+        t = tables[0]
+        pos = np.concatenate([_occ_edges(t), rng.integers(0, t.n + 1, 5_003)])
+        runs = [(t, rng.integers(0, 8, pos.size).astype(case.split()[1]),
+                 pos.astype(np.int32))]
+    elif case == "no queries":
+        runs = [(tables[0], np.zeros(0, np.int8), np.zeros(0, np.int32))]
+    else:
+        codes = rng.integers(1, 6, size=128 * 37).astype(np.int8)
+        t = jrank.OccTable.build(codes)
+        pt = prank.OccTable.build(codes)
+        np.testing.assert_array_equal(pt.blocks, t.blocks)
+        np.testing.assert_array_equal(pt.occ, t.occ)
+        pos = np.tile(_occ_edges(t), 8)
+        assert pos[-1] == t.n == 128 * t.blocks.shape[0]
+        runs = [(t, np.repeat(np.arange(8, dtype=np.int32), pos.size // 8),
+                 pos)]
+    for t, syms, pos in runs:
+        want = np.asarray(jrank.occ_batch(
+            jnp.asarray(t.blocks), jnp.asarray(t.occ), jnp.asarray(syms),
+            jnp.asarray(pos)))
+        got = prank.occ_batch(torch.from_numpy(t.blocks),
+                              torch.from_numpy(t.occ), torch.from_numpy(syms),
+                              torch.from_numpy(pos))
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        if case == "n a multiple of 128":
+            # dsm_tpu's occ_prefix_np reads the row past the last at pos = n
+            # here (the port's copy was repaired, PERF.md's PR 16 findings)
+            np.testing.assert_array_equal(
+                want, prank.occ_prefix_np(pt, syms.astype(np.int64), pos))
+        elif syms.size:
+            np.testing.assert_array_equal(
+                want, jrank.occ_prefix_np(t, syms.astype(np.int64), pos))
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
