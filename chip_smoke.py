@@ -12,9 +12,10 @@ and, for timings alone (see `level_times`, `variant_times`, `drain_times`,
     python3 -c 'import torch, chip_smoke as c; c.dense_level_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.level_variant_times(torch, torch.device("cuda", 0))'
 
-and phase 17 alone (see `levels_alone`),
+and phase 17 or 18 alone (see `levels_alone`, `bigsample_alone`),
 
     python3 -c 'import torch, chip_smoke as c; c.levels_alone(torch, torch.device("cuda", 0))'
+    python3 -c 'import torch, chip_smoke as c; c.bigsample_alone(torch, torch.device("cuda", 0))'
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. environment: the card, torch/CUDA versions, nvcc, triton;
@@ -226,6 +227,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
      timed in turns with another tree's kernel and beside OCC_PATCHES'
      builds: `c.occ_batch_times(torch, torch.device("cuda", 0),
      parent="build/parent")` (one JSON line; not part of the run).
+ 18. a metagenome sample's size, D4L: tests/freeze_samples_reference.py's
+     `make_samples` at 4 samples and 2^28 symbols (every sample past
+     D4L_MIN_SAMPLE = 2^25), built by `python -m dsm_tpu_torch build` on
+     the card in one process (the CLI's __main__ run by runpy, with each
+     sample's build and .dsmi save timed and the build path's launches
+     read in that process), the indexes loaded from those files; (a)
+     each index inverted on the host (`extract_texts`) equals its FASTA's
+     texts, and the largest sample's suffix arrays by K8 equal
+     `suffix_array_plain` (rounds and seconds) and its .dsmi's BWTs; one
+     upload, then the whole trie on one device, ascending and gnu (the
+     lines within D4L's `lines`; the two orders the same lines and
+     paths), the four one-symbol prefix runs in gnu order concatenated
+     equal to the whole run, (b) under D4L's `oracle` prefix and maxdepth
+     both orders equal to the port's host engine `mine_np`, run beside
+     the card's runs in a process of its own (bytes and counters), the
+     sample-sharded episode at D4L_SHARDS shards equal to one device in
+     both orders, and `python -m dsm_tpu_torch mine --reader-order gnu`
+     on the four files printing the whole gnu run's bytes; each run with
+     its launches counted as in phase 15; (d) the capacity plan against
+     the peaks, and a "D4L summary:" line (build and save seconds a
+     sample, SA rounds, upload seconds and table bytes, each run's
+     levels, HISTFULL exits, pulled levels, walls and host phases, peak
+     device bytes, the host's peak RSS).  Alone: `python3 -c 'import
+     torch, chip_smoke as c; c.bigsample_alone(torch, torch.device("cuda",
+     0))'`.  Phase 16 also runs D64 and D273 by one-symbol prefix in both
+     orders against their whole runs' frozen references, and phase 4 K8's
+     whole suffix array at SA_HUGE random codes against its plain version.
 Launches are counted per path: set to 0 just before it, read just after
 (the mining kernels also for the resume, halt, owned and capacity
 phases).
@@ -248,6 +276,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -344,6 +373,9 @@ D512 = dict(
     ascending=(
         "dc1465e15fa0220d12425597b169284045100a6be3cb433eaa301ecee185a517"))
 SAMPLES_ENT_TOL = 5e-6  # the port's f64 entropy range against dsm_tpu's f32
+# the sharded level's entropy range (K9a's fixed-point terms, 2^-17 a pair)
+# against the single-device level's f64 one
+SHARD_ENT_TOL = 1e-5
 # phase 17: the enforced prefix of the scale-100 per-level runs (~0.7M
 # paths; their gnu runs' host loop sets the phase's wall), and the shapes
 # of K14 and K15's checks
@@ -353,8 +385,26 @@ LEVEL_OCC_Q = 1 << 22
 OCC_BIG_CODES = 1 << 27  # K15's case (c): 1,048,576 blocks, past the L2
 SAMPLES_SHARDS = (2, 128)   # the sharded episode's shards on the one card
 SAMPLES_RESERVE = 400   # D273's killed gnu mine: a few drains, each a save
+# Phase 18's set, D4L: tests/freeze_samples_reference.py's `make_samples`
+# (`make`: its samples, the symbols asked for, the seed), cut from the 10^8-
+# 10^9 bases of a metagenome sample to four samples of 2^25-2^27 symbols for
+# the script's time (seed 27: at seed 14 a sample carries no accessory
+# species and holds 25,231,542 symbols, below D4L_MIN_SAMPLE); fmin 2, pmin
+# 2 and an emax that leaves `lines` on the whole trie (on the card the
+# lowest entropies crowd at 0.991-0.992: 198 lines at emax 0.990, 1,294 at
+# 0.991, 9,476 at 0.992; PERF.md section 4).  `oracle`: the enforced
+# prefix, maxdepth and emax under which the port's host engine mine_np, in
+# a process of its own, is gate (b)'s reference: 2,860,713 paths and 5,961
+# lines, 50-56 s an order on the card's host
+D4L = dict(make=(4, 1 << 28, 27), emax=0.991, maxdepth=None,
+           lines=(1_000, 10_000),
+           oracle=dict(prefix=b"AC", maxdepth=13, emax=1.3))
+D4L_MIN_SAMPLE = 1 << 25   # every sample past it
+D4L_SHARDS = 2             # the sharded episode's shards on the one card
+D4L_ORACLE_TIMEOUT = 900   # s to wait for gate (b)'s reference after the runs
 SA_ROUND_K = 16         # the round of toy0's suffix array timed alone
 SA_BIG = 1 << 24        # a synthetic suffix array, beyond scale 100
+SA_HUGE = 1 << 28       # a random suffix array held equal alone, past D4L
 REPRO_BIG = 1 << 24     # P2-P4 where bytes count (128 MB moved a call)
 GATHER_ROWS = 100_000   # rows a block of the gather kernel's check (K10)
 GATHER_SETS = 6         # its sets of inputs: 6 x 10.7 MB > the 50 MB L2
@@ -1769,7 +1819,38 @@ def phase_sa_kernels(torch, toy0, device) -> list[dict]:
         f"{cuda_ms(torch, lambda: suffix_array(big), 3):.3f} ms vs plain "
         f"{cuda_ms(torch, lambda: suffix_array_plain(big), 3):.3f} ms")
     sa_round(torch, big, "random")
+    del big
+    sa_huge(torch, device)
     return results
+
+
+def sa_huge(torch, device) -> dict:
+    """K8's whole suffix array of SA_HUGE random codes against
+    suffix_array_plain on the card (equality alone), its rounds and seconds
+    logged; -> that record."""
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.sa import suffix_array, suffix_array_plain
+
+    rng = np.random.default_rng(2026)
+    codes = torch.as_tensor(rng.integers(1, 5, size=SA_HUGE, dtype=np.int8),
+                            device=device)
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES["sa_sort"]
+    t0 = time.perf_counter()
+    got = suffix_array(codes)
+    torch.cuda.synchronize()
+    rec = dict(n=SA_HUGE, rounds=_build.LAUNCHES["sa_sort"] - before,
+               s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = suffix_array_plain(codes)
+    torch.cuda.synchronize()
+    rec["plain_s"] = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        raise SystemExit(f"SA kernel disagrees with its plain version at "
+                         f"random n={SA_HUGE:,}")
+    log(f"kernel suffix_array: random n={SA_HUGE:,} equal: "
+        f"{json.dumps(rec)}")
+    return rec
 
 
 def sa_round(torch, codes, label: str):
@@ -4066,6 +4147,28 @@ def samples_resume(torch, idxs, dev, ref: dict, td: str, device) -> dict:
     return rec
 
 
+def samples_prefixes(torch, idxs, dev, ref: dict, device) -> dict:
+    """The four one-symbol prefix runs over the one upload `dev`, in each
+    order, concatenated against the whole run's frozen reference
+    (`concat_check`); -> each order's wall of the four runs."""
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    cfg, walls = samples_config(ref), {}
+    for order in ("ascending", "gnu"):
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in b"ACGT":
+            outs.append(mine_torch(idxs, cfg, prefix=bytes([p]), dev=dev,
+                                   device=device, reader_order=order))
+        torch.cuda.synchronize()
+        walls[order] = time.perf_counter() - t0
+        concat_check(outs, ref, f"D{ref['make'][0]} prefix runs", order)
+        log(f"D{ref['make'][0]} prefix runs ({order}): the four in "
+            f"{walls[order]:.4f} s")
+    return walls
+
+
 def samples_distance(torch, gnu, d: int, device) -> dict:
     """`distance --fast` on the mined rows: the accumulator exact on the
     host and through K11 on the card (count and noutput equal, the f64
@@ -4101,25 +4204,26 @@ def samples_distance(torch, gnu, d: int, device) -> dict:
     return dict(wall_s=wall, launches=launches, max_abs_err=err)
 
 
-def samples_plan(torch, idxs, ref: dict, recs: dict, device) -> dict:
+def samples_plan(torch, idxs, ref: dict, recs: dict, device,
+                 tag: str | None = None) -> dict:
     """`mine --engine auto`'s capacity plan on the card: device mode, and
     table_bytes + episode_bytes at or above every run's peak."""
     from dsm_tpu_torch.mining import bigindex as big
 
-    d = ref["make"][0]
+    tag = tag or f"D{ref['make'][0]}"
     p = big.plan(idxs, fmin=FMIN, device=device)
     if p.mode != "device":
-        raise SystemExit(f"D{d} capacity: the card's budget plans {p.mode}, "
+        raise SystemExit(f"{tag} capacity: the card's budget plans {p.mode}, "
                          f"not device mode ({p.reason})")
     tb, eb = big.table_bytes(idxs), big.episode_bytes(idxs, FMIN)
     plan = {"mode": p.mode, "table_bytes": tb, "episode_bytes": eb}
     for label, rec in recs.items():
         plan[f"planned/peak {label}"] = (tb + eb) / rec["peak_bytes"]
         if tb + eb < rec["peak_bytes"]:
-            raise SystemExit(f"D{d} capacity: the plan's {tb + eb:,} bytes "
+            raise SystemExit(f"{tag} capacity: the plan's {tb + eb:,} bytes "
                              f"are below the {label} run's peak "
                              f"{rec['peak_bytes']:,}")
-    log(f"D{d} capacity: {json.dumps(plan)}")
+    log(f"{tag} capacity: {json.dumps(plan)}")
     return plan
 
 
@@ -4171,6 +4275,9 @@ def samples_set(torch, fz, ref: dict, td: str, device, kernels: list,
                 idxs, cfg, dev=dev, device=device, reader_order=order,
                 profile=prof), tag=tag)
         samples_check(outs[order], ref, "one device", order)
+    # D512 runs by prefix in phase 17
+    prefix_walls = None if d == 512 else samples_prefixes(torch, idxs, dev,
+                                                          ref, device)
     if resume:
         recs["gnu resumed"] = samples_resume(torch, idxs, dev, ref, td,
                                              device)
@@ -4229,7 +4336,8 @@ def samples_set(torch, fz, ref: dict, td: str, device, kernels: list,
     summary = dict(
         symbols=ref["symbols"], build_s=sum(build_s),
         build_s_per_sample=sum(build_s) / d, upload_s=upload_s,
-        set_s=time.perf_counter() - t_set, levels=rows,
+        set_s=time.perf_counter() - t_set, prefix_walls=prefix_walls,
+        levels=rows,
         chosen_levels=levels, distance=dist, plan=plan,
         runs={k: {f: r.get(f) for f in (
             "wall_s", "paths_per_s", "levels", "level_s", "drain_s",
@@ -5018,6 +5126,346 @@ def levels_alone(torch, device) -> None:
     phase_levels(torch, idxs, d512, device)
 
 
+# ------------------------------------------------ phase 18: a metagenome
+# sample's size, D4L: four samples of 2^25-2^27 symbols, built by the CLI and
+# mined on the card, against the port's own host miner
+
+def d4l_oracle(paths: list, cut: dict) -> dict:
+    """Gate (b)'s reference, run in a process of its own: the port's host
+    engine `mine_np` on the .dsmi files at `paths` under the `cut`'s
+    prefix, to its maxdepth, at its emax, in each reader order; ->
+    {order: its bytes, counters and wall}, and the process's peak RSS."""
+    from dsm_tpu_torch.index.fmindex import FMIndex
+    from dsm_tpu_torch.mining.engine_np import mine_np
+
+    idxs = [FMIndex.load(p) for p in paths]
+    cfg = samples_config(cut)
+    res = {}
+    for order in ("ascending", "gnu"):
+        t0 = time.perf_counter()
+        out = mine_np(idxs, cfg, prefix=cut["prefix"], reader_order=order)
+        res[order] = dict(
+            blob=out.format_lines(), paths=out.total_paths,
+            lines=out.total_output, occs=out.total_occs,
+            hist=out.freq_histogram.tolist(),
+            entropy=(out.smallest_entropy, out.largest_entropy),
+            wall_s=time.perf_counter() - t0)
+    res["peak_rss_bytes"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
+    return res
+
+
+# `python -m dsm_tpu_torch build` as the CLI runs it (its __main__ by
+# runpy, as `-m` does), with each sample's build_index and the .dsmi save
+# inside it timed, and the build path's launch counts, reported on stderr
+D4L_BUILD = """\
+import json, runpy, sys, time
+from dsm_tpu_torch.index import build as ib
+from dsm_tpu_torch.index.fmindex import FMIndex
+from dsm_tpu_torch.ops import _build
+rec = {"build_s": [], "save_s": []}
+def timed(key, fn):
+    def run(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            rec[key].append(time.perf_counter() - t)
+    return run
+ib.build_index = timed("build_s", ib.build_index)
+FMIndex.save = timed("save_s", FMIndex.save)
+sys.argv = ["dsm_tpu_torch", *sys.argv[1:]]
+try:
+    runpy.run_module("dsm_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    if e.code:
+        raise
+rec["launches"] = {k: _build.LAUNCHES[k] for k in _build.PATHS["build"]}
+print("D4L build: " + json.dumps(rec), file=sys.stderr)
+"""
+
+
+def d4l_build(fz, ref: dict, td: str) -> tuple:
+    """make_samples' data, and `python -m dsm_tpu_torch build` of its four
+    FASTA files on the card (the default --device) in one process; ->
+    (FASTA paths, .dsmi paths, the build's record)."""
+    d, asked, seed = ref["make"]
+    t0 = time.perf_counter()
+    fastas = fz.make_samples(os.path.join(td, "data"), d, asked, seed)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (_out, err), = finish([subprocess.Popen(
+        [sys.executable, "-c", D4L_BUILD, "build", *fastas], cwd=HERE,
+        env={**os.environ, "PYTHONPATH": HERE}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)], "D4L build")
+    wall = time.perf_counter() - t0
+    line = next(ln for ln in err.decode().splitlines()
+                if ln.startswith("D4L build: "))
+    rec = dict(json.loads(line[len("D4L build: "):]), make_s=made,
+               wall_s=wall, fasta_bytes=sum(os.path.getsize(f)
+                                            for f in fastas))
+    missing = [k for k, v in rec["launches"].items() if v <= 0]
+    if missing:
+        raise SystemExit(f"D4L build: kernels never launched: {missing}")
+    dsmi = [f + ".dsmi" for f in fastas]
+    rec["dsmi_bytes"] = [os.path.getsize(p) for p in dsmi]
+    log(f"D4L build: data made on the host in {made:.2f} s; `python -m "
+        f"dsm_tpu_torch build` of {d} samples on the card in {wall:.2f} s: "
+        f"{json.dumps(rec)}")
+    return fastas, dsmi, rec
+
+
+def d4l_index(torch, idxs, fastas, device) -> dict:
+    """Gate (a): each sample's forward index inverted on the host
+    (`FMIndex.extract_texts`) equals the codes read from its FASTA; the
+    largest sample's forward and reverse suffix arrays by K8 equal
+    `suffix_array_plain` on the card, and their BWTs the loaded index's;
+    -> the record (rounds and seconds)."""
+    from dsm_tpu_torch.index.alphabet import encode, transform
+    from dsm_tpu_torch.index.fasta import read_fasta
+    from dsm_tpu_torch.index.fmindex import collection_codes
+    from dsm_tpu_torch.ops import _build
+    from dsm_tpu_torch.ops.sa import (bwt_from_sa, suffix_array,
+                                      suffix_array_plain)
+
+    big = max(range(len(idxs)), key=lambda i: idxs[i].n)
+    rec, texts_big = {"extract_s": [], "read_s": []}, None
+    for i, (idx, path) in enumerate(zip(idxs, fastas)):
+        t0 = time.perf_counter()
+        texts = [transform(r.seq) for r in read_fasta(path)]
+        rec["read_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = idx.extract_texts()
+        rec["extract_s"].append(time.perf_counter() - t0)
+        if len(got) != len(texts) or sorted(g.tobytes() for g in got) != \
+                sorted(encode(t).tobytes() for t in texts):
+            raise SystemExit(f"D4L index: sample {i}'s index inverted is "
+                             f"not the texts of {path}")
+        if i == big:
+            texts_big = texts
+    log(f"D4L index: each sample's index inverted equals its FASTA's texts "
+        f"(extract_texts s {json.dumps(rec['extract_s'])})")
+    codes, rcodes, _lengths, _max = collection_codes(texts_big)
+    del texts_big
+    for label, codes_np, table in (("forward", codes, idxs[big].table),
+                                   ("reverse", rcodes, idxs[big].rtable)):
+        c = torch.as_tensor(codes_np, device=device)
+        torch.cuda.synchronize()
+        before = _build.LAUNCHES["sa_sort"]
+        t0 = time.perf_counter()
+        sa = suffix_array(c)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rounds = _build.LAUNCHES["sa_sort"] - before
+        t0 = time.perf_counter()
+        want = suffix_array_plain(c)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not torch.equal(sa, want):
+            raise SystemExit(f"D4L index: K8 disagrees with "
+                             f"suffix_array_plain on sample {big} {label}")
+        del want
+        bwt = bwt_from_sa(c, sa).cpu().numpy()
+        if not np.array_equal(bwt, table.blocks.reshape(-1)[:table.n]):
+            raise SystemExit(f"D4L index: sample {big}'s {label} BWT from "
+                             f"K8 is not its .dsmi's")
+        rec[f"sa {label}"] = dict(n=int(c.numel()), rounds=rounds, s=secs,
+                                  plain_s=plain_s)
+        log(f"D4L index: K8 on sample {big} {label} (n={c.numel():,}) equals "
+            f"suffix_array_plain and the .dsmi's BWT: {rounds} rounds in "
+            f"{secs:.4f} s (plain {plain_s:.4f} s)")
+        del c, sa, bwt
+    return rec
+
+
+def d4l_equal(a, b, tol: float) -> bool:
+    """Two outputs' bytes and counters equal, the entropy range within
+    `tol`."""
+    return (a.format_lines(), a.total_paths, a.total_output, a.total_occs,
+            list(a.freq_histogram)) == (
+        b.format_lines(), b.total_paths, b.total_output, b.total_occs,
+        list(b.freq_histogram)) and max(
+        abs(a.smallest_entropy - b.smallest_entropy),
+        abs(a.largest_entropy - b.largest_entropy)) <= tol
+
+
+def d4l_lines(out) -> list:
+    """An output's lines as (path, occurrences as a set, entropy), by
+    path: the content without the reader order."""
+    return sorted((p, frozenset(o), e) for p, e, o in out.lines)
+
+
+def d4l_mine(torch, fastas, dsmi, build: dict, ref: dict, device) -> dict:
+    """Phase 18 from the built .dsmi files (see the module's docstring):
+    gates (a)-(c), the records of (d); -> the summary."""
+    import multiprocessing
+
+    from dsm_tpu_torch.index.fmindex import FMIndex
+    from dsm_tpu_torch.mining.engine import DeviceIndexes, mine_torch
+    from dsm_tpu_torch.parallel.engine_episode import mine_device_sharded
+    from dsm_tpu_torch.parallel.engine_sharded import ShardedIndexes
+    from dsm_tpu_torch.parallel.multihost import global_samples_mesh
+
+    tag, cfg, cut = "D4L", samples_config(ref), ref["oracle"]
+    prefix, maxdepth = cut["prefix"], cut["maxdepth"]
+    t0 = time.perf_counter()
+    idxs = [FMIndex.load(p) for p in dsmi]
+    load_s = time.perf_counter() - t0
+    sizes = [i.n for i in idxs]
+    log(f"{tag}: {sum(sizes):,} indexed symbols in {len(idxs)} samples "
+        f"({json.dumps(sizes)}), loaded from the .dsmi files in "
+        f"{load_s:.2f} s")
+    if min(sizes) < D4L_MIN_SAMPLE:
+        raise SystemExit(f"{tag}: a sample of {min(sizes):,} symbols, below "
+                         f"{D4L_MIN_SAMPLE:,}")
+    # gate (b)'s reference on the host in a process of its own, beside the
+    # card's runs
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        oracle = pool.apply_async(d4l_oracle, (dsmi, cut))
+        index = d4l_index(torch, idxs, fastas, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = DeviceIndexes.build(idxs, device)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        table_bytes = 2 * dev.frows.numel() * 4
+        log(f"{tag}: one upload of the tables, {table_bytes:,} bytes, in "
+            f"{upload_s:.4f} s")
+        recs, outs = {}, {}
+        for order in ("ascending", "gnu"):
+            outs[order], recs[f"one device {order}"] = s1000_run(
+                torch, f"one device {order}", lambda prof: mine_torch(
+                    idxs, cfg, dev=dev, device=device, reader_order=order,
+                    profile=prof), tag=tag)
+        asc, gnu = outs["ascending"], outs["gnu"]
+        lo, hi = ref["lines"]
+        if not lo <= gnu.total_output <= hi:
+            raise SystemExit(f"{tag}: {gnu.total_output:,} lines at emax "
+                             f"{ref['emax']}, not {lo:,}-{hi:,}")
+        got_a, got_g = d4l_lines(asc), d4l_lines(gnu)
+        if asc.total_paths != gnu.total_paths or len(got_a) != len(
+                got_g) or any(a[:2] != g[:2] or abs(a[2] - g[2]) > ENT_TOL
+                              for a, g in zip(got_a, got_g)):
+            raise SystemExit(f"{tag}: the ascending and gnu runs carry "
+                             "different lines or paths")
+        log(f"{tag}: ascending and gnu carry the same {gnu.total_output:,} "
+            f"lines and {gnu.total_paths:,} paths")
+        blobs, paths = [], 0
+        for p in "ACGT":
+            out, recs[f"prefix {p} gnu"] = s1000_run(
+                torch, f"prefix {p} gnu", lambda prof: mine_torch(
+                    idxs, cfg, prefix=p.encode(), dev=dev, device=device,
+                    reader_order="gnu", profile=prof), tag=tag)
+            blobs.append(out.format_lines())
+            paths += out.total_paths
+        if b"".join(blobs) != gnu.format_lines() or paths != gnu.total_paths:
+            raise SystemExit(f"{tag}: the four prefix runs concatenated are "
+                             "not the whole gnu run")
+        log(f"{tag}: the four prefix runs (gnu) concatenated equal the whole "
+            f"run, {paths:,} paths")
+        cfg_o = samples_config(cut)
+        episode = {}
+        for order in ("ascending", "gnu"):
+            episode[order], recs[f"oracle's cut {order}"] = s1000_run(
+                torch, f"under {prefix.decode()} to depth {maxdepth} "
+                f"{order}", lambda prof: mine_torch(
+                    idxs, cfg_o, prefix=prefix, dev=dev, device=device,
+                    reader_order=order, profile=prof), tag=tag)
+        del dev
+        mesh = global_samples_mesh(D4L_SHARDS, device)
+        t0 = time.perf_counter()
+        tables = ShardedIndexes.build(idxs, mesh)
+        torch.cuda.synchronize()
+        shard_upload_s = time.perf_counter() - t0
+        for order in ("ascending", "gnu"):
+            out, recs[f"{D4L_SHARDS} shards {order}"] = s1000_run(
+                torch, f"{D4L_SHARDS} shards {order}",
+                lambda prof: mine_device_sharded(
+                    idxs, cfg, mesh=mesh, dev=tables, reader_order=order,
+                    profile=prof), "mine_sharded", tag=tag)
+            if not d4l_equal(out, outs[order], SHARD_ENT_TOL):
+                raise SystemExit(f"{tag}: {D4L_SHARDS} shards ({order}) are "
+                                 "not the one device's bytes")
+        del tables
+        log(f"{tag}: {D4L_SHARDS} shards equal one device in both orders")
+        t0 = time.perf_counter()
+        (cli, _err), = finish([port_cli([
+            "mine", "-f", str(FMIN), "-P", "2", "-E", str(ref["emax"]),
+            "--reader-order", "gnu", *dsmi])], f"{tag} cli: mine")
+        cli_s = time.perf_counter() - t0
+        if cli != gnu.format_lines():
+            raise SystemExit(f"{tag}: `mine --reader-order gnu` printed "
+                             "other bytes than the whole gnu run")
+        log(f"{tag}: `python -m dsm_tpu_torch mine --reader-order gnu` on "
+            f"the four files prints the whole gnu run's bytes in "
+            f"{cli_s:.2f} s")
+        t0 = time.perf_counter()
+        want = oracle.get(timeout=D4L_ORACLE_TIMEOUT)
+        oracle_wait_s = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    for order, out in episode.items():
+        w = want[order]
+        if not w["lines"]:
+            raise SystemExit(f"{tag}: the oracle's cut holds no line")
+        got = (out.format_lines(), out.total_paths, out.total_output,
+               out.total_occs, out.freq_histogram.tolist())
+        if got != (w["blob"], w["paths"], w["lines"], w["occs"], w["hist"]) \
+                or max(abs(a - b) for a, b in zip(
+                    (out.smallest_entropy, out.largest_entropy),
+                    w["entropy"])) > ENT_TOL:
+            raise SystemExit(f"{tag}: under {prefix.decode()} to depth "
+                             f"{maxdepth} ({order}) the episode is not "
+                             "mine_np's bytes and counters")
+        log(f"{tag}: under {prefix.decode()} to depth {maxdepth} ({order}) "
+            f"the episode equals mine_np: {out.total_paths:,} paths, "
+            f"{out.total_output:,} lines (mine_np {w['wall_s']:.2f} s)")
+    plan = samples_plan(torch, idxs, ref, recs, device, tag)
+    summary = dict(
+        symbols=sum(sizes), sizes=sizes, emax=ref["emax"],
+        lines=gnu.total_output, paths=gnu.total_paths,
+        build=build, load_s=load_s, index=index, upload_s=upload_s,
+        table_bytes=table_bytes, shard_upload_s=shard_upload_s,
+        oracle=dict(prefix=prefix.decode(), maxdepth=maxdepth,
+                    emax=cut["emax"],
+                    wait_s=oracle_wait_s, peak_rss_bytes=want[
+                        "peak_rss_bytes"], **{o: {k: want[o][k] for k in (
+                            "wall_s", "paths", "lines")} for o in (
+                            "ascending", "gnu")}),
+        cli_mine_s=cli_s, plan=plan,
+        peak_rss_bytes=resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024,
+        runs={k: {f: r.get(f) for f in (
+            "wall_s", "paths", "lines", "levels", "level_s", "drain_s",
+            "tail_s", "tail_depth", "drains", "histfull", "pulled_levels",
+            "pull_s", "walk_s", "peak_bytes")} for k, r in recs.items()},
+        card=smi_line())
+    log(f"{tag} summary: {json.dumps(summary)}")
+    return summary
+
+
+def phase_bigsample(torch, device, ref: dict = D4L) -> dict:
+    """Phase 18: D4L built by the CLI and mined on the card (see the
+    module's docstring); -> its summary."""
+    fz = load_tests_module("freeze_samples_reference")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dsm_smoke_d4l_") as td:
+        fastas, dsmi, build = d4l_build(fz, ref, td)
+        summary = d4l_mine(torch, fastas, dsmi, build, ref, device)
+    log(f"D4L: phase 18 in {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
+def bigsample_alone(torch, device) -> None:
+    """Phase 18 by itself, after the environment and the build (for a
+    quicker run while developing; no result line)."""
+    phase_env(torch)
+    phase_build()
+    phase_bigsample(torch, device)
+
+
 def main() -> int:
     import torch
 
@@ -5063,6 +5511,8 @@ def main() -> int:
     held = {}
     samples = phase_samples(torch, device, held)
     levels = phase_levels(torch, idxs, held[512], device)
+    del held
+    phase_bigsample(torch, device)
     # a kernel of two paths (rank, compact, decode) keeps the count of the
     # first, the single-device mine
     counts = {}

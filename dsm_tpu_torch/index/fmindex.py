@@ -253,8 +253,12 @@ class FMIndex:
         TextStorage.h:74-96 — we never store plain text)."""
         T = self.number_of_texts
         rows = np.arange(T, dtype=np.int64)
-        flat = self.table.blocks.reshape(-1)
-        chunks: list[np.ndarray] = []
+        flat = self.table.blocks.reshape(-1)[:self.n]
+        # LF(i) = C[L[i]] + occ(L[i], i) is i's place in the stable sort
+        # of L: one sort for every walk's steps, instead of a 128-code block
+        # scan a walk a step
+        lf = np.empty(self.n, dtype=np.int64)
+        lf[np.argsort(flat, kind="stable")] = np.arange(self.n)
         alive = np.ones(T, dtype=bool)
         out = np.full((T, self.max_text_length), -1, dtype=np.int8)
         pos = np.zeros(T, dtype=np.int64)
@@ -265,8 +269,7 @@ class FMIndex:
                 break
             out[alive, pos[alive]] = c[alive]
             pos += alive
-            step = self.C[c] + occ_prefix_np(self.table, c, rows)
-            rows = np.where(alive, step, rows)
+            rows = np.where(alive, lf[rows], rows)
         # walks read right-to-left; flip each to text order
         return [out[t, :pos[t]][::-1].copy() for t in range(T)]
 

@@ -88,8 +88,7 @@ class OccTable:
         padded = np.full(nblocks * BLOCK, PAD, dtype=np.int8)
         padded[:n] = bwt
         blocks = padded.reshape(nblocks, BLOCK)
-        onehot = blocks[:, :, None] == np.arange(SIGMA, dtype=np.int8)
-        per_block = onehot.sum(axis=1, dtype=np.int64)
+        per_block = block_counts(blocks)
         occ = np.zeros((nblocks + 1, SIGMA), dtype=np.int64)
         np.cumsum(per_block, axis=0, out=occ[1:])
         counts = occ[-1].copy()
@@ -101,6 +100,14 @@ class OccTable:
         if int(C[-1]) != n:
             raise AssertionError("occ table count mismatch")
         return cls(n=n, blocks=blocks, occ=occ.astype(np.int32), counts=counts, C=C)
+
+
+def block_counts(blocks: np.ndarray) -> np.ndarray:
+    """(nblocks, SIGMA) int64 counts of each code in each block, PAD
+    padding included: a pass a code, with no (n, SIGMA) one-hot temporary
+    of 8 bytes a symbol."""
+    return np.stack([np.count_nonzero(blocks == c, axis=1)
+                     for c in range(SIGMA)], axis=1).astype(np.int64)
 
 
 def occ_prefix_np(table: OccTable, syms: np.ndarray, pos: np.ndarray) -> np.ndarray:
@@ -146,8 +153,7 @@ def fused_rows(table: OccTable, c4=None) -> np.ndarray:
     rows = np.zeros((nblocks + 1, ROWW), dtype=np.uint32)
     codes = table.blocks  # (nblocks, BLOCK) int8, PAD-padded
     # per-block per-symbol counts -> cumulative <=-counts at block starts
-    onehot = codes[:, :, None] == np.arange(SIGMA, dtype=np.int8)
-    per_block = onehot.sum(axis=1, dtype=np.int64)  # (nblocks, SIGMA)
+    per_block = block_counts(codes)  # (nblocks, SIGMA)
     if nblocks:
         # padding is PAD (code 7); keep cum8[:, 7] text-only like occ
         per_block[-1, PAD] -= int(nblocks * BLOCK - table.n)
@@ -158,12 +164,12 @@ def fused_rows(table: OccTable, c4=None) -> np.ndarray:
         K = np.array([0, 0, a, a + c, a + c + g, -t, 0, 0], dtype=np.int64)
         cum = (cum + K[None, :]) & 0xFFFFFFFF
     rows[:, :SIGMA] = cum.astype(np.uint32)
-    # thermometer planes
-    weights = (np.uint64(1) << np.arange(32, dtype=np.uint64))
+    # thermometer planes: 16 bytes a block, LSB-first, read as 4
+    # little-endian words
     for j in range(1, _NPLANES + 1):
-        bits = (codes <= j).reshape(nblocks, 4, 32)
-        words = (bits.astype(np.uint64) * weights).sum(axis=2)
-        rows[:nblocks, SIGMA + (j - 1) * 4: SIGMA + j * 4] = words.astype(np.uint32)
+        words = np.packbits(codes <= j, axis=1, bitorder="little")
+        rows[:nblocks, SIGMA + (j - 1) * 4: SIGMA + j * 4] = \
+            words.view("<u4")
     return rows
 
 
