@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 and, for timings alone (see `level_times`, `variant_times`, `drain_times`,
-`expand_times`, `dense_level_times` and `level_variant_times`),
+`expand_times`, `dense_level_times`, `level_variant_times`,
+`occ_batch_times` and `distance_times`; the last two also take
+`parent="build/parent"`, another tree's root, to time its kernel in turns),
 
     python3 -c 'import torch, chip_smoke as c; c.level_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.variant_times(torch, torch.device("cuda", 0))'
@@ -11,6 +13,7 @@ and, for timings alone (see `level_times`, `variant_times`, `drain_times`,
     python3 -c 'import torch, chip_smoke as c; c.expand_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.dense_level_times(torch, torch.device("cuda", 0))'
     python3 -c 'import torch, chip_smoke as c; c.level_variant_times(torch, torch.device("cuda", 0))'
+    python3 -c 'import torch, chip_smoke as c; c.distance_times(torch, torch.device("cuda", 0))'
 
 and phase 17 or 18 alone (see `levels_alone`, `bigsample_alone`),
 
@@ -63,9 +66,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      long-tailed), against the plain version run in chunks on the card
      (count equal, the f64 sums within DIST_TOL) and against NumPy
      `pairwise_matrices` on the first 4,096 rows; also d = 5 and d = 273 at
-     fewer rows, and with the normalising factors (this one after phase 12,
-     so that the plain version's library workspace is not in the mine's
-     peak memory). The kernels of the sharded level and drain: the
+     fewer rows, with the normalising factors, with three equal columns
+     (their log and sqrt within DIST_TOL of 0) and at 3% density, each
+     beside its three bounds (`distance_bounds`); the phase runs after phase
+     12, so that the plain version's library workspace is not in the
+     mine's peak memory. The kernels of the sharded level and drain: the
      partial rows (K9a) of a list on the stats step's three levels (nodes
      of 1..5, 1..64 and 1..273 pairs: integers and the kept lanes equal,
      the fixed-point entropy sums within one unit a pair); on SEG_NODES
@@ -273,6 +278,7 @@ The script imports torch and the port, never JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -417,6 +423,9 @@ HBM_TBS = 3.35          # H100 SXM HBM3 peak, TB/s
 F32_TOPS = 67.0         # H100 SXM peak outside the tensor cores, T op/s:
 #                         taken for f32 and, generously, for integer work
 F64_TOPS = 33.5         # f64 outside the tensor cores: half the f32 rate
+F64_TC_TOPS = 67.0      # f64 on the tensor cores (mma.sync f64), T op/s:
+#                         NVIDIA's H100 SXM data sheet, "FP64 Tensor Core"
+DIST_DUP = (3, 9, 40)   # K11's duplicated-column case: these columns equal
 # the kernels of each path, by the name in the kernels line
 LAUNCH_KEY = {"occ_cum8": "rank", "expand": "rank", "leftchar": "rank",
               "expand_tables": "rank",
@@ -458,6 +467,68 @@ def load_tests_module(name: str):
 
 def load_make_toydata():
     return load_tests_module("make_toydata")
+
+
+def parent_module(parent: str, name: str):
+    """-> the module dsm_tpu_torch/ops/`name`.py of another tree's root
+    `parent` (e.g. `git archive` of the parent commit unpacked into
+    build/parent), its `_build` that tree's own ops/_build.py, so that its
+    kernels are built and bound from that tree's csrc/; `name` "_build"
+    gives that _build itself."""
+    import importlib.util
+    import types
+
+    ops = os.path.join(parent, "dsm_tpu_torch", "ops")
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(ops, "_build.py"))
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    if name == "_build":
+        return pb
+    path = os.path.join(ops, f"{name}.py")
+    with open(path) as fh:
+        src = fh.read().replace("from . import _build",
+                                "_build = parent_build")
+    mod = types.ModuleType(f"parent_{name}")
+    mod.parent_build = pb
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod
+
+
+def replace_once(text: str, patches, label: str) -> str:
+    """`text` with each (old, new) of `patches` done; fails unless each
+    `old` is in it once."""
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise SystemExit(f"{label}: {old!r} is not in the source once")
+        text = text.replace(old, new)
+    return text
+
+
+@contextlib.contextmanager
+def patched_build(src: str, edit, work: str):
+    """Within the block the package's kernels are those built from a copy
+    of csrc/ under `work` (emptied first) in which csrc/`src` is
+    `edit(its text)`; after it, the package's own build again."""
+    import shutil
+
+    from dsm_tpu_torch.ops import _build
+
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(csrc, os.path.join(work, "csrc"))
+    path = os.path.join(work, "csrc", src)
+    with open(path) as fh:
+        text = edit(fh.read())
+    with open(path, "w") as fh:
+        fh.write(text)
+    try:
+        _build.CSRC = Path(work) / "csrc"
+        _build.BUILD_DIR, _build._lib = Path(work), None
+        _build.lib()
+        yield
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
 
 
 def phase_env(torch) -> str:
@@ -1967,15 +2038,22 @@ def phase_repro_kernels(torch, device) -> list[dict]:
     return results
 
 
-def distance_rows(rng, rows: int, d: int, nbins: int):
-    """Mined-row-like inputs of K11: (rows, d) int32 frequencies, ~30% of
-    them nonzero with a long (Pareto) tail, and a bin a row in [0, nbins)
-    with bin 1 left empty when there are more than two."""
-    F = np.minimum(rng.pareto(1.1, size=(rows, d)) * 4 + 1, 2e6)
-    F = (F * (rng.random((rows, d)) < 0.3)).astype(np.int32)
+def distance_rows(rng, rows: int, d: int, nbins: int, density: float = 0.3,
+                  bases: int = 0, exact: bool = False):
+    """Mined-row-like inputs of K11: (rows, d) int32 frequencies, a share
+    `density` of them nonzero with a long (Pareto) tail, and a bin a row in
+    [0, nbins) with bin 1 left empty when there are more than two.  With
+    `bases`, the d columns are copies of that many such columns, as
+    replicates of a few samples are: column j a Poisson draw around column
+    j % bases, or (`exact`) column j % bases itself."""
+    F = np.minimum(rng.pareto(1.1, size=(rows, bases or d)) * 4 + 1, 2e6)
+    F = (F * (rng.random(F.shape) < density)).astype(np.int32)
     bins = rng.integers(0, nbins, size=rows).astype(np.int32)
     if nbins > 2:
         bins[bins == 1] = 0
+    if bases:
+        F = np.ascontiguousarray(F[:, np.arange(d) % bases])
+        F = F if exact else rng.poisson(F).astype(np.int32)
     return F, bins
 
 
@@ -2017,21 +2095,63 @@ def distance_err(got: dict, want: dict, label: str) -> float:
     return worst
 
 
+def distance_bounds(torch, F, nbins: int, scaled: bool) -> dict:
+    """K11's bounds on this input, each the larger of its operations' time
+    and the bytes' (F and the bins read, the four matrices written), for
+    three ways to do the work: "old", its first design (every pair with an
+    entry nonzero on the CUDA cores: 12 f64 operations a pair, 6 when
+    scaled, one more lgamma where both are nonzero, 3 transcendentals a
+    nonzero entry); "dense", the split with its two Gram products (log1p f,
+    sqrt f: R d (d + 1) / 2 multiply-adds each, zeros included) on the f64
+    tensor cores beside 4 operations a pair with both entries nonzero (none
+    when scaled) and 3 a nonzero entry on the CUDA cores, the two units at
+    once; "sparse", the split with only the Gram products' terms where both
+    entries are nonzero, all on the CUDA cores (2 x 2 + 4 operations a
+    such pair, 2 x 2 when scaled, and 3 a nonzero entry).  -> those three,
+    "least" (the least of them, never below the bytes), "either" and
+    "both" (the (row, pair)s with an entry and with both nonzero)."""
+    rows, d = F.shape
+    z = (F > 0).sum(dim=1).to(torch.float64)
+    either = float((d * (d - 1) / 2 - (d - z) * (d - z - 1) / 2).sum())
+    both = float((z * (z - 1) / 2).sum())
+    nnz = float(z.sum())
+    nbytes = rows * d * F.element_size() + rows * 4 + 4 * nbins * d * d * 8
+    lg = 0 if scaled else 4
+    old = (6 if scaled else 12) * either + 3 * nnz + (0 if scaled else both)
+    gram = bound(nbytes, 2 * 2 * rows * d * (d + 1) / 2, F64_TC_TOPS)
+    core = bound(nbytes, lg * both + 3 * nnz, F64_TOPS)
+    out = {"old": bound(nbytes, old, F64_TOPS),
+           "dense": max(gram, core, key=lambda x: x["bound_ms"]),
+           "sparse": bound(nbytes, (2 * 2 + lg) * both + 3 * nnz, F64_TOPS)}
+    out["least"] = min(out.values(), key=lambda x: x["bound_ms"])
+    return {**out, "either": either, "both": both}
+
+
+# K11's cases: rows, d, bins, the plain version's chunk, scaled, density,
+# duplicated columns (DIST_DUP); the first is the kernels line's entry
+DIST_CASES = ((DIST_R, DIST_D, DIST_BINS, 8192, False, 0.3, False),
+              ((1 << 18) + 77, 5, DIST_BINS, 1 << 16, False, 0.3, False),
+              ((1 << 16) + 5, 273, 30, 512, False, 0.3, False),
+              ((1 << 16) + 5, DIST_D, 3, 8192, True, 0.3, False),
+              (DIST_R, DIST_D, DIST_BINS, 8192, False, 0.3, True),
+              (DIST_R, DIST_D, DIST_BINS, 8192, False, 0.03, False))
+
+
 def phase_distance_kernel(torch, device) -> list[dict]:
     """K11 against its plain version (in chunks on the card) and against
     NumPy `pairwise_matrices`, at DIST_R x DIST_D in DIST_BINS bins, at
-    d = 5 and d = 273 with fewer rows, and with normalising factors."""
+    d = 5 and d = 273 with fewer rows, with normalising factors, with the
+    columns DIST_DUP equal (their log and sqrt within DIST_TOL of 0) and at
+    3% density (`DIST_CASES`); each case's time beside its bounds."""
     from dsm_tpu_torch.ops.distance import pairwise_matrices
     from dsm_tpu_torch.post.distance import pairwise_matrices as oracle
 
     rng = np.random.default_rng(2028)
     result = None
-    for rows, d, nbins, chunk, scaled in (
-            (DIST_R, DIST_D, DIST_BINS, 8192, False),
-            ((1 << 18) + 77, 5, DIST_BINS, 1 << 16, False),
-            ((1 << 16) + 5, 273, 30, 512, False),
-            ((1 << 16) + 5, DIST_D, 3, 8192, True)):
-        F_np, bins_np = distance_rows(rng, rows, d, nbins)
+    for rows, d, nbins, chunk, scaled, density, dup in DIST_CASES:
+        F_np, bins_np = distance_rows(rng, rows, d, nbins, density)
+        if dup:
+            F_np[:, list(DIST_DUP)] = F_np[:, DIST_DUP[:1]]
         F = torch.as_tensor(F_np, device=device)
         bins = torch.as_tensor(bins_np, device=device)
         nf_np = 1.0 / rng.uniform(500, 4000, size=d) if scaled else None
@@ -2039,12 +2159,20 @@ def phase_distance_kernel(torch, device) -> list[dict]:
         got = pairwise_matrices(F, nbins, bins, nf)
         torch.cuda.synchronize()
         label = f"kernel pairwise_matrices R={rows:,} d={d} nbins={nbins}" \
-                + (" normalised" if scaled else "")
+                + (" normalised" if scaled else "") \
+                + (f" density {density}" if density != 0.3 else "") \
+                + (f" columns {DIST_DUP} equal" if dup else "")
         t0 = time.perf_counter()
         want = plain_in_chunks(torch, F, nbins, bins, nf, chunk)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = distance_err(got, want, label + " vs plain")
+        if dup:
+            for kind in ("log", "sqrt"):
+                m = got[kind][:, DIST_DUP[0], list(DIST_DUP[1:])].abs().max()
+                if not float(m) <= DIST_TOL:
+                    raise SystemExit(f"{label}: {kind} of the equal columns "
+                                     f"is {float(m)!r}, not 0")
         head = 4096 if d <= DIST_D else 256   # NumPy's (head, d, d) temporaries
         ref = oracle(F_np[:head].astype(np.int64), nbins, bins_np[:head],
                      nf_np)
@@ -2054,32 +2182,183 @@ def phase_distance_kernel(torch, device) -> list[dict]:
             pairwise_matrices(F[:head].contiguous(), nbins, bins[:head], nf),
             ref, label + f" vs NumPy on {head} rows")
         ms = cuda_ms(torch, lambda: pairwise_matrices(F, nbins, bins, nf), 5)
-        dms = device_ms(torch, lambda: pairwise_matrices(F, nbins, bins, nf), 3)
-        # this data's work: per row with z nonzero entries, the j < k pairs
-        # with either entry nonzero (6 f64 operations for the two squared
-        # differences and 6 for the lgamma term each), those with both
-        # (one more lgamma), and 3 transcendentals a nonzero entry
-        z = (F > 0).sum(dim=1).to(torch.float64)
-        either = float((d * (d - 1) / 2 - (d - z) * (d - z - 1) / 2).sum())
-        both = float((z * (z - 1) / 2).sum())
-        ops = (6 if scaled else 12) * either + 3 * float(z.sum()) \
-            + (0 if scaled else both)
-        bnd = bound(rows * d * 4 + rows * 4 + 4 * nbins * d * d * 8, ops,
-                    F64_TOPS)
+        qms = queued_ms(torch, lambda: pairwise_matrices(F, nbins, bins, nf),
+                        10)
+        bnd = distance_bounds(torch, F, nbins, scaled)
         log(f"{label}: count equal, f64 sums within {DIST_TOL} of plain (max "
             f"abs err {err:.3g}) and of NumPy on {head} rows ({np_err:.3g}); "
-            f"events {ms:.4f} ms, device {fmt_ms(dms)}, plain in chunks of "
-            f"{chunk} rows {plain_ms:.1f} ms (one run, host clock); "
-            f"{either:.4g} pairs with an entry, {both:.4g} with both; bound "
-            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+            f"events {ms:.4f} ms, device (queued) {qms:.4f} ms, plain in "
+            f"chunks of {chunk} rows {plain_ms:.1f} ms (one run, host "
+            f"clock); {bnd['either']:.4g} pairs with an entry, "
+            f"{bnd['both']:.4g} with both; bound of the first design "
+            f"{bnd['old']['bound_ms']:.4f} ms by {bnd['old']['bound_by']}, "
+            f"of the split {bnd['dense']['bound_ms']:.4f} ms by "
+            f"{bnd['dense']['bound_by']} with dense Gram products, "
+            f"{bnd['sparse']['bound_ms']:.4f} ms by "
+            f"{bnd['sparse']['bound_by']} with sparse ones")
         if result is None:
             result = dict(
                 name="pairwise_matrices", route="cuda",
                 source="dsm_tpu_torch/csrc/distance.cu",
                 replaces="dsm_tpu/post/distance.py:323",
                 max_abs_err=max(err, np_err), ms=ms, plain_ms=plain_ms,
-                **bnd, library_ms=None)
+                **bnd["least"], library_ms=None, queued_ms=qms,
+                bound_first_design_ms=bnd["old"]["bound_ms"],
+                bound_split_ms=bnd["dense"]["bound_ms"],
+                bound_sparse_ms=bnd["sparse"]["bound_ms"])
     return [result]
+
+
+# distance_times' cases: rows, d, bins, density, the base columns of which
+# the d are copies (0: none), the copies exact (else Poisson draws)
+DIST_TIMES = ((DIST_R, DIST_D, DIST_BINS, 0.3, 0, False),
+              (DIST_R, DIST_D, DIST_BINS, 0.03, 0, False),
+              (DIST_R, DIST_D, DIST_BINS, 0.3, 4, False),
+              (DIST_R, DIST_D, DIST_BINS, 0.3, 4, True),
+              ((1 << 18) + 77, 5, DIST_BINS, 0.3, 0, False),
+              ((1 << 18) + 77, 5, DIST_BINS, 0.03, 0, False),
+              ((1 << 16) + 5, 273, 30, 0.3, 0, False),
+              ((1 << 16) + 5, 273, 30, 0.03, 0, False))
+
+
+def gram_yardstick(torch, F, nbins: int, bins):
+    """-> a function that computes the three Gram products of K11's split
+    (log1p f, sqrt f, f > 0) of the rows sorted by bin, one `torch.matmul`
+    in f64 (cuBLAS) a bin and a product, on operands made beforehand: the
+    products alone, a yardstick that the port never calls."""
+    f = F.to(torch.float64)
+    order = torch.argsort(bins, stable=True)
+    sizes = torch.bincount(bins.to(torch.int64), minlength=nbins).tolist()
+    mats = [m[order] for m in (torch.log1p(f), torch.sqrt(f),
+                               (F > 0).to(torch.float64))]
+    parts = [torch.split(m, sizes) for m in mats]
+
+    def run():
+        return [x.T @ x for blocks in parts for x in blocks if x.shape[0]]
+    return run
+
+
+def guard_share(torch, F, nbins: int, bins) -> dict:
+    """The share of K11's (run, pair)s that its cancellation guard sends to
+    the direct sum, for log and for sqrt: the guard's test (csrc/
+    distance.cu, step 3) on f64 sums by torch over the runs that the
+    wrapper's row slices cut from each bin (the rows of a bin in another
+    order than the kernel's, so the share is the same in kind, not to the
+    pair)."""
+    from dsm_tpu_torch.ops.distance import (BLOCKS_PER_SM, PAIR_TILE,
+                                            ROWS_STAGED)
+
+    rows, d = F.shape
+    ntile = -(-d // PAIR_TILE)
+    sms = torch.cuda.get_device_properties(F.device).multi_processor_count
+    slices = max(1, min(2 * BLOCKS_PER_SM * sms // (ntile * (ntile + 1) // 2),
+                        -(-rows // ROWS_STAGED), 65535))
+    f = F[torch.argsort(bins, stable=True)].to(torch.float64)
+    ends = torch.cumsum(torch.bincount(bins.to(torch.int64),
+                                       minlength=nbins), 0).tolist()
+    per = -(-rows // slices)
+    cuts = sorted(set(ends) | set(range(0, rows, per)) | {0, rows})
+    upper = torch.triu(torch.ones(d, d, dtype=torch.bool,
+                                  device=F.device), 1)
+    out = {}
+    for kind, a in (("log", torch.log1p(f)), ("sqrt", torch.sqrt(f))):
+        flagged = total = 0
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            x = a[lo:hi]
+            g = x.T @ x
+            q = g.diagonal()
+            qq = q[:, None] + q[None, :]
+            v = qq - 2 * g
+            err = (hi - lo + 40) * 2.0 ** -53 * (qq + 2 * g)
+            flagged += int(((err > 1e-10 * (v - err)) & upper).sum())
+            total += int(upper.sum())
+        out[kind] = flagged / total
+    return out
+
+
+# distance_times' builds of csrc/distance.cu, each anchor once in the file:
+# the tables made by each block, as before step 1's table kernel; one warp
+# for a diagonal tile of few columns; a cut without the lgamma rows (its
+# output wrong, its time that of the stages left)
+_DIST_LOG1P = "    for (int n = tid; n < kLogTab; n += kThreads) sm.ltab[n] = "
+_DIST_LGAM = "    for (int n = tid; n < kTab; n += kThreads) sm.tab[n] = "
+DIST_PATCHES = {
+    "tables by each block": (
+        (_DIST_LOG1P + "g_log1p[n];", _DIST_LOG1P + "log1p((double)n);"),
+        (_DIST_LGAM + "g_lgam[n];", _DIST_LGAM + "lgamma(n + 1.0);")),
+    "no share on a diagonal tile": (
+        ("const int share = !t.diag || vcols > 16 ? 1 : vcols > 8 ? 2 : "
+         "kWarps;", "const int share = 1;"),),
+    "cut: no lgamma rows": (("      if (!with_lgamma) continue;\n",
+                             "      continue;\n"),)}
+
+
+def distance_times(torch, device, parent: str | None = None) -> None:
+    """Times K11 at `DIST_TIMES` and prints one JSON line: device time by
+    `queued_ms` (three readings a turn) of the package's `pairwise_matrices`
+    and, where `parent` names another tree's root (`parent_module`), that
+    tree's, in turns (parent, change, change, parent); both first held
+    against the plain version in chunks; beside them the bounds
+    (`distance_bounds`), the Gram yardstick (`gram_yardstick`, by
+    `queued_ms`), the guard's share (`guard_share`), each kernel's device
+    time by the profiler, and `DIST_PATCHES`' builds (`patched_build` under
+    build/dist_times/), those that are no cut held against the plain
+    version too."""
+    from dsm_tpu_torch.ops.distance import pairwise_matrices
+
+    phase_build()
+    calls = {"change": pairwise_matrices}
+    if parent:
+        calls["parent"] = parent_module(parent, "distance").pairwise_matrices
+    rng = np.random.default_rng(2029)
+    cases, res = {}, {"tree": HERE, "smi": smi_line(), "cases": {}}
+    for rows, d, nbins, density, bases, exact in DIST_TIMES:
+        F_np, bins_np = distance_rows(rng, rows, d, nbins, density, bases,
+                                      exact)
+        F = torch.as_tensor(F_np, device=device)
+        bins = torch.as_tensor(bins_np, device=device)
+        label = f"R={rows} d={d} bins={nbins} density={density}" \
+                + (f" {'exact' if exact else 'Poisson'} copies of {bases}"
+                   if bases else "")
+        want = plain_in_chunks(torch, F, nbins, bins, None,
+                               8192 if d <= DIST_D else 512)
+        for tag, call in calls.items():
+            distance_err(call(F, nbins, bins), want, f"{label} {tag}")
+        bnd = distance_bounds(torch, F, nbins, False)
+        gram = gram_yardstick(torch, F, nbins, bins)
+        cases[label] = (F, nbins, bins, want)
+        res["cases"][label] = {
+            **{f"bound_{k}_ms": bnd[k]["bound_ms"]
+               for k in ("old", "dense", "sparse", "least")},
+            "guarded": guard_share(torch, F, nbins, bins),
+            "gram_matmul_ms": [queued_ms(torch, gram, 10) for _ in range(3)],
+            "kernels_ms": device_profile(
+                torch, lambda: pairwise_matrices(F, nbins, bins))[2],
+            "queued_ms": {}}
+
+    def time_tree(tag: str) -> None:
+        for label, (F, nbins, bins, want) in cases.items():
+            if tag not in calls and "cut:" not in tag:
+                distance_err(pairwise_matrices(F, nbins, bins), want,
+                             f"{label} {tag}")
+            call = calls.get(tag, pairwise_matrices)
+            res["cases"][label]["queued_ms"].setdefault(tag, []).extend(
+                queued_ms(torch, lambda: call(F, nbins, bins), 10)
+                for _ in range(3))
+
+    turns = ["parent"] if parent else []
+    for tag in turns + ["change", "change"] + turns:
+        time_tree(tag)
+    for i, (tag, patches) in enumerate(DIST_PATCHES.items()):
+        with patched_build(
+                "distance.cu",
+                lambda text: replace_once(text, patches,
+                                          f"distance_times: {tag}"),
+                os.path.join(HERE, "build", "dist_times", f"v{i}")):
+            time_tree(tag)
+    for label, t in res["cases"].items():
+        log(f"distance times {label}: {json.dumps(t)}")
+    print(json.dumps(res), flush=True)
 
 
 def phase_distance(torch, device, gnu) -> dict:
@@ -3232,9 +3511,7 @@ def variant_times(torch, device) -> None:
     with the other sources into its own library under build/variants/;
     prints one JSON line."""
     import re
-    import shutil
 
-    from dsm_tpu_torch.ops import _build
     from dsm_tpu_torch.ops.decode import decode, decode_plain
     from dsm_tpu_torch.ops.segstats import (S_ENT_MIN, Gates, segstats,
                                             segstats_plain)
@@ -3306,27 +3583,16 @@ def variant_times(torch, device) -> None:
     phase_build()
     for src in cases:
         time_source(src, f"{src} as built")
-    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
-    try:
-        for src, name, value in VARIANTS:
-            work = os.path.join(HERE, "build", "variants", f"{name}{value}")
-            shutil.rmtree(work, ignore_errors=True)
-            shutil.copytree(csrc, os.path.join(work, "csrc"))
-            path = os.path.join(work, "csrc", src)
-            with open(path) as fh:
-                text, n = re.subn(rf"constexpr int {name} = \d+;",
-                                  f"constexpr int {name} = {value};",
-                                  fh.read())
+    for src, name, value in VARIANTS:
+        def edit(text):
+            text, n = re.subn(rf"constexpr int {name} = \d+;",
+                              f"constexpr int {name} = {value};", text)
             if n != 1:
                 raise SystemExit(f"variant_times: no constant {name} in {src}")
-            with open(path, "w") as fh:
-                fh.write(text)
-            _build.CSRC = Path(work) / "csrc"
-            _build.BUILD_DIR, _build._lib = Path(work), None
-            _build.lib()
+            return text
+        with patched_build(src, edit, os.path.join(
+                HERE, "build", "variants", f"{name}{value}")):
             time_source(src, f"{src} {name} = {value}")
-    finally:
-        _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
     print(json.dumps(res), flush=True)
 
 
@@ -4613,9 +4879,7 @@ def level_variant_times(torch, device) -> None:
     held against the plain versions.  K13's running state is made anew for
     each variant (a cut one leaves it unzeroed).  Prints one JSON line."""
     import re
-    import shutil
 
-    from dsm_tpu_torch.ops import _build
     from dsm_tpu_torch.ops import level as L
 
     phase_build()
@@ -4645,16 +4909,8 @@ def level_variant_times(torch, device) -> None:
                     core, core["sums"], sm)) for _ in range(3)]}
 
     time_build("as built", True)
-    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
-    try:
-        for src, name, value in LEVEL_VARIANTS:
-            work = os.path.join(HERE, "build", "variants",
-                                f"{src[:-3]}_{name}{value}")
-            shutil.rmtree(work, ignore_errors=True)
-            shutil.copytree(csrc, os.path.join(work, "csrc"))
-            path = os.path.join(work, "csrc", src)
-            with open(path) as fh:
-                text = fh.read()
+    for src, name, value in LEVEL_VARIANTS:
+        def edit(text):
             if name == "cut":
                 n = 0
                 for anchor in LEVEL_CUTS[src][value]:
@@ -4668,15 +4924,13 @@ def level_variant_times(torch, device) -> None:
             if n != (len(LEVEL_CUTS[src][value]) if name == "cut" else 1):
                 raise SystemExit(f"level_variant_times: {src} has no "
                                  f"{name} {value}")
-            with open(path, "w") as fh:
-                fh.write(text)
-            _build.CSRC = Path(work) / "csrc"
-            _build.BUILD_DIR, _build._lib = Path(work), None
-            _build.lib()
-            time_build(f"{src} {name} {value}", name != "cut")
-    finally:
-        _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
-        L._COMPACT_STATES.clear()
+            return text
+        try:
+            with patched_build(src, edit, os.path.join(
+                    HERE, "build", "variants", f"{src[:-3]}_{name}{value}")):
+                time_build(f"{src} {name} {value}", name != "cut")
+        finally:
+            L._COMPACT_STATES.clear()
     print(json.dumps(res), flush=True)
 
 
@@ -4892,10 +5146,6 @@ def occ_batch_times(torch, device, parent: str | None = None) -> None:
     under build/occ_times/.  Every build but the cut ones is first held bit
     for bit against `occ_batch_plain`; beside the times each case's bounds
     (`occ_bounds`)."""
-    import importlib.util
-    import shutil
-
-    from dsm_tpu_torch.ops import _build
     from dsm_tpu_torch.ops.rank import occ_batch, occ_batch_plain
 
     phase_build()
@@ -4906,11 +5156,7 @@ def occ_batch_times(torch, device, parent: str | None = None) -> None:
     cases = occ_cases(torch, toy0, device, gen)
     calls = {"change": occ_batch}
     if parent:
-        spec = importlib.util.spec_from_file_location(
-            "parent_build", os.path.join(parent, "dsm_tpu_torch", "ops",
-                                         "_build.py"))
-        pb = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(pb)
+        pb = parent_module(parent, "_build")
         with_nb = len(pb._SIGNATURES["dsm_occ_batch"]) == 9
 
         def parent_call(blocks, occ, syms, pos):
@@ -4937,28 +5183,13 @@ def occ_batch_times(torch, device, parent: str | None = None) -> None:
     turns = ["parent"] if parent else []
     for tag in turns + ["change"]:
         time_build(tag, calls[tag])
-    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
-    try:
-        for i, (label, patches) in enumerate(OCC_PATCHES.items()):
-            work = os.path.join(HERE, "build", "occ_times", f"v{i}")
-            shutil.rmtree(work, ignore_errors=True)
-            shutil.copytree(csrc, os.path.join(work, "csrc"))
-            path = os.path.join(work, "csrc", "occbatch.cu")
-            with open(path) as fh:
-                text = fh.read()
-            for old, new in patches:
-                if text.count(old) != 1:
-                    raise SystemExit(f"occ_batch_times: {label}: {old!r} is "
-                                     f"not in occbatch.cu once")
-                text = text.replace(old, new)
-            with open(path, "w") as fh:
-                fh.write(text)
-            _build.CSRC = Path(work) / "csrc"
-            _build.BUILD_DIR, _build._lib = Path(work), None
-            _build.lib()
+    for i, (label, patches) in enumerate(OCC_PATCHES.items()):
+        with patched_build(
+                "occbatch.cu",
+                lambda text: replace_once(text, patches,
+                                          f"occ_batch_times: {label}"),
+                os.path.join(HERE, "build", "occ_times", f"v{i}")):
             time_build(label, occ_batch)
-    finally:
-        _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
     for tag in ["change"] + turns:
         time_build(tag, calls[tag])
     for label, t in res["cases"].items():

@@ -14,9 +14,15 @@ rows of d per-sample frequencies `F`, each row in one entropy bin
 zero outside each triangle, with f = F, or F * nfactor when `nfactor`
 ((d,) f64, the -N/--normalize scaling) is given; then the lgamma matrix
 stays zero, as the accumulator leaves it out.  count is int64, the others
-f64.  The JAX function's f32 matrix products, its one-hot bin matrix and
-its a_j^2 + a_k^2 - 2 a_j a_k identity are not carried over: every
-difference is taken directly and summed in f64.
+f64.  The kernel splits the sums (see csrc/distance.cu): the cross sums
+of log1p f and sqrt f are Gram products of each bin's rows on the f64
+tensor cores, log = Q_j + Q_k - 2 sum a_j a_k with the column sums Q;
+count is a popcount of the columns' row masks, and lgamma one sum over
+the rows where both entries are nonzero less the column sums of f and of
+f > 0.  Where Q_j + Q_k - 2G would cancel past 1e-10 of its size, it
+takes the direct differences instead.  All of it in f64 (the JAX
+function's products are f32).  The plain version below takes direct
+differences everywhere, independent of the kernel.
 """
 
 from __future__ import annotations
@@ -27,9 +33,9 @@ from . import _build
 
 KINDS = ("count", "log", "sqrt", "lgamma")
 MAX_BINS = 4096     # the sort's histogram of a block lives in shared memory
-ROWS_STAGED = 32    # csrc/distance.cu kRows
-PAIR_TILE = 16      # csrc/distance.cu kTile
-BLOCKS_PER_SM = 4   # of the pair kernel: 48 KB of shared memory a block
+ROWS_STAGED = 32    # csrc/distance.cu kCh
+PAIR_TILE = 32      # csrc/distance.cu kT
+BLOCKS_PER_SM = 4   # of the count-and-lgamma kernel (the Gram kernel: 3)
 
 
 def pairwise_matrices_plain(F: torch.Tensor, nbins: int, bins: torch.Tensor,

@@ -1266,28 +1266,43 @@ def test_repro_tool_on_card(cuda):
     assert set(run_cases(cuda).values()) == {"PASS"}
 
 
-@pytest.mark.parametrize("rows,d,nbins,scaled", [
-    (5000, 5, 21, False),          # one pair tile, most of it idle
-    (4097, 64, 21, False),         # rows not a multiple of the staged 32
-    (700, 273, 30, False),         # ragged last tile, more bins
-    (31, 17, 1, False),            # fewer rows than one staging step
-    (3000, 40, 4, True),           # normalising factors: lgamma left zero
-    (0, 8, 3, False),
-    (9000, 12, 1000, False),       # more bins than rows in a sort block
-], ids=["d5", "d64", "d273", "tiny", "normalised", "no_rows", "many_bins"])
-def test_pairwise_matrices_kernel_matches_plain(cuda, rows, d, nbins, scaled):
+@pytest.mark.parametrize("rows,d,nbins,scaled,data", [
+    (5000, 5, 21, False, "pareto"),     # one pair tile, most of it idle
+    (4097, 64, 21, False, "pareto"),    # rows not a multiple of the staged 32
+    (700, 273, 30, False, "pareto"),    # ragged last tile, more bins
+    (31, 17, 1, False, "pareto"),       # fewer rows than one staging step
+    (3000, 40, 4, True, "pareto"),      # normalising factors: lgamma left zero
+    (0, 8, 3, False, "pareto"),
+    (9000, 12, 1000, False, "pareto"),  # more bins than rows in a sort block
+    (6000, 64, 21, False, "duplicated"),  # Q_j + Q_k - 2G cancels to 0
+    (6000, 64, 21, False, "near"),      # ... and to one row's difference
+    (20000, 64, 21, False, "sparse"),   # 3% of the entries nonzero
+    (3000, 16, 4, False, "table_edge"),  # pair sums 2,044-2,052, dense rows
+    (257, 512, 5, False, "pareto"),     # MAX_SAMPLES: 136 pair tiles
+], ids=["d5", "d64", "d273", "tiny", "normalised", "no_rows", "many_bins",
+        "duplicated", "near_duplicate", "density3", "table_edge", "d512"])
+def test_pairwise_matrices_kernel_matches_plain(cuda, rows, d, nbins, scaled,
+                                                data):
     """K11 against its plain version on the card and NumPy's on the host;
     bins 1 and nbins-1 hold no row; one row's frequencies are past the
-    kernel's lgamma table; F as int32 and as int64."""
+    kernel's lgamma table; F as int32 and as int64.  Duplicated columns
+    (3 = 9 = 40) come out within 1e-9 of 0 in log and sqrt."""
     from dsm_tpu_torch.ops.distance import (pairwise_matrices,
                                             pairwise_matrices_plain)
     from dsm_tpu_torch.post.distance import pairwise_matrices as oracle
 
     rng = np.random.default_rng(rows + d)
+    density = 0.03 if data == "sparse" else 0.3
     F_np = (np.minimum(rng.pareto(1.1, size=(rows, d)) * 4 + 1, 2e6)
-            * (rng.random((rows, d)) < 0.3)).astype(np.int64)
+            * (rng.random((rows, d)) < density)).astype(np.int64)
+    if data == "table_edge":
+        F_np = rng.integers(1022, 1027, size=(rows, d))
     if rows:
         F_np[rows // 2] = rng.integers(1500, 5000, size=d)
+    if data in ("duplicated", "near"):
+        F_np[:, 9] = F_np[:, 40] = F_np[:, 3]
+    if data == "near":
+        F_np[rows // 3, 9] = F_np[rows // 3, 3] + 5
     bins_np = rng.integers(0, nbins, size=rows)
     bins_np[(bins_np == 1) | (bins_np == nbins - 1)] = 0
     nf_np = 1.0 / rng.uniform(500, 4000, size=d) if scaled else None
@@ -1306,8 +1321,17 @@ def test_pairwise_matrices_kernel_matches_plain(cuda, rows, d, nbins, scaled):
         assert np.array_equal(got["count"].cpu().numpy(), want_np["count"])
         for kind in ("log", "sqrt", "lgamma"):
             g = got[kind].cpu().numpy()
-            for w in (want[kind].cpu().numpy(), want_np[kind]):
+            wants = [want[kind].cpu().numpy(), want_np[kind]]
+            if data == "table_edge" and kind != "lgamma":
+                # NumPy's form, s2_j + s2_k - 2 cross, cancels here past the
+                # tolerance itself (its sqrt further than 1e-9 of its size
+                # from the direct differences): the plain version holds it
+                wants = wants[:1]
+            for w in wants:
                 assert (np.abs(g - w) <= 1e-9 * (1 + np.abs(w))).all(), kind
+            if data == "duplicated" and kind != "lgamma":
+                for j, k in ((3, 9), (3, 40), (9, 40)):
+                    assert np.abs(g[:, j, k]).max() <= 1e-9, kind
     launched = _build.LAUNCHES["distance"] - before
     assert launched == (2 if rows else 0)
 

@@ -92,6 +92,103 @@ def test_pairwise_matrices_torch_matches_jax():
                                    rtol=2e-4, atol=2e-4, err_msg=kind)
 
 
+def split_matrices(F: np.ndarray, nbins: int, bins: np.ndarray,
+                   nfactor: np.ndarray | None = None) -> dict:
+    """The four matrices as K11's kernel forms them, in NumPy: per bin,
+    the cross sums of log1p f and sqrt f as Gram products of the bin's
+    rows, log = Q_j + Q_k - 2 G with Q the Gram's diagonal, count as the
+    product of the nonzero masks (the kernel's popcount), and the lgamma
+    matrix from the column sums C (of f) and N (of f > 0) and one sum over
+    the rows where both entries are nonzero."""
+    from scipy.special import gammaln
+
+    R, d = F.shape
+    P = (F > 0).astype(np.float64)
+    f = F.astype(np.float64) * (1.0 if nfactor is None else nfactor)
+    upper_ge = np.triu(np.ones((d, d), dtype=bool))
+    upper_gt = np.triu(np.ones((d, d), dtype=bool), k=1)
+    out = {"count": np.zeros((nbins, d, d), dtype=np.int64),
+           **{k: np.zeros((nbins, d, d)) for k in KINDS[1:]}}
+    for b in range(nbins):
+        Pb, fb = P[bins == b], f[bins == b]
+        count = Pb.T @ Pb
+        out["count"][b] = np.rint(count).astype(np.int64) * upper_ge
+        for kind, a in (("log", np.log1p(fb)), ("sqrt", np.sqrt(fb))):
+            G = a.T @ a
+            Q = np.diag(G)
+            out[kind][b] = (Q[:, None] + Q[None, :] - 2 * G) * upper_gt
+        if nfactor is not None:
+            continue
+        C, N, lf = fb.sum(axis=0), Pb.sum(axis=0), gammaln(fb + 1.0)
+        both = (Pb[:, :, None] * Pb[:, None, :]) > 0
+        s = fb[:, :, None] + fb[:, None, :]
+        terms = np.where(both, gammaln(s + 1.0) - lf[:, :, None]
+                         - lf[:, None, :], 0.0).sum(axis=0)
+        out["lgamma"][b] = (terms - (C[:, None] + C[None, :])
+                            - (N[:, None] + N[None, :] - count)) * upper_gt
+    return out
+
+
+def split_case(name: str):
+    """(F, nbins, bins, nfactor, a duplicated column pair or None)."""
+    rows, d, nbins = {"d5": (300, 5, 21), "d64": (400, 64, 4),
+                      "d273": (60, 273, 3), "normalised": (200, 9, 3),
+                      "duplicated": (250, 12, 3), "past_table": (120, 7, 2),
+                      "empty_bin": (150, 6, 5), "one_row_bin": (90, 8, 4)
+                      }[name]
+    F, bins = seeded_rows(rows, d, nbins, seed=rows * d)
+    rng = np.random.default_rng(d)
+    nf, dup = None, None
+    if name == "normalised":
+        nf = 1.0 / rng.uniform(500, 4000, size=d)
+    if name == "duplicated":
+        dup = (3, 7)
+        F[:, 7] = F[:, 3]
+    if name == "past_table":           # pair sums past 2,048, the kernel's
+        F[5] = rng.integers(1500, 5000, size=d)   # table of lgamma(n + 1)
+        F[6, :3] = 40_000
+    if name == "empty_bin":
+        bins[bins == 2] = 3
+    if name == "one_row_bin":
+        bins[bins == 2] = 0
+        bins[17] = 2
+    return F, nbins, bins, nf, dup
+
+
+@pytest.mark.parametrize("name", ["d5", "d64", "d273", "normalised",
+                                  "duplicated", "past_table", "empty_bin",
+                                  "one_row_bin"])
+def test_pairwise_split_matches_plain_and_numpy(name):
+    """The algebra of K11's kernel, checked before any card time: the split
+    into Gram products, column sums and the both-nonzero lgamma sum gives
+    the direct differences of `pairwise_matrices_plain` and dsm_tpu's NumPy
+    `pairwise_matrices` within 1e-9 * (1 + |want|), count exact."""
+    F, nbins, bins, nf, dup = split_case(name)
+    got = split_matrices(F, nbins, bins, nf)
+    plain = pairwise_matrices_plain(
+        torch.as_tensor(F), nbins, torch.as_tensor(bins),
+        None if nf is None else torch.as_tensor(nf))
+    numpy_ = jd.pairwise_matrices(F, nbins, bins, nf)
+    if nf is not None:
+        numpy_["lgamma"] = np.zeros_like(numpy_["lgamma"])
+    for want in ({k: v.numpy() for k, v in plain.items()}, numpy_):
+        assert np.array_equal(got["count"], want["count"])
+        for kind in KINDS[1:]:
+            g, w = got[kind], want[kind]
+            assert (np.abs(g - w) <= 1e-9 * (1 + np.abs(w))).all(), kind
+    if dup is not None:
+        j, k = dup
+        for kind in ("log", "sqrt"):
+            assert np.abs(got[kind][:, j, k]).max() <= 1e-9, kind
+            assert not plain[kind][:, j, k].any(), kind
+    if name == "past_table":
+        assert (F[:, :, None] + F[:, None, :]).max() > 2048
+    if name == "empty_bin":
+        assert not (bins == 2).any() and not got["count"][2].any()
+    if name == "one_row_bin":
+        assert (bins == 2).sum() == 1 and got["count"][2].any()
+
+
 def test_pairwise_matrices_plain_is_the_cpu_path(monkeypatch):
     """On CPU tensors the wrapper takes the plain version and never the
     kernel's launcher."""
