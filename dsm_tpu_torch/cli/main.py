@@ -32,7 +32,11 @@ mine:      stdout is `out.format_lines()`; with -v, stderr carries the
            --num-hosts N --host-id I mines host I's share of the DNA-prefix
            shards (parallel/multihost.mine_owned; --coordinator H:P joins a
            torch.distributed group, gloo on the CPU and NCCL on CUDA, which
-           exchanges nothing).
+           exchanges nothing).  DSM_TRACE=<dir> (environment) runs the
+           mining under torch.profiler with the port's phase spans
+           annotated (utils/trace.py) and writes <dir>/mine-<pid>.json,
+           a Chrome trace of the `dsm.*` spans and the device's kernels on
+           one clock.
 enumerate: streams one sample's trie to the servers on stdin
            (net/client.run_client, host code); --check runs the index's
            self-test.
@@ -51,6 +55,7 @@ distance:  mined rows on stdin -> the four pairwise matrix files.  Without
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -234,6 +239,49 @@ def cmd_mine(args) -> int:
         indexes.append(idx)
         if args.verbose:
             print(f"loaded {path} (n = {idx.n})", file=sys.stderr)
+    trace_dir = os.environ.get("DSM_TRACE")
+    if trace_dir:
+        out = _traced(trace_dir, lambda: _mine(args, indexes, cfg, prefix,
+                                               device))
+    else:
+        out = _mine(args, indexes, cfg, prefix, device)
+    sys.stdout.buffer.write(out.format_lines())
+    if args.verbose:
+        print(f"Number of paths: {out.total_paths}\n"
+              f"Number of reported paths: {out.total_output}\n"
+              f"Number of reported occs: {out.total_occs}\n"
+              f"Smallest and largest entropies encountered: "
+              f"{out.smallest_entropy:g} and {out.largest_entropy:g}",
+              file=sys.stderr)
+    return 0
+
+
+def _traced(trace_dir: str, fn):
+    """fn() under torch.profiler (CPU activity, and CUDA's where there is a
+    card) with the port's spans annotated; the Chrome trace goes to
+    <trace_dir>/mine-<pid>.json.  The profiler opens here, not in the
+    library, so that a caller's own profiler is never nested."""
+    import torch
+
+    from ..utils import trace
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    trace.annotate(True)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+    finally:
+        trace.annotate(False)
+    prof.export_chrome_trace(os.path.join(trace_dir,
+                                          f"mine-{os.getpid()}.json"))
+    return out
+
+
+def _mine(args, indexes, cfg, prefix: bytes, device):
+    """`mine`'s run by its engine and host options -> MinedOutput."""
     if args.num_hosts:
         out = _mine_owned(args, indexes, cfg, device)
     elif args.engine == "auto":
@@ -265,22 +313,12 @@ def cmd_mine(args) -> int:
         out = mine_torch(indexes, cfg, prefix=prefix,
                          reader_order=args.reader_order, device=device,
                          checkpoint=args.checkpoint)
-    sys.stdout.buffer.write(out.format_lines())
-    if args.verbose:
-        print(f"Number of paths: {out.total_paths}\n"
-              f"Number of reported paths: {out.total_output}\n"
-              f"Number of reported occs: {out.total_occs}\n"
-              f"Smallest and largest entropies encountered: "
-              f"{out.smallest_entropy:g} and {out.largest_entropy:g}",
-              file=sys.stderr)
-    return 0
+    return out
 
 
 # --------------------------------------------------------------- launch --
 
 def cmd_launch(args) -> int:
-    import os
-
     from ..index.build import libname
     from .launch import (emit_slurm, launch_local, prefix_hashes,
                          write_discovery)
@@ -434,7 +472,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_serve)
 
     m = sub.add_parser(
-        "mine", help="integrated pipeline: indexes -> mined substrings")
+        "mine", help="integrated pipeline: indexes -> mined substrings",
+        epilog="DSM_TRACE=<dir> (environment): run the mining under "
+               "torch.profiler with the port's phase spans (dsm.job, "
+               "dsm.level, dsm.drain, ...) annotated, and write "
+               "<dir>/mine-<pid>.json, a Chrome trace of the spans and the "
+               "device's kernels on one clock")
     m.add_argument("indexes", nargs="+")
     m.add_argument("-f", "--fmin", type=_int_min(1, "-f, --fmin"), default=10)
     m.add_argument("-M", "--maxdepth",

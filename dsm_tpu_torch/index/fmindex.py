@@ -47,6 +47,7 @@ import torch
 
 from ..ops.rank import BLOCK, OccTable, occ_prefix_np
 from ..ops.sa import bwt_from_sa, suffix_array, suffix_array_np
+from ..utils.trace import PROCESS, span
 from . import alphabet
 from .alphabet import SIGMA, TERM
 
@@ -231,16 +232,20 @@ class FMIndex:
 
     @property
     def dcum(self) -> np.ndarray:
-        """Forward dense cumulative counts (NumPy oracle engine only)."""
+        """Forward dense cumulative counts (NumPy oracle engine only); its
+        build is in the process's `tables_s` (utils/trace.PROCESS)."""
         if self._dcum is None:
-            self._dcum = self._dense_cum(self.table, self.n)
+            with span(PROCESS, "tables_s"):
+                self._dcum = self._dense_cum(self.table, self.n)
         return self._dcum
 
     @property
     def rdcum(self) -> np.ndarray:
-        """Reverse-BWT dense cumulative counts (NumPy oracle engine)."""
+        """Reverse-BWT dense cumulative counts (NumPy oracle engine); its
+        build is in the process's `tables_s`."""
         if self._rdcum is None:
-            self._rdcum = self._dense_cum(self.rtable, self.n)
+            with span(PROCESS, "tables_s"):
+                self._rdcum = self._dense_cum(self.rtable, self.n)
         return self._rdcum
 
     def extract_texts(self) -> list[np.ndarray]:

@@ -34,6 +34,7 @@ from ..ops.level import LevelTables, compact_level, expand_level
 from ..ops.rank import ROWW, fused_rows, occ_cum8_pair_plain
 from ..ops.shardstats import MAX_SHARDS
 from ..utils.device import resolve_device
+from ..utils.trace import PROCESS, span
 from .config import MiningConfig
 from .engine_np import LC_N, LC_ZERO, MinedOutput, emit_level
 
@@ -89,7 +90,8 @@ class DeviceIndexes:
     @classmethod
     def from_host(cls, ns, fnp: np.ndarray, rnp: np.ndarray, soff,
                   device) -> "DeviceIndexes":
-        """Upload host tables ((R, ROWW) uint32 each) to `device`."""
+        """Upload host tables ((R, ROWW) uint32 each) to `device`; the
+        copies' seconds go to the process's `copy_s` (utils/trace.PROCESS)."""
         device = resolve_device(device)
         rows = fnp.shape[0]
         if fnp.shape != (rows, ROWW) or rnp.shape != fnp.shape:
@@ -112,7 +114,8 @@ class DeviceIndexes:
 
         def up(a):
             a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
-            return torch.from_numpy(a).to(device)
+            with span(PROCESS, "copy_s"):
+                return torch.from_numpy(a).to(device)
 
         ns = np.asarray(ns, dtype=np.int64)
         return cls(S=int(ns.shape[0]), ns=ns, frows=up(fnp), rrows=up(rnp),
@@ -122,19 +125,22 @@ class DeviceIndexes:
 
     @classmethod
     def build(cls, indexes: list[FMIndex], device) -> "DeviceIndexes":
+        """Pack the indexes' tables on the host (`fused_rows`, in the
+        process's `pack_s`) and upload them (`from_host`)."""
         fparts, rparts, offs, ns = [], [], [], []
         off = 0
-        for idx in indexes:
-            c4 = [idx.C[c] for c in EXT4]
-            fr = fused_rows(idx.table, c4=c4)
-            rr = fused_rows(idx.rtable, c4=c4)
-            fparts.append(fr)
-            rparts.append(rr)
-            offs.append(off)
-            off += fr.shape[0]
-            ns.append(idx.n)
-        return cls.from_host(ns, np.concatenate(fparts),
-                             np.concatenate(rparts), offs, device)
+        with span(PROCESS, "pack_s"):
+            for idx in indexes:
+                c4 = [idx.C[c] for c in EXT4]
+                fr = fused_rows(idx.table, c4=c4)
+                rr = fused_rows(idx.rtable, c4=c4)
+                fparts.append(fr)
+                rparts.append(rr)
+                offs.append(off)
+                off += fr.shape[0]
+                ns.append(idx.n)
+            fnp, rnp = np.concatenate(fparts), np.concatenate(rparts)
+        return cls.from_host(ns, fnp, rnp, offs, device)
 
 
 def leftchar_codes_pairs(rrows: torch.Tensor, soff_pair: torch.Tensor,
@@ -417,23 +423,26 @@ def mine_torch(indexes: list[FMIndex], cfg: MiningConfig,
     (`mine_levels`, kernels K12 and K13 a level, starting at capacity
     `cap`), whose host emission drives the per-level gnu order tracker: the
     same bytes as 'gnu'; it takes no `checkpoint` and no `halt`, and
-    `profile` receives its levels, regrows and seconds."""
-    if reader_order == "level-gnu":
-        cfg.validate()
-        if checkpoint is not None:
-            raise ValueError("checkpointing requires reader_order="
-                             "'ascending' or 'gnu' (the episode engine); the "
-                             "legacy 'level-gnu' per-level loop has no "
-                             "checkpoints")
-        if halt is not None:
-            raise ValueError("halt requires reader_order='ascending' or "
-                             "'gnu' (the episode engine)")
-        return _mine_level_gnu(indexes, cfg, prefix,
-                               None if dev else resolve_device(device), dev,
-                               cap, profile)
-    from .engine_device import mine_device
+    `profile` receives its levels, regrows and seconds.  With the
+    profiler annotations on (utils/trace.annotate), the call is one
+    `dsm.job` span that holds the spans of its phases."""
+    with span(None, "job"):
+        if reader_order == "level-gnu":
+            cfg.validate()
+            if checkpoint is not None:
+                raise ValueError("checkpointing requires reader_order="
+                                 "'ascending' or 'gnu' (the episode engine); "
+                                 "the legacy 'level-gnu' per-level loop has "
+                                 "no checkpoints")
+            if halt is not None:
+                raise ValueError("halt requires reader_order='ascending' or "
+                                 "'gnu' (the episode engine)")
+            return _mine_level_gnu(indexes, cfg, prefix,
+                                   None if dev else resolve_device(device),
+                                   dev, cap, profile)
+        from .engine_device import mine_device
 
-    return mine_device(indexes, cfg, prefix=prefix, dev=dev,
-                       tail_width=tail_width, out_reserve=out_reserve,
-                       reader_order=reader_order, device=device,
-                       profile=profile, checkpoint=checkpoint, halt=halt)
+        return mine_device(indexes, cfg, prefix=prefix, dev=dev,
+                           tail_width=tail_width, out_reserve=out_reserve,
+                           reader_order=reader_order, device=device,
+                           profile=profile, checkpoint=checkpoint, halt=halt)

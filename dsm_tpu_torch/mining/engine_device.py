@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -61,6 +60,7 @@ from ..ops.rank import expand
 from ..ops.segstats import (S_ENT_MAX, S_ENT_MIN, S_GATED, Gates,
                             segstats)
 from ..utils.device import resolve_device
+from ..utils.trace import count, span, timed
 from . import checkpoint as ckpt
 from .config import MiningConfig
 # the output-row columns OC_* and OUT_COLS live in engine.py, beside the
@@ -233,14 +233,15 @@ def _expand(frows: torch.Tensor, pr: torch.Tensor, fmin: int,
 
 
 def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
-           eskip: int = 0) -> int:
+           eskip: int = 0, prof: dict | None = None) -> int:
     """Run one trie level on `st` in place; returns the exit flag.
     FLAG_HISTFULL leaves `st` untouched (the level is redone after the
     history segment is pulled).  `eskip` > 0 redoes the level of a
     dsm_tpu snapshot taken in the middle of a chunked emission: the gated
     pairs of its nodes whose cumulative gated count ends at or below
     `eskip` were drained before the snapshot and are not staged again
-    (dsm_tpu engine_device.py:850-855)."""
+    (dsm_tpu engine_device.py:850-855).  `prof` takes `level_wait_s`, the
+    wait at the level's one readback."""
     pr, depth = st.pairs, st.depth
     g = sc.gates(depth, dev.S)
 
@@ -256,7 +257,7 @@ def _level(dev: DeviceIndexes, sc: _Scalars, st: EpisodeState,
         cg_end = cg[st.nb.to(torch.int64)[nid + 1] - 1]
         pair_out = pair_out & (cg_end > eskip)
         sums[S_GATED] = pair_out.sum()
-    sums = sums.tolist()
+    sums = timed(prof, "level_wait_s", sums.tolist)
     pair_count, child_total, n_gated, n_present = map(int, sums[:S_ENT_MIN])
 
     hist_cap = st.hist.shape[0]
@@ -461,15 +462,19 @@ def _resume(path: str, cfg: MiningConfig, prefix: bytes, dev: DeviceIndexes,
     return st, out, ph, int(host.get("eskip", 0))
 
 
-def _pull_segment(ph: PathHistory, seg_depth0: int, st: EpisodeState) -> None:
+def _pull_segment(ph: PathHistory, seg_depth0: int, st: EpisodeState,
+                  prof: dict | None = None) -> None:
     """FLAG_HISTFULL: move the finished levels' history to the host
     decoder and reset the device segment.  Outputs that reference the
-    segment must be drained first."""
+    segment must be drained first.  `prof` takes the copy's seconds
+    (`pull_copy_s`) and bytes (`pull_bytes`)."""
     n = st.hist_len
     if st.lvl_off:
         offs = np.asarray(st.lvl_off, dtype=np.int64)
         # a copy: on the CPU .cpu() would alias the buffer reused below
-        packed = st.hist[:n].to("cpu", copy=True).numpy()
+        with span(prof, "pull_copy_s"):
+            packed = st.hist[:n].to("cpu", copy=True).numpy()
+        count(prof, "pull_bytes", 4 * n)
         ph.add_segment(seg_depth0, packed, np.diff(np.append(offs, n)))
     st.hist_len = 0
     st.lvl_off = []
@@ -477,20 +482,23 @@ def _pull_segment(ph: PathHistory, seg_depth0: int, st: EpisodeState) -> None:
 
 def _drain(out: MinedOutput, cfg: MiningConfig, d: int, st: EpisodeState,
            ph: PathHistory, seg_depth0: int, dev: DeviceIndexes,
-           tracker=None) -> bool:
+           tracker=None, prof: dict | None = None) -> bool:
     """Pull the staged output candidates, apply the deferred
     left-branching gate (leftChar codes on the device for just these
     pairs), re-gate the entropy window in exact f64 per node, decode the
-    paths and append the lines (dsm_tpu engine_device._drain).  -> whether
-    rows were staged."""
+    paths and append the lines (dsm_tpu engine_device._drain).  `prof`
+    takes the rows pulled (`drain_rows`) and the host half's seconds
+    (`emit_s`).  -> whether rows were staged."""
     n = st.ocount
     if n == 0:
         return False
     orows = torch.cat(st.out)
     st.out, st.ocount = [], 0
     lc_dev = leftchar_rows([(dev.rrows, dev.soff, 0)], orows)
-    _emit_drained(out, cfg, d, st, ph, seg_depth0, orows.cpu().numpy(),
-                  lc_dev.cpu().numpy(), tracker)
+    orows_h, lc = orows.cpu().numpy(), lc_dev.cpu().numpy()
+    count(prof, "drain_rows", n)
+    with span(prof, "emit_s"):
+        _emit_drained(out, cfg, d, st, ph, seg_depth0, orows_h, lc, tracker)
     return True
 
 
@@ -552,10 +560,13 @@ def _emit_drained(out: MinedOutput, cfg: MiningConfig, d: int, st,
 
 
 def _handoff_tail(indexes, cfg, prefix, out, st, live: np.ndarray,
-                  ph: PathHistory, seg_depth0: int, tracker=None) -> None:
+                  ph: PathHistory, seg_depth0: int, tracker=None,
+                  prof: dict | None = None) -> None:
     """FLAG_TAIL: densify the narrow frontier (`live`: its pair rows on
     the host, global sample ids) and finish on the host
-    (engine_np.mine_from_level), where a thin level costs microseconds."""
+    (engine_np.mine_from_level), where a thin level costs microseconds.
+    `prof` takes the wavefront's seconds (`wavefront_s`) and levels
+    (`tail_levels`)."""
     n, S = st.nnodes, len(indexes)
     nid, sid = live[:, PC_NID], live[:, PC_SID]
     lo_d = np.zeros((n, S), dtype=np.int64)
@@ -567,8 +578,9 @@ def _handoff_tail(indexes, cfg, prefix, out, st, live: np.ndarray,
     paths = _decode_rows(st, ph, seg_depth0, np.arange(n),
                          np.full(n, st.depth))
     level = _Level(paths=paths, lo=lo_d, hi=hi_d, rlo=rlo_d)
-    mine_from_level(indexes, cfg, level, st.depth, out, prefix=prefix,
-                    tracker=tracker)
+    with span(prof, "wavefront_s"):
+        mine_from_level(indexes, cfg, level, st.depth, out, prefix=prefix,
+                        tracker=tracker, profile=prof)
 
 
 def mine_device(
@@ -594,11 +606,18 @@ def mine_device(
     (mining/gnulazy.py).  `dev` (tables already on a device)
     fixes the device.  The history buffer takes dsm_tpu's sizing rule
     (_hist_cap; env DSM_HIST_CAP overrides).  A dict passed as
-    `profile` receives host wall seconds per phase (levels, drain, tail,
-    halt polls, saves, HISTFULL pulls), the counts of levels run on the
-    device (a level redone after HISTFULL counts again), of drains that
-    found staged rows, of saves, of HISTFULL exits and of the levels they
-    pulled to the host, and the tail's start depth.
+    `profile` receives (utils/trace.py; a `_s` key is host wall seconds):
+    level_s (the level loop; a level redone after HISTFULL counts again,
+    in each key of a level), of it level_wait_s (the wait at each level's
+    one readback), levels and pairs (summed over the levels run);
+    drain_s (every exit's drain), of it emit_s (the host half: the
+    re-gate, the path decode, the lines), drains (those that found staged
+    rows) and drain_rows; pull_s (the HISTFULL exits' pulls), of it
+    pull_copy_s (the copy to the host), pull_bytes, histfull and
+    pulled_levels; tail_s (the live pairs' pull, the handoff and the host
+    wavefront), of it wavefront_s (engine_np.mine_from_level) and
+    tail_levels (the levels it ran), and tail_depth (None without a
+    tail); save_s and saves.
 
     `checkpoint`: a snapshot file in dsm_tpu's format (mining/checkpoint.py),
     written at every DRAIN and HISTFULL exit, resumed from when it exists
@@ -632,9 +651,9 @@ def mine_device(
     return _run_episode(
         "mine_device", indexes, cfg, prefix, dev.ns, st, out, ph, eskip,
         tracker, prof, checkpoint, halt=halt,
-        level=lambda eskip: _level(dev, sc, st, eskip),
+        level=lambda eskip: _level(dev, sc, st, eskip, prof),
         drain=lambda seg_depth0: _drain(out, cfg, d, st, ph, seg_depth0, dev,
-                                        tracker),
+                                        tracker, prof),
         live_pairs=lambda: st.pairs.cpu().numpy())
 
 
@@ -687,9 +706,11 @@ def _episode_setup(indexes, cfg: MiningConfig, prefix: bytes,
                         prefix_codes=tuple(EXT_CHARS.index(b)
                                            for b in prefix))
     prof = profile if profile is not None else {}
-    for k in ("level_s", "drain_s", "tail_s", "halt_s", "save_s", "pull_s"):
+    for k in ("level_s", "level_wait_s", "drain_s", "emit_s", "tail_s",
+              "wavefront_s", "save_s", "pull_s", "pull_copy_s"):
         prof[k] = 0.0
-    prof.update(levels=0, drains=0, saves=0, histfull=0, pulled_levels=0,
+    prof.update(levels=0, pairs=0, drains=0, drain_rows=0, saves=0,
+                histfull=0, pulled_levels=0, pull_bytes=0, tail_levels=0,
                 tail_depth=None)
     return tracker, sc, prof
 
@@ -718,9 +739,7 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
     def poll_halt() -> None:
         if halt is None:
             return
-        t = time.perf_counter()
         n = _apply_halt(st, ph, seg_depth0, halt(st.depth, out))
-        prof["halt_s"] += time.perf_counter() - t
         if debug and n:
             print(f"{name}: halt prunes {n} nodes at depth {st.depth}",
                   file=sys.stderr)
@@ -728,13 +747,12 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
     def save() -> None:
         if checkpoint is None:
             return
-        t = time.perf_counter()
-        live = live_pairs()
-        if writes:
-            state, held = _snapshot_state(st, out, live)
-            ckpt.save_checkpoint(checkpoint, state, held, cfg, prefix, ns,
-                                 _frontier_codes(st, ph, seg_depth0))
-        prof["save_s"] += time.perf_counter() - t
+        with span(prof, "save_s"):
+            live = live_pairs()
+            if writes:
+                state, held = _snapshot_state(st, out, live)
+                ckpt.save_checkpoint(checkpoint, state, held, cfg, prefix,
+                                     ns, _frontier_codes(st, ph, seg_depth0))
         prof["saves"] += 1
 
     def finish() -> MinedOutput:
@@ -744,19 +762,17 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
         return out
 
     while True:
-        t0 = time.perf_counter()
-        flag = level(eskip)
+        prof["pairs"] += st.pairs.shape[0]
+        flag = timed(prof, "level_s", level, eskip)
         eskip = 0   # a resumed level commits: its history segment is empty
-        prof["level_s"] += time.perf_counter() - t0
         prof["levels"] += 1
         if debug and flag != FLAG_RUN:
             print(f"{name}: flag={flag} depth={st.depth} nnodes={st.nnodes}",
                   file=sys.stderr, flush=True)
         if flag == FLAG_RUN:
             continue
-        t0 = time.perf_counter()
-        prof["drains"] += bool(drain(seg_depth0))
-        prof["drain_s"] += time.perf_counter() - t0
+        with span(prof, "drain_s"):
+            prof["drains"] += bool(drain(seg_depth0))
         if flag == FLAG_DONE:
             break
         poll_halt()
@@ -768,20 +784,18 @@ def _run_episode(name: str, indexes, cfg: MiningConfig, prefix: bytes, ns,
                 out.smallest_entropy = min(out.smallest_entropy, em)
             if np.isfinite(eM):
                 out.largest_entropy = max(out.largest_entropy, eM)
-            t = time.perf_counter()
             prof["tail_depth"] = st.depth
-            _handoff_tail(indexes, cfg, prefix, out, st, live_pairs(), ph,
-                          seg_depth0, tracker=tracker)
-            prof["tail_s"] += time.perf_counter() - t
+            with span(prof, "tail_s"):
+                _handoff_tail(indexes, cfg, prefix, out, st, live_pairs(),
+                              ph, seg_depth0, tracker=tracker, prof=prof)
             return finish()
         if flag == FLAG_HISTFULL:
             # outputs reference the current segment: they were decoded by
             # the drain; now pull the finished levels and reset the segment
-            t = time.perf_counter()
             prof["histfull"] += 1
             prof["pulled_levels"] += len(st.lvl_off)
-            _pull_segment(ph, seg_depth0, st)
-            prof["pull_s"] += time.perf_counter() - t
+            with span(prof, "pull_s"):
+                _pull_segment(ph, seg_depth0, st, prof)
             seg_depth0 = st.depth
         save()
 

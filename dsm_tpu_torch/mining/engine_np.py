@@ -54,6 +54,7 @@ import numpy as np
 
 from ..index.alphabet import EXT_CHARS, EXT_CODES
 from ..index.fmindex import FMIndex
+from ..utils.trace import count
 from .config import MiningConfig
 
 LOG2 = np.log(2.0)
@@ -284,17 +285,20 @@ def mine_from_level(
     out: MinedOutput,
     prefix: bytes = b"",
     tracker=None,
+    profile: dict | None = None,
 ) -> None:
     """Run the wavefront from an arbitrary frontier `level` at `depth`
     until exhaustion, accumulating into `out` (lines unsorted).  Also the
     tail stage of the device engine: the episode hands off its narrow deep
     frontier here (engine_device.mine_device), where a thin level costs
-    microseconds instead of a round of kernel launches."""
+    microseconds instead of a round of kernel launches.  `profile` counts
+    the levels run (`tail_levels`)."""
     d = len(indexes)
     prefix_codes = list(prefix)
 
     while level.lo.shape[0]:
         U, S = level.lo.shape
+        count(profile, "tail_levels", 1)
         clo, chi, crlo, cfreq, cactive, lc = _expand(indexes, level, cfg.fmin)
         at_maxdepth = depth >= cfg.maxdepth
         if not at_maxdepth:

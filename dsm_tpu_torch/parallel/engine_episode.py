@@ -92,6 +92,7 @@ from ..ops.shardstats import (MAX_SHARDS, NACT_SHIFT, PART_COLS,
                               V_CHILDREN, V_ENT_MAX, V_ENT_MIN, V_GATED,
                               V_KEPT, V_PRESENT, V_STAGED, kept_slot,
                               level_values, node_gates, shard_partials)
+from ..utils.trace import count, span, timed
 from .engine_sharded import ShardedIndexes
 from .mesh import SamplesMesh
 from .multihost import global_samples_mesh, shards_from_env
@@ -155,7 +156,7 @@ def _seed_sharded_episode(dev: ShardedIndexes,
 
 def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
                    st: ShardedEpisodeState, mesh: SamplesMesh,
-                   eskip: int = 0) -> int:
+                   eskip: int = 0, prof: dict | None = None) -> int:
     """Run one trie level on `st` in place; returns the exit flag, the
     same on every process.  FLAG_HISTFULL leaves `st` untouched.  `eskip`
     > 0 redoes the level of a dsm_tpu snapshot taken in the middle of a
@@ -189,7 +190,7 @@ def _level_sharded(dev: ShardedIndexes, sc: _Scalars,
     if grouped:
         dist.all_reduce(vals[V_STAGED:V_STAGED + 1], op=dist.ReduceOp.MAX,
                         group=mesh.group)
-    vals = vals.tolist()
+    vals = timed(prof, "level_wait_s", vals.tolist)
     child_total, n_present = int(vals[V_CHILDREN]), int(vals[V_PRESENT])
 
     room = st.hist.shape[0] - st.hist_len
@@ -272,7 +273,7 @@ def _stage(st: ShardedEpisodeState, pair_out: torch.Tensor, n_gated: int,
 def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
                    st: ShardedEpisodeState, ph: PathHistory, seg_depth0: int,
                    dev: ShardedIndexes, mesh: SamplesMesh,
-                   tracker=None) -> bool:
+                   tracker=None, prof: dict | None = None) -> bool:
     """The staged rows under global sample ids and their leftChar codes
     (each from its shard's own reverse table), the same on every process;
     then the host half of the single-device drain
@@ -297,8 +298,11 @@ def _drain_sharded(out: MinedOutput, cfg: MiningConfig, d: int,
             torch.cat([rows, lc.to(torch.int32)[:, None]], dim=1), mesh)
         rows, lc = both[:, :OUT_COLS], both[:, OUT_COLS]
     if rows.shape[0]:
-        _emit_drained(out, cfg, d, st, ph, seg_depth0, rows.cpu().numpy(),
-                      lc.cpu().numpy(), tracker)
+        rows_h, lc_h = rows.cpu().numpy(), lc.cpu().numpy()
+        count(prof, "drain_rows", rows_h.shape[0])
+        with span(prof, "emit_s"):
+            _emit_drained(out, cfg, d, st, ph, seg_depth0, rows_h, lc_h,
+                          tracker)
     return staged
 
 
@@ -425,8 +429,8 @@ def mine_device_sharded(
     return _run_episode(
         "mine_device_sharded", indexes, cfg, prefix, dev.ns, st, out, ph,
         eskip, tracker, prof, checkpoint, writes=mesh.rank == 0,
-        level=lambda eskip: _level_sharded(dev, sc, st, mesh, eskip),
+        level=lambda eskip: _level_sharded(dev, sc, st, mesh, eskip, prof),
         drain=lambda seg_depth0: _drain_sharded(out, cfg, d, st, ph,
                                                 seg_depth0, dev, mesh,
-                                                tracker),
+                                                tracker, prof),
         live_pairs=lambda: _gather_live_pairs(st, dev, mesh))

@@ -1956,3 +1956,76 @@ def test_mine_sharded_in_a_nccl_group(cuda, toy_indexes, tmp_path):
         dist.destroy_process_group()
     assert got.format_lines() == want.format_lines()
     assert got.total_paths == want.total_paths
+
+
+CLOCK_SLACK_US = 1000.0
+
+
+def test_spans_share_the_device_clock(cuda, toy_indexes, tmp_path):
+    """A job under torch.profiler with the port's annotations on: every
+    launch of a port kernel lies inside the one `dsm.job` span and inside a
+    phase span within it, and every such kernel starts on the device
+    between its launch's host start and the job's end, give or take
+    CLOCK_SLACK_US (one clock for both).  The profiler maps the device's
+    timestamps onto the host's clock with an error that differs from one
+    profiling session to the next: on an H100, a kernel read as starting
+    up to 149 us before its launch (5 sessions at the benchmark's scale),
+    29 us on the toy job; two clocks apart would differ by far more.
+    With the annotations off, the window holds no `dsm.*` event."""
+    import json
+    import sys
+
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import DeviceIndexes, mine_torch
+    from dsm_tpu_torch.utils import trace
+
+    sys.path.insert(0, os.path.dirname(HERE))
+    from dsmbench.run import is_port_kernel, port_kernels
+
+    cfg = MiningConfig(fmin=2, emax=1.2)
+    dev = DeviceIndexes.build(toy_indexes, cuda)
+    mine_torch(toy_indexes, cfg, device=cuda, dev=dev)   # built and warm
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    events = {}
+    for on in (True, False):
+        trace.annotate(on)
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                mine_torch(toy_indexes, cfg, device=cuda, dev=dev)
+                torch.cuda.synchronize(cuda)
+        finally:
+            trace.annotate(False)
+        path = tmp_path / f"trace-{on}.json"
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            events[on] = [e for e in json.load(f)["traceEvents"]
+                          if e.get("ph") == "X"]
+    assert not [e for e in events[False]
+                if e.get("name", "").startswith("dsm.")]
+
+    ev = events[True]
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in ev
+             if e.get("cat") == "user_annotation"
+             and e["name"].startswith("dsm.")]
+    jobs = [s for s in spans if s[0] == "dsm.job"]
+    assert len(jobs) == 1
+    j0, j1 = jobs[0][1:]
+    phases = [s for s in spans if s[0] != "dsm.job"]
+    assert {"dsm.level", "dsm.level_wait", "dsm.drain"} <= {
+        s[0] for s in phases}
+    names = port_kernels()
+    host = {e["args"]["correlation"]: e for e in ev
+            if e.get("cat") == "cuda_runtime" and "correlation" in
+            e.get("args", {})}
+    kernels = [e for e in ev if e.get("cat") == "kernel"
+               and is_port_kernel(e["name"], names)]
+    assert kernels
+    for k in kernels:
+        launch = host[k["args"]["correlation"]]
+        t0, t1 = launch["ts"], launch["ts"] + launch["dur"]
+        assert j0 <= t0 and t1 <= j1, k["name"]
+        assert any(s0 <= t0 and t1 <= s1 for _n, s0, s1 in phases), \
+            k["name"]
+        assert t0 - CLOCK_SLACK_US <= k["ts"] <= j1 + CLOCK_SLACK_US, \
+            (k["name"], k["ts"] - t0)
