@@ -21,7 +21,9 @@ card) is held against the single-device one.  Prefix ownership
 (`mine_owned`) and the capacity-planned `mine_big` in each of its three
 modes mine on the card as the host engine and the single-device episode
 do, and so do the four prefix runs over one shared upload (bench.py's
-topology for large tries) and a prefix run that pulls its history.
+topology for large tries) and a prefix run that pulls its history.  Its
+pulls land in page-locked host memory that the next job reuses, and fall
+back to a pageable copy where page-locking fails.
 The per-level engines' kernels (K12, the dense expand, and K13, the
 analyse-and-compact) are held against their plain versions at every level
 of dense mines of 1, 5, 63, 255, 256, 257, 273 and 512 samples over 1 to 3
@@ -1122,6 +1124,75 @@ def test_histfull_prefix_on_card_equals_cpu(cuda, toy_indexes, monkeypatch):
     assert got.format_lines() == want.format_lines()
     assert (got.total_paths, got.total_output, got.total_occs) == \
         (want.total_paths, want.total_output, want.total_occs)
+
+
+@pytest.fixture(scope="module")
+def prefix_a_cpu(toy_indexes):
+    """The CPU's ascending run under prefix A at DSM_HIST_CAP = 20000."""
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DSM_HIST_CAP", "20000")
+        return mine_torch(toy_indexes, MiningConfig(fmin=2, emax=1.2),
+                          prefix=b"A", device="cpu")
+
+
+def _pulled_prefix_a(cuda, toy_indexes, pinned: list):
+    """One ascending job under prefix A on the card at DSM_HIST_CAP =
+    20000, each pulled level's `is_pinned()` appended to `pinned`;
+    -> (its output, its profile)."""
+    from dsm_tpu_torch.mining import engine_device as ted
+    from dsm_tpu_torch.mining.config import MiningConfig
+    from dsm_tpu_torch.mining.engine import mine_torch
+
+    add0 = ted.PathHistory.add_segment
+
+    def add(self, d0, packed, lens):
+        add0(self, d0, packed, lens)
+        pinned.extend(torch.from_numpy(self.levels[d0 + k + 1]).is_pinned()
+                      for k in range(len(lens)))
+
+    prof = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DSM_HIST_CAP", "20000")
+        mp.setattr(ted.PathHistory, "add_segment", add)
+        out = mine_torch(toy_indexes, MiningConfig(fmin=2, emax=1.2),
+                         prefix=b"A", device=cuda, profile=prof)
+    return out, prof
+
+
+def test_pull_lands_in_reused_pinned_memory(cuda, toy_indexes, prefix_a_cpu):
+    """Every HISTFULL pull of a job on the card lands in page-locked host
+    memory (each pulled level's view of it), and a second job takes no
+    new page-locked block from CUDA: the first job's went back to the
+    caching host allocator when it ended, and are reused."""
+    allocs = []
+    for _ in range(2):
+        pinned = []
+        out, prof = _pulled_prefix_a(cuda, toy_indexes, pinned)
+        allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+        assert out.format_lines() == prefix_a_cpu.format_lines()
+        assert out.total_paths == prefix_a_cpu.total_paths
+        assert prof["pull_pinned"] == prof["histfull"] >= 2
+        assert len(pinned) == prof["pulled_levels"] and all(pinned)
+    assert allocs[1] == allocs[0] > 0
+
+
+def test_pull_without_page_locking(cuda, toy_indexes, prefix_a_cpu,
+                                   monkeypatch):
+    """A page-locked allocation that fails (as cudaHostAlloc out of memory
+    would) leaves each pull the pageable copy: the same lines, no pull
+    counted as page-locked."""
+    from test_torch_pull import pinned_refused
+
+    asked = pinned_refused(monkeypatch)
+    pinned = []
+    out, prof = _pulled_prefix_a(cuda, toy_indexes, pinned)
+    assert out.format_lines() == prefix_a_cpu.format_lines()
+    assert out.total_paths == prefix_a_cpu.total_paths
+    assert prof["pull_pinned"] == 0 and len(asked) == prof["histfull"] >= 2
+    assert pinned and not any(pinned)
 
 
 def _sa_codes(case):
