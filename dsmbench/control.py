@@ -36,7 +36,8 @@ def control(name: str, seed: int, device, bench: Path = BENCH,
             manifest: dict | None = None) -> dict:
     """The control's numbers for cell `name` at `seed`: every distinct job
     of the cell's traffic answered by the reference in float32, held
-    against the reference in float64."""
+    against the reference in float64, both in the traffic's reader
+    order."""
     import itertools
 
     if manifest is None:
@@ -53,9 +54,11 @@ def control(name: str, seed: int, device, bench: Path = BENCH,
         paths = datagen.generate(config, seed, work)
         t = time.perf_counter()
         ix = reference.RefIndex.from_fasta(paths, device)
-        want = reference.mine_jobs(ix, prefixes, **config["mining"])
+        order = traffic["reader_order"]
+        want = reference.mine_jobs(ix, prefixes, **config["mining"],
+                                   reader_order=order)
         low = reference.mine_jobs(ix, prefixes, **config["mining"],
-                                  dtype=np.float32)
+                                  dtype=np.float32, reader_order=order)
         secs = time.perf_counter() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -26,13 +26,22 @@ each sample's reversed texts, its BWT's cumulative base counts as a dense
 (n + 1, 4) table, and backward search, which appends a symbol to p; the
 base before p's occurrences is read by binary search over the suffix
 array.  The level loop runs on whatever device the tensors are on;
-entropies that decide a printed line are recomputed on the host in NumPy,
-summed in ascending sample order, in `dtype` (float64 as the
-configuration states; the control passes float32).
+entropies that decide a printed line are recomputed on the host in
+`dtype` (float64 as the configuration states; the control passes
+float32), summed in the job's reader order:
+
+  * "ascending": each line's `id:occs` and its entropy's sum in ascending
+    sample order;
+  * "gnu": in the order the reference server iterates the node's
+    `treaders`, a libstdc++ `unordered_set<unsigned>` (metaserver.cpp:23,
+    :366-388, :478-484): `GnuSet` models that set and `gnu_orders`
+    replays how the server fills it, for the printed nodes only.
 """
 
 from __future__ import annotations
 
+import bisect
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -50,6 +59,16 @@ BYTE_CODE[ord("-")] = N   # a '-' in the input is not the separator
 COMPLEMENT = np.array([0, SEP, T, G, C, N, A], dtype=np.int8)
 # slack of the device's entropy gate; the host re-gates exactly
 GATE_MARGIN = 1e-3
+READER_ORDERS = ("ascending", "gnu")
+# libstdc++'s bucket counts (src/shared/hashtable-aux.cc `__prime_list`,
+# its entries up to the sets the reference's 273 readers can fill, and
+# _Prime_rehash_policy::_M_next_bkt's `__fast_bkt` for small requests)
+PRIME_LIST = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53,
+              59, 61, 67, 71, 73, 79, 83, 89, 97, 103, 109, 113, 127, 137,
+              139, 149, 157, 167, 179, 193, 199, 211, 227, 241, 257, 277,
+              293, 313, 337, 359, 383, 409, 439, 467, 503, 541, 577, 619,
+              661, 709, 761, 823, 887, 953, 1031, 1109)
+FAST_BKT = (2, 2, 2, 3, 5, 5, 7, 7, 11, 11, 11, 11, 13, 13)
 
 
 def fasta_records(path: str) -> list[bytes]:
@@ -173,7 +192,7 @@ class RefIndex:
 @dataclass
 class RefOutput:
     """What a mining job reports: lines (path, entropy, [(sample, count)]
-    in ascending sample order) in post-order, and the counters."""
+    in the job's reader order) in post-order, and the counters."""
 
     lines: list = field(default_factory=list)
     total_paths: int = 0
@@ -196,6 +215,157 @@ def entropy_np(freq: np.ndarray, d: int, dtype=np.float64) -> np.ndarray:
         acc = acc + term[:, s]
     total = (d + freq.sum(axis=1)).astype(dtype)
     return (np.log(total) / log2 - acc / total).astype(dtype)
+
+
+class GnuSet:
+    """libstdc++'s `std::unordered_set<unsigned>` as the reference server
+    uses it (inserts, iteration; `std::hash<unsigned>` is the identity, the
+    maximum load factor 1.0): `order` is its iteration order.
+
+    The set is one singly linked list, each bucket's keys a run in it.  A
+    key goes to bucket key % bucket count; inserted into a bucket that
+    holds keys, it goes to the head of that bucket's run, and into an empty
+    bucket, to the head of the whole list.  Before an insert that would
+    pass the next resize, `_Prime_rehash_policy` picks a larger bucket
+    count, and the keys are placed again one by one, in their iteration
+    order, by the same rule."""
+
+    def __init__(self, keys=()):
+        self.order: list[int] = []
+        self.head: dict[int, int] = {}      # bucket -> the key at its head
+        self.nbkt = 1
+        self.next_resize = 0
+        for k in keys:
+            self.insert(k)
+
+    def insert(self, key: int) -> None:
+        if key in self.order:
+            return
+        nbkt = self._need_rehash()
+        if nbkt:
+            old, self.order, self.head, self.nbkt = self.order, [], {}, nbkt
+            for k in old:
+                self._place(k)
+        self._place(key)
+
+    def _place(self, key: int) -> None:
+        b = key % self.nbkt
+        at = self.order.index(self.head[b]) if b in self.head else 0
+        self.order.insert(at, key)
+        self.head[b] = key
+
+    def _need_rehash(self) -> int | None:
+        """`_M_need_rehash(bucket_count, size, 1)`: the new bucket count,
+        or None; a set that never held a key asks for 11 at least."""
+        n = len(self.order) + 1
+        if n <= self.next_resize:
+            return None
+        least = max(n, 0 if self.next_resize else 11)
+        if least < self.nbkt:
+            self.next_resize = self.nbkt
+            return None
+        return self._next_bkt(max(least + 1, 2 * self.nbkt))
+
+    def _next_bkt(self, n: int) -> int:
+        """`_M_next_bkt(n)`: the first of `__prime_list` not below n."""
+        if n < len(FAST_BKT):
+            self.next_resize = FAST_BKT[n]
+            return FAST_BKT[n]
+        i = bisect.bisect_left(PRIME_LIST, n)
+        if i == len(PRIME_LIST):
+            raise ValueError(f"a set of {n} buckets: more readers than the "
+                             "reference server merges")
+        self.next_resize = PRIME_LIST[i]
+        return PRIME_LIST[i]
+
+
+def replay_node(order: list[int], kids: dict) -> dict:
+    """traverse()'s rounds at one node (metaserver.cpp:322-339).  order:
+    the node's `treaders` in iteration order; kids[r]: the child symbols
+    (0..3 for A, C, G, T) that reader r sends here, ascending.  Each round
+    scans the readers that have just finished a subtree (the first, every
+    reader) and inserts each into the set of its next child symbol; the
+    smallest symbol's non-empty set is recursed into, then cleared.
+    -> {symbol: that child's `treaders` in iteration order}."""
+    pending = {r: iter(kids.get(r, ())) for r in order}
+    sets: dict[int, GnuSet] = {}
+    out = {}
+    scan = order
+    while True:
+        for r in scan:
+            c = next(pending[r], None)
+            if c is not None:
+                sets.setdefault(c, GnuSet()).insert(r)
+        if not sets:
+            return out
+        c = min(sets)
+        scan = out[c] = sets.pop(c).order
+
+
+def gnu_orders(ix: "RefIndex", paths, fmin: int, enforced: int) -> dict:
+    """The reference server's `treaders` order at each of `paths` (bytes
+    over ACGT) and at every ancestor of them, where the clients enforce a
+    prefix of `enforced` symbols (one server a depth-1 prefix for the
+    whole trie, wrapper-SLURM/example-server.sh): -> {path: reader ids}.
+
+    The root's set takes the readers 0..d-1 in ascending order
+    (metaserver.cpp:735-739).  Down to depth `enforced` each reader sends
+    the enforced child alone, so a child's set is one scan of its
+    parent's order (readChildren, :159-189); below it, `replay_node`.  A
+    reader sends the children it holds at least fmin times: backward
+    search, a depth at a time over the ancestors of that depth, says
+    which."""
+    dev = ix.x.device
+    need: dict[int, set] = {}       # depth -> the ancestors of that depth
+    for p in paths:
+        for i in range(1, len(p) + 1):
+            need.setdefault(i, set()).add(p[:i])
+    level = [b""]
+    orders = {b"": GnuSet(range(ix.d)).order}
+    lo = torch.zeros((1, ix.d), dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(ix.n, device=dev)[None]
+    for depth in range(1, len(need) + 1):
+        nxt = sorted(need[depth])
+        # (nodes, samples, symbols): each child's interval in each sample
+        obase = ix.ooff[None, :]
+        clo = ix.cbase[None] + ix.occ[obase + lo].to(torch.int64)
+        chi = ix.cbase[None] + ix.occ[obase + hi].to(torch.int64)
+        held = ((chi - clo) >= fmin).cpu().numpy()
+        at = {q: u for u, q in enumerate(level)}
+        parent = [at[q[:-1]] for q in nxt]
+        sym = [b"ACGT".index(q[-1]) for q in nxt]
+        replayed: dict[int, dict] = {}
+        for q, u, c in zip(nxt, parent, sym):
+            up = orders[q[:-1]]
+            if len(q) <= enforced:
+                orders[q] = GnuSet(r for r in up if held[u, r, c]).order
+                continue
+            if u not in replayed:
+                rows = held[u].tolist()
+                replayed[u] = replay_node(up, {
+                    r: [b for b in range(4) if rows[r][b]] for r in up})
+            orders[q] = replayed[u][c]
+        pi = torch.as_tensor(parent, device=dev)
+        ci = torch.as_tensor(sym, device=dev)
+        lo, hi = clo[pi, :, ci], chi[pi, :, ci]
+        level = nxt
+    return orders
+
+
+def gnu_entropy(order, freq: np.ndarray, d: int, dtype=np.float64) -> float:
+    """metaserver.cpp:369-389 in `order`: sumNlogN += ((double)(f+1) *
+    log(f+1)) / log(2), reader by reader, then log(sumN)/log(2) -
+    sumNlogN/sumN, sumN = d + sum f; in `dtype`, with the C library's log
+    for doubles.  freq: the node's (d,) counts."""
+    t = np.dtype(dtype).type
+    log = math.log if t is np.float64 else np.log
+    ln2 = log(t(2.0))
+    acc = t(0.0)
+    for r in order:
+        f1 = t(freq[r] + 1)
+        acc = acc + (f1 * log(f1)) / ln2
+    total = t(d + freq.sum())
+    return float(log(total) / ln2 - acc / total)
 
 
 def _next_base_counts(ix: RefIndex, sid, lo, hi, depth) -> torch.Tensor:
@@ -223,12 +393,18 @@ def _next_base_counts(ix: RefIndex, sid, lo, hi, depth) -> torch.Tensor:
 def mine_jobs(ix: RefIndex, prefixes, fmin: int, pmin: int = 2,
               pmax: int = 0, emin: float = 0.0, emax: float = -1.0,
               mindepth: int = 0, maxdepth: int | None = None,
-              dtype=np.float64) -> dict:
+              dtype=np.float64, reader_order: str = "ascending") -> dict:
     """Mine the union trie under each of `prefixes` (b"": the whole trie)
     level by level, every job in one frontier: each node keeps its job,
     whose enforced prefix allows one symbol at each of its depths.
     Entropies are computed in `dtype` (np.float64 or np.float32) on the
-    device and on the host alike.  -> {prefix: RefOutput}."""
+    device and on the host alike; each printed line's `id:occs` and its
+    entropy's sum follow `reader_order` (READER_ORDERS; "gnu": one server
+    a job, enforcing max(1, len(prefix)) symbols).  -> {prefix:
+    RefOutput}."""
+    if reader_order not in READER_ORDERS:
+        raise ValueError(f"reader_order {reader_order!r}: one of "
+                         f"{READER_ORDERS}")
     dev = ix.x.device
     d, J = ix.d, len(prefixes)
     tdt = torch.float64 if dtype == np.float64 else torch.float32
@@ -311,9 +487,11 @@ def mine_jobs(ix: RefIndex, prefixes, fmin: int, pmin: int = 2,
             smallest_entropy=em if np.isfinite(em) else 1000.0,
             largest_entropy=eM if np.isfinite(eM) else -1000.0,
             freq_histogram=np.zeros(d, dtype=np.int64))
+    enforced = [max(1, len(p)) for p in prefixes] \
+        if reader_order == "gnu" else None
     _emit(ix, [outs[p] for p in prefixes],
           [torch.cat(c) for c in zip(*cands)] if cands else None, d, emin,
-          emax, dtype)
+          emax, dtype, fmin, enforced)
     for out in outs.values():
         out.lines.sort(key=lambda t: t[0] + b"\xff")
         out.total_output = len(out.lines)
@@ -322,11 +500,13 @@ def mine_jobs(ix: RefIndex, prefixes, fmin: int, pmin: int = 2,
 
 
 def _emit(ix: RefIndex, outs: list, cand, d: int, emin: float, emax: float,
-          dtype) -> None:
+          dtype, fmin: int, enforced: list | None) -> None:
     """The printed lines among the candidate nodes' pairs `cand` (global
-    node id, job, sample, lo, hi, depth): the entropy window in `dtype` on
-    the host, then the left-branching gate; each line goes to its job's
-    output."""
+    node id, job, sample, lo, hi, depth): the left-branching gate, then
+    the entropy window in `dtype` on the host; each line goes to its job's
+    output.  With `enforced` (each job's enforced prefix length), each
+    line's readers and entropy sum follow the gnu order, and the window
+    judges that sum."""
     if cand is None or not cand[0].numel():
         return
     gnode, job, sid, lo, hi, depth = cand
@@ -348,17 +528,35 @@ def _emit(ix: RefIndex, outs: list, cand, d: int, emin: float, emax: float,
     fmat = np.zeros((uniq.size, d), dtype=np.int64)
     fmat[row, sid] = freq
     ent = entropy_np(fmat, d, dtype)
-    ok = (ent >= emin) & (ent <= emax) if emax > 0 else np.ones(uniq.size, bool)
     lmin = np.full(uniq.size, 99)
     lmax = np.full(uniq.size, -1)
     np.minimum.at(lmin, row, lc)
     np.maximum.at(lmax, row, lc)
-    ok &= np.where(lmin == lmax, lmax, 1) < 2
-    for u in np.flatnonzero(ok):
-        act = np.flatnonzero(fmat[u])
-        j = first[u]
-        out = outs[job[j]]
-        out.lines.append((CODE_CHAR[text[j, :depth[j]][::-1]].tobytes(),
-                          float(ent[u]),
-                          [(int(s), int(fmat[u, s])) for s in act]))
-        out.freq_histogram[act.size - 1] += 1
+    ok = np.where(lmin == lmax, lmax, 1) < 2
+    # the ascending sum's window, widened where the gnu sum decides
+    slack = GATE_MARGIN if enforced else 0.0
+    if emax > 0:
+        ok &= (ent >= emin - slack) & (ent <= emax + slack)
+    keep = np.flatnonzero(ok)
+    paths = {u: CODE_CHAR[text[first[u], :depth[first[u]]][::-1]].tobytes()
+             for u in keep}
+    readers = {u: np.flatnonzero(fmat[u]).tolist() for u in keep}
+    if enforced:
+        for n in sorted({enforced[job[first[u]]] for u in keep}):
+            group = [u for u in keep if enforced[job[first[u]]] == n]
+            orders = gnu_orders(ix, [paths[u] for u in group], fmin, n)
+            for u in group:
+                order = orders[paths[u]]
+                if sorted(order) != readers[u]:
+                    raise RuntimeError(f"{paths[u]!r}: the gnu replay's "
+                                       f"readers {sorted(order)} are not "
+                                       f"the node's {readers[u]}")
+                readers[u] = order
+                ent[u] = gnu_entropy(order, fmat[u], d, dtype)
+    for u in keep:
+        if emax > 0 and not emin <= ent[u] <= emax:
+            continue
+        out = outs[job[first[u]]]
+        out.lines.append((paths[u], float(ent[u]),
+                          [(int(s), int(fmat[u, s])) for s in readers[u]]))
+        out.freq_histogram[len(readers[u]) - 1] += 1

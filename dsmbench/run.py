@@ -22,7 +22,8 @@ flight finishing.  With `--trace 1` the same window runs untraced for the
 host-clock readings, and then under `torch.profiler` for up to
 TRACE_SECONDS more.  Once the windows close and the peak is read, the
 program's state is freed and the plain reference (reference.py) mines the
-same FASTA files; check.py compares every job's answer with it.
+same FASTA files in the traffic's reader order; check.py compares every
+job's answer with it.
 
 The last line of standard output is the result as one JSON object; the
 compared numbers and their limits are the last lines of standard error.
@@ -429,7 +430,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         ix = reference.RefIndex.from_fasta(paths, dev_t)
         t1 = time.perf_counter()
         expected = reference.mine_jobs(
-            ix, sorted({p for p, _o in answers}), **config["mining"])
+            ix, sorted({p for p, _o in answers}), **config["mining"],
+            reader_order=order)
         del ix
         log(f"reference: its index in {t1 - t:.2f} s, {len(expected)} "
             f"job(s) in {time.perf_counter() - t1:.2f} s")

@@ -5,14 +5,20 @@ not collect them).
 They hold the manifest to its contract's names and cross-references, show
 that a new configuration, cell, traffic mix and metric are found by name
 as new files, hold the frozen generators to the originals, the plain
-reference to the port's host miner, and the comparison to its control and
-to faults planted in the timed path, and check that the runner loads no
-JAX and refuses to run without a card.
+reference to the port's host miner, its ascending answers to what they
+were before it took a reader order, its gnu order to the reference
+server's frozen outputs (tests/golden) and its set model to libstdc++'s
+`unordered_set`, and the comparison to its control and to faults planted
+in the timed path, in both reader orders, and check that the runner loads
+no JAX and refuses to run without a card.
 """
 
 from __future__ import annotations
 
+import gzip
+import hashlib
 import importlib.util
+import itertools
 import json
 import math
 import re
@@ -41,6 +47,27 @@ SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
 TINY = {"name": "tiny", "generator": "samples", "samples": 6,
         "symbols_asked": 60000, "mining": {"fmin": 2, "pmin": 2,
                                            "emax": 2.0}, "reduced": []}
+
+
+# the configurations the frozen server outputs were made with
+# (tests/oracle.py), in the reference's keywords
+GOLDEN_CONFIGS = {
+    "default": {"fmin": 2, "emax": 1.2},
+    "specific": {"fmin": 5, "emax": 10.0, "pmin": 1, "pmax": 1},
+    "wide": {"fmin": 2, "emax": 99.0},
+    "filtered": {"fmin": 2, "emax": 1.5, "emin": 0.4, "pmin": 2, "pmax": 4,
+                 "mindepth": 8},
+    "shallow": {"fmin": 2, "emax": 1.2, "maxdepth": 12},
+    "deep1": {"fmin": 7, "emax": 99.0, "pmin": 1}}
+TINY_SEED = 2**31 + 5
+TINY_JOBS = [b""] + [bytes(p) for p in itertools.product(b"ACGT", repeat=2)]
+# sha256 (`digest`) of the reference's answers before it took a reader
+# order, at TINY's data from TINY_SEED, for TINY_JOBS
+ASCENDING_DIGESTS = [
+    ({"fmin": 2, "pmin": 2, "emax": 2.0},
+     "fdd8230886131114d5e1709d99f132c1e0e1fa05d207bd28cbcb24f1c940c318"),
+    ({"fmin": 2, "pmin": 1, "emax": 99.0},
+     "4cad16ab99d4b978ca304d36c741829978bbae9c7d2897dba42966164b888300")]
 
 
 def manifest() -> dict:
@@ -186,19 +213,24 @@ def tiny_copy(tmp_path: Path, traffic: str = "whole.asc",
     return bench, m
 
 
-def test_addition_found_by_name(tmp_path):
-    bench, m = tiny_copy(tmp_path, "prefix2.asc", "tiny.prefix2.asc")
-    res, run = runner.run_cell("tiny.prefix2.asc", 2**31 + 5, 0.5, False,
-                               "cpu", bench, m)
+@pytest.mark.parametrize("traffic", ["prefix2.asc", "whole.gnu"])
+def test_addition_found_by_name(tmp_path, traffic):
+    """A new cell of either traffic runs through run_cell and is correct:
+    prefix jobs in ascending order, whole-trie jobs in gnu order."""
+    name = f"tiny.{traffic}"
+    bench, m = tiny_copy(tmp_path, traffic, name)
+    res, run = runner.run_cell(name, 2**31 + 5, 0.5, False, "cpu", bench, m)
     assert res["correct"] and res["failed"] == 0
     assert set(res["metrics"]) == {"paths_per_s", "setup_s"}
     assert list(res)[-1] == "checks"
-    assert len({j.prefix for j in run.jobs}) == len(run.jobs)  # a shuffle
+    # a shuffle of the 16 prefixes, or the whole trie again and again
+    assert len({j.prefix for j in run.jobs}) == (
+        len(run.jobs) if traffic == "prefix2.asc" else 1)
     # the new per-layer metric is read where the manifest lists it
     mod = runner.load_metric("jobs_done", bench)
     assert mod.read(run) == len(run.jobs)
     assert [e["name"] for e in runner.cell_metrics(
-        m, "per_layer", "tiny.prefix2.asc")] == ["jobs_done"]
+        m, "per_layer", name)] == ["jobs_done"]
 
 
 def test_job_order_shuffled_by_seed():
@@ -315,6 +347,158 @@ def test_reference_agrees_on_many_samples(tmp_path):
     assert want.total_output > 0
 
 
+def digest(outs: dict) -> str:
+    """sha256 of each job's lines (entropies to 12 decimals) and counters."""
+    h = hashlib.sha256()
+    for p in sorted(outs):
+        o = outs[p]
+        h.update(repr((p, o.total_paths, o.total_output, o.total_occs,
+                       o.freq_histogram.tolist(),
+                       round(o.smallest_entropy, 12),
+                       round(o.largest_entropy, 12),
+                       [(q, round(e, 12), [tuple(x) for x in occ])
+                        for q, e, occ in o.lines])).encode())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("mining, want", ASCENDING_DIGESTS)
+def test_ascending_reference_is_unchanged(tmp_path, mining, want):
+    """The ascending reference answers each job as it did before it took
+    a reader order, with the argument given or left out."""
+    paths = datagen.generate(TINY, TINY_SEED, str(tmp_path))
+    ix = reference.RefIndex.from_fasta(paths, "cpu")
+    plain = reference.mine_jobs(ix, TINY_JOBS, **mining)
+    named = reference.mine_jobs(ix, TINY_JOBS, **mining,
+                                reader_order="ascending")
+    assert digest(plain) == digest(named) == want
+    with pytest.raises(ValueError, match="reader_order"):
+        reference.mine_jobs(ix, [b""], **mining, reader_order="level-gnu")
+
+
+@pytest.fixture(scope="module")
+def toy_index(tmp_path_factory):
+    """The reference's index of the five toy samples the server outputs
+    in tests/golden were frozen from, reader ids in name order."""
+    out = tmp_path_factory.mktemp("toydata")
+    paths = []
+    for gz in sorted((ROOT / "tests" / "data" / "toydata").glob("*.gz")):
+        paths.append(str(out / gz.stem))
+        Path(paths[-1]).write_bytes(gzip.decompress(gz.read_bytes()))
+    return reference.RefIndex.from_fasta(paths, "cpu")
+
+
+def server_text(lines) -> bytes:
+    """Lines as the reference server prints them: the path, the entropy
+    by printf("%f") and the id:occs pairs in their order."""
+    return b"".join(b"%s %f%s\n" % (p, e, b"".join(b" %d:%d" % o
+                                                   for o in occs))
+                    for p, e, occs in lines)
+
+
+def golden(config: str, prefix: str) -> bytes:
+    path = ROOT / "tests" / "golden" / f"server-output.{config}.{prefix}.txt.gz"
+    return gzip.decompress(path.read_bytes())
+
+
+@pytest.mark.parametrize("prefix", "ACGT")
+@pytest.mark.parametrize("config", list(GOLDEN_CONFIGS))
+def test_gnu_reference_prints_the_servers_bytes(toy_index, config, prefix):
+    """A gnu job under a one-symbol prefix prints, line for line, what
+    that prefix's server printed: path, id:occs in order, %f entropy."""
+    out = reference.mine_jobs(toy_index, [prefix.encode()],
+                              **GOLDEN_CONFIGS[config],
+                              reader_order="gnu")[prefix.encode()]
+    assert server_text(out.lines) == golden(config, prefix)
+    assert out.total_output == len(out.lines)
+
+
+@pytest.mark.parametrize("config", list(GOLDEN_CONFIGS))
+def test_gnu_whole_trie_is_the_four_servers(toy_index, config):
+    out = reference.mine_jobs(toy_index, [b""], **GOLDEN_CONFIGS[config],
+                              reader_order="gnu")[b""]
+    assert server_text(out.lines) == b"".join(golden(config, p)
+                                              for p in "ACGT")
+
+
+@pytest.fixture(scope="module")
+def uset_oracle(tmp_path_factory):
+    """tests/cpp/uset_oracle.cpp built: a real libstdc++
+    unordered_set<unsigned> that prints its bucket count and iteration
+    order after a sequence of inserts."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    exe = tmp_path_factory.mktemp("uset") / "uset_oracle"
+    subprocess.run(["g++", "-O2", "-o", str(exe),
+                    str(ROOT / "tests" / "cpp" / "uset_oracle.cpp")],
+                   check=True)
+    return exe
+
+
+@pytest.mark.parametrize("d", [5, 64, 273])
+def test_gnuset_is_libstdcxx_unordered_set(uset_oracle, d):
+    """The set model against the real set, at d readers: ascending (the
+    root's set), descending, shuffled, subsets, a set's order inserted
+    into a fresh one (a readChildren scan), and repeated keys."""
+    rng = np.random.default_rng(d)
+    seqs = [list(range(d)), list(range(d))[::-1],
+            reference.GnuSet(range(d)).order]
+    for _ in range(20):
+        seqs.append(rng.permutation(d).tolist())
+        k = int(rng.integers(1, d + 1))
+        seqs.append(rng.choice(d, size=k, replace=False).tolist())
+        seqs.append(reference.GnuSet(seqs[-1]).order + seqs[-2][:k])
+    ops = []
+    for seq in seqs:
+        ops += ["n"] + [f"i {k}" for k in seq] + ["d"]
+    res = subprocess.run([str(uset_oracle)], input="\n".join(ops + ["q"]),
+                         capture_output=True, text=True, check=True)
+    lines = res.stdout.splitlines()
+    assert len(lines) == len(seqs)
+    for seq, line in zip(seqs, lines):
+        _o, nbkt, *order = line.split()
+        s = reference.GnuSet(seq)
+        assert (s.nbkt, s.order) == (int(nbkt), [int(k) for k in order])
+
+
+@pytest.fixture(scope="module")
+def tiny_orders(tmp_path_factory):
+    """The port's whole-trie answers on TINY's data in each reader order,
+    and the reference's: ({order: answer}, {order: {b"": expected}})."""
+    import torch
+
+    from dsm_tpu_torch.index.build import indexes_from_fasta
+    from dsm_tpu_torch.mining import engine
+    from dsm_tpu_torch.mining.config import MiningConfig
+
+    paths = datagen.generate(TINY, 2**31 + 7,
+                             str(tmp_path_factory.mktemp("tiny")))
+    cpu = torch.device("cpu")
+    idx = indexes_from_fasta(paths, cpu)
+    ix = reference.RefIndex.from_fasta(paths, "cpu")
+    got, want = {}, {}
+    for order in reference.READER_ORDERS:
+        got[order] = engine.mine_torch(idx, MiningConfig(**TINY["mining"]),
+                                       reader_order=order, device=cpu)
+        want[order] = reference.mine_jobs(ix, [b""], **TINY["mining"],
+                                          reader_order=order)
+    return got, want
+
+
+@pytest.mark.parametrize("answer", reference.READER_ORDERS)
+@pytest.mark.parametrize("expected", reference.READER_ORDERS)
+def test_the_reader_order_is_judged(tiny_orders, answer, expected):
+    """An answer is correct against the reference of its own order and
+    not against the other's: the lines' readers come in another order."""
+    got, want = tiny_orders
+    limits = runner.load_json(BENCH / "cells" / "d64.whole.gnu.json")[
+        "limits"]
+    table = check.compare([(b"", got[answer])], want[expected], 0)
+    ok, _table = check.judge(table, limits)
+    assert ok == (answer == expected)
+    assert (table["lines_off"] > 0) == (answer != expected)
+    assert got[answer].total_output > 0
+
+
 def test_suffix_array_is_sorted():
     import torch
 
@@ -330,9 +514,10 @@ def test_suffix_array_is_sorted():
     assert sa.tolist() == sorted(range(len(codes)), key=lambda i: sufs[i])
 
 
-def test_control_is_not_correct(tmp_path):
-    bench, m = tiny_copy(tmp_path)
-    res = control.control("tiny.whole.asc", 7, "cpu", bench, m)
+@pytest.mark.parametrize("traffic", ["whole.asc", "whole.gnu"])
+def test_control_is_not_correct(tmp_path, traffic):
+    bench, m = tiny_copy(tmp_path, traffic, f"tiny.{traffic}")
+    res = control.control(f"tiny.{traffic}", 7, "cpu", bench, m)
     assert not res["correct"]
     assert res["checks"]["entropy_gap"][0] > res["checks"]["entropy_gap"][1]
 
@@ -386,17 +571,18 @@ def fault_state_unchanged(monkeypatch):
                         lambda *a, **k: engine_device.FLAG_DONE)
 
 
+@pytest.mark.parametrize("traffic", ["whole.asc", "whole.gnu"])
 @pytest.mark.parametrize("fault", [fault_answer_altered,
                                    fault_entropy_altered,
                                    fault_half_left_out,
                                    fault_state_unchanged])
-def test_faults_are_not_correct(tmp_path, monkeypatch, fault):
+def test_faults_are_not_correct(tmp_path, monkeypatch, fault, traffic):
     """The rest of a run, with the timed path broken underneath: an answer
     altered where it is produced, an entropy rounded to float32, half of a
     job's lines left out, a level that returns its state unchanged."""
-    bench, m = tiny_copy(tmp_path)
+    bench, m = tiny_copy(tmp_path, traffic, f"tiny.{traffic}")
     fault(monkeypatch)
-    res, _run = runner.run_cell("tiny.whole.asc", 31, 0.2, False, "cpu",
+    res, _run = runner.run_cell(f"tiny.{traffic}", 31, 0.2, False, "cpu",
                                 bench, m)
     assert not res["correct"]
 
