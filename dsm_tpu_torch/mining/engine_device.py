@@ -646,7 +646,10 @@ def mine_device(
     pulled_levels; tail_s (the live pairs' pull, the handoff and the host
     wavefront), of it wavefront_s (engine_np.mine_from_level) and
     tail_levels (the levels it ran), and tail_depth (None without a
-    tail); save_s and saves.
+    tail); save_s and saves; gnu_s (the gnu reader-order tracker's host
+    seconds, within emit_s and wavefront_s: the reconstruction and the
+    entropy sums), gnu_nodes (the nodes it expanded) and gnu_lines (the
+    lines whose order it answered), all 0 in an ascending job.
 
     `checkpoint`: a snapshot file in dsm_tpu's format (mining/checkpoint.py),
     written at every DRAIN and HISTFULL exit, resumed from when it exists
@@ -724,23 +727,24 @@ def _episode_setup(indexes, cfg: MiningConfig, prefix: bytes,
             "sharded level) stages a node's pairs in a shared-memory tile "
             "of 512 pairs, and a sharded level sums a node's active readers "
             "and child counts over its shards in 12-bit fields")
+    prof = profile if profile is not None else {}
+    for k in ("level_s", "level_wait_s", "drain_s", "emit_s", "tail_s",
+              "wavefront_s", "save_s", "pull_s", "pull_copy_s", "gnu_s"):
+        prof[k] = 0.0
+    prof.update(levels=0, pairs=0, drains=0, drain_rows=0, saves=0,
+                histfull=0, pull_pinned=0, pulled_levels=0, pull_bytes=0,
+                tail_levels=0, tail_depth=None, gnu_nodes=0, gnu_lines=0)
     tracker = None
     if reader_order == "gnu":
         tracker = LazyGnuOrder(indexes, cfg.fmin, d,
-                               server_prefix_len=max(1, len(prefix)))
+                               server_prefix_len=max(1, len(prefix)),
+                               profile=prof)
     elif reader_order != "ascending":
         raise ValueError(f"unknown reader_order {reader_order!r}")
     sc = _Scalars.build(cfg, tail_width=tail_width,
                         out_reserve=min(out_reserve, OUT_RESERVE),
                         prefix_codes=tuple(EXT_CHARS.index(b)
                                            for b in prefix))
-    prof = profile if profile is not None else {}
-    for k in ("level_s", "level_wait_s", "drain_s", "emit_s", "tail_s",
-              "wavefront_s", "save_s", "pull_s", "pull_copy_s"):
-        prof[k] = 0.0
-    prof.update(levels=0, pairs=0, drains=0, drain_rows=0, saves=0,
-                histfull=0, pull_pinned=0, pulled_levels=0, pull_bytes=0,
-                tail_levels=0, tail_depth=None)
     return tracker, sc, prof
 
 

@@ -20,6 +20,11 @@ reconstruction cost is O(emitted * depth * S), independent of trie size.
 Drop-in for the tracker interface the emitters use (`order_for`,
 `entropy_for`, `advance`): `advance` is a no-op because orders are
 derived from the index, not from watching levels.
+
+A `profile` dict (utils/trace.py) takes the tracker's host seconds
+(`gnu_s`: the reconstruction and the entropy sums, each second once), the
+nodes it expanded (`gnu_nodes`) and the lines whose order it answered
+(`gnu_lines`, one an `order_for` call).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 
 from ..index.alphabet import EXT_CHARS, EXT_CODES
 from ..index.fmindex import FMIndex
+from ..utils.trace import count, timed
 from .gnuorder import LOG2, GnuHashSet, root_order, simulate_node
 
 
@@ -54,8 +60,10 @@ class LazyGnuOrder:
     """
 
     def __init__(self, indexes: list[FMIndex], fmin: int, d: int,
-                 server_prefix_len: int = 1) -> None:
+                 server_prefix_len: int = 1,
+                 profile: dict | None = None) -> None:
         self.indexes = indexes
+        self.profile = profile
         self.fmin = fmin
         self.d = d
         self.server_prefix_len = server_prefix_len
@@ -71,25 +79,32 @@ class LazyGnuOrder:
 
     # -- tracker interface -------------------------------------------------
     def order_for(self, path: bytes) -> list[int]:
+        count(self.profile, "gnu_lines", 1)
+        return timed(self.profile, "gnu_s", self._order, path)
+
+    def entropy_for(self, path: bytes, freq: np.ndarray, d: int) -> float:
+        return timed(self.profile, "gnu_s", self._entropy, path, freq, d)
+
+    def advance(self, *args, **kwargs) -> None:
+        """No-op: orders are reconstructed from the index on demand."""
+
+    # -- reconstruction ----------------------------------------------------
+    def _order(self, path: bytes) -> list[int]:
         order = self.orders.get(path)
         if order is None:
             self._extend(path)
             order = self.orders[path]
         return order
 
-    def entropy_for(self, path: bytes, freq: np.ndarray, d: int) -> float:
+    def _entropy(self, path: bytes, freq: np.ndarray, d: int) -> float:
         """metaserver.cpp:356-389 in set-iteration accumulation order."""
         sumN = float(d + int(freq.sum()))
         sumNlogN = 0.0
-        for r in self.order_for(path):
+        for r in self._order(path):
             f1 = float(int(freq[r]) + 1)
             sumNlogN += (f1 * math.log(f1)) / LOG2
         return math.log(sumN) / LOG2 - sumNlogN / sumN
 
-    def advance(self, *args, **kwargs) -> None:
-        """No-op: orders are reconstructed from the index on demand."""
-
-    # -- reconstruction ----------------------------------------------------
     def _extend(self, path: bytes) -> None:
         """Expand cached ancestors down to `path` (root is always cached)."""
         k = len(path)
@@ -108,6 +123,7 @@ class LazyGnuOrder:
         intervals and set order.  A sample's two dense-count rows are read
         in the loop; the rank arithmetic is done for all samples at once
         (engine_np._occ_psum4's, column by column)."""
+        count(self.profile, "gnu_nodes", 1)
         lo, hi, rlo = self._iv[ppath]
         S = len(self.indexes)
         live = hi > lo

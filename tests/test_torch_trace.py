@@ -9,7 +9,10 @@ each child span is within its parent, and the set-up spans land in
 a job is one `dsm.job` span holding a `dsm.level` a level, a `dsm.drain`
 a drain call, a `dsm.pull` a HISTFULL exit and at most one `dsm.tail`;
 with them off, `record_function` is never called and no `dsm.*` event is
-recorded.  The CLI's DSM_TRACE writes a Chrome trace of the spans.  The
+recorded.  A gnu job's reader-order tracker fills `gnu_s` (within the
+drains' and the tail's host spans, a `dsm.gnu` span an answer),
+`gnu_nodes` and `gnu_lines` (its output's lines); an ascending job's read
+0.  The CLI's DSM_TRACE writes a Chrome trace of the spans.  The
 benchmark's readers of these keys (dsmbench/metrics/) read a hand-made
 run.
 """
@@ -153,6 +156,25 @@ def test_counters_match_the_trie(idxs, trie, monkeypatch, engine,
     assert (prof["wavefront_s"] > 0) == bool(host)
 
 
+@pytest.mark.parametrize("order", ["gnu", "ascending"])
+@pytest.mark.parametrize("engine,tail_width", [
+    ("single", 0), ("single", 768), ("sharded", 768)])
+def test_gnu_counters(idxs, monkeypatch, engine, tail_width, order):
+    out, prof, _pulls, _rows = _run(engine, idxs, monkeypatch,
+                                    out_reserve=50, tail_width=tail_width,
+                                    reader_order=order)
+    plain = mine_torch(idxs, CFG, device="cpu", reader_order=order)
+    assert out.format_lines() == plain.format_lines()
+    if order == "ascending":
+        assert prof["gnu_s"] == prof["gnu_nodes"] == prof["gnu_lines"] == 0
+        return
+    assert out.format_lines() == engine_np.mine_np(
+        idxs, CFG, reader_order="gnu").format_lines()
+    assert 0 < prof["gnu_s"] <= prof["emit_s"] + prof["wavefront_s"]
+    assert prof["gnu_nodes"] > 0
+    assert prof["gnu_lines"] == len(out.lines) > 0
+
+
 def test_set_up_spans():
     """The dense tables' first build is the process's `tables_s`, within
     the first job's host wavefront; the upload's packing and copies are
@@ -195,7 +217,10 @@ def _events(prof) -> list:
             for e in prof.profiler.kineto_results.events()]
 
 
-def test_annotations_nest_in_the_job(idxs, monkeypatch):
+def _annotated(idxs, monkeypatch, order):
+    """One single-device job in `order` under a CPU profiler with the
+    annotations on -> (its `dsm.*` events, its profile, its drain
+    calls)."""
     drains = []
     drain0 = ted._drain
     monkeypatch.setattr(ted, "_drain", lambda *a: (drains.append(1),
@@ -205,10 +230,15 @@ def test_annotations_nest_in_the_job(idxs, monkeypatch):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             _out, job, _pulls, _rows = _run("single", idxs, monkeypatch,
-                                            out_reserve=50)
+                                            out_reserve=50,
+                                            reader_order=order)
     finally:
         trace.annotate(False)
-    ev = [e for e in _events(prof) if e[0].startswith("dsm.")]
+    return [e for e in _events(prof) if e[0].startswith("dsm.")], job, drains
+
+
+def test_annotations_nest_in_the_job(idxs, monkeypatch):
+    ev, job, drains = _annotated(idxs, monkeypatch, "ascending")
     names = [e[0] for e in ev]
     assert names.count("dsm.job") == 1
     assert names.count("dsm.level") == job["levels"]
@@ -216,8 +246,20 @@ def test_annotations_nest_in_the_job(idxs, monkeypatch):
     assert names.count("dsm.drain") == len(drains) > 2
     assert names.count("dsm.pull") == job["histfull"] > 2
     assert names.count("dsm.tail") == 1
+    assert "dsm.gnu" not in names
     j0, j1 = next((s, t) for n, s, t in ev if n == "dsm.job")
     assert all(j0 <= s <= t <= j1 for _n, s, t in ev)
+
+
+def test_gnu_annotations_nest_in_the_host_halves(idxs, monkeypatch):
+    """A gnu job's tracker opens a `dsm.gnu` span for each line's order
+    and for its entropy sum, each within a drain's host half (`dsm.emit`)
+    or the tail's wavefront (`dsm.wavefront`)."""
+    ev, job, _drains = _annotated(idxs, monkeypatch, "gnu")
+    gnu = [(s, t) for n, s, t in ev if n == "dsm.gnu"]
+    hosts = [(s, t) for n, s, t in ev if n in ("dsm.emit", "dsm.wavefront")]
+    assert len(gnu) == 2 * job["gnu_lines"] > 0
+    assert all(any(h0 <= s <= t <= h1 for h0, h1 in hosts) for s, t in gnu)
 
 
 def test_annotations_off_call_no_record_function(idxs, monkeypatch):
@@ -274,16 +316,20 @@ def _job(runner, **prof):
     ("emit_us_per_row", 1e6 * (0.001 + 0.003) / (10 + 30)),
     ("wavefront_us_per_level", 1e6 * (0.02 + 0.04) / (20 + 40)),
     ("tables_s", 12.5),
-    ("pack_s", 1.5)])
+    ("pack_s", 1.5),
+    ("gnu_ms", 1e3 * (0.5 + 1.5) / 2),
+    ("gnu_us_per_node", 1e6 * (0.5 + 1.5) / (100 + 300))])
 def test_benchmark_readers(monkeypatch, name, want):
     runner = _readers()
     run = runner.Run(cell="s1000.whole.asc", jobs=[
         _job(runner, level_s=0.01, level_wait_s=0.002, pairs=1000,
              pull_copy_s=0.2, pull_bytes=400_000_000, emit_s=0.001,
-             drain_rows=10, wavefront_s=0.02, tail_levels=20),
+             drain_rows=10, wavefront_s=0.02, tail_levels=20, gnu_s=0.5,
+             gnu_nodes=100),
         _job(runner, level_s=0.03, level_wait_s=0.004, pairs=3000,
              pull_copy_s=0.0, pull_bytes=0, emit_s=0.003,
-             drain_rows=30, wavefront_s=0.04, tail_levels=40)])
+             drain_rows=30, wavefront_s=0.04, tail_levels=40, gnu_s=1.5,
+             gnu_nodes=300)])
     monkeypatch.setattr(trace, "PROCESS", {"tables_s": 12.5, "pack_s": 1.5})
     reader = runner.load_metric(name)
     assert reader.read(run) == pytest.approx(want)
@@ -298,3 +344,12 @@ def test_pull_gbps_without_a_pull():
     run = runner.Run(cell="s1000.prefix2.asc", jobs=[
         _job(runner, pull_copy_s=0.0, pull_bytes=0)])
     assert runner.load_metric("pull_gbps").read(run) is None
+
+
+def test_gnu_us_per_node_without_a_node():
+    """An ascending job's tracker keys read 0: no rate a node."""
+    runner = _readers()
+    run = runner.Run(cell="d64.whole.gnu", jobs=[
+        _job(runner, gnu_s=0.0, gnu_nodes=0)])
+    assert runner.load_metric("gnu_us_per_node").read(run) is None
+    assert runner.load_metric("gnu_ms").read(run) == 0.0
